@@ -1,0 +1,12 @@
+"""Operator assembly (host compile-time) and device kernels (run time)."""
+
+from .assemble import AssemblyContext, assemble_stokes, assemble_rhs  # noqa: F401
+from .convection import (  # noqa: F401
+    ConvectionKernel,
+    convection_matrices_host,
+    convection_vector_host,
+)
+from .sparse import EllMatrix  # noqa: F401
+from .affine import AffineVectorOps, OpView  # noqa: F401
+from .kernels import vecmat, vecmat_ref  # noqa: F401
+from . import condense  # noqa: F401

@@ -1,0 +1,161 @@
+"""Element pipelines of the port vs the JAX package on random fields
+(f64 on the CPU; the two sum in another order, hence 1e-12 relative)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from dolfin_navier_scipy_tpu.models import (
+    cylinderwake_problem as jax_wake, drivencavity_problem as jax_cavity)
+from dolfin_navier_scipy_tpu.ops.affine import AffineVectorOps as JaxAffine
+from dolfin_navier_scipy_tpu_torch.models import (
+    cylinderwake_problem as torch_wake, drivencavity_problem as torch_cavity)
+from dolfin_navier_scipy_tpu_torch.ops.affine import AffineVectorOps
+from dolfin_navier_scipy_tpu_torch.ops.convection import (
+    convection_matrices_host, convection_vector_host)
+
+from torch_parity import align_native
+
+torch.set_num_threads(1)
+RTOL = 1e-12
+_CACHE = {}
+
+
+def _pair(name):
+    if name not in _CACHE:
+        align_native()
+        if name == "cavity":
+            _CACHE[name] = (jax_cavity(N=6, Re=100),
+                            torch_cavity(N=6, Re=100, device="cpu"))
+        else:
+            _CACHE[name] = (jax_wake(level=0, Re=100),
+                            torch_wake(level=0, Re=100, device="cpu"))
+    return _CACHE[name]
+
+
+def _rel(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return np.linalg.norm(a - b) / np.linalg.norm(b)
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+@pytest.mark.parametrize("name", ["cavity", "wake0"])
+def test_convection_vector(name):
+    jp, tp = _pair(name)
+    rng = np.random.default_rng(10)
+    u1, u2 = rng.normal(size=(2, jp.nv_full))
+    for args in ((u1,), (u1, u2)):
+        ref = jp.conv_kernel.vector(*[jnp.asarray(a) for a in args])
+        out = tp.conv_kernel.vector(*[_t(a) for a in args])
+        assert out.dtype == torch.float64
+        assert _rel(out.numpy(), ref) <= RTOL
+    host = convection_vector_host(tp.ctx, u1, u2).ravel()
+    assert _rel(tp.conv_kernel.vector(_t(u1), _t(u2)).numpy(), host) <= RTOL
+
+
+@pytest.mark.parametrize("name", ["cavity", "wake0"])
+def test_convection_matrices_host_consistent(name):
+    _, tp = _pair(name)
+    u0 = np.random.default_rng(11).normal(size=tp.nv_full)
+    N1, N2, fv = convection_matrices_host(tp.ctx, u0)
+    # N1(u0) u0 = (u0.grad)u0 = N2(u0) u0 = the convection vector
+    assert _rel(N1 @ u0, fv.ravel()) <= RTOL
+    assert _rel(N2 @ u0, fv.ravel()) <= RTOL
+
+
+@pytest.mark.parametrize("name", ["cavity", "wake0"])
+@pytest.mark.parametrize("sym", [True, False])
+def test_vector_and_amatvec_with_facet_blocks(name, sym):
+    jp, tp = _pair(name)
+    u = np.random.default_rng(12).normal(size=jp.nv_full)
+    jaff = JaxAffine.build(jp, jnp.float64, full_dofs=True)
+    taff = AffineVectorOps.build(tp, torch.float64, full_dofs=True,
+                                 device="cpu")
+    assert taff.fac_elem.shape == jaff.fac_elem.shape
+    if name == "wake0":
+        assert taff.fac_elem.shape[0] > 0      # outflow correction blocks
+    cj, aj = jp.conv_kernel.vector_and_amatvec(
+        jnp.asarray(u), jp.nu, sym=sym, fac_elem=jaff.fac_elem,
+        fac_vdofs=jaff.fac_vdofs)
+    ct, at = tp.conv_kernel.vector_and_amatvec(
+        _t(u), tp.nu, sym=sym, fac_elem=taff.fac_elem,
+        fac_vdofs=taff.fac_vdofs)
+    assert _rel(ct.numpy(), cj) <= RTOL
+    assert _rel(at.numpy(), aj) <= RTOL
+    if sym:
+        # on the inner rows the fused stiffness load is the assembled A
+        ref = (tp.full["A"] @ u)[tp.invinds]
+        assert _rel(at.numpy()[tp.invinds], ref) <= RTOL
+
+
+@pytest.mark.parametrize("name", ["cavity", "wake0"])
+@pytest.mark.parametrize("kind", ["m", "a", "ma", "j", "jt"])
+@pytest.mark.parametrize("full_dofs", [False, True])
+def test_affine_matvecs(name, kind, full_dofs):
+    jp, tp = _pair(name)
+    jaff = JaxAffine.build(jp, jnp.float64, full_dofs=full_dofs)
+    taff = AffineVectorOps.build(tp, torch.float64, full_dofs=full_dofs,
+                                 device="cpu")
+    assert taff.nin == jaff.nin and taff.npc == jaff.npc
+    rng = np.random.default_rng(13)
+    x = rng.normal(size=taff.nin)
+    q = rng.normal(size=taff.npc)
+    if kind == "m":
+        ref, out = jaff.m_matvec(jnp.asarray(x)), taff.m_matvec(_t(x))
+    elif kind == "a":
+        ref, out = jaff.a_matvec(jnp.asarray(x)), taff.a_matvec(_t(x))
+    elif kind == "ma":
+        ref = jaff.ma_matvec(jnp.asarray(x), 1.0, 0.005)
+        out = taff.view("ma", cm=1.0, ca=0.005).matvec(_t(x))
+    elif kind == "j":
+        ref, out = jaff.j_matvec(jnp.asarray(x)), taff.view("j").matvec(_t(x))
+    else:
+        ref = jaff.jt_matvec(jnp.asarray(q))
+        out = taff.view("j").rmatvec(_t(q))
+    assert _rel(out.numpy(), ref) <= RTOL
+    if not full_dofs:
+        # and against the assembled condensed matrices
+        mats = dict(m=tp.Mc @ x, a=tp.Ac @ x,
+                    ma=tp.Mc @ x + 0.005 * (tp.Ac @ x), j=tp.Jc @ x,
+                    jt=tp.JTc @ q)
+        assert _rel(out.numpy(), mats[kind]) <= 1e-11
+
+
+def test_opview_shapes_and_f32_pipeline():
+    _, tp = _pair("cavity")
+    aff = tp.affine_ops(torch.float32, device="cpu")
+    nin, npc = len(tp.invinds), tp.np_cond
+    assert aff.view("m").shape == (nin, nin)
+    assert aff.view("j").shape == (npc, nin)
+    x = np.random.default_rng(14).normal(size=nin)
+    y = aff.view("a").matvec(_t(x))           # f64 in, f64 out, f32 inside
+    assert y.dtype == torch.float64
+    assert _rel(y.numpy(), tp.Ac @ x) <= 1e-5  # f32 arithmetic
+    k32 = tp.conv_kernel_f32
+    assert k32.wdet.dtype == torch.float32 and k32 is tp.conv_kernel_f32
+
+
+def test_with_dof_map_permutes_the_state_layout():
+    _, tp = _pair("cavity")
+    rng = np.random.default_rng(15)
+    nv = tp.nv_full
+    perm = rng.permutation(nv)                 # new position of old dof i
+    dofmap = np.concatenate([perm, [nv]])
+    u = rng.normal(size=nv)
+    up = np.empty(nv)
+    up[perm] = u
+    kern = tp.conv_kernel
+    ref = kern.vector(_t(u)).numpy()
+    out = kern.with_dof_map(dofmap).vector(_t(up)).numpy()
+    assert _rel(out[perm], ref) <= RTOL
+
+
+def test_element_matrices_wait_for_the_steady_slice():
+    _, tp = _pair("cavity")
+    with pytest.raises(NotImplementedError, match="steady"):
+        tp.conv_kernel.element_matrices(torch.zeros(tp.nv_full))
