@@ -6,11 +6,12 @@ ops models solve utils``), so every module has its counterpart:
 
 * meshes, FEM spaces and the Stokes operator family are compiled host-side
   (numpy/scipy) into static index arrays,
-* the convection kernel, the affine-factorized matvecs, the dense saddle
-  inverse and the whole CNAB time loop run as torch tensors on the card,
+* the affine-factorized matvecs, the dense saddle inverse and the whole
+  CNAB / SBDF2 time loops run as torch tensors on the card,
 * the dense inverse apply — the one hand-written kernel of the JAX
-  package — is a hand-written CUDA kernel here (``csrc/vecmat.cu``, bound
-  in :mod:`.ops.kernels`).
+  package — and the fused element pipeline of the convection vector are
+  hand-written CUDA kernels here (``csrc/vecmat.cu``,
+  ``csrc/convection.cu``, bound in :mod:`.ops.kernels`).
 
 Every entry point takes an explicit ``device``; ``device=None`` means the
 card (:func:`default_device` raises when there is none).  The package

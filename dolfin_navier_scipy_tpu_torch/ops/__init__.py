@@ -8,5 +8,13 @@ from .convection import (  # noqa: F401
 )
 from .sparse import EllMatrix  # noqa: F401
 from .affine import AffineVectorOps, OpView  # noqa: F401
-from .kernels import vecmat, vecmat_ref  # noqa: F401
+from .kernels import (  # noqa: F401
+    DofTable,
+    conv_vector,
+    conv_vector_amatvec,
+    conv_vector_amatvec_ref,
+    conv_vector_ref,
+    vecmat,
+    vecmat_ref,
+)
 from . import condense  # noqa: F401

@@ -15,6 +15,7 @@ import torch
 
 from ..device import resolve_device
 from .convection import reference_weight_matrices
+from .kernels import DofTable, dof_slot_table
 
 
 def _volume_a_elements(ctx, nu, gradvsymmtrc=True):
@@ -33,13 +34,34 @@ def _volume_a_elements(ctx, nu, gradvsymmtrc=True):
     return nu * Avec.reshape(nc, dim * nvpc, dim * nvpc)
 
 
+def _segment_table(ids, nseg, dtype, device):
+    """Gather form of a scatter-add into ``nseg`` segments: ``pos (nseg,
+    width)`` flat positions of each segment's summands (ascending) and
+    ``mask`` (1 for a summand, 0 for padding), so that the segment sum is
+    ``(vals[pos] * mask).sum(1)`` — no atomic adds, hence the same bits
+    from run to run on the card.  Ids outside ``[0, nseg)`` are dropped."""
+    rowptr, slots = dof_slot_table(ids, nseg)
+    cnt = np.diff(rowptr)
+    pos = np.zeros((nseg, max(1, int(cnt.max(initial=0)))), dtype=np.int64)
+    mask = np.zeros(pos.shape)
+    rows = np.repeat(np.arange(nseg), cnt)
+    cols = np.arange(len(slots)) - rowptr[:-1][rows]
+    pos[rows, cols] = slots
+    mask[rows, cols] = 1.0
+    return (torch.as_tensor(pos, device=device),
+            torch.as_tensor(mask).to(device=device, dtype=dtype))
+
+
 class AffineVectorOps:
     """Fused device matvecs for (M, A, J, J^T) on the inner dofs (or, with
     ``full_dofs``, on the full velocity dof vector)."""
 
     def __init__(self, **kw):
         # tensors: W1 W2 W2T MrefI2 N1q JinvT wdet detJ vdofs pdofs
-        # fac_elem fac_vdofs; scalars: nin npc Q nu nc nvpc pnpc sym dim
+        # fac_elem fac_vdofs; fac_dofs: the DofTable of fac_vdofs (what the
+        # fused convection kernel takes); (pos, mask) segment tables: vseg
+        # pseg fseg;
+        # scalars: nin npc Q nu nc nvpc pnpc sym dim
         self.__dict__.update(kw)
 
     # -- construction --------------------------------------------------------
@@ -89,13 +111,17 @@ class AffineVectorOps:
             return torch.as_tensor(np.ascontiguousarray(a)).to(
                 device=device, dtype=dt)
 
+        fac_vdofs = dev(vdofs[fsel], torch.int64)
         return cls(
             W1=dev(W1), W2=dev(W2), W2T=dev(W2.T), MrefI2=dev(MrefI2),
             N1q=dev(ctx.N1), JinvT=dev(ctx.JinvT), wdet=dev(ctx.wdet),
             detJ=dev(ctx.detJ),
             vdofs=dev(vdofs, torch.int64), pdofs=dev(pdofs, torch.int64),
             fac_elem=dev(corr[fsel]),
-            fac_vdofs=dev(vdofs[fsel], torch.int64),
+            fac_vdofs=fac_vdofs, fac_dofs=DofTable(fac_vdofs, nin),
+            vseg=_segment_table(vdofs, nin, dtype, device),
+            pseg=_segment_table(pdofs, npc, dtype, device),
+            fseg=_segment_table(vdofs[fsel], nin, dtype, device),
             nin=nin, npc=npc, Q=Q, nu=float(prob.nu),
             nc=ctx.wdet.shape[0], nvpc=nvpc, pnpc=pnpc, sym=sym, dim=dim,
         )
@@ -108,13 +134,14 @@ class AffineVectorOps:
     def _gather(self, x):
         return self._pad(x)[self.vdofs]                     # (nc, 2nvpc)
 
-    def _segsum(self, vals, ids, nseg, out_dtype):
-        out = torch.zeros(nseg + 1, dtype=vals.dtype, device=vals.device)
-        out.index_add_(0, ids.reshape(-1), vals.reshape(-1))
-        return out[:nseg].to(out_dtype)
+    def _segsum(self, vals, seg, out_dtype):
+        """Sum ``vals`` into the segments of a :func:`_segment_table`, each
+        segment's summands in a fixed order."""
+        pos, mask = seg
+        return (vals.reshape(-1)[pos] * mask).sum(1).to(out_dtype)
 
     def _scatter(self, fe, out_dtype):
-        return self._segsum(fe, self.vdofs, self.nin, out_dtype)
+        return self._segsum(fe, self.vseg, out_dtype)
 
     def _grad(self, xe):
         """D[e,q,c,d] = d x_c / d x_d at quad points."""
@@ -134,7 +161,7 @@ class AffineVectorOps:
             return None
         xfe = self._pad(x)[self.fac_vdofs]
         ffe = torch.einsum("fab,fb->fa", self.fac_elem, xfe) * scale
-        return self._segsum(ffe, self.fac_vdofs, self.nin, ffe.dtype)
+        return self._segsum(ffe, self.fseg, ffe.dtype)
 
     # -- matvecs ---------------------------------------------------------------
     def m_matvec(self, x):
@@ -168,7 +195,7 @@ class AffineVectorOps:
         D = self._grad(xe)
         div = torch.diagonal(D, dim1=2, dim2=3).sum(-1)      # (nc,Q)
         fe = (self.wdet * div) @ self.N1q                    # (nc,pnpc)
-        return self._segsum(fe, self.pdofs, self.npc, x.dtype)
+        return self._segsum(fe, self.pseg, x.dtype)
 
     def jt_matvec(self, q):
         """``J^T @ q``."""

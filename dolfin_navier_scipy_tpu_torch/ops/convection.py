@@ -19,6 +19,8 @@ import torch
 
 from ..device import resolve_device
 from .assemble import AssemblyContext
+from .kernels import (ConvTables, conv_vector, conv_vector_amatvec,
+                      weight_matrices)
 
 
 # ---------------------------------------------------------------------------
@@ -87,31 +89,18 @@ def reference_weight_matrices(ctx):
     * ``W3 (dim*Q, nd)``: weighted quad values ``(q,c)`` -> element load
       ``(a,c)``.
     """
-    Q, nvpc = ctx.N2.shape
-    dim = getattr(ctx, "dim", 2)
-    nd = dim * nvpc
-    W1 = np.zeros((nd, dim * Q))
-    W2 = np.zeros((nd, dim * dim * Q))
-    W3 = np.zeros((dim * Q, nd))
-    for q in range(Q):
-        for a in range(nvpc):
-            for c in range(dim):
-                W1[dim * a + c, dim * q + c] = ctx.N2[q, a]
-                W3[dim * q + c, dim * a + c] = ctx.N2[q, a]
-                for k in range(dim):
-                    W2[dim * a + c,
-                       dim * dim * q + dim * k + c] = ctx.dN2[q, a, k]
-    return W1, W2, W3
+    return weight_matrices(np.asarray(ctx.N2), np.asarray(ctx.dN2))
 
 
 class ConvectionKernel:
     """Static-shape device pipelines bound to one FEM space.
 
-    The per-quad-point interpolation/gradient contractions are cast as
-    two large matmuls with *constant* weight matrices (built from the
-    reference-element tables) around one gather and one scatter-add, with
-    small per-element geometry contractions in between.  Plain tensors on
-    ``device``; ``dtype`` is the arithmetic type of the pipeline.
+    Holds the element tables (:class:`..ops.kernels.ConvTables`) on
+    ``device``; ``dtype`` is the arithmetic type of the pipeline.  The
+    element pipeline itself — gather, quadrature, reduction into the dof
+    vector — is :func:`..ops.kernels.conv_vector` /
+    :func:`..ops.kernels.conv_vector_amatvec`: the hand-written CUDA
+    kernel on the card, its plain PyTorch version on the CPU.
     """
 
     def __init__(self, ctx: AssemblyContext, dtype=None, device=None):
@@ -123,114 +112,62 @@ class ConvectionKernel:
         Q, nvpc = ctx.N2.shape
         dim = getattr(ctx, "dim", 2)
         self.dim = dim
-        nd = dim * nvpc
         self.Q = Q
         self.nvpc = nvpc
         self.nc = ctx.wdet.shape[0]
-        W1, W2, W3 = reference_weight_matrices(ctx)
-
         def dev(a, dt=dtype):
             return torch.as_tensor(np.ascontiguousarray(a)).to(
                 device=device, dtype=dt)
 
-        self.W1 = dev(W1)
-        self.W2 = dev(W2)
-        self.W2T = dev(W2.T)
-        self.W3 = dev(W3)
-        self.JinvT = dev(ctx.JinvT)                          # (nc,d,k)
-        self.wdet = dev(ctx.wdet)                            # (nc,Q)
-        # (nc,nd) full velocity-dof ids; slot nv_full of the scatter buffer
-        # is a dropped extra segment (re-indexed layouts may point there)
-        self.vd = dev(space.vdofs_of_cells().reshape(-1, nd), torch.int64)
-        self.vdofs_flat = self.vd.reshape(-1)
+        # vd: (nc,nd) full velocity-dof ids; slot nv_full is a dropped
+        # extra segment (re-indexed layouts may point there)
+        self.tables = ConvTables(
+            N2=dev(ctx.N2), dN2=dev(ctx.dN2),
+            JinvT=dev(ctx.JinvT),                            # (nc,d,k)
+            wdet=dev(ctx.wdet),                              # (nc,Q)
+            vd=dev(space.vdofs_of_cells().reshape(-1, dim * nvpc),
+                   torch.int64),
+            nv_full=space.nv_full, nc=self.nc, Q=Q, nvpc=nvpc, dim=dim)
+
+    @property
+    def wdet(self):
+        return self.tables.wdet
+
+    @property
+    def vd(self):
+        return self.tables.vd
 
     def with_dof_map(self, dofmap):
         """Clone with the element velocity-dof tables re-indexed.
 
         ``dofmap (nv_full+1,) int``: old full dof id -> new position (a
         permuted state layout; slot ``nv_full`` stays the dropped
-        segment).  Gathers and the scatter then read/write the permuted
+        segment).  Gathers and the reduction then read/write the permuted
         state directly — no per-step translation."""
         new = copy.copy(self)
         dofmap = torch.as_tensor(dofmap, dtype=torch.int64,
                                  device=self.device)
-        new.vd = dofmap[self.vd.clamp(max=self.nv_full)]
-        new.vdofs_flat = new.vd.reshape(-1)
+        new.tables = self.tables.with_vd(
+            dofmap[self.vd.clamp(max=self.nv_full)])
         return new
-
-    def _fields_at_quad(self, u_full, grads=True):
-        """-> ``(ue (nc,nd), uq (nc,Q,2), guq (nc,Q,2,2) or None)``."""
-        Q, dim = self.Q, self.dim
-        dt = self.wdet.dtype
-        upad = torch.cat([u_full.to(dt), u_full.new_zeros(1, dtype=dt)])
-        ue = upad[self.vd]                                   # (nc,nd)
-        uq = (ue @ self.W1).reshape(self.nc, Q, dim)
-        if not grads:
-            return ue, uq, None
-        rg = (ue @ self.W2).reshape(self.nc, Q, dim, dim)
-        guq = torch.einsum("edk,eqkc->eqcd", self.JinvT, rg)
-        return ue, uq, guq
-
-    def _scatter(self, vals, ids, nseg):
-        """Scatter-add ``vals`` into ``nseg`` segments (``index_add_``; on
-        the card the adds are atomic, so the summation order — not the
-        set of summands — varies from run to run)."""
-        out = torch.zeros(nseg, dtype=vals.dtype, device=vals.device)
-        return out.index_add_(0, ids, vals)
 
     def vector(self, u1_full, u2_full=None):
         """Device ``N(u1)u2``-style vector: ``int ((u2.grad)u1).phi dx``."""
-        _, u1q, gu1q = self._fields_at_quad(u1_full)
-        if u2_full is None:
-            u2q = u1q
-        else:
-            _, u2q, _ = self._fields_at_quad(u2_full, grads=False)
-        conv = torch.einsum("eqd,eqcd->eqc", u2q, gu1q)
-        wconv = (self.wdet[:, :, None]
-                 * conv).reshape(self.nc, self.dim * self.Q)
-        fe = wconv @ self.W3
-        out = self._scatter(fe.reshape(-1), self.vdofs_flat,
-                            self.nv_full + 1)
-        return out[: self.nv_full].to(u1_full.dtype)
+        return conv_vector(u1_full, u2_full, self.tables)
 
     def vector_and_amatvec(self, u_full, nu, sym=True,
                            fac_elem=None, fac_vdofs=None):
         """Fused ``(N(u)u, A u)`` over the FULL dof vector in ONE element
         pipeline: the convection quadrature already interpolates the
-        gradients the stiffness needs, so both share the gather and one
-        stacked scatter.  ``fac_elem/fac_vdofs``: optional
-        facet-correction blocks (outflow terms folded into A, full-dof
-        ids).
+        gradients the stiffness needs, so both share the gather and the
+        reduction.  ``fac_elem/fac_vdofs``: optional facet-correction
+        blocks (outflow terms folded into A) and the
+        :class:`..ops.kernels.DofTable` of their full-dof ids.
 
         Returns ``(conv (nv_full,), av (nv_full,))``.
         """
-        dt = self.wdet.dtype
-        _, uq, guq = self._fields_at_quad(u_full)
-        # convection load
-        conv = torch.einsum("eqd,eqcd->eqc", uq, guq)
-        wconv = (self.wdet[:, :, None]
-                 * conv).reshape(self.nc, self.dim * self.Q)
-        fe_c = wconv @ self.W3
-        # stiffness load: F = nu (grad u (+ grad u^T)), pulled back
-        F = guq + guq.transpose(2, 3) if sym else guq
-        G = torch.einsum("edk,eqcd->eqkc", self.JinvT, F)
-        G = (float(nu) * self.wdet[:, :, None, None]
-             * G).reshape(self.nc, self.dim * self.dim * self.Q)
-        fe_a = G @ self.W2T
-
-        off = self.nv_full + 1
-        vals = [fe_c.reshape(-1), fe_a.reshape(-1)]
-        ids = [self.vdofs_flat,
-               self.vdofs_flat.clamp(max=self.nv_full) + off]
-        if fac_elem is not None and fac_elem.shape[0]:
-            xfe = torch.cat(
-                [u_full.to(dt), u_full.new_zeros(1, dtype=dt)])[fac_vdofs]
-            ffe = torch.einsum("fab,fb->fa", fac_elem.to(dt), xfe)
-            vals.append(ffe.reshape(-1))
-            ids.append(fac_vdofs.reshape(-1).clamp(max=self.nv_full) + off)
-        out = self._scatter(torch.cat(vals), torch.cat(ids), 2 * off)
-        return (out[: self.nv_full].to(u_full.dtype),
-                out[off: off + self.nv_full].to(u_full.dtype))
+        return conv_vector_amatvec(u_full, nu, sym, self.tables,
+                                   fac_elem=fac_elem, fac_vdofs=fac_vdofs)
 
     def element_matrices(self, u0_full, picard_only=False):
         raise NotImplementedError(

@@ -6,12 +6,14 @@ kwargs-driven entry point (stokes_navier_utils.py:548-1599):
 * initial value: steady Stokes solve (``start_ssstokes``,
   reference :836-911) or a provided ``iniv``,
 * initial pressure via :func:`get_pfromv` (reference :921-940),
-* semi-explicit dispatch to ``cnab`` (reference :1218-1221),
+* semi-explicit dispatch to ``cnab`` / ``sbdf2`` (reference :1218-1221),
 * trajectories returned in device memory instead of the reference's
   per-step ``.npy`` files (``dictofvelstrs``, :1057-1070).
 
-Ported so far: the plain path.  Closed-loop feedback, checkpoints,
-Newton-in-time, Krylov solves, ``sbdf2`` and Paraview output raise
+Ported so far: both integrators on the dense solver, with time-dependent
+right-hand sides, in-loop observables (``outfunc``/``out_bundle``, CNAB)
+and ``resume_carry`` passed through to them.  Closed-loop feedback,
+checkpoints, Newton-in-time, Krylov solves and Paraview output raise
 ``NotImplementedError``.
 """
 
@@ -67,7 +69,10 @@ def solve_nse(
     * ``precision`` ('accurate' | 'fast') — f64 vs f32 element kernels on
       the CPU; on the card both run f32 kernels under an f64 carry via
       the increment formulation,
-    * ``device`` — where the time loop runs; ``None`` is the CUDA card.
+    * ``device`` — where the time loop runs; ``None`` is the CUDA card,
+    * further keywords go to the integrator: ``outfunc``/``out_bundle``
+      (per-step observables of ``cnab``, e.g.
+      models/functionals.make_inscan_liftdrag) and ``resume_carry``.
 
     Returns a dict with final ``(v, p)`` (inner dofs / physical pressure,
     device tensors), the blow-up flag, and the decimated trajectory.
@@ -88,9 +93,10 @@ def solve_nse(
             f"solve_nse: {', '.join(given)} not ported yet (closed loop, "
             "checkpoints, Newton-in-time, Krylov and Paraview output "
             "follow in later slices of the port)")
-    if time_int_scheme != "cnab":
-        raise NotImplementedError(
-            f"time_int_scheme={time_int_scheme!r}: only 'cnab' is ported")
+    schemes = {"cnab": timeint.cnab, "sbdf2": timeint.sbdf2}
+    if time_int_scheme not in schemes:
+        raise ValueError(f"time_int_scheme={time_int_scheme!r}: one of "
+                         f"{sorted(schemes)}")
     device = resolve_device(device)
 
     if trange is None:
@@ -115,7 +121,7 @@ def solve_nse(
                        device=device)
         ).ravel()
 
-    out = timeint.cnab(
+    out = schemes[time_int_scheme](
         trange=trange, prob=prob, inivel=iniv, inip=inip,
         stokes_flow=stokes_flow,
         f_tdp=f_tdp, g_tdp=g_tdp,

@@ -8,7 +8,8 @@ with it the ``ConvectionKernel`` / ``AffineVectorOps`` tables) from such
 a dict, and :func:`inverse_solver_from_numpy` wraps a ready dense inverse
 into the port's :class:`InverseSaddleSolver`.  With these both packages
 compute on identical operators even where the host assembly could differ
-in ordering.
+in ordering.  :func:`carry_from_jax` turns a loop carry of the JAX
+integrators into the port's, so that a run started there resumes here.
 """
 
 from types import SimpleNamespace
@@ -16,9 +17,16 @@ from types import SimpleNamespace
 import numpy as np
 import scipy.sparse as sps
 
+from ..device import resolve_device
 from ..models.problem import GeoSetup, NSEProblem
 from ..solve.sadpnt import InverseSaddleSolver
+from ..solve.timeint import _restore_carry
 
+# the carry keys of the port's inner-layout cnab / sbdf2 loops; the JAX
+# carries also hold control state (cvals cmems bfv mbc mbc_p), which is
+# empty in a run without controls and has no counterpart here yet
+_CARRY_KEYS = ("v", "dv", "p", "nfc", "nfc_p", "fv", "dfv", "drm", "gp",
+               "flag")
 _CTX_TABLES = ("N2", "dN2", "N1", "dN1", "qpts", "qwts", "JinvT", "detJ",
                "wdet", "gphi2", "gphi1")
 
@@ -88,3 +96,21 @@ def inverse_solver_from_numpy(Kinv, amat, jmat, jmatT=None, refine=None,
         amat, jmat, jmatT, refine=refine, inv_dtype=inv_dtype, dtype=dtype,
         res_ops=res_ops, device=device,
         _KinvT=np.ascontiguousarray(np.asarray(Kinv).T))
+
+
+def carry_from_jax(carry, device=None):
+    """The port's ``resume_carry`` from the final carry of a JAX
+    inner-layout ``cnab`` or ``sbdf2`` run without controls.
+
+    ``carry``: the JAX ``out["carry"]`` with its array leaves as numpy
+    arrays (``jax.tree_util.tree_map(np.asarray, out["carry"])``; the
+    port imports no jax).  Leaves keep their dtypes (f64 state, work-dtype
+    convection terms, bool flag) and land on ``device`` (``None`` = the
+    card); ``drm``, the memory of a ``dynamic_rhs``, may be any nesting of
+    dicts, lists and tuples."""
+    if carry.get("cvals") is not None:
+        raise NotImplementedError(
+            "carry_from_jax: the carry of a run with Dirichlet controls "
+            "(controls are not ported yet)")
+    return _restore_carry({k: carry[k] for k in _CARRY_KEYS if k in carry},
+                          resolve_device(device))

@@ -15,6 +15,8 @@ from dolfin_navier_scipy_tpu_torch.models import (
 from dolfin_navier_scipy_tpu_torch.ops.affine import AffineVectorOps
 from dolfin_navier_scipy_tpu_torch.ops.convection import (
     convection_matrices_host, convection_vector_host)
+from dolfin_navier_scipy_tpu_torch.ops.kernels import (
+    conv_vector_amatvec_ref, conv_vector_ref)
 
 from torch_parity import align_native
 
@@ -84,7 +86,7 @@ def test_vector_and_amatvec_with_facet_blocks(name, sym):
         fac_vdofs=jaff.fac_vdofs)
     ct, at = tp.conv_kernel.vector_and_amatvec(
         _t(u), tp.nu, sym=sym, fac_elem=taff.fac_elem,
-        fac_vdofs=taff.fac_vdofs)
+        fac_vdofs=taff.fac_dofs)
     assert _rel(ct.numpy(), cj) <= RTOL
     assert _rel(at.numpy(), aj) <= RTOL
     if sym:
@@ -153,6 +155,64 @@ def test_with_dof_map_permutes_the_state_layout():
     ref = kern.vector(_t(u)).numpy()
     out = kern.with_dof_map(dofmap).vector(_t(up)).numpy()
     assert _rel(out[perm], ref) <= RTOL
+
+
+@pytest.mark.parametrize("name", ["cavity", "wake0"])
+@pytest.mark.parametrize("sym", [True, False])
+def test_plain_versions_match_jax_in_a_permuted_layout(name, sym):
+    """``conv_vector_ref`` / ``conv_vector_amatvec_ref`` (what the CUDA
+    kernel is held against on the card) vs the JAX kernel, natural and
+    under a ``with_dof_map`` permutation with re-indexed facet blocks."""
+    jp, tp = _pair(name)
+    rng = np.random.default_rng(16)
+    nv = tp.nv_full
+    u, u2 = rng.normal(size=(2, nv))
+    jaff = JaxAffine.build(jp, jnp.float64, full_dofs=True)
+    taff = AffineVectorOps.build(tp, torch.float64, full_dofs=True,
+                                 device="cpu")
+    cj, aj = jp.conv_kernel.vector_and_amatvec(
+        jnp.asarray(u), jp.nu, sym=sym, fac_elem=jaff.fac_elem,
+        fac_vdofs=jaff.fac_vdofs)
+    c2j = jp.conv_kernel.vector(jnp.asarray(u), jnp.asarray(u2))
+    t = tp.conv_kernel.tables
+    ct, at = conv_vector_amatvec_ref(_t(u), tp.nu, sym, t, taff.fac_elem,
+                                     taff.fac_dofs)
+    assert _rel(ct.numpy(), cj) <= RTOL and _rel(at.numpy(), aj) <= RTOL
+    assert _rel(conv_vector_ref(_t(u), _t(u2), t).numpy(), c2j) <= RTOL
+
+    perm = rng.permutation(nv)                 # new position of old dof i
+    dofmap = torch.from_numpy(np.append(perm, nv))
+    up, u2p = np.empty(nv), np.empty(nv)
+    up[perm], u2p[perm] = u, u2
+    tperm = tp.conv_kernel.with_dof_map(dofmap).tables
+    cp, ap = conv_vector_amatvec_ref(_t(up), tp.nu, sym, tperm,
+                                     taff.fac_elem,
+                                     taff.fac_dofs.with_dof_map(dofmap))
+    assert _rel(cp.numpy()[perm], cj) <= RTOL
+    assert _rel(ap.numpy()[perm], aj) <= RTOL
+    c2p = conv_vector_ref(_t(up), _t(u2p), tperm)
+    assert _rel(c2p.numpy()[perm], c2j) <= RTOL
+    # the same in the JAX package's own permuted kernel
+    jperm = jp.conv_kernel.with_dof_map(jnp.asarray(dofmap.numpy()))
+    assert _rel(c2p.numpy(), jperm.vector(jnp.asarray(up),
+                                          jnp.asarray(u2p))) <= RTOL
+
+
+def test_a_dof_map_may_send_dofs_to_the_dropped_slot():
+    _, tp = _pair("cavity")
+    nv = tp.nv_full
+    u = np.random.default_rng(17).normal(size=nv)
+    dropped = tp.bcinds[:7]
+    dofmap = np.arange(nv + 1)
+    dofmap[dropped] = nv                       # reads 0, contributes nowhere
+    uz = u.copy()
+    uz[dropped] = 0.0
+    kern = tp.conv_kernel
+    ref = kern.vector(_t(uz)).numpy()
+    out = kern.with_dof_map(dofmap).vector(_t(u)).numpy()
+    keep = np.setdiff1d(np.arange(nv), dropped)
+    assert _rel(out[keep], ref[keep]) <= RTOL
+    assert np.abs(out[dropped]).max() == 0.0
 
 
 def test_element_matrices_wait_for_the_steady_slice():

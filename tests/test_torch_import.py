@@ -24,6 +24,12 @@ def _port_sources():
 def test_import_pulls_in_neither_jax_nor_the_jax_package():
     code = ("import sys, dolfin_navier_scipy_tpu_torch as t; "
             "import dolfin_navier_scipy_tpu_torch.utils.convert; "
+            "import dolfin_navier_scipy_tpu_torch.models.functionals; "
+            "import dolfin_navier_scipy_tpu_torch.solve.timeint; "
+            "from dolfin_navier_scipy_tpu_torch.solve import sbdf2, "
+            "semi_implicit_euler; "
+            "from dolfin_navier_scipy_tpu_torch.ops.kernels import "
+            "conv_vector, conv_vector_amatvec; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'dolfin_navier_scipy_tpu' or "
             "m.startswith('dolfin_navier_scipy_tpu.')]; "
@@ -76,8 +82,11 @@ def test_entry_points_do_not_fall_back_to_the_cpu():
     from dolfin_navier_scipy_tpu_torch.models import drivencavity_problem
     from dolfin_navier_scipy_tpu_torch.ops.affine import AffineVectorOps
     from dolfin_navier_scipy_tpu_torch.ops.convection import ConvectionKernel
+    from dolfin_navier_scipy_tpu_torch.models import make_inscan_liftdrag
     from dolfin_navier_scipy_tpu_torch.solve import (
-        InverseSaddleSolver, cnab, get_pfromv, solve_nse)
+        InverseSaddleSolver, cnab, get_pfromv, sbdf2, semi_implicit_euler,
+        solve_nse)
+    from dolfin_navier_scipy_tpu_torch.utils.convert import carry_from_jax
     from dolfin_navier_scipy_tpu_torch.solve.timeint import _build_ops
 
     prob = drivencavity_problem(N=4, Re=50)
@@ -86,6 +95,16 @@ def test_entry_points_do_not_fall_back_to_the_cpu():
                           start_ssstokes=True, linsolver="dense"),
         lambda: cnab(trange=[0., .1, .2], prob=prob,
                      inivel=[0.] * len(prob.invinds), linsolver="dense"),
+        lambda: solve_nse(prob=prob, t0=0., tE=0.1, Nts=4,
+                          start_ssstokes=True, linsolver="dense",
+                          time_int_scheme="sbdf2"),
+        lambda: sbdf2(trange=[0., .1, .2], prob=prob,
+                      inivel=[0.] * len(prob.invinds), linsolver="dense"),
+        lambda: semi_implicit_euler(trange=[0., .1, .2], prob=prob,
+                                    inivel=[0.] * len(prob.invinds),
+                                    linsolver="dense"),
+        lambda: make_inscan_liftdrag(prob, 0.1, charvel=1.0),
+        lambda: carry_from_jax(dict(v=[0.])),
         lambda: _build_ops(prob, 0.1, 0.5, linsolver="dense"),
         lambda: ConvectionKernel(prob.ctx),
         lambda: AffineVectorOps.build(prob),

@@ -189,7 +189,7 @@ def test_stokes_start_matches_the_host_solve():
 @pytest.mark.parametrize("kwargs,match", [
     (dict(linsolver="schur"), "block-Schur"),
     (dict(linsolver="krylov"), "Krylov"),
-    (dict(time_int_scheme="sbdf2"), "cnab"),
+    (dict(time_int_scheme="sbdf2", controls=[object()]), "controls"),
     (dict(closed_loop=True), "closed_loop"),
     (dict(save_data=True), "save_data"),
     (dict(checkpoint_every=5), "checkpoint_every"),
@@ -199,10 +199,11 @@ def test_stokes_start_matches_the_host_solve():
     (dict(krylov="gmres"), "krylov"),
     (dict(controls=[object()]), "controls"),
     (dict(umat=np.zeros((2, 1)), vmat=np.zeros((1, 2))), "umat"),
-    (dict(dynamic_rhs=lambda *a, **k: None), "dynamic_rhs"),
-    (dict(f_tdp=lambda t: None), "f_tdp"),
-    (dict(resume_carry={}), "resume_carry"),
-    (dict(outfunc=lambda *a: None), "outfunc"),
+    (dict(dynamic_feedback=True), "dynamic_feedback"),
+    (dict(static_feedback=True), "static_feedback"),
+    (dict(useolddata=True), "useolddata"),
+    (dict(time_int_scheme="sbdf2", umat=np.zeros((2, 1)),
+          vmat=np.zeros((1, 2))), "umat"),
 ])
 def test_unported_paths_raise(kwargs, match):
     _, tp = _probs("cavity")
@@ -223,5 +224,8 @@ def test_auto_linsolver_raises_above_the_dense_window():
         _resolve_linsolver(big, "auto")
     with pytest.raises(ValueError):
         _resolve_linsolver(small, "lu")
+    with pytest.raises(ValueError, match="time_int_scheme"):
+        solve_nse(prob=_probs("cavity")[1], device="cpu",
+                  **dict(KW, time_int_scheme="rk4"))
     with pytest.raises(NotImplementedError, match="only_stokes"):
         solve_steadystate_nse(_probs("cavity")[1])
