@@ -8,9 +8,11 @@ Needs one CUDA card, ``nvcc`` and no network; takes no arguments.  It
 1. builds every hand-written kernel from ``dolfin_navier_scipy_tpu_torch/
    csrc/`` (one ``nvcc`` per source, started together),
 2. holds each kernel against its plain PyTorch version on the card, at the
-   shapes the driven paths give it (and ``vecmat`` at a ragged shape), and
-   times kernel, plain version, the one-call library equivalent where there
-   is one, and the card's bound,
+   shapes the driven paths give it (and ``vecmat`` at a ragged shape, f32
+   and f64, every operand in the padded storage the kernel streams), counts
+   the device kernels of one profiled call (one per wrapper), and times
+   kernel (CUDA-graph replay and eager), plain version, the one-call
+   library equivalent where there is one, and the card's bound,
 3. drives the main path through the user's entry points: the DFG 2D-2
    cylinder wake at level 1 (Re=100), Stokes start, 300 CNAB steps with the
    dense saddle-inverse solver via ``solve_nse`` — counting kernel launches
@@ -35,6 +37,7 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: no CUDA device (torch.cuda.is_available() is "
@@ -45,8 +48,8 @@ from dolfin_navier_scipy_tpu_torch.models import (
 from dolfin_navier_scipy_tpu_torch.ops import kernels
 from dolfin_navier_scipy_tpu_torch.ops.affine import AffineVectorOps
 from dolfin_navier_scipy_tpu_torch.ops.kernels import (
-    conv_vector, conv_vector_amatvec, conv_vector_amatvec_ref,
-    conv_vector_ref, vecmat, vecmat_ref)
+    as_vecmat_operand, conv_vector, conv_vector_amatvec,
+    conv_vector_amatvec_ref, conv_vector_ref, vecmat, vecmat_ref)
 from dolfin_navier_scipy_tpu_torch.solve import sbdf2, solve_nse
 
 # published peaks of one H100 SXM (NVIDIA data sheet): device memory rate
@@ -60,6 +63,7 @@ SEED = 0
 LEVEL, RE, CHARVEL = 1, 100.0, 0.2
 T0, TE, NTS, SAVE_EVERY = 0.0, 0.3, 300, 60
 RAGGED = (2049, 1023)
+DESIGN = "pr3"       # one launch per call: bulk-copy ring / quad-point lanes
 
 
 def say(**kw):
@@ -100,10 +104,31 @@ def graph_ms(fn, calls=20, replays=10):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # captured on the warm-up stream: the kernels' scratch is per stream
+    # and is made at a stream's first call, never inside a capture
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(calls):
             fn()
     return time_ms(graph.replay, replays) / calls
+
+
+def device_kernels(fn, tries=3):
+    """Device kernels that one call of ``fn`` runs (``torch.profiler``).
+    Used early and sparingly: on an H100 host a profiler session after the
+    CPU f64 reference runs returned no device event at all, retries
+    included; an empty reading is taken again, up to ``tries`` times."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not e.name.startswith(("Memcpy", "Memset"))]
+        if names:
+            break
+    return names
 
 
 def zero_counts():
@@ -125,8 +150,9 @@ def vecmat_bound_ms(m, n, itemsize=4):
                                        else "operations")
 
 
-def check_vecmat(x, KT, what, reps):
-    """Kernel vs plain version on the same inputs, then the timings."""
+def check_vecmat(x, KT, what, reps, profiled=False):
+    """Kernel vs plain version on the same inputs, then the timings;
+    ``profiled``: also count the device kernels of one call (must be 1)."""
     m, n = KT.shape
     y = vecmat(x, KT)
     torch.cuda.synchronize()
@@ -145,12 +171,17 @@ def check_vecmat(x, KT, what, reps):
             f"max abs err {max_abs:.3e} (atol {atol:.3e}, rtol {rtol})")
     if not torch.equal(y, vecmat(x, KT)):
         raise AssertionError("vecmat kernel is not reproducible run to run")
+    if profiled:
+        ran = device_kernels(lambda: vecmat(x, KT))
+        require(len(ran) == 1, f"vecmat ran {len(ran)} device kernels: {ran}")
     KTt = KT.T                      # what the one-call library form takes
     bound, by = vecmat_bound_ms(m, n, KT.element_size())
     out = dict(shape=[m, n], operand=what, dtype=str(KT.dtype),
-               max_abs_err=max_abs, max_rel_err=max_rel, atol=atol,
-               rtol=rtol,
-               ms=time_ms(lambda: vecmat(x, KT), reps),
+               ld=KT.stride(0), max_abs_err=max_abs, max_rel_err=max_rel,
+               atol=atol, rtol=rtol,
+               device_kernels_per_call=len(ran) if profiled else None,
+               ms=graph_ms(lambda: vecmat(x, KT)),
+               eager_ms=time_ms(lambda: vecmat(x, KT), reps),
                plain_ms=time_ms(lambda: vecmat_ref(x, KT), reps),
                library_ms=time_ms(lambda: torch.mv(KTt, x), reps),
                bound_ms=bound, bound_by=by)
@@ -185,15 +216,15 @@ def conv_bound_ms(t, u_itemsize, fused, two, nfac):
                                        else "operations")
 
 
-def check_conv(kern, aff, facv, u, u2, what, sym_main, timed):
+def check_conv(kern, aff, facv, u, u2, what, sym_main, timed,
+               profiled=False):
     """The convection kernel against its plain version on the same inputs:
     ``conv_vector`` with one and two states, ``conv_vector_amatvec`` with
     ``sym`` both ways and the facet blocks; two launches must give the same
     bits.  Timings (``timed``) for the one-state vector and the fused form
     the main path calls."""
     t = kern.tables
-    _, rowptr, _ = t.kernel_tables()
-    most = int((rowptr[1:] - rowptr[:-1]).max())
+    most = t.kernel_tables()[1].shape[0]      # the ELL table's width
     # the result is rounded to the state's type when that is narrower
     eps = max(torch.finfo(t.dtype).eps, torch.finfo(u.dtype).eps)
     nfac = int(aff.fac_elem.shape[0])
@@ -238,6 +269,11 @@ def check_conv(kern, aff, facv, u, u2, what, sym_main, timed):
                    max_abs_err=max(errs), atol=max(atols), bound_ms=bound,
                    bound_by=by, library_ms=None)
         if timed and name in ("vector", f"amatvec_sym_{sym_main}"):
+            if profiled:
+                ran = device_kernels(run)
+                require(len(ran) == 1, f"convection kernel ({name}, {what}) "
+                        f"ran {len(ran)} device kernels: {ran}")
+                row["device_kernels_per_call"] = len(ran)
             row.update(ms=graph_ms(run), plain_ms=graph_ms(plain),
                        eager_ms=time_ms(run, 200),
                        plain_eager_ms=time_ms(plain, 50))
@@ -276,21 +312,20 @@ def main():
     n_main = prob.nv_full + prob.np_cond       # the padded inverse's side
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     checks = []
-    # main-path shape (8-byte loads: n is even, not a multiple of 4), the
-    # next multiple of 4 (16-byte loads at the same size), a ragged shape
-    n4 = -(-n_main // 4) * 4
-    for (m, n), what, reps in (((n_main, n_main), "random", 50),
-                               ((n4, n4), "random", 50),
-                               (RAGGED, "random", 200)):
-        KT = torch.randn((m, n), generator=gen, dtype=torch.float32).to(dev)
-        x = torch.randn(m, generator=gen, dtype=torch.float32).to(dev)
-        checks.append(check_vecmat(x, KT, what, reps))
+    # the two main-path shapes (CNAB full layout: rows padded by 2 columns;
+    # sbdf2 inner layout: 16-byte rows already) and a ragged one, f32 and
+    # f64, each in the padded storage the kernel streams
+    n_inner = len(prob.invinds) + prob.np_cond
+    for (m, n), dt, reps in (((n_main, n_main), torch.float32, 50),
+                             ((n_inner, n_inner), torch.float32, 50),
+                             (RAGGED, torch.float32, 200),
+                             (RAGGED, torch.float64, 200)):
+        KT = as_vecmat_operand(torch.randn((m, n), generator=gen, dtype=dt),
+                               device=dev)
+        x = torch.randn(m, generator=gen, dtype=dt).to(dev)
+        checks.append(check_vecmat(x, KT, "random", reps,
+                                   profiled=len(checks) < 2))
         del KT, x
-    KT64 = torch.randn(RAGGED, generator=gen, dtype=torch.float64).to(dev)
-    checks.append(check_vecmat(
-        torch.randn(RAGGED[0], generator=gen, dtype=torch.float64).to(dev),
-        KT64, "random", 200))
-    del KT64
     # the convection kernel on the level-1 tables: f32 tables under the f64
     # state (what the loop runs) and under an f32 state, f64 tables, and a
     # permuted dof map with re-indexed facet blocks
@@ -307,7 +342,8 @@ def main():
             affs[wdt] = AffineVectorOps.build(prob, wdt, full_dofs=True)
         conv_checks += check_conv(
             prob.conv_kernel_on(wdt), affs[wdt], affs[wdt].fac_dofs,
-            u64.to(udt), v64.to(udt), "random", sym_main, timed)
+            u64.to(udt), v64.to(udt), "random", sym_main, timed,
+            profiled=not conv_checks)
     perm = torch.randperm(nv, generator=gen)
     dofmap = torch.cat([perm, torch.tensor([nv])]).to(dev)
     aff32 = affs[torch.float32]
@@ -438,7 +474,6 @@ def main():
     # inverse over the inner and pressure dofs, under a right-hand side of
     # that run's size (the mass matrix times its final state)
     KinvT = sb["ops"].solver.KinvT
-    n_inner = nin + npc
     require(tuple(KinvT.shape) == (n_inner, n_inner) and KinvT.is_cuda
             and KinvT.dtype == torch.float32, "inverse of the sbdf2 run")
     x_sb = torch.zeros(n_inner, dtype=torch.float32, device=dev)
@@ -522,7 +557,9 @@ def main():
             bound_by=chk["bound_by"],
             # no single PyTorch call computes gather -> quadrature ->
             # scatter; the plain version is ~45 of them
-            library_ms=None, eager_ms=chk["eager_ms"])
+            library_ms=None, eager_ms=chk["eager_ms"],
+            device_kernels_per_call=chk["device_kernels_per_call"],
+            design=DESIGN)
 
     say(phase="done", total_seconds=time.time() - t_start)
     print(smi, flush=True)
@@ -534,7 +571,10 @@ def main():
              max_abs_err=main_chk["max_abs_err"], ms=main_chk["ms"],
              plain_ms=main_chk["plain_ms"], bound_ms=main_chk["bound_ms"],
              bound_by=main_chk["bound_by"],
-             library_ms=main_chk["library_ms"]),
+             library_ms=main_chk["library_ms"],
+             eager_ms=main_chk["eager_ms"],
+             device_kernels_per_call=main_chk["device_kernels_per_call"],
+             design=DESIGN),
         # the same kernel at the shape the sbdf2 run gives it
         dict(name="vecmat_inner_layout", route="cuda",
              source="dolfin_navier_scipy_tpu_torch/csrc/vecmat.cu",
@@ -543,7 +583,14 @@ def main():
              max_abs_err=sb_check["max_abs_err"], ms=sb_check["ms"],
              plain_ms=sb_check["plain_ms"], bound_ms=sb_check["bound_ms"],
              bound_by=sb_check["bound_by"],
-             library_ms=sb_check["library_ms"]),
+             library_ms=sb_check["library_ms"],
+             eager_ms=sb_check["eager_ms"],
+             # profiled on the random operand of the same shape (the profiler
+             # sees no device event after the CPU f64 runs)
+             device_kernels_per_call=checks[1]["device_kernels_per_call"],
+             device_kernels_operand=(f'{checks[1]["operand"]} '
+                                     f'{checks[1]["shape"]}'),
+             design=DESIGN),
         conv_row("convection", f"amatvec_sym_{sym_main}",
                  main_counts["conv_vector_amatvec"]),
         conv_row("convection_vector", "vector",

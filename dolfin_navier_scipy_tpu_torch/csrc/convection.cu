@@ -29,107 +29,186 @@
 //
 // Bound: at the mesh sizes of the dense-solver path (a few thousand
 // elements) neither bytes (~0.3 MB) nor operations (~5 MFLOP) come near one
-// launch's latency; the kernel is latency-bound and its job is to be two
-// launches where the tensor-op pipeline is about sixty.
+// launch's latency.  The kernel is bound by its longest dependent chain and
+// by how many launches a call costs; tensor cores buy nothing at this size.
 //
-// Design.
-//   * one thread per element, the whole chain in registers (ue, fe_c, fe_a:
-//     3*ND values); the inner loops over a, c, d, k are fully unrolled so
-//     every register array is statically indexed; N2/dN2 sit in shared
-//     memory and are read as broadcasts.
-//   * the facet blocks ride the same launch: threads past the last element
-//     each compute one row of one facet block.
-//   * no floating-point atomics: element loads go to a scratch buffer and a
-//     second kernel sums, for every dof, its slots in the fixed order of a
-//     CSR table built once on the host (ascending element, then local slot,
-//     facet slots last).  The result is bitwise reproducible run to run.
+// Design: one launch, two phases, grid-stride loops in both (a larger mesh
+// still runs as one launch).
+//   * phase 1, one group of 8 lanes per element (4 elements a warp), lane q
+//     the quadrature point q (lane 7 idle, with zero weights).  The group
+//     loads the ND dof ids and state values cooperatively (two loads a
+//     lane) and shares them by __shfl_sync; each lane holds its point's
+//     N2/dN2 rows in registers and computes its point's ND (fused: 2 ND)
+//     contributions; a fixed xor-butterfly over the 8 lanes (4, 2, 1) sums
+//     them, identically in every lane.  The dependent chain is one point's
+//     arithmetic instead of seven in sequence.  The facet-block rows (one
+//     thread each, from the grid's end) share the phase.  Loads go to a
+//     scratch buffer.
+//   * a grid-wide barrier: an integer arrival counter that only grows
+//     (`bar`, 64 bits, zero-initialised, the plan's); the grid is sized from
+//     cudaOccupancyMaxActiveBlocksPerMultiprocessor so that every block is
+//     resident, and the launch carries cudaLaunchAttributeCooperative, which
+//     makes the driver refuse a grid that cannot be.  Scratch written before it is read after it through
+//     L2 (__ldcg), never through the non-coherent path.
+//   * phase 2, one thread per dof: the dof's slots from a dof-major padded
+//     (ELL) table ell[k][dof] (-1 past its count), built once on the host in
+//     the ascending order of the CSR table `dof_slot_table`, facet slots
+//     last: coalesced, independent loads (all indices, then all values,
+//     then the sums in that order), two dependent loads deep.  No
+//     floating-point atomics: the result is bitwise reproducible.
 //   * the state u may be f64 while the work type T is f32 (f64 carry, f32
 //     work arithmetic): the cast happens in the gather's load and the
 //     reduction's store, so no separate cast launch is needed.
+//   * every constant pointer and size comes in one plan (ConvPlan), built
+//     once per table set by the caller; a call passes the plan, the states,
+//     the outputs, nu, sym and the stream.
 //
-// Written over NVPC, Q, DIM as compile-time parameters; only the 2D
+// Written over NVPC, Q, DIM as compile-time parameters (Q <= 8); only the 2D
 // Taylor-Hood instantiation (6, 7, 2) is built.
 //
-// Plain C interface, loaded with ctypes; the caller allocates the scratch
-// and the outputs, passes raw device pointers and the CUDA stream, and
-// checks the returned cudaError_t.
+// Plain C interface, loaded with ctypes; the caller allocates the scratch,
+// the barrier words and the outputs, and checks the returned cudaError_t.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
+
+// Outside the anonymous namespace: the C entry point takes it, and a
+// parameter of an internal type would hide that entry point.  Must match
+// ops/kernels.py: _ConvPlanC field for field.
+struct ConvPlan {
+    const int* vd;          // (nc, ND) full velocity-dof ids
+    const void* JinvT;      // (nc, DIM, DIM) work type
+    const void* wdet;       // (nc, Q)
+    const void* N2;         // (Q, NVPC)
+    const void* dN2;        // (Q, NVPC, DIM)
+    const void* fac_elem;   // (nfac, ND, ND) or null
+    const int* fac_vd;      // (nfac, ND) or null
+    const int* ell;         // (width, nv_full) element slots, -1 padded
+    const int* fell;        // (fwidth, nv_full) facet slots, or null
+    void* scratch;          // ((1 + fused) nc ND + nfac ND) work type
+    unsigned long long* bar;  // arrival counter, zero before the first
+                              // launch of this plan (the grid is fixed)
+    unsigned long long* trace;  // null, or 4 per block: %globaltimer at
+                                // start, end of phase 1, after the
+                                // barrier, end
+    int nc, nv_full, nfac, width, fwidth;
+    int work_f64, u_f64, fused;
+};
 
 namespace {
 
-constexpr int THREADS = 64;
+constexpr int THREADS = 128;
+constexpr int LANES = 8;            // lanes per element group
+constexpr int BATCH = 16;           // ELL entries loaded before adding
+constexpr int FBATCH = 4;           // facet ELL entries loaded up front
+constexpr unsigned FULL = 0xffffffffu;
 
 // a dof id outside [0, nv_full) is the dropped padding slot: it reads 0
 __device__ __forceinline__ bool in_range(int id, int nv_full) {
     return static_cast<unsigned>(id) < static_cast<unsigned>(nv_full);
 }
 
+__device__ __forceinline__ unsigned long long ld_acquire(
+    const unsigned long long* p) {
+    unsigned long long v;
+    asm volatile("ld.global.acquire.gpu.b64 %0, [%1];"
+                 : "=l"(v) : "l"(p) : "memory");
+    return v;
+}
+
+// All blocks of the grid meet here; writes before it are visible after it.
+// `count` only grows: each launch adds gridDim.x arrivals, so a block's
+// arrival number tells it which multiple of gridDim.x to wait for (64 bits:
+// it never wraps).  One returning atomic per block, then polling.
+__device__ void grid_barrier(unsigned long long* count) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        __threadfence();
+        const unsigned long long old = atomicAdd(count, 1ull);
+        const unsigned long long target = (old / gridDim.x + 1) * gridDim.x;
+        while (ld_acquire(count) < target) {
+        }
+    }
+    __syncthreads();
+}
+
+__device__ __forceinline__ void stamp(const ConvPlan& p, int k) {
+    if (p.trace != nullptr && threadIdx.x == 0) {
+        unsigned long long t;
+        asm volatile("mov.u64 %0, %globaltimer;" : "=l"(t));
+        p.trace[4 * blockIdx.x + k] = t;
+    }
+}
+
+template <typename T, typename TU>
+__device__ __forceinline__ T gather(const TU* u, int id, int nv_full) {
+    return in_range(id, nv_full) ? static_cast<T>(u[id]) : T(0);
+}
+
 template <typename T, typename TU, int NVPC, int Q, int DIM, bool FUSED>
 __global__ void __launch_bounds__(THREADS)
-conv_element_kernel(const TU* __restrict__ u1, const TU* __restrict__ u2,
-                    const int* __restrict__ vd, const T* __restrict__ JinvT,
-                    const T* __restrict__ wdet, const T* __restrict__ N2,
-                    const T* __restrict__ dN2, int nc, int nv_full, T nu,
-                    int sym, const T* __restrict__ fac_elem,
-                    const int* __restrict__ fac_vd, int nfac,
-                    T* __restrict__ scratch) {
+conv_kernel(const ConvPlan p, const TU* __restrict__ u1,
+            const TU* __restrict__ u2, TU* __restrict__ out_c,
+            TU* __restrict__ out_a, T nu, int sym) {
     constexpr int ND = NVPC * DIM;
-    __shared__ T sN[Q * NVPC];
-    __shared__ T sdN[Q * NVPC * DIM];
-    for (int i = threadIdx.x; i < Q * NVPC; i += THREADS) sN[i] = N2[i];
-    for (int i = threadIdx.x; i < Q * NVPC * DIM; i += THREADS)
-        sdN[i] = dN2[i];
-    __syncthreads();
+    static_assert(Q <= LANES && ND <= 2 * LANES, "one lane per point");
+    const T* __restrict__ JinvT = static_cast<const T*>(p.JinvT);
+    const T* __restrict__ wdet = static_cast<const T*>(p.wdet);
+    T* scratch = static_cast<T*>(p.scratch);
+    const int nc = p.nc, nv_full = p.nv_full;
+    const size_t nslot = static_cast<size_t>(nc) * ND;
+    const long long tid =
+        static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+    const long long nthreads = static_cast<long long>(gridDim.x) * THREADS;
 
-    const int t = blockIdx.x * THREADS + threadIdx.x;
-    if (t >= nc) {
-        // one row (f, a) of a facet block: ffe[f,a] = fac_elem[f,a,:] . u
-        if (FUSED) {
-            const int r = t - nc;
-            if (r < nfac * ND) {
-                const T* row = fac_elem + static_cast<size_t>(r) * ND;
-                const int* ids = fac_vd + (r / ND) * ND;
-                T acc = T(0);
-                for (int b = 0; b < ND; ++b) {
-                    const int id = ids[b];
-                    const T x = in_range(id, nv_full)
-                                    ? static_cast<T>(u1[id]) : T(0);
-                    acc += row[b] * x;
-                }
-                scratch[static_cast<size_t>(2) * nc * ND + r] = acc;
-            }
+    stamp(p, 0);
+    // -- phase 1: elements, 8 lanes each -----------------------------------
+    const int lane = threadIdx.x & 31;
+    const int q = lane & (LANES - 1);
+    const bool point = q < Q;
+    T N[NVPC], dN[NVPC][DIM];
+    {
+        const T* N2 = static_cast<const T*>(p.N2);
+        const T* dN2 = static_cast<const T*>(p.dN2);
+#pragma unroll
+        for (int a = 0; a < NVPC; ++a) {
+            N[a] = point ? N2[q * NVPC + a] : T(0);
+#pragma unroll
+            for (int k = 0; k < DIM; ++k)
+                dN[a][k] = point ? dN2[(q * NVPC + a) * DIM + k] : T(0);
         }
-        return;
     }
+    constexpr int PER_WARP = 32 / LANES;
+    for (long long e0 = (tid >> 5) * PER_WARP; e0 < nc;
+         e0 += (nthreads >> 5) * PER_WARP) {
+        const long long e = e0 + (lane / LANES);
+        const bool valid = e < nc;
+        const int* ids = p.vd + e * ND;
+        const int id0 = valid ? ids[q] : -1;
+        const int id1 = (valid && q + LANES < ND) ? ids[q + LANES] : -1;
+        const T a0 = gather<T>(u1, id0, nv_full);
+        const T a1 = gather<T>(u1, id1, nv_full);
+        T b0 = a0, b1 = a1;
+        if (u2 != nullptr) {
+            b0 = gather<T>(u2, id0, nv_full);
+            b1 = gather<T>(u2, id1, nv_full);
+        }
+        T ue[ND], u2e[ND];
+#pragma unroll
+        for (int j = 0; j < ND; ++j) {
+            ue[j] = __shfl_sync(FULL, j < LANES ? a0 : a1, j % LANES, LANES);
+            u2e[j] = __shfl_sync(FULL, j < LANES ? b0 : b1, j % LANES, LANES);
+        }
+        T Ji[DIM][DIM];                           // Ji[d][k] = JinvT[e,d,k]
+#pragma unroll
+        for (int d = 0; d < DIM; ++d)
+#pragma unroll
+            for (int k = 0; k < DIM; ++k)
+                Ji[d][k] = valid ? JinvT[(e * DIM + d) * DIM + k] : T(0);
+        const T w = (valid && point) ? wdet[e * Q + q] : T(0);
 
-    const int e = t;
-    const int* ids = vd + static_cast<size_t>(e) * ND;
-    T ue[ND], u2e[ND];
-#pragma unroll
-    for (int j = 0; j < ND; ++j) {
-        const int id = ids[j];
-        const bool in = in_range(id, nv_full);
-        ue[j] = in ? static_cast<T>(u1[id]) : T(0);
-        u2e[j] = (u2 == nullptr) ? ue[j]
-                                 : (in ? static_cast<T>(u2[id]) : T(0));
-    }
-    T Ji[DIM][DIM];                               // Ji[d][k] = JinvT[e,d,k]
-#pragma unroll
-    for (int d = 0; d < DIM; ++d)
-#pragma unroll
-        for (int k = 0; k < DIM; ++k)
-            Ji[d][k] = JinvT[(static_cast<size_t>(e) * DIM + d) * DIM + k];
-
-    T fc[ND], fa[ND];
-#pragma unroll
-    for (int j = 0; j < ND; ++j) { fc[j] = T(0); fa[j] = T(0); }
-
-#pragma unroll 1
-    for (int q = 0; q < Q; ++q) {
-        const T* Nq = sN + q * NVPC;
-        const T* dNq = sdN + q * NVPC * DIM;
+        // this lane's point
         T uq[DIM], rg[DIM][DIM];                  // rg[k][c]
 #pragma unroll
         for (int c = 0; c < DIM; ++c) {
@@ -139,16 +218,13 @@ conv_element_kernel(const TU* __restrict__ u1, const TU* __restrict__ u2,
         }
 #pragma unroll
         for (int a = 0; a < NVPC; ++a) {
-            const T Na = Nq[a];
 #pragma unroll
-            for (int c = 0; c < DIM; ++c) uq[c] += Na * u2e[a * DIM + c];
+            for (int c = 0; c < DIM; ++c) uq[c] += N[a] * u2e[a * DIM + c];
 #pragma unroll
-            for (int k = 0; k < DIM; ++k) {
-                const T dNa = dNq[a * DIM + k];
+            for (int k = 0; k < DIM; ++k)
 #pragma unroll
                 for (int c = 0; c < DIM; ++c)
-                    rg[k][c] += dNa * ue[a * DIM + c];
-            }
+                    rg[k][c] += dN[a][k] * ue[a * DIM + c];
         }
         T guq[DIM][DIM];                          // guq[c][d] = dU_c/dx_d
 #pragma unroll
@@ -160,7 +236,6 @@ conv_element_kernel(const TU* __restrict__ u1, const TU* __restrict__ u2,
                 for (int k = 0; k < DIM; ++k) s += Ji[d][k] * rg[k][c];
                 guq[c][d] = s;
             }
-        const T w = wdet[static_cast<size_t>(e) * Q + q];
         T wc[DIM];
 #pragma unroll
         for (int c = 0; c < DIM; ++c) {
@@ -169,12 +244,13 @@ conv_element_kernel(const TU* __restrict__ u1, const TU* __restrict__ u2,
             for (int d = 0; d < DIM; ++d) s += uq[d] * guq[c][d];
             wc[c] = w * s;
         }
+        T fc[ND];
 #pragma unroll
         for (int a = 0; a < NVPC; ++a)
 #pragma unroll
-            for (int c = 0; c < DIM; ++c) fc[a * DIM + c] += Nq[a] * wc[c];
-
-        if (FUSED) {
+            for (int c = 0; c < DIM; ++c) fc[a * DIM + c] = N[a] * wc[c];
+        T fa[FUSED ? ND : 1];
+        if constexpr (FUSED) {
             const T nuw = nu * w;
             T G[DIM][DIM];                        // G[k][c]
 #pragma unroll
@@ -192,102 +268,186 @@ conv_element_kernel(const TU* __restrict__ u1, const TU* __restrict__ u2,
 #pragma unroll
             for (int a = 0; a < NVPC; ++a)
 #pragma unroll
-                for (int k = 0; k < DIM; ++k) {
-                    const T dNa = dNq[a * DIM + k];
+                for (int c = 0; c < DIM; ++c) {
+                    T s = T(0);
 #pragma unroll
-                    for (int c = 0; c < DIM; ++c)
-                        fa[a * DIM + c] += dNa * G[k][c];
+                    for (int k = 0; k < DIM; ++k) s += dN[a][k] * G[k][c];
+                    fa[a * DIM + c] = s;
                 }
         }
-    }
-
-    T* oc = scratch + static_cast<size_t>(e) * ND;
+        // the sum over the group's points: a fixed butterfly, the same
+        // bits in every lane
 #pragma unroll
-    for (int j = 0; j < ND; ++j) oc[j] = fc[j];
-    if (FUSED) {
-        T* oa = scratch + (static_cast<size_t>(nc) + e) * ND;
+        for (int off = LANES / 2; off > 0; off /= 2) {
 #pragma unroll
-        for (int j = 0; j < ND; ++j) oa[j] = fa[j];
-    }
-}
-
-// conv[i] = sum of scratch[slots[k]], av[i] = sum of scratch[nslot +
-// slots[k]] then of scratch[2 nslot + fslots[k]], k ascending: one thread per
-// dof, a fixed order, no atomics.
-template <typename T, typename TU, bool FUSED>
-__global__ void conv_reduce_kernel(const T* __restrict__ scratch,
-                                   const int* __restrict__ rowptr,
-                                   const int* __restrict__ slots,
-                                   const int* __restrict__ frowptr,
-                                   const int* __restrict__ fslots,
-                                   int nv_full, size_t nslot,
-                                   TU* __restrict__ out_c,
-                                   TU* __restrict__ out_a) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= nv_full) return;
-    T c = T(0), a = T(0);
-    const int k1 = rowptr[i + 1];
-    for (int k = rowptr[i]; k < k1; ++k) {
-        const int s = slots[k];
-        c += scratch[s];
-        if (FUSED) a += scratch[nslot + s];
-    }
-    out_c[i] = static_cast<TU>(c);
-    if (FUSED) {
-        if (frowptr != nullptr) {
-            const int f1 = frowptr[i + 1];
-            for (int k = frowptr[i]; k < f1; ++k)
-                a += scratch[2 * nslot + fslots[k]];
+            for (int j = 0; j < ND; ++j) {
+                fc[j] += __shfl_xor_sync(FULL, fc[j], off, LANES);
+                if constexpr (FUSED)
+                    fa[j] += __shfl_xor_sync(FULL, fa[j], off, LANES);
+            }
         }
-        out_a[i] = static_cast<TU>(a);
+        if (valid) {
+            // lane q stores slots q and q + 8 (statically indexed selects)
+            T c0 = T(0), c1 = T(0), f0 = T(0), f1 = T(0);
+#pragma unroll
+            for (int j = 0; j < ND; ++j) {
+                if (j == q) c0 = fc[j];
+                if (j == q + LANES) c1 = fc[j];
+                if constexpr (FUSED) {
+                    if (j == q) f0 = fa[j];
+                    if (j == q + LANES) f1 = fa[j];
+                }
+            }
+            T* oc = scratch + e * ND;
+            oc[q] = c0;
+            if (q + LANES < ND) oc[q + LANES] = c1;
+            if (FUSED) {
+                T* oa = scratch + nslot + e * ND;
+                oa[q] = f0;
+                if (q + LANES < ND) oa[q + LANES] = f1;
+            }
+        }
     }
-}
+    // the facet-block rows: ffe[f,a] = fac_elem[f,a,:] . u, one thread each,
+    // counted from the grid's last thread (the last block holds the fewest
+    // elements; the first would do them after a full element group)
+    if (FUSED) {
+        const T* fac_elem = static_cast<const T*>(p.fac_elem);
+        for (long long r = nthreads - 1 - tid;
+             r < static_cast<long long>(p.nfac) * ND; r += nthreads) {
+            const T* row = fac_elem + r * ND;
+            const int* fids = p.fac_vd + (r / ND) * ND;
+            T acc = T(0);
+#pragma unroll
+            for (int b = 0; b < ND; ++b)
+                acc += row[b] * gather<T>(u1, fids[b], nv_full);
+            scratch[2 * nslot + r] = acc;
+        }
+    }
 
-struct Args {
-    const void *u1, *u2;
-    const int* vd;
-    const void *JinvT, *wdet, *N2, *dN2;
-    int nc, nv_full;
-    double nu;
-    int sym;
-    const void* fac_elem;
-    const int* fac_vd;
-    int nfac;
-    void* scratch;
-    const int *rowptr, *slots, *frowptr, *fslots;
-    void *out_c, *out_a;
-    cudaStream_t stream;
-};
+    stamp(p, 1);
+    grid_barrier(p.bar);
+    stamp(p, 2);
+
+    // -- phase 2: per dof, its slots in the fixed order ---------------------
+    // the slot indices of a batch first (element slots and the first facet
+    // slots together), then their values, then the sums in order: two
+    // dependent loads deep while a dof has at most BATCH element slots
+    for (long long i = tid; i < nv_full; i += nthreads) {
+        T c = T(0), a = T(0);
+        int f[FBATCH];
+        T vf[FBATCH];
+        if constexpr (FUSED) {
+#pragma unroll
+            for (int u = 0; u < FBATCH; ++u)
+                f[u] = u < p.fwidth
+                           ? p.fell[static_cast<size_t>(u) * nv_full + i]
+                           : -1;
+        }
+        for (int k0 = 0; k0 < p.width; k0 += BATCH) {
+            int s[BATCH];
+            T vc[BATCH], va[BATCH];
+#pragma unroll
+            for (int u = 0; u < BATCH; ++u)
+                s[u] = k0 + u < p.width
+                           ? p.ell[static_cast<size_t>(k0 + u) * nv_full + i]
+                           : -1;
+            if constexpr (FUSED) {
+                if (k0 == 0) {
+#pragma unroll
+                    for (int u = 0; u < FBATCH; ++u)
+                        vf[u] = f[u] >= 0
+                                    ? __ldcg(scratch + 2 * nslot + f[u])
+                                    : T(0);
+                }
+            }
+#pragma unroll
+            for (int u = 0; u < BATCH; ++u) {
+                vc[u] = s[u] >= 0 ? __ldcg(scratch + s[u]) : T(0);
+                if constexpr (FUSED)
+                    va[u] = s[u] >= 0 ? __ldcg(scratch + nslot + s[u])
+                                      : T(0);
+            }
+#pragma unroll
+            for (int u = 0; u < BATCH; ++u)
+                if (s[u] >= 0) {
+                    c += vc[u];
+                    if constexpr (FUSED) a += va[u];
+                }
+        }
+        out_c[i] = static_cast<TU>(c);
+        if constexpr (FUSED) {
+            // the facet slots after all element slots, in their order
+#pragma unroll
+            for (int u = 0; u < FBATCH; ++u)
+                if (f[u] >= 0) a += vf[u];
+            for (int k = FBATCH; k < p.fwidth; ++k) {
+                const int sl = p.fell[static_cast<size_t>(k) * nv_full + i];
+                if (sl >= 0) a += __ldcg(scratch + 2 * nslot + sl);
+            }
+            out_a[i] = static_cast<TU>(a);
+        }
+    }
+    stamp(p, 3);
+}
 
 template <typename T, typename TU, int NVPC, int Q, int DIM, bool FUSED>
-cudaError_t launch(const Args& p) {
+cudaError_t launch(const ConvPlan& p, const void* u1, const void* u2,
+                   void* out_c, void* out_a, double nu, int sym,
+                   cudaStream_t st) {
     constexpr int ND = NVPC * DIM;
-    const long long rows =
-        static_cast<long long>(p.nc) +
-        (FUSED ? static_cast<long long>(p.nfac) * ND : 0);
-    const int blocks = static_cast<int>((rows + THREADS - 1) / THREADS);
-    conv_element_kernel<T, TU, NVPC, Q, DIM, FUSED>
-        <<<blocks, THREADS, 0, p.stream>>>(
-            static_cast<const TU*>(p.u1), static_cast<const TU*>(p.u2), p.vd,
-            static_cast<const T*>(p.JinvT), static_cast<const T*>(p.wdet),
-            static_cast<const T*>(p.N2), static_cast<const T*>(p.dN2), p.nc,
-            p.nv_full, static_cast<T>(p.nu), p.sym,
-            static_cast<const T*>(p.fac_elem), p.fac_vd, p.nfac,
-            static_cast<T*>(p.scratch));
-    cudaError_t err = cudaGetLastError();
+    auto kern = conv_kernel<T, TU, NVPC, Q, DIM, FUSED>;
+    // per instantiation: how many blocks an SM holds (a host query costs
+    // more than the launch)
+    static int occ = 0, sms = 0;
+    cudaError_t err;
+    if (occ == 0) {
+        int dev = 0;
+        if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+        if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                          dev)) != cudaSuccess)
+            return err;
+        if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 &occ, kern, THREADS, 0)) != cudaSuccess)
+            return err;
+        if (occ == 0) return cudaErrorInvalidConfiguration;
+    }
+    const long long lanes = static_cast<long long>(p.nc) * LANES;
+    const long long rows = FUSED ? static_cast<long long>(p.nfac) * ND : 0;
+    long long work = lanes > rows ? lanes : rows;
+    if (p.nv_full > work) work = p.nv_full;
+    long long blocks = (work + THREADS - 1) / THREADS;
+    // every block resident at once: the grid barrier needs it
+    const long long most = static_cast<long long>(occ) * sms;
+    if (blocks > most) blocks = most;
+
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeCooperative;
+    attr[0].val.cooperative = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kern, p, static_cast<const TU*>(u1),
+                             static_cast<const TU*>(u2),
+                             static_cast<TU*>(out_c), static_cast<TU*>(out_a),
+                             static_cast<T>(nu), sym);
     if (err != cudaSuccess) return err;
-    conv_reduce_kernel<T, TU, FUSED>
-        <<<(p.nv_full + 127) / 128, 128, 0, p.stream>>>(
-            static_cast<const T*>(p.scratch), p.rowptr, p.slots, p.frowptr,
-            p.fslots, p.nv_full, static_cast<size_t>(p.nc) * ND,
-            static_cast<TU*>(p.out_c), static_cast<TU*>(p.out_a));
     return cudaGetLastError();
 }
 
-template <typename T, typename TU, int NVPC, int Q, int DIM>
-cudaError_t launch_form(const Args& p, int fused) {
-    return fused ? launch<T, TU, NVPC, Q, DIM, true>(p)
-                 : launch<T, TU, NVPC, Q, DIM, false>(p);
+template <typename T, typename TU>
+cudaError_t launch_form(const ConvPlan& p, const void* u1, const void* u2,
+                        void* out_c, void* out_a, double nu, int sym,
+                        cudaStream_t st) {
+    return p.fused
+               ? launch<T, TU, 6, 7, 2, true>(p, u1, u2, out_c, out_a, nu,
+                                              sym, st)
+               : launch<T, TU, 6, 7, 2, false>(p, u1, u2, out_c, out_a, nu,
+                                               sym, st);
 }
 
 }  // namespace
@@ -295,40 +455,35 @@ cudaError_t launch_form(const Args& p, int fused) {
 extern "C" {
 
 // The 2D Taylor-Hood instantiation (NVPC 6, Q 7, DIM 2).
-//   work_f64 / u_f64: element type of the tables+scratch / of u and outputs
-//   fused: 0 -> conv only (u2 may be null: u2 = u1), 1 -> conv and A u
-//   vd (nc, 12) int32; JinvT (nc, 2, 2), wdet (nc, 7), N2 (7, 6),
-//   dN2 (7, 6, 2), fac_elem (nfac, 12, 12) in the work type;
-//   fac_vd (nfac, 12) int32; scratch ((1 + fused) nc 12 + nfac 12) work type;
-//   rowptr (nv_full + 1), slots: CSR of dof -> scratch slots < nc*12;
-//   frowptr, fslots: the same for the facet slots (null when nfac == 0);
-//   out_c, out_a (nv_full) in u's type (out_a unused when not fused).
-// Returns the cudaError_t of the launches (0 = success).
-int convection_th2d(int work_f64, int u_f64, int fused, const void* u1,
-                    const void* u2, const int* vd, const void* JinvT,
-                    const void* wdet, const void* N2, const void* dN2, int nc,
-                    int nv_full, double nu, int sym, const void* fac_elem,
-                    const int* fac_vd, int nfac, void* scratch,
-                    const int* rowptr, const int* slots, const int* frowptr,
-                    const int* fslots, void* out_c, void* out_a,
+//   plan: the tables, scratch and barrier words (see ConvPlan above);
+//     fused 0 -> conv only (u2 may be null: u2 = u1), 1 -> conv and A u;
+//   u1, u2 (nv_full) and out_c, out_a (nv_full, out_a unused unless fused)
+//     in u's type (plan->u_f64).
+// Returns the cudaError_t of the launch (0 = success).
+int convection_th2d(const ConvPlan* plan, const void* u1, const void* u2,
+                    void* out_c, void* out_a, double nu, int sym,
                     void* stream) {
-    if (nc <= 0 || nv_full <= 0 || nfac < 0 || (nfac > 0 && !fused) ||
-        (nfac > 0 && (fac_elem == nullptr || fac_vd == nullptr ||
-                      frowptr == nullptr || fslots == nullptr)) ||
-        static_cast<long long>(nc) * 12 * 2 +
-                static_cast<long long>(nfac) * 12 >= (1LL << 31))
+    const ConvPlan& p = *plan;
+    if (p.nc <= 0 || p.nv_full <= 0 || p.nfac < 0 || p.width <= 0 ||
+        (p.nfac > 0 && (!p.fused || p.fac_elem == nullptr ||
+                        p.fac_vd == nullptr || p.fell == nullptr ||
+                        p.fwidth <= 0)) ||
+        p.bar == nullptr ||
+        static_cast<long long>(p.nc) * 12 * 2 +
+                static_cast<long long>(p.nfac) * 12 >= (1LL << 31))
         return static_cast<int>(cudaErrorInvalidValue);
-    Args p{u1, u2, vd, JinvT, wdet, N2, dN2, nc, nv_full, nu, sym, fac_elem,
-           fac_vd, nfac, scratch, rowptr, slots,
-           nfac > 0 ? frowptr : nullptr, nfac > 0 ? fslots : nullptr, out_c,
-           out_a, static_cast<cudaStream_t>(stream)};
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
     cudaError_t err;
-    if (work_f64)
-        err = u_f64 ? launch_form<double, double, 6, 7, 2>(p, fused)
-                    : launch_form<double, float, 6, 7, 2>(p, fused);
+    if (p.work_f64)
+        err = p.u_f64 ? launch_form<double, double>(p, u1, u2, out_c, out_a,
+                                                    nu, sym, st)
+                      : launch_form<double, float>(p, u1, u2, out_c, out_a,
+                                                   nu, sym, st);
     else
-        err = u_f64 ? launch_form<float, double, 6, 7, 2>(p, fused)
-                    : launch_form<float, float, 6, 7, 2>(p, fused);
+        err = p.u_f64 ? launch_form<float, double>(p, u1, u2, out_c, out_a,
+                                                   nu, sym, st)
+                      : launch_form<float, float>(p, u1, u2, out_c, out_a,
+                                                  nu, sym, st);
     return static_cast<int>(err);
 }
 

@@ -10,11 +10,13 @@ from .sparse import EllMatrix  # noqa: F401
 from .affine import AffineVectorOps, OpView  # noqa: F401
 from .kernels import (  # noqa: F401
     DofTable,
+    as_vecmat_operand,
     conv_vector,
     conv_vector_amatvec,
     conv_vector_amatvec_ref,
     conv_vector_ref,
     vecmat,
+    vecmat_operand,
     vecmat_ref,
 )
 from . import condense  # noqa: F401

@@ -9,7 +9,7 @@ Two kernels:
   floor of the dense-solver time loop.
 * the fused element pipeline of the convection vector
   (``csrc/convection.cu``): gather, quadrature and a fixed-order reduction
-  in two launches, behind :func:`conv_vector` and
+  in one launch, behind :func:`conv_vector` and
   :func:`conv_vector_amatvec`.  It is the kernel the JAX package probed
   for (``tools/probe_pallas_gather.py``: a gather inside a kernel body)
   and had to leave to XLA.
@@ -25,6 +25,8 @@ version; a CUDA tensor launches the kernel or raises — there is no
 fallback from a failed build or launch to the plain version.
 """
 
+import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -41,11 +43,15 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC"]
 _LIBS = {}
 
-# rows of x staged in shared memory per block: 4096 doubles = 32 KB, below
-# the 48 KB a block gets without opting in to more
-_MAX_ROWS_PER_SPLIT = 4096
-_ROW_UNROLL = 8           # UNROLL in csrc/vecmat.cu
-_COLS_PER_BLOCK = 256     # THREADS * VEC at the common 8-byte load width
+# How csrc/vecmat.cu cuts its operand, decided here alone: the build
+# compiles it into the kernel (-DVECMAT_<key>) and vecmat_plan sizes the
+# scratch and the shared memory from it.  Boxes of BOX_ROWS rows x GROUPS
+# 16-byte column groups (64 KB), a ring of STAGES boxes, CONSUMERS threads
+# that multiply-add.
+_VECMAT_GEOMETRY = {"BOX_ROWS": 64, "GROUPS": 64, "STAGES": 3,
+                    "CONSUMERS": 256}
+_SOURCE_FLAGS = {"vecmat": tuple(f"-DVECMAT_{k}={v}"
+                                 for k, v in _VECMAT_GEOMETRY.items())}
 
 
 def build_dir():
@@ -69,8 +75,9 @@ def _nvcc():
 
 def _lib_path(name):
     src = os.path.join(_CSRC, name + ".cu")
+    flags = [*_NVCC_FLAGS, *_SOURCE_FLAGS.get(name, ())]
     with open(src, "rb") as f:
-        tag = hashlib.sha1(f.read() + " ".join(_NVCC_FLAGS).encode())
+        tag = hashlib.sha1(f.read() + " ".join(flags).encode())
     return src, os.path.join(build_dir(),
                              f"lib{name}_{tag.hexdigest()[:12]}.so")
 
@@ -84,7 +91,8 @@ def _start_build(name, extra_flags=()):
     os.makedirs(os.path.dirname(lib), exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
     proc = subprocess.Popen(
-        [_nvcc(), *_NVCC_FLAGS, *extra_flags, "-o", tmp, src],
+        [_nvcc(), *_NVCC_FLAGS, *_SOURCE_FLAGS.get(name, ()), *extra_flags,
+         "-o", tmp, src],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return lib, tmp, proc
 
@@ -126,7 +134,7 @@ def _vecmat_lib():
     if not getattr(lib, "_dns_typed", False):
         ptr, i = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.vecmat_f32, lib.vecmat_f64):
-            fn.argtypes = [ptr, ptr, ptr, ptr, i, i, i, i, ptr]
+            fn.argtypes = [ptr] * 5 + [i] * 4 + [ctypes.c_longlong, ptr, ptr]
             fn.restype = i
         lib.vecmat_error_string.argtypes = [i]
         lib.vecmat_error_string.restype = ctypes.c_char_p
@@ -134,23 +142,113 @@ def _vecmat_lib():
     return lib
 
 
-def vecmat_plan(m, n, sm_count):
-    """``(splits, rows_per_split)`` of the contraction for an ``(m, n)``
-    operand: enough blocks to fill the card several times over, slabs of
-    at least a few unrolled row groups, at most what fits shared memory."""
-    col_tiles = -(-n // _COLS_PER_BLOCK)
-    splits = -(-8 * sm_count // col_tiles)
-    splits = max(1, min(splits, m // (4 * _ROW_UNROLL)))
-    rows = -(-m // splits)
-    rows = min(-(-rows // _ROW_UNROLL) * _ROW_UNROLL, _MAX_ROWS_PER_SPLIT)
-    return -(-m // rows), rows
+def vecmat_ld(n, itemsize):
+    """The leading dimension the kernel streams: ``n`` rounded up to whole
+    16-byte vectors (a bulk copy needs 16-byte aligned rows)."""
+    per = 16 // itemsize
+    return -(-n // per) * per
+
+
+def vecmat_operand(m, n, dtype=torch.float32, device=None):
+    """Zeroed storage ``(m, vecmat_ld(n))`` for an operand of
+    :func:`vecmat`; returns the ``(m, n)`` view the callers use (its rows
+    are 16-byte aligned; the padding columns are never written)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return torch.zeros((m, vecmat_ld(n, itemsize)), dtype=dtype,
+                       device=device)[:, :n]
+
+
+def as_vecmat_operand(A, dtype=None, device=None):
+    """``A`` (any 2-D layout) copied, cast and moved into
+    :func:`vecmat_operand` storage in one pass (no second full copy)."""
+    out = vecmat_operand(A.shape[0], A.shape[1], dtype or A.dtype,
+                         A.device if device is None else device)
+    return out.copy_(A)
+
+
+class VecmatPlan(collections.namedtuple(
+        "VecmatPlan", "blocks ld slabs box_rows box_cols stages smem_bytes")):
+    """Launch plan of ``csrc/vecmat.cu`` for one operand shape: ``blocks``
+    (one per SM), the leading dimension ``ld`` that :func:`vecmat_operand`
+    allocates, the units (``slabs`` row slabs of ``box_rows`` x column
+    tiles of ``box_cols``, one tensor copy each: unit ``u`` is slab ``u //
+    tiles``, tile ``u % tiles``; the blocks take them from a counter and a
+    unit's partial sums go to row ``slab`` of a ``(slabs, n)`` scratch), the
+    ring of ``stages`` boxes and the block's shared memory.  Every field
+    but ``ld`` is what a launch consumes: the box and the ring are compiled
+    into the kernel from the same geometry, the scratch is ``(slabs, n)``,
+    and the kernel refuses a shared-memory size other than its own."""
+
+
+def vecmat_plan(m, n, sm_count, itemsize):
+    """The :class:`VecmatPlan` of an ``(m, n)`` operand of ``itemsize``
+    bytes on a card with ``sm_count`` SMs."""
+    g = _VECMAT_GEOMETRY
+    rows, stages = g["BOX_ROWS"], g["STAGES"]
+    box_bytes = rows * g["GROUPS"] * 16
+    # the ring, the row lanes' join (two 16-byte vectors a consumer), the
+    # full and empty mbarriers and a header word per slot
+    smem = stages * box_bytes + 2 * g["CONSUMERS"] * 16 + stages * (8 + 8 + 4)
+    return VecmatPlan(sm_count, vecmat_ld(n, itemsize), -(-m // rows), rows,
+                      g["GROUPS"] * 16 // itemsize, stages, smem)
 
 
 @functools.lru_cache(maxsize=None)
-def _vecmat_plan_on(m, n, device):
+def _sm_count(device):
     # cached: the device query costs more host time than the launch itself
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return vecmat_plan(m, n, sms)
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _vecmat_plan_on(m, n, itemsize, device):
+    return vecmat_plan(m, n, _sm_count(device), itemsize)
+
+
+_SCRATCH = {}
+
+
+_NO_SWITCH = contextlib.nullcontext()
+
+
+def _on_device(index):
+    """A kernel launches on the current device: switch to device ``index``
+    only when it is another one (the switch costs more host time than the
+    launch)."""
+    if index == torch.cuda.current_device():
+        return _NO_SWITCH
+    return torch.cuda.device(index)
+
+
+def _raw_stream(index):
+    """The current CUDA stream of device ``index`` as an integer handle
+    (without building a ``torch.cuda.Stream``: a few microseconds a call)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream(index).cuda_stream
+    return raw(index)
+
+
+def _stream_scratch(key, make):
+    """Scratch that belongs to one stream (a kernel's partial sums, its
+    ticket and grid-barrier words), keyed by the raw stream handle: made at
+    a stream's first call, kept for later ones.  Made outside a CUDA-graph
+    capture only, so that it is not a graph's private memory.
+
+    A graph captured on a stream shares this scratch with eager calls on
+    that stream and with every other graph captured on it, and a replay
+    runs on whatever stream is current: such a graph must not run
+    concurrently with them, or the ticket hand-out and the barrier counts
+    break silently.  The port runs everything on one stream, in order.
+    Entries are never released: a captured graph keeps raw pointers into
+    them.  They number one per stream and operand shape."""
+    got = _SCRATCH.get(key)
+    if got is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "a kernel's scratch for this stream is made at its first "
+                "call: call it once on the capture stream before capturing")
+        got = _SCRATCH[key] = make()
+    return got
 
 
 def vecmat_ref(x, KT):
@@ -158,46 +256,75 @@ def vecmat_ref(x, KT):
     return x @ KT
 
 
-def vecmat(x, KT):
-    """``x (m,) @ KT (m, n) -> (n,)`` accumulated in the operands' type
-    (f32 or f64), any ``m, n``; pass ``KT = K.T`` (contiguous) to compute
-    ``K @ x``.
-
-    On a CUDA tensor this launches the hand-written kernel of
-    ``csrc/vecmat.cu`` on the current stream (and counts the launch in
-    ``vecmat.launches``); on a CPU tensor it is :func:`vecmat_ref`.
-    """
+def _vecmat_check(x, KT):
     if x.dim() != 1 or KT.dim() != 2 or KT.shape[0] != x.shape[0]:
         raise ValueError(f"vecmat: x {tuple(x.shape)} @ KT {tuple(KT.shape)}")
     if x.dtype != KT.dtype or x.device != KT.device:
         raise ValueError(
             f"vecmat: x is {x.dtype} on {x.device}, "
             f"KT is {KT.dtype} on {KT.device}")
-    if not x.is_cuda:
-        return vecmat_ref(x, KT)
+
+
+def _vecmat_launch(x, KT, trace=None):
+    """Launch ``csrc/vecmat.cu`` on the current stream (``trace``: an int64
+    tensor of 4 per block for the blocks' timestamps, or None).  Returns
+    ``y``."""
     if KT.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"vecmat kernel takes f32 or f64, not {KT.dtype}")
-    if not KT.is_contiguous():
-        raise ValueError("vecmat kernel needs a contiguous row-major KT "
-                         "(store the transposed inverse once, at setup)")
     m, n = KT.shape
-    if m == 0 or n == 0 or m >= 2 ** 31 or n >= 2 ** 31:
+    ld, item = KT.stride(0), KT.element_size()
+    if (KT.stride(1) != 1 or ld < n or (ld * item) % 16
+            or KT.data_ptr() % 16):
+        raise ValueError(
+            f"vecmat kernel needs rows 16-byte aligned and unit column "
+            f"stride, got strides {KT.stride()} of {KT.dtype}: allocate the "
+            f"operand once with ops.kernels.vecmat_operand / "
+            f"as_vecmat_operand (it is never copied here)")
+    if m == 0 or n == 0 or m >= 2 ** 31 or ld >= 2 ** 31:
         raise ValueError(f"vecmat kernel: unsupported shape {(m, n)}")
     x = x.contiguous()
     lib = _vecmat_lib()
     fn = lib.vecmat_f32 if KT.dtype == torch.float32 else lib.vecmat_f64
-    with torch.cuda.device(KT.device):
-        splits, rows = _vecmat_plan_on(m, n, KT.device)
+    dev = KT.get_device()
+    plan = _vecmat_plan_on(m, n, item, dev)
+    stream = _raw_stream(dev)
+    with _on_device(dev):
+        part, bar = _stream_scratch(
+            ("vecmat", dev, stream, plan.slabs, n, KT.dtype),
+            lambda: (torch.empty((plan.slabs, n), dtype=KT.dtype,
+                                 device=KT.device),
+                     torch.zeros(4, dtype=torch.int32, device=KT.device)))
         y = torch.empty(n, dtype=KT.dtype, device=KT.device)
-        part = (torch.empty((splits, n), dtype=KT.dtype, device=KT.device)
-                if splits > 1 else y)
         err = fn(x.data_ptr(), KT.data_ptr(), y.data_ptr(), part.data_ptr(),
-                 m, n, splits, rows,
-                 torch.cuda.current_stream().cuda_stream)
+                 bar.data_ptr(), m, n, ld, plan.blocks, plan.smem_bytes,
+                 None if trace is None else trace.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(
             f"vecmat kernel launch failed for shape {(m, n)}: "
             f"{lib.vecmat_error_string(err).decode()}")
+    return y
+
+
+def vecmat(x, KT):
+    """``x (m,) @ KT (m, n) -> (n,)`` accumulated in the operands' type
+    (f32 or f64), any ``m, n``; pass ``KT`` = the transposed matrix to
+    compute ``K @ x``.
+
+    On a CUDA tensor this launches the hand-written kernel of
+    ``csrc/vecmat.cu`` on the current stream — one device kernel per call —
+    and counts the launch in ``vecmat.launches``; ``KT``'s rows must be
+    16-byte aligned with unit column stride (allocate it once with
+    :func:`vecmat_operand` / :func:`as_vecmat_operand`; anything else
+    raises, it is never copied).  The kernel's partial sums and counters
+    belong to the stream of the call: a CUDA graph that captures it must not
+    replay concurrently with other work on its capture stream (the port
+    runs on one stream; see :func:`_stream_scratch`).  On a CPU tensor it
+    is :func:`vecmat_ref`.
+    """
+    _vecmat_check(x, KT)
+    if not x.is_cuda:
+        return vecmat_ref(x, KT)
+    y = _vecmat_launch(x, KT)
     vecmat.launches += 1
     return y
 
@@ -236,6 +363,32 @@ def reduce_slots_ref(vals, rowptr, slots):
     return out
 
 
+def ell_slot_table(rowptr, slots):
+    """The CSR table of :func:`dof_slot_table` as a dof-major padded (ELL)
+    table ``ell (width, nseg)`` int32: ``ell[k, i]`` is segment ``i``'s
+    ``k``-th slot in the same ascending order, ``-1`` past its count;
+    ``width`` is the largest count (at least 1)."""
+    rowptr, slots = np.asarray(rowptr), np.asarray(slots)
+    cnt = np.diff(rowptr)
+    nseg = len(cnt)
+    ell = np.full((max(1, int(cnt.max(initial=0))), nseg), -1, np.int32)
+    seg = np.repeat(np.arange(nseg), cnt)
+    ell[np.arange(len(slots)) - rowptr[:-1][seg], seg] = slots
+    return ell
+
+
+def reduce_ell_ref(vals, ell):
+    """Plain PyTorch version of the kernel's reduction over an ELL table:
+    ``out[i]`` adds ``vals[ell[k, i]]`` for ``k`` ascending, skipping
+    ``-1``."""
+    ell = ell.long()
+    out = torch.zeros(ell.shape[1], dtype=vals.dtype, device=vals.device)
+    for k in range(ell.shape[0]):
+        m = ell[k] >= 0
+        out[m] += vals[ell[k][m]]
+    return out
+
+
 def weight_matrices(N2, dN2):
     """Constant weight matrices of the plain element pipelines, from the
     reference-element tables ``N2 (Q, nvpc)``, ``dN2 (Q, nvpc, dim)``
@@ -267,7 +420,7 @@ def weight_matrices(N2, dN2):
 class DofTable:
     """An ``(n, nd)`` int64 table ``vd`` of full velocity-dof ids (id
     ``nseg`` = the dropped padding slot) with what the kernel reads of it:
-    its int32 copy and the dof -> scratch-slot CSR of the fixed-order
+    its int32 copy and the dof -> scratch-slot ELL table of the fixed-order
     reduction, built once, at first use, and kept.  The element table of
     :class:`ConvTables` is one, the facet blocks' dof table another."""
 
@@ -281,18 +434,79 @@ class DofTable:
         id -> new position, slot ``nseg`` staying the dropped one."""
         return DofTable(dofmap[self.vd.clamp(max=self.nseg)], self.nseg)
 
+    def slot_table(self):
+        """``(rowptr, slots)``, the CSR table of :func:`dof_slot_table`
+        (numpy): for each dof its flat scratch positions ``r*nd + j``,
+        ascending."""
+        return dof_slot_table(self.vd.cpu().numpy(), self.nseg)
+
     def kernel_tables(self):
-        """``(vd32 (n, nd), rowptr (nseg+1,), slots)`` int32 on the
-        device: for each dof its ``(row, local slot)`` pairs as flat
-        scratch positions ``r*nd + j``, ascending."""
+        """``(vd32 (n, nd), ell (width, nseg))`` int32 on the device: the
+        ids, and :func:`ell_slot_table` of :meth:`slot_table`."""
         if self._kernel_tables is None:
             vd = self.vd.cpu().numpy()
-            rowptr, slots = dof_slot_table(vd, self.nseg)
+            ell = ell_slot_table(*dof_slot_table(vd, self.nseg))
             self._kernel_tables = tuple(
                 torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32),
                                 device=self.vd.device)
-                for a in (vd, rowptr, slots))
+                for a in (vd, ell))
         return self._kernel_tables
+
+
+class _ConvPlanC(ctypes.Structure):
+    # csrc/convection.cu: ConvPlan, field for field
+    _fields_ = ([(f, ctypes.c_void_p) for f in (
+        "vd", "JinvT", "wdet", "N2", "dN2", "fac_elem", "fac_vd", "ell",
+        "fell", "scratch", "bar", "trace")]
+        + [(f, ctypes.c_int) for f in (
+            "nc", "nv_full", "nfac", "width", "fwidth", "work_f64", "u_f64",
+            "fused")])
+
+
+class ConvPlan:
+    """Launch plan of ``csrc/convection.cu`` for one table set, one form
+    (``fused``), one state type, one set of facet blocks and one stream:
+    every constant pointer and size in one C structure (``c``), the tensors
+    behind them, and the kernel's scratch and barrier counter.  The scratch
+    belongs to the plan's stream; :meth:`ConvTables.kernel_plan` makes one
+    per stream, and the port runs on one.  A CUDA graph captured on that
+    stream shares the scratch and the counter with eager calls there: it
+    must not replay concurrently with them."""
+
+    def __init__(self, t, fused, udtype, fac_elem, fac_vdofs, stream):
+        dev = t.device
+        nfac = 0 if fac_elem is None else int(fac_elem.shape[0])
+        vd32, ell = t.kernel_tables()
+        # what the pointers point into, and the objects the key names
+        self.keep = [vd32, ell, fac_elem, fac_vdofs]
+        fe = fv = fell = None
+        if nfac:
+            fe = fac_elem.to(device=dev, dtype=t.dtype).contiguous()
+            fv, fell = fac_vdofs.kernel_tables()
+            self.keep += [fe, fv, fell]
+        self.scratch = torch.empty(
+            (1 + fused) * t.nc * t.nd + nfac * t.nd, dtype=t.dtype,
+            device=dev)
+        self.bar = torch.zeros(2, dtype=torch.int32, device=dev)
+        self.stream = stream
+        self.nout = 2 if fused else 1
+        self.fn = None              # the C entry point, bound at first launch
+
+        def ptr(x):
+            return None if x is None else x.data_ptr()
+
+        self.c = _ConvPlanC(
+            ptr(vd32), ptr(t.JinvT), ptr(t.wdet), ptr(t.N2), ptr(t.dN2),
+            ptr(fe), ptr(fv), ptr(ell), ptr(fell), ptr(self.scratch),
+            ptr(self.bar), None, t.nc, t.nv_full, nfac, ell.shape[0],
+            0 if fell is None else fell.shape[0],
+            int(t.dtype == torch.float64), int(udtype == torch.float64),
+            int(bool(fused)))
+
+
+def _plan_key(fused, udtype, stream, fac_elem, fac_vdofs):
+    # the plan keeps both objects, so their ids stay theirs
+    return (bool(fused), udtype, stream, id(fac_elem), id(fac_vdofs))
 
 
 class ConvTables:
@@ -311,7 +525,9 @@ class ConvTables:
         self.__dict__.update(kw)
         self.nd = self.nvpc * self.dim
         self.dofs = DofTable(self.vd, self.nv_full)
+        self.device_index = self.wdet.get_device()      # -1: the CPU
         self._plain = None
+        self._plans = {}
 
     @property
     def dtype(self):
@@ -325,13 +541,34 @@ class ConvTables:
         """Clone over another dof table (a permuted state layout); the
         reduction table is rebuilt for it at first use."""
         new = ConvTables(**{**{k: v for k, v in self.__dict__.items()
-                               if k not in ("dofs", "_plain")}, "vd": vd})
+                               if k not in ("dofs", "_plain", "_plans")},
+                            "vd": vd})
         new._plain = self._plain
         return new
 
     def kernel_tables(self):
         """The element table's :meth:`DofTable.kernel_tables`."""
         return self.dofs.kernel_tables()
+
+    def kernel_plan(self, fused, udtype, fac_elem=None, fac_vdofs=None,
+                    stream=0):
+        """The :class:`ConvPlan` of this table set for one form, state type,
+        facet-block set and stream: made at its first call, kept after."""
+        key = _plan_key(fused, udtype, stream, fac_elem, fac_vdofs)
+        plan = self._plans.get(key)
+        if plan is None:
+            if (self.device_index >= 0
+                    and torch.cuda.is_current_stream_capturing()):
+                raise RuntimeError(
+                    "the convection kernel's plan for this stream is made at "
+                    "its first call: call it once on the capture stream "
+                    "before capturing")
+            nfac = 0 if fac_elem is None else int(fac_elem.shape[0])
+            plan = self._plans[key] = ConvPlan(
+                self, fused, udtype, fac_elem if nfac else None,
+                fac_vdofs, stream)
+            plan.keep += [fac_elem]
+        return plan
 
     def plain_weights(self):
         """``(W1, W2, W2T, W3)`` of :func:`weight_matrices` on the device
@@ -417,8 +654,8 @@ def _conv_lib():
     if not getattr(lib, "_dns_typed", False):
         ptr, i = ctypes.c_void_p, ctypes.c_int
         lib.convection_th2d.argtypes = (
-            [i, i, i] + [ptr] * 7 + [i, i, ctypes.c_double, i, ptr, ptr, i]
-            + [ptr] * 8)
+            [ctypes.POINTER(_ConvPlanC)] + [ptr] * 4
+            + [ctypes.c_double, i, ptr])
         lib.convection_th2d.restype = i
         lib.convection_error_string.argtypes = [i]
         lib.convection_error_string.restype = ctypes.c_char_p
@@ -431,7 +668,7 @@ def _check_state(name, u, t, what="u"):
         raise ValueError(
             f"{name}: {what} must be a 1-D tensor of the {t.nv_full} full "
             f"velocity dofs, got {tuple(getattr(u, 'shape', ()))}")
-    if u.device != t.device:
+    if u.get_device() != t.device_index:
         raise ValueError(f"{name}: {what} is on {u.device}, the tables are "
                          f"on {t.device}")
 
@@ -457,48 +694,45 @@ def _check_facets(name, t, fac_elem, fac_vdofs):
 
 
 def _conv_launch(name, t, u1, u2, fused, nu=0.0, sym=False, fac_elem=None,
-                 fac_vdofs=None, nfac=0):
-    """Launch ``csrc/convection.cu`` on the current stream; returns the
-    ``(1 + fused, nv_full)`` output in ``u1``'s type."""
-    ok = (torch.float32, torch.float64)
-    if t.dtype not in ok or u1.dtype not in ok:
-        raise TypeError(f"{name} kernel takes f32 or f64, not tables "
-                        f"{t.dtype} / state {u1.dtype}")
-    if (t.nvpc, t.Q, t.dim) != (6, 7, 2):
-        raise NotImplementedError(
-            f"{name} kernel: only the 2D Taylor-Hood instantiation (nvpc 6, "
-            f"Q 7, dim 2) is built, not {(t.nvpc, t.Q, t.dim)}")
-    lib = _conv_lib()
-    with torch.cuda.device(t.device):
-        vd32, rowptr, slots = t.kernel_tables()
-        fptrs = (None, None, None, None)
-        if nfac:
-            fvd32, frowptr, fslots = fac_vdofs.kernel_tables()
-            fac_elem = fac_elem.to(t.dtype).contiguous()
-            fptrs = (fac_elem.data_ptr(), fvd32.data_ptr(),
-                     frowptr.data_ptr(), fslots.data_ptr())
-        u1 = u1.contiguous()
-        if u2 is not None:
-            u2 = u2.contiguous()
-        nout = 2 if fused else 1
-        scratch = torch.empty(nout * t.nc * t.nd + nfac * t.nd,
-                              dtype=t.dtype, device=t.device)
-        out = torch.empty((nout, t.nv_full), dtype=u1.dtype, device=t.device)
-        err = lib.convection_th2d(
-            int(t.dtype == torch.float64), int(u1.dtype == torch.float64),
-            int(fused), u1.data_ptr(),
-            None if u2 is None else u2.data_ptr(), vd32.data_ptr(),
-            t.JinvT.data_ptr(), t.wdet.data_ptr(), t.N2.data_ptr(),
-            t.dN2.data_ptr(), t.nc, t.nv_full, float(nu), int(bool(sym)),
-            fptrs[0], fptrs[1], nfac, scratch.data_ptr(), rowptr.data_ptr(),
-            slots.data_ptr(), fptrs[2], fptrs[3], out[0].data_ptr(),
-            out[nout - 1].data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+                 fac_vdofs=None):
+    """Launch ``csrc/convection.cu`` on the current stream through the
+    tables' plan; returns the ``(1 + fused, nv_full)`` output in ``u1``'s
+    type.  The checks that depend only on the plan's key run when the plan
+    is made."""
+    dev = u1.get_device()
+    stream = _raw_stream(dev)
+    plan = t._plans.get(_plan_key(fused, u1.dtype, stream, fac_elem,
+                                  fac_vdofs))
+    if plan is None:
+        ok = (torch.float32, torch.float64)
+        if t.dtype not in ok or u1.dtype not in ok:
+            raise TypeError(f"{name} kernel takes f32 or f64, not tables "
+                            f"{t.dtype} / state {u1.dtype}")
+        if (t.nvpc, t.Q, t.dim) != (6, 7, 2):
+            raise NotImplementedError(
+                f"{name} kernel: only the 2D Taylor-Hood instantiation (nvpc "
+                f"6, Q 7, dim 2) is built, not {(t.nvpc, t.Q, t.dim)}")
+        if fused:
+            _check_facets(name, t, fac_elem, fac_vdofs)
+        plan = t.kernel_plan(fused, u1.dtype, fac_elem, fac_vdofs, stream)
+    if plan.fn is None:
+        plan.fn = _conv_lib().convection_th2d
+    u1 = u1.contiguous()
+    if u2 is not None:
+        u2 = u2.contiguous()
+    out = torch.empty((plan.nout, t.nv_full), dtype=u1.dtype,
+                      device=u1.device)
+    p0 = out.data_ptr()
+    with _on_device(dev):
+        err = plan.fn(
+            plan.c, u1.data_ptr(), None if u2 is None else u2.data_ptr(),
+            p0, p0 + (plan.nout - 1) * t.nv_full * out.element_size(),
+            float(nu), int(bool(sym)), stream)
     if err != 0:
         raise RuntimeError(
             f"{name} kernel launch failed (nc {t.nc}, nv_full {t.nv_full}, "
-            f"{nfac} facet blocks): "
-            f"{lib.convection_error_string(err).decode()}")
+            f"{plan.c.nfac} facet blocks): "
+            f"{_conv_lib().convection_error_string(err).decode()}")
     return out
 
 
@@ -508,9 +742,10 @@ def conv_vector(u1, u2, tables):
     ``tables.dtype``, result in ``u1``'s type.
 
     On a CUDA tensor this launches the hand-written kernel of
-    ``csrc/convection.cu`` (element kernel + fixed-order reduction) on the
-    current stream and counts it in ``conv_vector.launches``; on a CPU
-    tensor it is :func:`conv_vector_ref`.
+    ``csrc/convection.cu`` (element phase, grid barrier, fixed-order
+    reduction: one device kernel) on the current stream, through the
+    tables' :class:`ConvPlan` for that stream, and counts it in
+    ``conv_vector.launches``; on a CPU tensor it is :func:`conv_vector_ref`.
     """
     _check_state("conv_vector", u1, tables, "u1")
     if u2 is not None:
@@ -536,17 +771,19 @@ def conv_vector_amatvec(u, nu, sym, tables, fac_elem=None, fac_vdofs=None):
     type.
 
     On a CUDA tensor this launches the kernel of ``csrc/convection.cu``
-    and counts it in ``conv_vector_amatvec.launches``; on a CPU tensor it
-    is :func:`conv_vector_amatvec_ref`.
+    (one device kernel, through the tables' :class:`ConvPlan` for the
+    current stream: the port runs on one) and counts it in
+    ``conv_vector_amatvec.launches``; on a CPU tensor it is
+    :func:`conv_vector_amatvec_ref`.
     """
     name = "conv_vector_amatvec"
     _check_state(name, u, tables)
-    nfac = _check_facets(name, tables, fac_elem, fac_vdofs)
     if not u.is_cuda:
+        _check_facets(name, tables, fac_elem, fac_vdofs)
         return conv_vector_amatvec_ref(u, nu, sym, tables, fac_elem,
                                        fac_vdofs)
     out = _conv_launch(name, tables, u, None, fused=True, nu=nu, sym=sym,
-                       fac_elem=fac_elem, fac_vdofs=fac_vdofs, nfac=nfac)
+                       fac_elem=fac_elem, fac_vdofs=fac_vdofs)
     conv_vector_amatvec.launches += 1
     return out[0], out[1]
 

@@ -29,7 +29,7 @@ import scipy.sparse.linalg as spsla
 import torch
 
 from ..device import resolve_device
-from ..ops.kernels import vecmat
+from ..ops.kernels import as_vecmat_operand, vecmat
 from ..ops.sparse import ell_from_scipy_fast
 
 
@@ -47,8 +47,9 @@ class InverseSaddleSolver:
       it in f64 — ``inv_method="host"`` with ``numpy.linalg.inv``,
       ``"device"`` with ``torch.linalg.inv`` on ``device`` (``"auto"``:
       the device when it is a CUDA card).  The inverse is stored
-      TRANSPOSED and contiguous in ``inv_dtype`` (``KinvT``): the layout
-      the apply kernel streams.
+      TRANSPOSED in ``inv_dtype`` (``KinvT``), rows 16-byte aligned
+      (:func:`..ops.kernels.vecmat_operand`): the layout the apply kernel
+      streams.
     * per solve: ``x0 = Kinv @ rhs`` — one :func:`vecmat` launch — then
       ``refine`` rounds of ``x += Kinv @ (rhs - K x)`` with the residual
       computed from the sparse/element operators, recovering accuracy
@@ -92,8 +93,11 @@ class InverseSaddleSolver:
             else:
                 raise ValueError(f"inv_method {inv_method!r}")
         assert KinvT.shape == (n_all, n_all), KinvT.shape
-        # cast before the transfer/copy: never stage a second f64 copy
-        self.KinvT = KinvT.to(inv_dtype).to(device).contiguous()
+        # cast before a transfer (never stage a second f64 copy), then one
+        # copy into storage whose rows the kernel's bulk copies can stream
+        if KinvT.device != device:
+            KinvT = KinvT.to(inv_dtype)
+        self.KinvT = as_vecmat_operand(KinvT, inv_dtype, device)
         if refine is None:
             refine = 3 if inv_dtype == torch.float32 else 0
         self.refine = refine

@@ -38,7 +38,7 @@ import scipy.sparse as sps
 import torch
 
 from ..device import resolve_device
-from ..ops.kernels import vecmat
+from ..ops.kernels import vecmat, vecmat_operand
 from ..ops.sparse import ell_from_scipy_fast
 from .sadpnt import InverseSaddleSolver, host_saddle_factorized
 
@@ -141,8 +141,9 @@ def build_full_layout(prob, dt, ops, device=None):
     increments to zero.  The bc-column stiffness term ``A[:,bc] u_bc``
     moves from the folded ``fv`` back into the matvec.
 
-    The padded inverse is stored transposed and contiguous (``ZpT``,
-    ``(nf+npp)^2``, unpadded beyond that): the layout ``vecmat`` streams.
+    The padded inverse is stored transposed (``ZpT``, ``(nf+npp)^2``) with
+    rows 16-byte aligned (:func:`..ops.kernels.vecmat_operand`): the layout
+    ``vecmat`` streams.
     """
     from ..ops.affine import AffineVectorOps
 
@@ -167,7 +168,7 @@ def build_full_layout(prob, dt, ops, device=None):
     # ZpT[ix, ix] = KinvT in two index_copy_ passes (rows, then columns)
     rows = torch.zeros((n_all, len(ix)), dtype=KinvT.dtype, device=device)
     rows.index_copy_(0, ix, KinvT)
-    ZpT = torch.zeros((n_all, n_all), dtype=KinvT.dtype, device=device)
+    ZpT = vecmat_operand(n_all, n_all, KinvT.dtype, device)
     ZpT.index_copy_(1, ix, rows)
     del rows
     fvbc = -np.asarray(prob.full["A"]

@@ -16,8 +16,8 @@ from dolfin_navier_scipy_tpu_torch.models import (
     cylinderwake_problem, drivencavity_problem)
 from dolfin_navier_scipy_tpu_torch.ops.affine import AffineVectorOps
 from dolfin_navier_scipy_tpu_torch.ops.kernels import (
-    conv_vector, conv_vector_amatvec, conv_vector_amatvec_ref,
-    conv_vector_ref, vecmat)
+    as_vecmat_operand, conv_vector, conv_vector_amatvec,
+    conv_vector_amatvec_ref, conv_vector_ref, vecmat)
 from dolfin_navier_scipy_tpu_torch.solve import sbdf2, solve_nse
 
 NEEDS_CARD = ("needs a CUDA card: a CUDA kernel has no interpret mode; "
@@ -30,9 +30,12 @@ def test_vecmat_kernel_on_the_card(dtype):
     if not torch.cuda.is_available():
         pytest.skip(NEEDS_CARD)
     rng = np.random.default_rng(4)
-    # vector widths 4, 2 and 1; one slab and many; a single column
-    for m, n in [(512, 1024), (2049, 1022), (700, 1501), (5000, 1), (3, 7)]:
-        KT = torch.from_numpy(rng.normal(size=(m, n))).to(dtype).cuda()
+    # padded and unpadded rows; fewer rows than SMs; a single column; a
+    # width past one shared-memory tile of partial sums
+    for m, n in [(512, 1024), (2049, 1022), (700, 1501), (5000, 1), (3, 7),
+                 (40, 30001)]:
+        KT = as_vecmat_operand(
+            torch.from_numpy(rng.normal(size=(m, n))).to(dtype), device="cuda")
         x = torch.from_numpy(rng.normal(size=(m,))).to(dtype).cuda()
         before = vecmat.launches
         y = vecmat(x, KT)
@@ -41,10 +44,79 @@ def test_vecmat_kernel_on_the_card(dtype):
         ref = x.double() @ KT.double()
         tol = 1e-3 if dtype == torch.float32 else 1e-10
         assert torch.allclose(y.double(), ref, atol=tol, rtol=1e-4), (m, n)
-    with pytest.raises(ValueError, match="contiguous"):
-        vecmat(x, torch.zeros(7, 3, dtype=dtype, device="cuda").T)
+        assert torch.equal(y, vecmat(x, KT)), (m, n)
+    # rows that are not 16-byte aligned raise (never copied)
+    odd = torch.zeros(7, 3, dtype=dtype, device="cuda")
+    with pytest.raises(ValueError, match="vecmat_operand"):
+        vecmat(torch.zeros(7, dtype=dtype, device="cuda"), odd)
+    with pytest.raises(ValueError, match="vecmat_operand"):
+        vecmat(x, KT.T.contiguous().T)
     with pytest.raises(TypeError):
         vecmat(x.half(), KT.half())
+
+
+def _card_calls():
+    """``name -> call`` of each wrapper on level-0 wake operands."""
+    prob = cylinderwake_problem(level=0, Re=100)
+    kern = prob.conv_kernel_on(torch.float32)
+    aff = AffineVectorOps.build(prob, torch.float32, full_dofs=True)
+    rng = np.random.default_rng(11)
+    u = torch.from_numpy(rng.normal(size=prob.nv_full)).cuda()
+    KT = as_vecmat_operand(
+        torch.from_numpy(rng.normal(size=(1001, 1001))).float(),
+        device="cuda")
+    x = torch.from_numpy(rng.normal(size=1001)).float().cuda()
+    t = kern.tables
+    return {
+        "vecmat": lambda: (vecmat(x, KT),),
+        "conv_vector": lambda: (conv_vector(u, None, t),),
+        "conv_vector_amatvec": lambda: conv_vector_amatvec(
+            u, prob.nu, True, t, aff.fac_elem, aff.fac_dofs),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["vecmat", "conv_vector",
+                                  "conv_vector_amatvec"])
+def test_each_wrapper_is_one_device_kernel(name):
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    from torch.profiler import ProfilerActivity, profile
+    call = _card_calls()[name]
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels_run = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.name.startswith(("Memcpy", "Memset"))]
+    assert len(kernels_run) == 1, kernels_run
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["vecmat", "conv_vector",
+                                  "conv_vector_amatvec"])
+def test_each_wrapper_replays_from_a_cuda_graph(name):
+    """Captured and replayed: the same bits as eager calls, which give the
+    same bits launch to launch."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    call = _card_calls()[name]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager = [call() for _ in range(3)]      # the stream's plan/scratch
+    torch.cuda.synchronize()
+    for a in eager[1:]:
+        assert all(torch.equal(g, h) for g, h in zip(eager[0], a))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = call()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, h) for g, h in zip(got, eager[0]))
 
 
 @pytest.mark.cuda
@@ -69,8 +141,7 @@ def test_solve_nse_on_the_card_matches_the_cpu(layout):
 def _conv_tol(ref, tables, eps):
     # kernel and plain version sum the same products in another order:
     # 50 eps of the largest entry for each of a dof's (at most) slots
-    _, rowptr, _ = tables.kernel_tables()
-    most = int((rowptr[1:] - rowptr[:-1]).max())
+    most = tables.kernel_tables()[1].shape[0]
     return 50 * eps * float(ref.abs().max()) * most
 
 

@@ -71,24 +71,91 @@ def test_vecmat_rejects_mismatched_operands(bad):
         vecmat(x, KT)
 
 
+def _units(m, n, plan):
+    """The kernel's units in ticket order, ``(row0, row1, col0, col1)``:
+    unit ``u`` is row slab ``u // tiles``, column tile ``u % tiles``."""
+    tiles = -(-n // plan.box_cols)
+    return [(r * plan.box_rows, min(m, (r + 1) * plan.box_rows),
+             c * plan.box_cols, min(n, (c + 1) * plan.box_cols))
+            for r in range(plan.slabs) for c in range(tiles)]
+
+
 @pytest.mark.parametrize("m,n", [(8794, 8794), (2049, 1023), (1, 1),
                                  (31, 100000), (300000, 8), (8016, 8016),
                                  (4097, 257)])
 def test_vecmat_plan_covers_every_row_within_shared_memory(m, n):
-    splits, rows = vecmat_plan(m, n, sm_count=132)
-    assert splits >= 1 and rows >= 1
-    assert splits * rows >= m                 # every row has a slab
-    assert (splits - 1) * rows < m            # no slab is empty
-    assert rows % 8 == 0 and rows <= 4096     # unrolled groups, 32 KB of f64
-    assert splits <= 65535                    # gridDim.y
+    # the kernel is built from the same geometry the plan reads
+    flags = kernels._SOURCE_FLAGS["vecmat"]
+    for itemsize in (4, 8):
+        per = 16 // itemsize
+        plan = vecmat_plan(m, n, sm_count=132, itemsize=itemsize)
+        assert f"-DVECMAT_BOX_ROWS={plan.box_rows}" in flags
+        assert f"-DVECMAT_GROUPS={plan.box_cols * itemsize // 16}" in flags
+        assert f"-DVECMAT_STAGES={plan.stages}" in flags
+        assert plan.blocks == 132
+        assert plan.ld >= n and plan.ld * itemsize % 16 == 0
+        assert plan.ld - n < per                     # padding < 16 bytes
+        # a box is one tensor copy: at most 256 per side, 16-byte rows
+        assert plan.box_rows <= 256 and plan.box_cols <= 256
+        assert plan.box_cols * itemsize % 16 == 0
+        assert plan.smem_bytes <= 232448             # 227 KB a block
+        assert plan.smem_bytes >= (plan.stages * plan.box_rows
+                                   * plan.box_cols * itemsize)
+        # the (slabs, n) scratch holds one row per slab, and the slabs
+        # cover the rows exactly: none is left out, none runs past m
+        assert (plan.slabs - 1) * plan.box_rows < m <= plan.slabs * plan.box_rows
+        # the units tile rows x columns exactly once, slab by slab
+        units = _units(m, n, plan)
+        ntiles = len(units) // plan.slabs
+        for r in range(plan.slabs):
+            tiles = units[r * ntiles:(r + 1) * ntiles]
+            assert all(u[:2] == (r * plan.box_rows,
+                                 min(m, (r + 1) * plan.box_rows))
+                       for u in tiles)
+            assert tiles[0][2] == 0 and tiles[-1][3] == n
+            assert all(a[3] == b[2] for a, b in zip(tiles, tiles[1:]))
+        assert units[-1][1] == m
+        covered = sum((u[1] - u[0]) * (u[3] - u[2]) for u in units)
+        assert covered == m * n
 
 
-def test_vecmat_plan_fills_the_card_at_the_main_path_shape():
-    splits, rows = vecmat_plan(8794, 8794, sm_count=132)
-    col_tiles = -(-8794 // 256)
-    assert splits * col_tiles >= 4 * 132      # several blocks per SM
-    assert rows >= 64                         # slabs amortise the x staging
+@pytest.mark.parametrize("m,n", [(8794, 8794), (8016, 8016), (2049, 1023)])
+def test_vecmat_plan_fills_the_card_at_the_main_path_shape(m, n):
+    """One block per SM, and work in units small against an SM's share.
 
+    Equal bytes per SM are not equal time on the card (the SMs of such a
+    split finish far apart), so the kernel hands out units from a counter:
+    an SM then carries its mean share plus at most the unit it took last.
+    A unit is at most 64 KB; at the main-path shapes that is under 4 % of
+    an SM's mean share, and the units outnumber the SMs 30 to 1."""
+    for itemsize in (4, 8):
+        plan = vecmat_plan(m, n, sm_count=132, itemsize=itemsize)
+        assert plan.blocks == 132
+        units = _units(m, n, plan)
+        size = [(u[1] - u[0]) * (u[3] - u[2]) * itemsize for u in units]
+        assert plan.box_rows * plan.box_cols * itemsize == 64 * 1024
+        assert max(size) <= 64 * 1024
+        if m > 4000:
+            assert max(size) <= 0.04 * m * n * itemsize / plan.blocks
+            assert len(units) >= 30 * plan.blocks
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_vecmat_operand_rows_are_16_byte_aligned(dtype):
+    rng = np.random.default_rng(3)
+    m, n = 37, 8794 // 2 + 1                      # odd width: padding
+    A = torch.from_numpy(rng.normal(size=(m, n))).to(dtype)
+    KT = kernels.as_vecmat_operand(A)
+    assert KT.shape == (m, n) and KT.dtype == dtype and KT.stride(1) == 1
+    assert KT.stride(0) * KT.element_size() % 16 == 0
+    assert KT.stride(0) - n < 16 // KT.element_size()
+    assert torch.equal(KT, A)
+    z = kernels.vecmat_operand(m, n, dtype)
+    assert torch.equal(z, torch.zeros(m, n, dtype=dtype))
+    assert z.stride() == KT.stride()
+    x = torch.from_numpy(rng.normal(size=(m,))).to(dtype)
+    assert torch.equal(vecmat(x, KT), x @ A)
+    assert torch.equal(vecmat(x, KT), vecmat_ref(x, KT))
 
 # -- the convection wrappers --------------------------------------------------
 
@@ -134,20 +201,25 @@ def test_dof_slot_table_is_a_fixed_order_add_at(dtype):
 
 def test_kernel_tables_index_the_scratch_buffer():
     _, t, aff = _wake()
-    vd32, rowptr, slots = t.kernel_tables()
-    assert all(a.dtype == torch.int32 for a in (vd32, rowptr, slots))
+    vd32, ell = t.kernel_tables()
+    rowptr, slots = t.dofs.slot_table()
+    assert vd32.dtype == torch.int32 and ell.dtype == torch.int32
     assert torch.equal(vd32.long(), t.vd) and vd32.is_contiguous()
     # slot k of dof i is the flat position e*nd + j with vd[e, j] == i
-    owner = t.vd.reshape(-1)[slots.long()]
+    owner = t.vd.reshape(-1)[torch.from_numpy(slots).long()]
     assert torch.equal(owner, torch.repeat_interleave(
-        torch.arange(t.nv_full), (rowptr[1:] - rowptr[:-1]).long()))
-    assert t.kernel_tables()[2] is slots                    # built once
+        torch.arange(t.nv_full), torch.from_numpy(np.diff(rowptr)).long()))
+    # the ELL table holds the same slots, dof-major, -1 past each count
+    assert ell.shape == (int(np.diff(rowptr).max()), t.nv_full)
+    assert ell.is_contiguous()
+    assert int((ell >= 0).sum()) == len(slots)
+    assert t.kernel_tables()[1] is ell                      # built once
     # the facet blocks' table is built once too, on the object that the
     # operator bundle keeps
     f1 = aff.fac_dofs.kernel_tables()
     assert aff.fac_dofs.kernel_tables()[0] is f1[0]
     assert torch.equal(f1[0].long(), aff.fac_vdofs)
-    assert int(f1[1][-1]) == aff.fac_vdofs.numel()
+    assert int((f1[1] >= 0).sum()) == aff.fac_vdofs.numel()
     # the plain version's weight matrices appear at its first call only
     fresh = t.with_vd(t.vd)
     fresh._plain = None
@@ -157,8 +229,57 @@ def test_kernel_tables_index_the_scratch_buffer():
     # a re-indexed layout gets tables of its own
     perm = np.random.default_rng(6).permutation(t.nv_full)
     t2 = t.with_vd(torch.from_numpy(np.append(perm, t.nv_full))[t.vd])
-    assert not torch.equal(t2.kernel_tables()[2], slots)
-    assert torch.equal(t.kernel_tables()[2], slots)
+    assert not torch.equal(t2.kernel_tables()[1], ell)
+    assert torch.equal(t.kernel_tables()[1], ell)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_ell_slot_table_keeps_the_fixed_order(dtype):
+    """The kernel sums each dof's slots from the ELL table; in the order of
+    the CSR table, so the CSR reduction stays its reference: bitwise."""
+    _, t, aff = _wake()
+    rng = np.random.default_rng(9)
+    for table in (t.dofs, aff.fac_dofs):
+        ids = table.vd.numpy().copy()
+        ids[rng.random(ids.shape) < 0.05] = table.nseg   # dropped slots
+        rowptr, slots = dof_slot_table(ids, table.nseg)
+        ell = kernels.ell_slot_table(rowptr, slots)
+        assert ell.dtype == np.int32 and ell.shape[1] == table.nseg
+        vals = torch.from_numpy(rng.normal(size=ids.size).astype(dtype))
+        by_ell = kernels.reduce_ell_ref(vals, torch.from_numpy(ell))
+        by_csr = reduce_slots_ref(vals, torch.from_numpy(rowptr),
+                                  torch.from_numpy(slots))
+        assert torch.equal(by_ell, by_csr)
+
+
+def test_conv_plan_is_built_once_per_table_set():
+    prob, t, aff = _wake()
+    fe, fv = aff.fac_elem, aff.fac_dofs
+    p1 = t.kernel_plan(True, torch.float64, fe, fv)
+    assert t.kernel_plan(True, torch.float64, fe, fv) is p1      # kept
+    assert t.kernel_plan(False, torch.float64) is not p1          # form
+    assert t.kernel_plan(True, torch.float32, fe, fv) is not p1   # state
+    assert t.kernel_plan(True, torch.float64, fe, fv, stream=7) is not p1
+    # what the C structure points at: the tables, the facet blocks in the
+    # tables' type, a scratch for both loads and the facet rows
+    vd32, ell = t.kernel_tables()
+    c = p1.c
+    assert (c.vd, c.ell, c.JinvT) == (vd32.data_ptr(), ell.data_ptr(),
+                                      t.JinvT.data_ptr())
+    assert (c.nc, c.nv_full, c.nfac, c.width) == (
+        t.nc, t.nv_full, fe.shape[0], ell.shape[0])
+    assert (c.fused, c.work_f64, c.u_f64) == (1, 1, 1)
+    assert p1.scratch.numel() == 2 * t.nc * t.nd + fe.shape[0] * t.nd
+    assert torch.equal(p1.bar, torch.zeros(2, dtype=torch.int32))
+    # a permuted dof map: new tables, new ELL table, new plan
+    perm = np.random.default_rng(10).permutation(t.nv_full)
+    dofmap = torch.from_numpy(np.append(perm, t.nv_full))
+    k2 = prob.conv_kernel.with_dof_map(dofmap)
+    fv2 = fv.with_dof_map(dofmap)
+    p2 = k2.tables.kernel_plan(True, torch.float64, fe, fv2)
+    assert p2 is not p1 and p2.c.ell != c.ell and p2.c.fell != c.fell
+    assert not torch.equal(k2.tables.kernel_tables()[1], ell)
+    assert not torch.equal(fv2.kernel_tables()[1], fv.kernel_tables()[1])
 
 
 def test_conv_wrappers_on_cpu_take_the_plain_version_and_count_nothing():

@@ -61,7 +61,9 @@ def test_inverse_solver_matches_jax_and_host(name):
     tp = s["tp"]
     sol = InverseSaddleSolver(s["coeff"], tp.Jc, tp.JTc, device="cpu")
     assert sol.KinvT.dtype == torch.float64 and sol.refine == 0
-    assert sol.KinvT.is_contiguous()
+    # rows 16-byte aligned, unit column stride: what the kernel streams
+    assert sol.KinvT.stride(1) == 1
+    assert sol.KinvT.stride(0) * sol.KinvT.element_size() % 16 == 0
     x = sol.solve(torch.from_numpy(s["rhsv"]), torch.from_numpy(s["rhsp"]))
     xj = s["jsol"].solve(jnp.asarray(s["rhsv"]), jnp.asarray(s["rhsp"]))
     assert _rel(x.numpy(), xj) <= 1e-10
