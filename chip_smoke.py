@@ -23,13 +23,25 @@ Needs one CUDA card, ``nvcc`` and no network; takes no arguments.  It
 5. drives the rest of the DFG benchmark run on the same problem: 300
    ``sbdf2`` steps, the same horizon as two halves joined by
    ``resume_carry`` (same bits required), and the CNAB run with the in-loop
-   lift/drag/pressure-drop series — each against its CPU f64 twin.
+   lift/drag/pressure-drop series — each against its CPU f64 twin,
+6. drives the user's default call, ``solve_nse(prob, t0, tE, Nts,
+   start_ssstokes=True)`` with no ``linsolver``: at 8016 condensed rows the
+   banded block-Schur solver with its truncated inverse W and bf16 level
+   stacks, the w-space CNAB step — with ``warm_refine`` 0 and 1, a bitwise
+   rerun, exact launch counts of the banded kernels, and the final velocity
+   against the CPU f64 run of step 4; then ``sbdf2`` on the same solver
+   against its CPU f64 run.
+
+Step 2 also holds the three banded kernels of the Schur route
+(``banded_mv``, ``rect_mv``, ``rect_mv_levels``) against their plain
+versions on the level-1 solver's own operands under seeded vectors.
 
 Every phase prints one JSON line; any failed phase raises, so the exit
 code is non-zero and the final line is missing.  The last line is
 ``{"ok": true, "device": {...}}``, the one before it the ``kernels`` table.
 """
 
+import itertools
 import json
 import subprocess
 import sys
@@ -48,22 +60,29 @@ from dolfin_navier_scipy_tpu_torch.models import (
 from dolfin_navier_scipy_tpu_torch.ops import kernels
 from dolfin_navier_scipy_tpu_torch.ops.affine import AffineVectorOps
 from dolfin_navier_scipy_tpu_torch.ops.kernels import (
-    as_vecmat_operand, conv_vector, conv_vector_amatvec,
-    conv_vector_amatvec_ref, conv_vector_ref, vecmat, vecmat_ref)
-from dolfin_navier_scipy_tpu_torch.solve import sbdf2, solve_nse
+    _windows, as_band_operand, as_vecmat_operand, banded_mv, banded_mv_ref,
+    conv_vector, conv_vector_amatvec, conv_vector_amatvec_ref,
+    conv_vector_ref, rect_mv, rect_mv_levels, rect_mv_levels_ref,
+    rect_mv_ref, vecmat, vecmat_ref)
+from dolfin_navier_scipy_tpu_torch.solve import (
+    SchurSaddleSolver, sbdf2, solve_nse)
+from dolfin_navier_scipy_tpu_torch.solve.timeint import _build_ops
 
 # published peaks of one H100 SXM (NVIDIA data sheet): device memory rate
 # and the f32 / f64 rates outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 F64_FLOP_PER_S = 34e12
-WRAPPERS = (vecmat, conv_vector, conv_vector_amatvec)
+WRAPPERS = (vecmat, conv_vector, conv_vector_amatvec, banded_mv, rect_mv,
+            rect_mv_levels)
+NONE_BANDED = dict(banded_mv=0, rect_mv=0, rect_mv_levels=0)
 
 SEED = 0
 LEVEL, RE, CHARVEL = 1, 100.0, 0.2
 T0, TE, NTS, SAVE_EVERY = 0.0, 0.3, 300, 60
 RAGGED = (2049, 1023)
 DESIGN = "pr3"       # one launch per call: bulk-copy ring / quad-point lanes
+BAND_DESIGN = "pr4"  # a warp per row, the x window in shared memory
 
 
 def say(**kw):
@@ -281,6 +300,157 @@ def check_conv(kern, aff, facv, u, u2, what, sym_main, timed,
     return out
 
 
+def band_bound_ms(item, nblk, levels, bs, w, nx, nrows, bases):
+    """Least time for one banded product: the stored levels (``item``
+    bytes an entry), ``x`` and the window starts read once, ``y`` written
+    once, over the memory rate; one multiply-add an entry over the f32
+    rate."""
+    entries = nblk * levels * bs * w
+    nbytes = item * entries + 4 * (nx + nrows) + (4 * nblk if bases else 0)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2.0 * entries / F32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def band_forms(slv, gen):
+    """Every banded product the Schur route makes, on the solver's own
+    blocks under a seeded vector of the size the route feeds it: ``(name,
+    operand label, blocks, call, plain, plain over |B| and |x|, library,
+    bound args)``; the four callables take the blocks, so that the timing
+    can cycle over copies of them."""
+    dev = slv.Bblk.device
+    nin, npp = slv._nin, slv.np
+
+    def vec(n):
+        return torch.randn(n, generator=gen, dtype=torch.float32).to(dev)
+
+    def lib(B, base, x, lev=None):
+        # one torch.bmm over the windows gathered beforehand (x cast to the
+        # blocks' type; the levels' row sum is not in it)
+        nblk, nl, bs, w = (B[:, None] if B.dim() == 3 else B[:, :lev]).shape
+        xw = _windows(x, base, w).to(B.dtype)[:, :, None].contiguous()
+
+        def call(C):
+            C = C[:, None] if C.dim() == 3 else C[:, :lev]
+            return torch.bmm(C.reshape(nblk, nl * bs, w), xw)
+        return call
+
+    forms = []
+
+    def add(*form):
+        forms.append(form)
+
+    for operand, B in (("E band (explicit A)", slv.Eblk),
+                       ("F band", slv.Bblk)):
+        x = vec(nin)
+        base = (torch.arange(B.shape[0], device=dev) - 1) * B.shape[1]
+        add("banded_mv", operand, B,
+            lambda B, x=x: banded_mv(B, x),
+            lambda B, x=x: banded_mv_ref(B, x),
+            lambda B, x=x: banded_mv_ref(B.abs(), x.abs()),
+            lib(B, base, x),
+            (B.element_size(), B.shape[0], 1, B.shape[1], B.shape[2], nin,
+             nin, False))
+    for operand, B, bases, nx, nrows in (
+            ("J", slv.Jb, slv._jbases_t, nin, npp),
+            ("J^T", slv.JTb, slv._jtbases_t, npp, nin)):
+        x = vec(nx)
+        add("rect_mv", operand, B,
+            lambda B, b=bases, x=x, n=nrows: rect_mv(B, b, x, n),
+            lambda B, b=bases, x=x, n=nrows: rect_mv_ref(B, b, x, n),
+            lambda B, b=bases, x=x, n=nrows: rect_mv_ref(B.abs(), b,
+                                                         x.abs(), n),
+            lib(B, bases, x),
+            (B.element_size(), B.shape[0], 1, B.shape[1], B.shape[2], nx,
+             nrows, True))
+    sinv32 = as_band_operand(slv.Sinv.float())
+    for operand, S, bases, nx, nrows in (
+            ("W, 3 bf16 levels", slv.Wb, slv._wbases_t, nin, nin),
+            ("X, 2 bf16 levels", slv.Xb, slv._xbases_t, npp, nin),
+            ("S^-1, 3 bf16 levels", slv.Sinv, slv._sbase, npp, npp),
+            ("S^-1, 3 f32 levels", sinv32, slv._sbase, npp, npp)):
+        x = vec(nx)
+        for hi in ((False, True) if operand[0] in "WX" else (False,)):
+            lev = 1 if hi else S.shape[1]
+            add("rect_mv_levels", operand + (", hi_only" if hi else ""), S,
+                lambda S, b=bases, x=x, n=nrows, hi=hi:
+                rect_mv_levels(S, b, x, n, hi),
+                lambda S, b=bases, x=x, n=nrows, hi=hi:
+                rect_mv_levels_ref(S, b, x, n, hi),
+                lambda S, b=bases, x=x, n=nrows, hi=hi:
+                rect_mv_levels_ref(S.abs(), b, x.abs(), n, hi),
+                lib(S, bases, x, lev),
+                (S.element_size(), S.shape[0], lev, S.shape[2], S.shape[3],
+                 nx, nrows, True))
+    return forms
+
+
+def cold_copies(B, nbytes=160e6):
+    """``B`` and enough copies of it (same storage layout) that cycling
+    over them streams more than three times the card's 50 MB L2: in a step
+    each operand is read once among ~150 MB of others, so a timing that
+    re-reads one operand from L2 would not be the step's."""
+    k = max(1, min(64, int(np.ceil(nbytes / (B.numel() * B.element_size())))))
+    return [B] + [as_band_operand(B) for _ in range(k - 1)]
+
+
+def cycling(fn, copies):
+    it = itertools.cycle(copies)
+    return lambda: fn(next(it))
+
+
+def check_band(forms, profiled=True):
+    """Each banded kernel against its plain version: both sum at most a
+    few thousand f32 products of one row in another order, each off the
+    exact sum by a few eps32 times the row's sum of |B||x|; the bar is
+    1e-5 of that sum (~80 eps32).  Two launches must give the same bits.
+    Then the timings (cycling over copies of the blocks, L2 cold as in the
+    step) and the bound."""
+    out = []
+    for name, operand, B, call, plain, absplain, library, bargs in forms:
+        y, ref, again = call(B), plain(B), call(B)
+        torch.cuda.synchronize()
+        err = (y - ref).abs()
+        # each row's sum of |B||x|, the scale of its rounding
+        tol = 1e-5 * absplain(B) + 1e-30
+        max_abs = float(err.max())
+        require(y.dtype == torch.float32 and y.shape == ref.shape,
+                f"{name} ({operand}): output type")
+        require(bool(torch.isfinite(y).all()), f"{name} ({operand}) not "
+                "finite")
+        require(bool((err <= tol).all()),
+                f"{name} kernel ({operand}) disagrees with its plain "
+                f"version: max abs err {max_abs:.3e}, worst ratio to the "
+                f"row bar {float((err / tol).max()):.3e}")
+        require(torch.equal(y, again),
+                f"{name} kernel ({operand}) is not reproducible")
+        row = dict(name=name, operand=operand,
+                   shape=list(bargs[1:5]), bytes_per_entry=bargs[0],
+                   max_abs_err=max_abs,
+                   max_err_over_row_bar=float((err / tol).max()),
+                   max_abs_ref=float(ref.abs().max()))
+        if profiled:
+            ran = device_kernels(lambda: call(B))
+            require(len(ran) == 1, f"{name} ({operand}) ran {len(ran)} "
+                    f"device kernels: {ran}")
+            row["device_kernels_per_call"] = len(ran)
+        copies = cold_copies(B)
+        run = cycling(call, copies)
+        bound, by = band_bound_ms(*bargs)
+        row.update(ms=graph_ms(run, calls=max(20, len(copies))),
+                   eager_ms=time_ms(run, 200),
+                   plain_ms=time_ms(cycling(plain, copies), 50),
+                   library_ms=time_ms(cycling(library, copies), 200),
+                   library="torch.bmm over windows gathered beforehand",
+                   timed_over_copies=len(copies),
+                   ms_warm_l2=graph_ms(lambda: call(B)),
+                   bound_ms=bound, bound_by=by)
+        row["roofline_share"] = bound / row["ms"]
+        del copies, run
+        out.append(row)
+    return out
+
+
 def rel(a, b):
     a, b = a.cpu().double(), b.cpu().double()
     return float(torch.linalg.vector_norm(a - b)
@@ -354,7 +524,20 @@ def main():
         torch.empty_like(v64).index_copy_(0, dofmap[:nv], v64),
         "random, permuted dof map", sym_main, False)
     require(aff32.fac_elem.shape[0] > 0, "the wake has outflow facet blocks")
-    say(phase="kernel_checks", vecmat=checks, convection=conv_checks)
+    # the banded kernels on the operands of the default route's solver (the
+    # same dt, so the same blocks as the schur_path runs below), profiled
+    # here: before any CPU run
+    dt_main = (TE - T0) / NTS
+    t0 = time.time()
+    sops = _build_ops(prob, dt_main, theta=0.5, linsolver="schur",
+                      layout="full", device=dev)
+    torch.cuda.synchronize()
+    schur_build_s = time.time() - t0
+    slv = sops.solver
+    band_checks = check_band(band_forms(slv, gen))
+    say(phase="kernel_checks", vecmat=checks, convection=conv_checks,
+        banded=band_checks, schur_solver_build_seconds=schur_build_s)
+    del sops, slv
 
     # -- 3. the main path, through the user's entry points -----------------
     kw = dict(t0=T0, tE=TE, Nts=NTS, start_ssstokes=True,
@@ -388,7 +571,7 @@ def main():
     # convection vector three times in the Heun bootstrap and once for the
     # AB2 start value (the Stokes start brings its own pressure)
     require(main_counts == dict(vecmat=nsteps, conv_vector=4,
-                                conv_vector_amatvec=nsteps),
+                                conv_vector_amatvec=nsteps, **NONE_BANDED),
             f"launches on the main path: {main_counts}")
     vh = v.cpu().numpy()
     div = prob.Jc @ vh - prob.fp.ravel()
@@ -467,7 +650,7 @@ def main():
     # inner layout with f32 work: the dense apply and one refinement round
     # a step; one convection vector a step and three in the Heun bootstrap
     require(sb_counts == dict(vecmat=2 * nsteps, conv_vector=nsteps + 3,
-                              conv_vector_amatvec=0),
+                              conv_vector_amatvec=0, **NONE_BANDED),
             f"launches of the sbdf2 run: {sb_counts}")
     require(sb["ffflag"] is False and sb["v"].is_cuda, "sbdf2 run")
     # the inner layout gives the dense kernel another operand: the unpadded
@@ -538,8 +721,122 @@ def main():
         cnab_liftdrag_rel_err_v_vs_cpu_f64=rel(ld["v"], ld_ref["v"]),
         cnab_liftdrag_cpu_seconds=ld_cpu_s)
 
+    # -- 6. the user's default call: banded block-Schur, w-space ------------
+    dkw = dict(t0=T0, tE=TE, Nts=NTS, start_ssstokes=True,
+               save_every=SAVE_EVERY)          # no linsolver: 'auto'
+    schur = {}
+    for wr in (0, 1):
+        zero_counts()
+        t0 = time.time()
+        o = solve_nse(prob=prob, warm_refine=wr, **dkw)
+        torch.cuda.synchronize()
+        schur[wr] = (o, counts(), time.time() - t0)
+    o0, c0, _ = schur[0]
+    slv = o0["ops"].solver
+    require(isinstance(slv, SchurSaddleSolver)
+            and hasattr(o0["ops"], "full_schur"), "the default route at "
+            "8016 rows is the banded block-Schur solver, full layout")
+    for name, levels in (("Wb", 3), ("Xb", 2), ("Sinv", 3)):
+        st = getattr(slv, name)
+        require(st is not None and st.is_cuda and st.dtype == torch.bfloat16
+                and st.shape[1] == levels,
+                f"{name}: {levels} bf16 levels on the card")
+    require(tuple(o0["carry"]["v"].shape) == (prob.nv_full,)
+            and "ysol" in o0["carry"], "w-space carry")
+    for wr, (o, c, _) in schur.items():
+        # a loop step: one convection vector, the banded A, the solve (W,
+        # J, S^-1, X) and per refine round the residual (F, J^T, J) and a
+        # second solve; the start: 3 Heun bootstrap vectors and the AB2
+        # start value; the setup: none (host splu, W built by torch.bmm)
+        want = dict(vecmat=0, conv_vector=nsteps + 4, conv_vector_amatvec=0,
+                    banded_mv=nsteps * (1 + wr),
+                    rect_mv=nsteps * (1 + 3 * wr),
+                    rect_mv_levels=nsteps * 3 * (1 + wr))
+        require(c == want, f"launches of the Schur run, warm_refine={wr}: "
+                f"{c} != {want}")
+        require(o["ffflag"] is False and o["v"].is_cuda
+                and o["v"].dtype == torch.float64, "Schur run")
+        for k in ("v", "p", "vs", "ps"):
+            require(bool(torch.isfinite(o[k]).all()), f"{k} not finite")
+    zero_counts()
+    again = solve_nse(prob=prob, warm_refine=0, **dkw)
+    require(counts() == c0, "launches of the Schur rerun")
+    rerun_diff = rel(again["v"], o0["v"])
+    require(rerun_diff == 0.0 and torch.equal(again["v"], o0["v"])
+            and torch.equal(again["p"], o0["p"]),
+            f"two Schur runs on the card differ: {rerun_diff:.3e}")
+    del again
+    schur_rows = {}
+    for wr, (o, c, wall_s) in schur.items():
+        vh = o["v"].cpu().numpy()
+        div = prob.Jc @ vh - prob.fp.ravel()
+        div_rel = float(np.abs(div).max()
+                        / (abs(prob.Jc) @ np.abs(vh)).max())
+        require(div_rel <= 1e-6, f"Schur run, warm_refine={wr}: divergence "
+                f"residual {div_rel:.3e}")
+        e = {k: rel(o[k], ref[k]) for k in ("v", "p", "vs", "ps")}
+        # one refine round against the exact banded F holds the f32 floor;
+        # unrefined, W's 3e-3 truncation leaves its imprint on the
+        # increments (the JAX package's record: 8.9e-6 to 3.8e-5)
+        bar = 1e-6 if wr else 1e-4
+        require(e["v"] <= bar and e["vs"] <= bar,
+                f"Schur run, warm_refine={wr}, card vs CPU f64: {e}")
+        t = o["timing"]
+        schur_rows[wr] = dict(
+            launches=c, wall_seconds=wall_s, setup_seconds=t["setup_s"],
+            bootstrap_seconds=t["bootstrap_s"], loop_seconds=t["loop_s"],
+            steps_per_s=nsteps / t["loop_s"],
+            ms_per_step=1e3 * t["loop_s"] / nsteps,
+            divergence_residual_rel=div_rel, rel_err_vs_cpu_f64=e,
+            bar=bar)
+    # sbdf2 on the same route (inner layout: the solve unrefined, as in the
+    # JAX package), against its CPU f64 run of step 5
+    zero_counts()
+    sbs = solve_nse(prob=prob, **dict(skw, linsolver="schur"))
+    sbs_counts = counts()
+    want = dict(vecmat=0, conv_vector=nsteps + 3, conv_vector_amatvec=0,
+                banded_mv=0, rect_mv=nsteps, rect_mv_levels=3 * nsteps)
+    require(sbs_counts == want, f"launches of the Schur sbdf2 run: "
+            f"{sbs_counts} != {want}")
+    require(isinstance(sbs["ops"].solver, SchurSaddleSolver)
+            and sbs["ffflag"] is False, "Schur sbdf2 run")
+    sbs_errs = {k: rel(sbs[k], sb_ref[k]) for k in ("v", "p", "vs", "ps")}
+    require(sbs_errs["v"] <= 1e-4 and sbs_errs["vs"] <= 1e-4,
+            f"Schur sbdf2, card vs CPU f64: {sbs_errs}")
+    say(phase="schur_path", problem="cylinderwake level 1, Re 100",
+        call="solve_nse(prob, t0, tE, Nts=300, start_ssstokes=True, "
+             "save_every=60, warm_refine=0|1)",
+        steps=nsteps, solver=dict(
+            bs=slv._bs, nblk=slv._nblk, ww=slv._ww, wx=slv._wx, ncg=slv.ncg,
+            Wb=list(slv.Wb.shape), Xb=list(slv.Xb.shape),
+            Sinv=list(slv.Sinv.shape), Jb=list(slv.Jb.shape),
+            JTb=list(slv.JTb.shape), Eblk=list(slv.Eblk.shape)),
+        warm_refine_0=schur_rows[0], warm_refine_1=schur_rows[1],
+        rel_diff_v_to_first_run=rerun_diff,
+        sbdf2=dict(launches=sbs_counts, bar=1e-4,
+                   loop_seconds=sbs["timing"]["loop_s"],
+                   setup_seconds=sbs["timing"]["setup_s"],
+                   ms_per_step=1e3 * sbs["timing"]["loop_s"] / nsteps,
+                   rel_err_vs_cpu_f64=sbs_errs))
+    del sbs
+
     # -- the kernels table and the verdict ----------------------------------
     main_chk = checks[0]
+
+    def band_row(name, operand, launches, replaces):
+        chk = next(c for c in band_checks
+                   if c["name"] == name and c["operand"] == operand)
+        return dict(
+            name=name, route="cuda",
+            source="dolfin_navier_scipy_tpu_torch/csrc/bandmv.cu",
+            replaces=replaces, launches=launches, operand=operand,
+            shape=chk["shape"], max_abs_err=chk["max_abs_err"],
+            ms=chk["ms"], plain_ms=chk["plain_ms"],
+            bound_ms=chk["bound_ms"], bound_by=chk["bound_by"],
+            library_ms=chk["library_ms"], library=chk["library"],
+            eager_ms=chk["eager_ms"],
+            device_kernels_per_call=chk["device_kernels_per_call"],
+            design=BAND_DESIGN)
 
     def conv_row(name, form, launches):
         chk = next(c for c in conv_checks
@@ -594,7 +891,15 @@ def main():
         conv_row("convection", f"amatvec_sym_{sym_main}",
                  main_counts["conv_vector_amatvec"]),
         conv_row("convection_vector", "vector",
-                 main_counts["conv_vector"])])
+                 main_counts["conv_vector"]),
+        # the banded kernels, with the launches of the default call
+        # (warm_refine=0) and their largest operand on that route
+        band_row("banded_mv", "E band (explicit A)", c0["banded_mv"],
+                 "dolfin_navier_scipy_tpu/solve/sadpnt.py:782"),
+        band_row("rect_mv", "J", c0["rect_mv"],
+                 "dolfin_navier_scipy_tpu/solve/sadpnt.py:1021"),
+        band_row("rect_mv_levels", "W, 3 bf16 levels", c0["rect_mv_levels"],
+                 "dolfin_navier_scipy_tpu/solve/sadpnt.py:1075")])
     say(ok=True, device=dict(platform="gpu",
                              kind=torch.cuda.get_device_name(0),
                              count=torch.cuda.device_count()))

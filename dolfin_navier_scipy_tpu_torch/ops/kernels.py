@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch versions.
 
-Two kernels:
+Three sources:
 
 * the dense inverse apply ``y = x @ KT`` (``csrc/vecmat.cu``), the
   counterpart of the JAX package's Pallas kernel
@@ -13,6 +13,10 @@ Two kernels:
   :func:`conv_vector_amatvec`.  It is the kernel the JAX package probed
   for (``tools/probe_pallas_gather.py``: a gather inside a kernel body)
   and had to leave to XLA.
+* the banded and static-window block matvecs of the block-Schur solver
+  (``csrc/bandmv.cu``) behind :func:`banded_mv`, :func:`rect_mv` and
+  :func:`rect_mv_levels`: the JAX package's XLA einsums ``_banded_mv``,
+  ``_rect_mv``, ``_rect_mv_pair`` and ``SchurSaddleSolver._sapply``.
 
 Build and binding: each ``csrc/*.cu`` is compiled at first use by ``nvcc``
 for ``sm_90a`` into a shared library with a plain C interface (under
@@ -330,6 +334,230 @@ def vecmat(x, KT):
 
 
 vecmat.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# banded and static-window block matvecs of the block-Schur solver
+# ---------------------------------------------------------------------------
+
+def band_operand(shape, dtype=torch.float32, device=None):
+    """Zeroed storage for a block operand of :func:`banded_mv`,
+    :func:`rect_mv` or :func:`rect_mv_levels` (``(nblk, bs, w)`` or
+    ``(nblk, L, bs, w)``): the last dimension padded to whole 16-byte
+    vectors, so that every row, level and block starts 16-byte aligned.
+    Returns the ``shape`` view (the padding is zero and never read)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    *lead, w = shape
+    return torch.zeros((*lead, vecmat_ld(w, itemsize)), dtype=dtype,
+                       device=device)[..., :w]
+
+
+def as_band_operand(A, dtype=None, device=None):
+    """``A`` copied, cast and moved into :func:`band_operand` storage."""
+    A = torch.as_tensor(A)
+    out = band_operand(tuple(A.shape), dtype or A.dtype,
+                       A.device if device is None else device)
+    return out.copy_(A)
+
+
+def _windows(x, base, w):
+    """``(nblk, w)``: ``x[base[k] + j]``, zero outside ``[0, len(x))``."""
+    idx = base.to(device=x.device, dtype=torch.int64)[:, None] + \
+        torch.arange(w, device=x.device)
+    inside = (idx >= 0) & (idx < x.shape[0])
+    return torch.where(inside, x[idx.clamp(0, max(x.shape[0] - 1, 0))],
+                       x.new_zeros(()))
+
+
+def _levels_ref(stack, base, x, nrows):
+    """The plain product of the three forms: ``stack (nblk, L, bs, w)``;
+    window gather, one einsum in the promoted type, level dots added in
+    order, rows folded and cut at ``nrows``."""
+    dt = torch.promote_types(stack.dtype, x.dtype)
+    xw = _windows(x, base, stack.shape[-1]).to(dt)
+    y2 = torch.einsum("klij,kj->lki", stack.to(dt), xw)
+    y = y2[0]
+    for lev in y2[1:]:
+        y = y + lev
+    return y.reshape(-1)[:nrows]
+
+
+def banded_mv_ref(blocks, x):
+    """Plain PyTorch version of :func:`banded_mv`."""
+    nblk, bs = blocks.shape[:2]
+    base = (torch.arange(nblk) - 1) * bs
+    return _levels_ref(blocks[:, None], base, x, x.shape[0])
+
+
+def rect_mv_ref(blocks, bases, x, nrows):
+    """Plain PyTorch version of :func:`rect_mv`."""
+    return _levels_ref(blocks[:, None], torch.as_tensor(bases), x, nrows)
+
+
+def rect_mv_levels_ref(stack, bases, x, nrows, hi_only=False):
+    """Plain PyTorch version of :func:`rect_mv_levels`."""
+    if hi_only:
+        stack = stack[:, :1]
+    return _levels_ref(stack, torch.as_tensor(bases), x, nrows)
+
+
+def pair_stack(blocks, parts=2):
+    """Row-stacked bf16 levels of f32 blocks ``(nblk, bs, w)`` ->
+    ``(nblk, parts, bs, w)`` in :func:`band_operand` storage on the blocks'
+    device: level 0 is ``bf16(B)``, each next level the bf16 rounding of
+    what the levels before leave (the last takes the whole remainder), so
+    that their f32 sum is ``B`` to ~8 more bits a level.  (The JAX
+    package's ``_pair_stack`` fences each rounding against XLA's
+    excess-precision folding; eager torch rounds where it is told.)"""
+    B = blocks.to(torch.float32)
+    out = band_operand((B.shape[0], parts, *B.shape[1:]), torch.bfloat16,
+                       B.device)
+    rem = B
+    for p in range(parts - 1):
+        lev = rem.to(torch.bfloat16)
+        out[:, p] = lev
+        rem = rem - lev.to(torch.float32)
+    out[:, parts - 1] = rem.to(torch.bfloat16)
+    return out
+
+
+def _bandmv_lib():
+    lib = _load("bandmv")
+    if not getattr(lib, "_dns_typed", False):
+        ptr, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.bandmv_f32x.argtypes = ([ptr, i, i, ll, ll, ll, ptr, ptr, ptr]
+                                    + [i] * 4 + [ll, ptr])
+        lib.bandmv_f32x.restype = i
+        lib.bandmv_error_string.argtypes = [i]
+        lib.bandmv_error_string.restype = ctypes.c_char_p
+        lib._dns_typed = True
+    return lib
+
+
+_BAND_STORAGE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _bandmv_launch(name, stack, bases, x, nrows):
+    """Launch ``csrc/bandmv.cu`` on ``stack (nblk, L, bs, w)`` (``bases``:
+    int32 window starts on the device, or None for the banded form) on the
+    current stream; returns ``y (nrows,)`` f32."""
+    if stack.dtype not in _BAND_STORAGE or x.dtype != torch.float32:
+        raise TypeError(
+            f"{name} kernel takes f32 or bf16 blocks under an f32 vector, "
+            f"not {stack.dtype} blocks under {x.dtype}")
+    if x.device != stack.device:
+        raise ValueError(f"{name}: x is on {x.device}, the blocks on "
+                         f"{stack.device}")
+    nblk, levels, bs, w = stack.shape
+    item = stack.element_size()
+    sblk, slev, ld, unit = stack.stride()
+    if (unit != 1 or ld < w or stack.data_ptr() % 16
+            or any((s * item) % 16 for s in (sblk, slev, ld))):
+        raise ValueError(
+            f"{name} kernel needs 16-byte aligned rows, levels and blocks "
+            f"with unit column stride, got strides {stack.stride()} of "
+            f"{stack.dtype}: allocate the operand once with "
+            f"ops.kernels.band_operand / as_band_operand (it is never copied "
+            f"here)")
+    if not 1 <= levels <= 3 or nblk * bs < nrows or nrows <= 0:
+        raise ValueError(f"{name} kernel: {levels} levels of {nblk} blocks "
+                         f"of {bs} rows for {nrows} output rows")
+    if bases is not None and (
+            bases.dtype != torch.int32 or bases.device != stack.device
+            or bases.shape != (nblk,) or not bases.is_contiguous()):
+        raise ValueError(f"{name} kernel: bases must be {nblk} contiguous "
+                         f"int32 on {stack.device}, got {bases.dtype} "
+                         f"{tuple(bases.shape)} on {bases.device}")
+    x = x.contiguous()
+    lib = _bandmv_lib()
+    dev = stack.get_device()
+    y = torch.empty(nrows, dtype=torch.float32, device=stack.device)
+    with _on_device(dev):
+        err = lib.bandmv_f32x(
+            stack.data_ptr(), _BAND_STORAGE[stack.dtype], levels, sblk,
+            slev if levels > 1 else 0, ld,
+            None if bases is None else bases.data_ptr(), x.data_ptr(),
+            y.data_ptr(), nblk, bs, w, x.shape[0], nrows, _raw_stream(dev))
+    if err != 0:
+        raise RuntimeError(
+            f"{name} kernel launch failed ({levels} x {tuple(stack.shape)} "
+            f"{stack.dtype}): {lib.bandmv_error_string(err).decode()}")
+    return y
+
+
+def banded_mv(blocks, x):
+    """Block-tridiagonal matvec ``y (n,) = F_perm @ x`` from the banded
+    blocks ``(nblk, bs, 3 bs)`` of :func:`..solve.sadpnt._build_banded`:
+    ``y[k bs + i] = sum_j B[k, i, j] x[(k-1) bs + j]`` with ``x`` read as
+    zero outside ``[0, n)`` (``n = len(x)``, no padding).  The JAX
+    package's ``_banded_mv``.
+
+    On a CUDA tensor this launches the hand-written kernel of
+    ``csrc/bandmv.cu`` (f32 blocks under an f32 ``x``, 16-byte aligned
+    rows: :func:`band_operand`; anything else raises) and counts it in
+    ``banded_mv.launches``; on a CPU tensor it is :func:`banded_mv_ref`
+    (an einsum in the promoted type: f32 blocks under f64 work stay f32
+    entries in f64 arithmetic)."""
+    nblk, bs, w3 = blocks.shape
+    if w3 != 3 * bs or x.dim() != 1 or nblk * bs < x.shape[0]:
+        raise ValueError(f"banded_mv: blocks {tuple(blocks.shape)} @ x "
+                         f"{tuple(x.shape)}")
+    if not x.is_cuda:
+        return banded_mv_ref(blocks, x)
+    y = _bandmv_launch("banded_mv", blocks[:, None], None, x, x.shape[0])
+    banded_mv.launches += 1
+    return y
+
+
+banded_mv.launches = 0
+
+
+def rect_mv(blocks, bases, x, nrows):
+    """Static-window rectangular matvec ``y (nrows,)`` with ``y[k bs + i] =
+    sum_j B[k, i, j] x[bases[k] + j]``, ``blocks (nblk, bs, w)``, ``x``
+    read as zero past its length (the JAX package's ``_rect_mv``, whose
+    callers zero-pad ``x``).  ``bases``: one window start per block — an
+    int32 tensor on the blocks' device for the kernel.
+
+    On a CUDA tensor this launches ``csrc/bandmv.cu`` (f32 blocks, f32
+    ``x``, :func:`band_operand` storage) and counts it in
+    ``rect_mv.launches``; on a CPU tensor it is :func:`rect_mv_ref`."""
+    if blocks.dim() != 3 or x.dim() != 1:
+        raise ValueError(f"rect_mv: blocks {tuple(blocks.shape)} @ x "
+                         f"{tuple(x.shape)}")
+    if not x.is_cuda:
+        return rect_mv_ref(blocks, bases, x, nrows)
+    y = _bandmv_launch("rect_mv", blocks[:, None], bases, x, nrows)
+    rect_mv.launches += 1
+    return y
+
+
+rect_mv.launches = 0
+
+
+def rect_mv_levels(stack, bases, x, nrows, hi_only=False):
+    """:func:`rect_mv` over ``L`` row-stacked levels ``stack (nblk, L, bs,
+    w)`` (bf16 levels of :func:`pair_stack`, or f32 ones): the ``L`` row
+    dots added in level order, f32 accumulation; ``hi_only`` reads level 0
+    alone.  The JAX package's ``_rect_mv_pair`` and, with one block of the
+    whole ``S^-1`` stack (base 0), ``SchurSaddleSolver._sapply``.
+
+    On a CUDA tensor this launches ``csrc/bandmv.cu`` (one to three f32 or
+    bf16 levels under an f32 ``x``, :func:`band_operand` storage) and
+    counts it in ``rect_mv_levels.launches``; on a CPU tensor it is
+    :func:`rect_mv_levels_ref`."""
+    if stack.dim() != 4 or x.dim() != 1:
+        raise ValueError(f"rect_mv_levels: stack {tuple(stack.shape)} @ x "
+                         f"{tuple(x.shape)}")
+    if not x.is_cuda:
+        return rect_mv_levels_ref(stack, bases, x, nrows, hi_only)
+    y = _bandmv_launch("rect_mv_levels", stack[:, :1] if hi_only else stack,
+                       bases, x, nrows)
+    rect_mv_levels.launches += 1
+    return y
+
+
+rect_mv_levels.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -2,6 +2,8 @@
 
 from .sadpnt import (  # noqa: F401
     InverseSaddleSolver,
+    SchurSaddleSolver,
+    jacobi_pcg,
     host_saddle_factorized,
     solve_sadpnt_host,
 )

@@ -10,11 +10,11 @@ kwargs-driven entry point (stokes_navier_utils.py:548-1599):
 * trajectories returned in device memory instead of the reference's
   per-step ``.npy`` files (``dictofvelstrs``, :1057-1070).
 
-Ported so far: both integrators on the dense solver, with time-dependent
-right-hand sides, in-loop observables (``outfunc``/``out_bundle``, CNAB)
-and ``resume_carry`` passed through to them.  Closed-loop feedback,
-checkpoints, Newton-in-time, Krylov solves and Paraview output raise
-``NotImplementedError``.
+Ported so far: both integrators on the dense and the banded block-Schur
+solver, with time-dependent right-hand sides, in-loop observables
+(``outfunc``/``out_bundle``, CNAB) and ``resume_carry`` passed through to
+them.  Closed-loop feedback, checkpoints, Newton-in-time, Krylov solves and
+Paraview output raise ``NotImplementedError``.
 """
 
 import numpy as np
@@ -61,9 +61,9 @@ def solve_nse(
 
     Key kwargs beyond the reference's (stokes_navier_utils.py:548-741):
 
-    * ``linsolver`` ('auto' | 'dense') — per-step saddle solver choice
-      ('schur' and 'krylov' are not ported yet; 'auto' resolves to 'schur'
-      above 6000 condensed rows, so larger problems pass 'dense'),
+    * ``linsolver`` ('auto' | 'dense' | 'schur') — per-step saddle solver:
+      the dense inverse, or the banded block-Schur solver ('auto': dense
+      up to 6000 condensed rows, Schur above; 'krylov' is not ported yet),
     * ``state_layout`` ('auto' | 'full' | 'inner') — the full-dof fast
       layout for plain runs (see timeint.build_full_layout),
     * ``precision`` ('accurate' | 'fast') — f64 vs f32 element kernels on
@@ -72,7 +72,9 @@ def solve_nse(
     * ``device`` — where the time loop runs; ``None`` is the CUDA card,
     * further keywords go to the integrator: ``outfunc``/``out_bundle``
       (per-step observables of ``cnab``, e.g.
-      models/functionals.make_inscan_liftdrag) and ``resume_carry``.
+      models/functionals.make_inscan_liftdrag), ``resume_carry``, and for
+      ``cnab`` on the Schur solver ``warm_refine`` (residual rounds a step)
+      and ``winv`` (its truncated inverse W; default by size).
 
     Returns a dict with final ``(v, p)`` (inner dofs / physical pressure,
     device tensors), the blow-up flag, and the decimated trajectory.

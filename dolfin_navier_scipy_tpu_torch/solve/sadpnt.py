@@ -5,17 +5,24 @@ Solves
 
     [[A, J^T], [J, 0]] [v; q] = [rhs_v; rhs_p]
 
-Backends of this slice (reusable across time steps — the property that
-makes the reference's CNAB loop fast, time_int_utils.py:89-91):
+Backends (reusable across time steps — the property that makes the
+reference's CNAB loop fast, time_int_utils.py:89-91):
 
 * :class:`InverseSaddleSolver` — explicit dense inverse, applied by the
   hand-written kernel :func:`..ops.kernels.vecmat`; optional residual
   refinement on the sparse/element operators.
+* :class:`SchurSaddleSolver` — the banded block-Schur solver with host
+  (``splu``) setup: RCM-banded ``F``, static-window ``J``/``J^T``, banded
+  ``X = F^-1 J^T``, dense ``S^-1`` and the truncated inverse ``W ~ F^-1``;
+  every per-step application is one of the hand-written kernels
+  :func:`..ops.kernels.banded_mv`, :func:`..ops.kernels.rect_mv`,
+  :func:`..ops.kernels.rect_mv_levels`.
 * ``host`` — scipy SuperLU (:func:`host_saddle_factorized`), the
   correctness oracle and the one-off setup solver.
 
-The LU, Sherman-Morrison-Woodbury and banded block-Schur solvers of the
-JAX package are not ported yet.
+Not ported yet (raise ``NotImplementedError``): the device-built Schur
+factors (``setup="device"``), the non-banded (element-operator) Schur path,
+the LU and Sherman-Morrison-Woodbury solvers.
 
 Sign convention: the raw saddle solution ``q`` relates to the physical
 pressure as ``p = -q`` (the reference flips it too:
@@ -29,7 +36,9 @@ import scipy.sparse.linalg as spsla
 import torch
 
 from ..device import resolve_device
-from ..ops.kernels import as_vecmat_operand, vecmat
+from ..ops.kernels import (
+    as_band_operand, as_vecmat_operand, band_operand, banded_mv, pair_stack,
+    rect_mv, rect_mv_levels, vecmat)
 from ..ops.sparse import ell_from_scipy_fast
 
 
@@ -135,6 +144,615 @@ class InverseSaddleSolver:
             r = rhs - self._K_matvec(x)
             x = x + self._apply_inv(r).to(self.dtype)
         return x
+
+
+# ---------------------------------------------------------------------------
+# the banded block-Schur solver
+# ---------------------------------------------------------------------------
+
+def jacobi_pcg(fmv, dinv, b, niter, x0=None):
+    """Jacobi-preconditioned CG with a FIXED iteration count (no host
+    read-back in the loop: the division guards replace the convergence
+    test).  The carry stays in ``b``'s dtype whatever ``fmv`` computes in;
+    on the card ``fmv`` is a hand-written matvec (:func:`..ops.kernels.
+    banded_mv` in the banded solver)."""
+    if x0 is None:
+        x = torch.zeros_like(b)
+        r = b
+    else:
+        x = x0.to(b.dtype)
+        r = b - fmv(x).to(b.dtype)
+    z = (dinv * r).to(b.dtype)
+    p = z
+    rz = r @ z
+    for _ in range(niter):
+        Ap = fmv(p).to(b.dtype)
+        pAp = p @ Ap
+        alpha = rz / torch.where(pAp == 0, 1.0, pAp)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = (dinv * r).to(b.dtype)
+        rz_n = r @ z
+        beta = rz_n / torch.where(rz == 0, 1.0, rz)
+        p = z + beta * p
+        rz = rz_n
+    return x
+
+
+def _build_banded(F, lane=128):
+    """RCM-banded dense-block form of a sparse matrix (host, one-time).
+
+    Returns ``(blocks (nblk, bs, 3bs) f32, perm, bs, nblk)`` with
+    ``F[perm][:, perm]`` contained in the block tridiagonal of block size
+    ``bs >= bandwidth``, rounded up to ``lane``.  The matvec then needs no
+    gather: neighbours are contiguous block shifts (:func:`..ops.kernels.
+    banded_mv`).  Memory is O(n 3 bs) instead of O(nnz); at 2D FEM
+    bandwidths that is tens to hundreds of MB streamed at the memory rate.
+    ``lane=128`` keeps the JAX package's blocks (a Hopper choice is a
+    measurement still to make)."""
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    Fc = sps.csr_matrix(F)
+    n = Fc.shape[0]
+    perm = np.asarray(reverse_cuthill_mckee(Fc, symmetric_mode=True))
+    Fp = sps.csr_matrix(Fc[perm][:, perm])
+    co = Fp.tocoo()
+    bw = int(np.abs(co.row - co.col).max()) if co.nnz else 1
+    bs = max(lane, int(np.ceil(bw / lane)) * lane)
+    nblk = max(1, int(np.ceil(n / bs)))
+    return _fold_banded_blocks(Fp, n, bs, nblk), perm, bs, nblk
+
+
+def _banded_bandwidth_gb(F, lane=128):
+    """Estimated band storage (GB) of :func:`_build_banded` without folding
+    the blocks — the RCM pass only; gates the banded mode (3D RCM
+    bandwidths grow like n^(2/3) and would blow the block-tridiagonal
+    storage past device memory)."""
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    Fc = sps.csr_matrix(F)
+    n = Fc.shape[0]
+    perm = np.asarray(reverse_cuthill_mckee(Fc, symmetric_mode=True))
+    Fp = sps.coo_matrix(Fc[perm][:, perm])
+    bw = int(np.abs(Fp.row - Fp.col).max()) if Fp.nnz else 1
+    bs = max(lane, int(np.ceil(bw / lane)) * lane)
+    nblk = max(1, int(np.ceil(n / bs)))
+    return nblk * bs * 3 * bs * 4 / 1e9
+
+
+def _fold_banded_blocks(Fp, n, bs, nblk):
+    """Fold an (already permuted) sparse matrix into the block-tridiagonal
+    dense layout ``(nblk, bs, 3bs)`` f32 (f32 whatever the work type: the
+    f64 work path promotes in the product).  Entries outside the window
+    (|row - col| > bs) would be dropped — callers guarantee the
+    bandwidth."""
+    blocks = np.zeros((nblk, bs, 3 * bs), np.float32)
+    for k in range(nblk):
+        r0, c0 = k * bs, (k - 1) * bs
+        rows = slice(r0, min(r0 + bs, n))
+        cols = slice(max(c0, 0), min(c0 + 3 * bs, n))
+        sub = np.asarray(Fp[rows, cols].todense(), np.float32)
+        blocks[k, : sub.shape[0],
+               max(c0, 0) - c0: max(c0, 0) - c0 + sub.shape[1]] = sub
+    return blocks
+
+
+def _build_banded_rect(A, row_order, col_order, bs_r, lane=128):
+    """Static-window dense-block form of a RECTANGULAR sparse matrix.
+
+    Under locality-consistent row/column orders, row block ``k`` of
+    ``A[row_order][:, col_order]`` touches one contiguous column window:
+    store ``blocks (nblk, bs_r, w)`` f32 and each block's window start
+    (:func:`..ops.kernels.rect_mv`).  Returns ``(blocks, bases (tuple of
+    int), w, ncols_pad)``."""
+    Ap = sps.csr_matrix(sps.csr_matrix(A)[row_order][:, col_order])
+    nr, ncl = Ap.shape
+    nblk = max(1, (nr + bs_r - 1) // bs_r)
+    spans = []
+    for k in range(nblk):
+        sub = Ap[k * bs_r: min((k + 1) * bs_r, nr)].tocoo()
+        spans.append((int(sub.col.min()), int(sub.col.max()) + 1)
+                     if sub.nnz else (0, 1))
+    w = max(hi - lo for lo, hi in spans)
+    w = max(lane, int(np.ceil(w / lane)) * lane)
+    ncl_pad = max(ncl, w)
+    bases = []
+    blocks = np.zeros((nblk, bs_r, w), np.float32)
+    for k, (lo, hi) in enumerate(spans):
+        b = min(max(lo, 0), ncl_pad - w)
+        bases.append(int(b))
+        sub = np.asarray(
+            Ap[k * bs_r: min((k + 1) * bs_r, nr),
+               b: min(b + w, ncl)].todense(), np.float32)
+        blocks[k, : sub.shape[0], : sub.shape[1]] = sub
+    return blocks, tuple(bases), w, ncl_pad
+
+
+def _build_winv_banded(Bblk, dinv_perm, bs, nblk, nin, wbases, ww, niter):
+    """Localized banded build of the truncated inverse ``W ~ F^{-1}``
+    (static windows ``wbases``, width ``ww``) on ``Bblk``'s device.
+
+    ``F^{-1}`` decays exponentially off the diagonal, so each ``bs``-column
+    identity chunk is solved on a local window of ``ww + 4 bs`` rows by a
+    fixed-count Jacobi block-PCG whose operator is the block-tridiagonal
+    product of the local blocks (one ``torch.bmm`` per iteration, f32, TF32
+    off: a one-off setup product outside any kernel, as the JAX package
+    left it to XLA); the couplings leaving the local window are cut
+    (Dirichlet truncation, the same order as W's own band cut).  The
+    solution is folded into W's window layout; columns outside a row
+    block's window are dropped by a mask.  Returns ``W (nblk, bs, ww)``
+    f32 in :func:`..ops.kernels.band_operand` storage."""
+    dev = Bblk.device
+    f32 = torch.float32
+    nlocb = min(nblk, (ww + 4 * bs + bs - 1) // bs)
+    nloc = nlocb * bs
+    dpad = torch.zeros(nblk * bs, dtype=f32, device=dev)
+    dpad[:nin] = torch.as_tensor(np.asarray(dinv_perm, np.float32),
+                                 device=dev)
+    wb = torch.as_tensor(np.asarray(wbases, np.int64), device=dev)
+    W = band_operand((nblk, bs, ww), f32, dev)
+    ar = torch.arange(bs, device=dev)
+    zero = torch.zeros((1, bs, bs), dtype=f32, device=dev)
+    for kc in range(nblk):
+        kb0 = min(max(kc - (nlocb - 1) // 2, 0), nblk - nlocb)
+        blks = Bblk[kb0:kb0 + nlocb].to(f32).contiguous().clone()
+        # the local operator stays a principal submatrix of F (SPD)
+        blks[0, :, :bs] = 0.0
+        blks[nlocb - 1, :, 2 * bs:] = 0.0
+        dl = dpad[kb0 * bs: kb0 * bs + nloc][:, None]
+        gcol = kc * bs + ar
+        B = torch.zeros((nloc, bs), dtype=f32, device=dev)
+        B[(kc - kb0) * bs + ar, ar] = (gcol < nin).to(f32)
+
+        def fmv(P):
+            Pb = P.reshape(nlocb, bs, bs)
+            win = torch.cat([torch.cat([zero, Pb[:-1]]), Pb,
+                             torch.cat([Pb[1:], zero])], dim=1)
+            return torch.bmm(blks, win).reshape(nloc, bs)
+
+        X = torch.zeros_like(B)
+        R = B
+        Z = dl * R
+        P = Z
+        rz = (R * Z).sum(dim=0)
+        for _ in range(niter):
+            AP = fmv(P)
+            pAp = (P * AP).sum(dim=0)
+            alpha = rz / torch.where(pAp == 0, 1.0, pAp)
+            X = X + alpha[None, :] * P
+            R = R - alpha[None, :] * AP
+            Z = dl * R
+            rz_n = (R * Z).sum(dim=0)
+            beta = rz_n / torch.where(rz == 0, 1.0, rz)
+            P = Z + beta[None, :] * P
+            rz = rz_n
+        # X[t bs + i, c] = F^-1[(kb0+t) bs + i, kc bs + c] goes to
+        # W[kb0+t, i, kc bs + c - wbases[kb0+t]] where that is in [0, ww)
+        Xb3 = X.reshape(nlocb, bs, bs)
+        for t in range(nlocb):
+            j = gcol - wb[kb0 + t]
+            keep = (j >= 0) & (j < ww)
+            W[kb0 + t][:, j[keep]] += Xb3[t][:, keep]
+    return W
+
+
+def _build_winv_banded_subproc(Bblk_host, dinv_perm, bs, nblk, nin, wbases,
+                               ww, niter):
+    """The JAX package ran the W build in a throwaway process, around a TPU
+    runtime fault; here it is :func:`_build_winv_banded` on the host
+    blocks, in this process."""
+    return _build_winv_banded(torch.as_tensor(np.asarray(Bblk_host)),
+                              dinv_perm, bs, nblk, nin, wbases, ww, niter)
+
+
+def _cg_count(F, b, tol, Mdiag):
+    """Host Jacobi-CG iterations to ``tol`` from a zero start."""
+    it = [0]
+
+    def cb(_):
+        it[0] += 1
+
+    spsla.cg(F, b, rtol=tol, atol=0.0, maxiter=400, M=Mdiag, callback=cb)
+    return it[0]
+
+
+def _sinv_tri(hi, lo):
+    """Three bf16 levels of the f32 hi/lo pair of ``S^-1``: ``s1 = bf16(hi)``,
+    ``s2 = bf16((hi - s1) + lo)``, ``s3 = bf16(((hi - s1) - s2) + lo)``."""
+    s1 = hi.to(torch.bfloat16)
+    r1 = hi - s1.to(torch.float32)
+    s2 = (r1 + lo).to(torch.bfloat16)
+    r2 = (r1 - s2.to(torch.float32)) + lo
+    return s1, s2, r2.to(torch.bfloat16)
+
+
+def _schur_of_banded(Jp, xl, xbases, nv, npp):
+    """``S = J X`` (f64, host) for the banded ``X`` as stored: ``Jp`` the
+    pp-row / RCM-column ``J``, ``xl (nblk, bs, wx)`` the stored X blocks
+    summed in f64."""
+    nblk, bs, wx = xl.shape
+    Xd = np.zeros((nv, npp))
+    for kb, b in enumerate(xbases):
+        r0 = kb * bs
+        rows, cols = min(bs, nv - r0), min(wx, npp - b)
+        Xd[r0:r0 + rows, b:b + cols] = xl[kb, :rows, :cols]
+    return np.asarray(Jp @ Xd)
+
+
+class SchurSaddleSolver:
+    """Block-Schur saddle solver for ``[[F, J^T],[J, 0]]`` with SPD ``F = M
+    + theta dt A`` (mass-dominated at CFL-scale dt), banded mode with host
+    setup — the JAX package's default route above 6000 condensed rows.
+
+    * setup (host, seconds): RCM order ``perm`` of ``F`` and the pressure
+      order ``pp`` (rows of ``J`` sorted by the mean RCM position of their
+      couplings), banded ``F`` (``Bblk``, and ``Eblk`` for ``band_extra``),
+      static-window ``J`` / ``J^T`` (``Jb``, ``JTb``), one ``splu(F)`` for
+      ``X = F^{-1} J^T`` (stored banded, ``Xb``) and ``S = J X``, the dense
+      ``S^{-1}`` (f32 hi/lo pair under f32 work), and where it pays the
+      truncated inverse ``W ~ F^{-1}`` (``Wb``) built on the device.  On
+      the card (``lowbit``) W, X and ``S^{-1}`` are stored as 3, 2 and 3
+      row-stacked bf16 levels (:func:`..ops.kernels.pair_stack`), and S is
+      then formed from the stored X (the JAX package: from the exact X),
+      so that an unrefined solve keeps ``J v = g`` to f32 grade.
+    * per solve, all in permuted space: ``y = W b`` (or a fixed-count
+      :func:`jacobi_pcg` on the banded F), ``q = S^{-1}(J y - g)``, ``v = y
+      - X q``, then ``refine`` residual rounds against the exact banded F —
+      each application one launch of :func:`..ops.kernels.banded_mv`,
+      :func:`..ops.kernels.rect_mv` or :func:`..ops.kernels.rect_mv_levels`.
+
+    Keywords and their defaults are the JAX package's; where that package
+    read an environment variable, this one takes a keyword and reads none:
+    ``winv`` (None: W when ``nv > 5000`` or the F band is over 120 MB; never
+    on the CPU above nv 4000), ``wtol`` (3e-3, W's truncation), ``xband_k``
+    (4, X's window floor in blocks), ``banded_maxgb`` (3) and
+    ``winv_maxgb`` (4), ``lowbit`` ('auto': on a CUDA device).  The
+    cost-model half of the JAX package's banded gate waits for a
+    measurement on the card: ``banded="auto"`` takes the banded form
+    whenever its band fits ``banded_maxgb``; ``index_nvals`` is accepted
+    for it and not read.
+
+    Not ported (``NotImplementedError``): ``setup="device"`` (which 'auto'
+    picks on the card at nv > 12000 or np > 1500) and the non-banded
+    element-operator path.
+    """
+
+    def __init__(self, coeff=None, jmat=None, jmatT=None, res_ops=None,
+                 dtype=None, ncg=None, cg_tol=None, refine=None,
+                 full_map=None, setup="auto", banded="auto",
+                 band_extra=None, index_nvals=None, winv=None,
+                 lowbit="auto", wtol=3e-3, xband_k=4, banded_maxgb=3.0,
+                 winv_maxgb=4.0, device=None):
+        device = resolve_device(device)
+        self.device = device
+        dtype = dtype or torch.float32
+        self.dtype = dtype
+        self.res_ops = res_ops
+        F = sps.csc_matrix(coeff)
+        J = sps.csr_matrix(jmat)
+        jT = sps.csc_matrix(J.T if jmatT is None else jmatT)
+        nv, npp = F.shape[0], J.shape[0]
+        self.nv, self.np = nv, npp
+        on_card = device.type == "cuda"
+
+        dv = F.diagonal()
+        Mdiag = sps.diags(1.0 / dv)
+        if ncg is None:
+            # host Jacobi-PCG iterations to the work-precision tolerance,
+            # counted once and frozen (the loop's fixed count)
+            if cg_tol is None:
+                cg_tol = 1e-7 if dtype == torch.float32 else 1e-13
+            b = np.random.default_rng(0).standard_normal(nv)
+            ncg = _cg_count(F, b, cg_tol, Mdiag) + 3
+        self.ncg = int(ncg)
+
+        if setup == "auto":
+            setup = ("device" if on_card and npp <= 16000
+                     and (nv > 12000 or npp > 1500) else "host")
+        if setup == "device":
+            raise NotImplementedError(
+                "SchurSaddleSolver(setup='device'): the block-Schur factors "
+                "built on the device (block PCG, staged inverse) are not "
+                "ported yet (ROADMAP A5); setup='auto' picks them on the "
+                "card above 12000 velocity or 1500 pressure rows")
+        if setup != "host":
+            raise ValueError(f"setup {setup!r}")
+        if banded == "auto":
+            banded = _banded_bandwidth_gb(F) <= banded_maxgb
+        if not banded:
+            raise NotImplementedError(
+                "SchurSaddleSolver: the non-banded (element-operator) "
+                "block-Schur path is not ported yet (ROADMAP A5); the banded "
+                f"form needs its F band within banded_maxgb={banded_maxgb}")
+
+        # ---- banded forms, all in RCM-permuted velocity / pp pressure order
+        blocks, perm, bs, nblk = _build_banded(F)
+        pf = perm if full_map is None else np.asarray(full_map[0])[perm]
+        self.Bblk = as_band_operand(blocks, device=device)
+        self.Eblk = None
+        if band_extra is not None:
+            # the explicit operator of the conv/A split, in F's window (F =
+            # M + theta dt band_extra guarantees the sparsity)
+            Ep = sps.csr_matrix(sps.csr_matrix(band_extra)[perm][:, perm])
+            eco = Ep.tocoo()
+            if eco.nnz and int(np.abs(eco.row - eco.col).max()) > bs:
+                raise ValueError("band_extra exceeds F's band window")
+            self.Eblk = as_band_operand(
+                _fold_banded_blocks(Ep, nv, bs, nblk), device=device)
+        self.permf = torch.as_tensor(np.asarray(pf, np.int64), device=device)
+        self.dinv_b = torch.as_tensor((1.0 / dv)[perm]).to(device=device,
+                                                           dtype=dtype)
+        self._bs, self._nblk, self._nin = int(bs), int(nblk), nv
+        ipos = np.empty(nv, np.int64)
+        ipos[perm] = np.arange(nv)
+        Jcsr = sps.csr_matrix(J)
+        mpos = np.zeros(npp)
+        for i in range(npp):
+            s0, e0 = Jcsr.indptr[i], Jcsr.indptr[i + 1]
+            if e0 > s0:
+                mpos[i] = ipos[Jcsr.indices[s0:e0]].mean()
+        pp = np.argsort(mpos, kind="stable")
+        self.pidx = torch.as_tensor(pp.astype(np.int64), device=device)
+
+        def bases_t(bases):
+            return torch.as_tensor(np.asarray(bases, np.int32),
+                                   device=device)
+
+        bsp = 128
+        jb, jbases, wj, njpad = _build_banded_rect(J, pp, perm, bsp)
+        self.Jb = as_band_operand(jb, device=device)
+        self._bsp, self._nblkp = bsp, int(jb.shape[0])
+        self._wj, self._jbases, self._ncolpad_j = int(wj), jbases, int(njpad)
+        jtb, jtbases, wjt, njtpad = _build_banded_rect(jT, perm, pp, bs)
+        self.JTb = as_band_operand(jtb, device=device)
+        self._wjt, self._jtbases, self._ncolpad_jt = (
+            int(wjt), jtbases, int(njtpad))
+
+        # banded X: F^{-1} decays exponentially off the diagonal, so X = F^-1
+        # J^T is banded to the f32 floor within a few F bandwidths; the
+        # window is measured by probing a few exact columns with host CG
+        # (the JAX package's calls, in its order: the windows must match)
+        ncols_probe = min(8, npp)
+        pcols = np.unique(np.linspace(0, npp - 1, ncols_probe).astype(int))
+        jTc = sps.csc_matrix(jT)
+        hw = 0
+        for c in pcols:
+            col = np.asarray(jTc[:, int(pp[c])].todense()).ravel()
+            xc, _ = spsla.cg(F, col, rtol=1e-10, atol=0.0, maxiter=400,
+                             M=Mdiag)
+            xn = np.abs(xc[perm])
+            big = np.nonzero(xn > 1e-7 * xn.max())[0]
+            if len(big):
+                hw = max(hw, int(np.abs(big - mpos[pp[c]]).max()))
+        wx = (int(3 * hw) * npp // nv + wjt
+              + 2 * int(xband_k) * bs * npp // nv)
+        wx = min(int(np.ceil(wx / 128)) * 128, njtpad)
+        xbases = tuple(min(max(b + (wjt - wx) // 2, 0), njtpad - wx)
+                       for b in jtbases)
+        self._wx, self._xbases, self._ncolpad_x = int(wx), xbases, int(njtpad)
+
+        # the truncated inverse W ~ F^-1: ONE wide static-window matvec in
+        # place of the fixed-count PCG; window probed like X's
+        self._ww, self._ncolpad_w, self._wbases = 0, 0, ()
+        use_winv = ((nv > 5000 or nblk * bs * 3 * bs * 4 > 1.2e8)
+                    if winv is None else bool(winv))
+        if use_winv and not (device.type == "cpu" and nv > 4000):
+            rngw = np.random.default_rng(1)
+            hwf = 0
+            for j in rngw.choice(nv, min(8, nv), replace=False):
+                e = np.zeros(nv)
+                e[j] = 1.0
+                xc, _ = spsla.cg(F, e, rtol=1e-10, atol=0.0, maxiter=400,
+                                 M=Mdiag)
+                xn = np.abs(xc[perm])
+                big = np.nonzero(xn > wtol * xn.max())[0]
+                if len(big):
+                    hwf = max(hwf, int(np.abs(big - ipos[j]).max()))
+            ww = bs + 2 * int(np.ceil(1.3 * hwf))
+            ww = min(int(np.ceil(ww / 128)) * 128, max(nv, 128))
+            if nblk * bs * ww * 4 <= winv_maxgb * 1e9:
+                ncpw = max(nv, ww)
+                self._ww, self._ncolpad_w = int(ww), int(ncpw)
+                self._wbases = tuple(
+                    min(max(k * bs + (bs - ww) // 2, 0), ncpw - ww)
+                    for k in range(nblk))
+
+        # ---- host factors: one splu, X banded in permuted layout, S^-1
+        lu = spsla.splu(F)
+        X = lu.solve(np.asarray(sps.csc_matrix(jT)[:, pp].todense()))
+        S = np.asarray(sps.csr_matrix(J)[pp] @ X)
+        Xp = np.asarray(X, np.float32)[perm]
+        xb = np.zeros((nblk, bs, wx), np.float32)
+        for kb, b in enumerate(xbases):
+            r0 = kb * bs
+            sub = Xp[r0: min(r0 + bs, nv), b: min(b + wx, npp)]
+            xb[kb, : sub.shape[0], : sub.shape[1]] = sub
+        # f64 sums: the two are nearly equal, f32 noise would read as a
+        # spurious truncation
+        tot = float((Xp.astype(np.float64) ** 2).sum()) or 1.0
+        kept = float((xb.astype(np.float64) ** 2).sum())
+        trunc = np.sqrt(max(tot - kept, 0.0) / tot)
+        if trunc > 1e-4:
+            import warnings
+
+            warnings.warn(f"banded-X truncation {trunc:.1e} above 1e-4; "
+                          "raise xband_k")
+        if full_map is not None:
+            self.nv = full_map[1]
+        # low-bit factor storage on the card: the solve factors as bf16
+        # row-stacked levels (W and S^-1 three, X two), f32-grade in the
+        # full stack, half the f32 bytes in the hi rows alone; the residual
+        # operators (banded F, J, J^T, E) stay f32
+        use_lb = (on_card if lowbit == "auto" else bool(lowbit)) and \
+            dtype == torch.float32
+        if use_lb:
+            # S is formed from the X the solve applies (its two levels),
+            # not from the exact one: then J v = g holds to f32 grade in
+            # every solve (v = y - X S^-1 (J y - g)), where the exact S
+            # leaves a 16-bit divergence residual in every unrefined solve
+            # (2.5e-6 of |J||v| after 300 level-1 steps on the card; the JAX
+            # package forms S from the exact X)
+            xb = pair_stack(torch.from_numpy(xb), parts=2)
+            S = _schur_of_banded(sps.csr_matrix(J)[pp][:, perm],
+                                 xb.double().sum(1).numpy(), xbases, nv, npp)
+        self.Xb = as_band_operand(xb, device=device)
+        if on_card and npp > 3000:
+            # the f64 inverse on the card (the host's single-core inv takes
+            # minutes at these sizes)
+            Sinv64 = torch.linalg.inv(torch.as_tensor(S, device=device))
+        else:
+            Sinv64 = torch.as_tensor(np.linalg.inv(S), device=device)
+        if dtype == torch.float32:
+            hi = Sinv64.to(torch.float32)
+            lo = (Sinv64 - hi.to(torch.float64)).to(torch.float32)
+            levels = _sinv_tri(hi, lo) if use_lb else (hi, lo)
+        else:
+            levels = (Sinv64.to(dtype),)
+        del Sinv64
+        # S^-1 as one static window (block 0, base 0) of stacked levels
+        self.Sinv = band_operand((1, len(levels), npp, npp), levels[0].dtype,
+                                 device)
+        for i, lev in enumerate(levels):
+            self.Sinv[0, i] = lev
+        self._sbase = torch.zeros(1, dtype=torch.int32, device=device)
+
+        self.Wb = None
+        if self._ww:
+            # W columns need only the truncation tolerance
+            niter_w = _cg_count(F, np.random.default_rng(2).standard_normal(
+                nv), wtol, Mdiag) + 3
+            self.Wb = _build_winv_banded(self.Bblk, (1.0 / dv)[perm], bs,
+                                         nblk, nv, self._wbases, self._ww,
+                                         niter_w)
+
+        if use_lb and self.Wb is not None:
+            self.Wb = pair_stack(self.Wb, parts=3)
+        self._jbases_t, self._jtbases_t = bases_t(jbases), bases_t(jtbases)
+        self._xbases_t = bases_t(xbases)
+        self._wbases_t = bases_t(self._wbases) if self._ww else None
+
+        # refine stays 0 here: the integrators pass warm_refine per call
+        self.refine = int(refine or 0)
+
+    # ---- permuted banded core: every application one kernel launch ----
+
+    @property
+    def warm_size(self):
+        """Length of the warm-start vector ``y`` threaded through
+        :meth:`solve_warm` (the permuted inner size)."""
+        return self._nin
+
+    @property
+    def ncg_warm(self):
+        # warm starts begin O(dt) away in relative residual: two thirds of
+        # the cold count holds the same tolerance
+        return max(6, (2 * self.ncg) // 3)
+
+    def _fmv_perm(self, xp):
+        return banded_mv(self.Bblk, xp)
+
+    def band_extra_mv(self, xp):
+        """``band_extra_perm @ xp`` (permuted inner space) — the explicit
+        operator registered at construction (conv/A split)."""
+        return banded_mv(self.Eblk, xp.to(self.dtype))
+
+    def _jmv_perm(self, xp):
+        return rect_mv(self.Jb, self._jbases_t, xp, self.np)
+
+    def _jtmv_perm(self, qp):
+        return rect_mv(self.JTb, self._jtbases_t, qp, self._nin)
+
+    def _wapply(self, bp, hi_only=False):
+        """``W @ bp``; over the bf16 levels ``hi_only`` streams level 0
+        alone (the predictor of a refined solve)."""
+        if self.Wb.dim() == 4:
+            return rect_mv_levels(self.Wb, self._wbases_t, bp, self._nin,
+                                  hi_only)
+        return rect_mv(self.Wb, self._wbases_t, bp, self._nin)
+
+    def _xapply(self, q, hi_only=False):
+        if self.Xb.dim() == 4:
+            return rect_mv_levels(self.Xb, self._xbases_t, q, self._nin,
+                                  hi_only)
+        return rect_mv(self.Xb, self._xbases_t, q, self._nin)
+
+    def _sapply(self, g):
+        """``S^{-1} g``: the stacked levels, row dots added in level
+        order."""
+        return rect_mv_levels(self.Sinv, self._sbase, g, self.np)
+
+    def _solve_core_perm(self, bvp, bpp, y0p=None, niter=None, refine=0,
+                         niter_ref=None):
+        """All-permuted solve (RCM velocity order, pp pressure order).
+        Returns ``(v_perm, q_perm, y_perm)``.  With W the velocity-block
+        solves are one wide banded matvec (warm starts unused); the refine
+        residuals always use the exact banded F."""
+        # the predictor reads W/X's level 0 alone when a refine round
+        # follows; without W the PCG refine cannot absorb that rounding
+        hi_only = refine > 0 and self.Wb is not None
+        if self.Wb is not None:
+            y = self._wapply(bvp, hi_only=hi_only)
+        else:
+            y = jacobi_pcg(self._fmv_perm, self.dinv_b, bvp,
+                           niter or self.ncg, x0=y0p)
+        q = self._sapply(self._jmv_perm(y) - bpp)
+        v = y - self._xapply(q, hi_only=hi_only)
+        for _ in range(refine):
+            rv = bvp - (self._fmv_perm(v) + self._jtmv_perm(q))
+            rp = bpp - self._jmv_perm(v)
+            # the correction solved at O(1) scale
+            s = torch.sqrt(torch.mean(rv * rv) + torch.mean(rp * rp)
+                           + 1e-30)
+            if self.Wb is not None:
+                y2 = self._wapply(rv / s)
+            else:
+                y2 = jacobi_pcg(self._fmv_perm, self.dinv_b, rv / s,
+                                niter_ref or niter or self.ncg)
+            q2 = self._sapply(self._jmv_perm(y2) - rp / s)
+            v = v + s * (y2 - self._xapply(q2))
+            q = q + s * q2
+        return v, q, y
+
+    def solve_warm_wspace(self, rhs_w, bpp, y0, niter=None, refine=0,
+                          niter_ref=None):
+        """Warm solve for the PERMUTED state layout: ``rhs_w``'s first
+        ``_nin`` entries are the permuted inner rhs (a slice, no gather),
+        ``bpp`` is pp-ordered.  Returns ``(dv_perm (nin,), q_pp (np,),
+        y_perm)``."""
+        bvp = rhs_w[: self._nin].to(self.dtype)
+        return self._solve_core_perm(
+            bvp, bpp.to(self.dtype), y0p=y0, niter=niter or self.ncg_warm,
+            refine=refine, niter_ref=niter_ref)
+
+    def _perm_in(self, rhsv, rhsp):
+        bv = rhsv.reshape(-1).to(self.dtype)
+        bp = rhsp.reshape(-1).to(self.dtype)
+        return bv[self.permf], bp[self.pidx]
+
+    def _perm_out(self, v, q):
+        vo = torch.zeros(self.nv, dtype=v.dtype, device=v.device)
+        vo[self.permf] = v
+        qo = torch.zeros(self.np, dtype=q.dtype, device=q.device)
+        qo[self.pidx] = q
+        return torch.cat([vo, qo])
+
+    def solve(self, rhsv, rhsp):
+        """Raw stacked ``[v; q]`` like :class:`InverseSaddleSolver`."""
+        bvp, bpp = self._perm_in(rhsv, rhsp)
+        v, q, _ = self._solve_core_perm(bvp, bpp, refine=self.refine)
+        return self._perm_out(v, q)
+
+    def solve_warm(self, rhsv, rhsp, y0, niter=None, refine=0,
+                   niter_ref=None):
+        """Warm-started solve for time stepping: ``y0`` is the previous
+        velocity-block solve (or an extrapolation of the last two) in
+        permuted inner space (length :attr:`warm_size`); ``refine``
+        residual rounds follow.  Returns ``([v; q], y)``."""
+        bvp, bpp = self._perm_in(rhsv, rhsp)
+        v, q, y = self._solve_core_perm(
+            bvp, bpp, y0p=y0, niter=niter or self.ncg_warm, refine=refine,
+            niter_ref=niter_ref)
+        return self._perm_out(v, q), y
 
 
 # ---------------------------------------------------------------------------

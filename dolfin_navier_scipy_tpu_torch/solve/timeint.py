@@ -6,12 +6,16 @@ Re-designs the reference's ``time_int_utils`` (cnab :23-145, _onestepheun
 * the steps are solved in INCREMENT form: ``v_n = v_c + delta`` with a
   saddle solve for the O(dt)-sized increment, so f32 device kernels
   deliver f64-grade trajectories against an f64 carry,
-* the coefficient matrix ``[[M + theta dt A, J^T],[J, 0]]`` is inverted
+* the coefficient matrix ``[[M + theta dt A, J^T],[J, 0]]`` is factored
   ONCE (the property that makes the reference's CNAB loop fast,
-  time_int_utils.py:89-91) as an :class:`InverseSaddleSolver`; each step
-  applies the dense inverse with the hand-written ``vecmat`` kernel,
+  time_int_utils.py:89-91): up to 6000 condensed rows as an
+  :class:`InverseSaddleSolver` whose dense inverse each step applies with
+  the hand-written ``vecmat`` kernel, above that as the banded
+  :class:`SchurSaddleSolver` whose applications are the hand-written
+  ``banded_mv`` / ``rect_mv`` / ``rect_mv_levels`` kernels,
 * plain runs take the full-dof state layout (:func:`build_full_layout`)
-  — no per-step inner<->full index translation,
+  — no per-step inner<->full index translation; with the Schur solver the
+  state lives in its permuted order ("w-space", see :func:`cnab`),
 * the convection vector is re-assembled on the device each step by the
   :class:`ConvectionKernel`,
 * the loop is a Python loop over preallocated tensors; nothing in it
@@ -23,12 +27,13 @@ Sign conventions: ``nfc = -N(v)v`` goes to the rhs with plus signs
 (get_v_conv_conts ``semi_explicit``, stokes_navier_utils.py:103-107);
 the raw saddle pressure is rescaled ``p = -q/dt`` (time_int_utils.py:137).
 
-Ported so far, all on the dense solver: ``cnab`` (both state layouts),
-``sbdf2`` and ``semi_implicit_euler``, with time-dependent right-hand sides
+Ported so far: ``cnab`` (both state layouts; the w-space step of the
+block-Schur solver), ``sbdf2`` and ``semi_implicit_euler``, on the dense and
+the banded block-Schur solver, with time-dependent right-hand sides
 (``f_tdp``, ``g_tdp``, ``dynamic_rhs`` with memory), in-loop observables
 (``outfunc``/``out_bundle``) and exact resume (``resume_carry``).
-Dirichlet controls, static feedback (``umat``/``vmat``) and the block-Schur
-and Krylov solvers raise ``NotImplementedError``.
+Dirichlet controls, static feedback (``umat``/``vmat``) and the Krylov
+solver raise ``NotImplementedError``.
 """
 
 import time
@@ -40,7 +45,12 @@ import torch
 from ..device import resolve_device
 from ..ops.kernels import vecmat, vecmat_operand
 from ..ops.sparse import ell_from_scipy_fast
-from .sadpnt import InverseSaddleSolver, host_saddle_factorized
+from .sadpnt import (
+    InverseSaddleSolver, SchurSaddleSolver, host_saddle_factorized)
+
+# warm-started PCG iterations of the w-space step when the Schur solver has
+# no W (an extrapolated start is O(dt^2) from the solution)
+_NITER_WARM = 6
 
 
 class TimeIntOps:
@@ -61,21 +71,22 @@ class TimeIntOps:
 def _resolve_linsolver(prob, linsolver):
     if linsolver == "auto":
         # the dense inverse is O(n^2) memory and bytes per step; above
-        # this size the JAX package switches to its block-Schur solver
+        # this size the banded block-Schur solver streams O(n bs)
         n_all = len(prob.invinds) + prob.np_cond
         linsolver = "dense" if n_all <= 6000 else "schur"
-    if linsolver in ("schur", "krylov"):
+    if linsolver == "krylov":
         raise NotImplementedError(
-            f"linsolver={linsolver!r}: the banded block-Schur and Krylov "
-            "saddle solvers are not ported yet; pass linsolver='dense'")
-    if linsolver != "dense":
+            "linsolver='krylov': the Krylov saddle solver (matrix-free "
+            "GMRES with a SIMPLE-type block-Schur preconditioner) is not "
+            "ported yet (ROADMAP A8); use 'dense' or 'schur'")
+    if linsolver not in ("dense", "schur"):
         raise ValueError(f"linsolver {linsolver!r}")
     return linsolver
 
 
 def _build_ops(prob, dt, theta, inv_dtype=None, refine=None,
                precision="accurate", linsolver="auto", work_dtype=None,
-               device=None):
+               layout="inner", winv=None, device=None):
     """Operator/solver bundle for the INCREMENT-form integrators.
 
     The integrators advance ``v_n = v_c + delta`` with a saddle solve for
@@ -88,18 +99,58 @@ def _build_ops(prob, dt, theta, inv_dtype=None, refine=None,
       for the tests), f32 operators + the f32-stored inverse on the card
       — f64-grade trajectory via the increment form.
 
-    ``linsolver``: 'dense' (precomputed saddle inverse; O(n^2) memory) or
-    'auto' (dense up to 6000 condensed rows); 'schur' and 'krylov' are
-    not ported yet.
+    ``linsolver``: 'dense' (precomputed saddle inverse; O(n^2) memory),
+    'schur' (the banded block-Schur solver, :class:`SchurSaddleSolver`;
+    ``winv`` goes to it) or 'auto' (dense up to 6000 condensed rows);
+    'krylov' is not ported yet.  ``layout='full'`` builds the Schur solver
+    over the full velocity dof set for :func:`cnab`'s w-space step (with
+    ``A`` as its banded explicit operator); the bundle then carries the
+    full-dof matvecs as ``ops.full_schur``.
     """
     device = resolve_device(device)
-    _resolve_linsolver(prob, linsolver)
+    linsolver = _resolve_linsolver(prob, linsolver)
     if work_dtype is None:
         on_acc = device.type == "cuda"
         work_dtype = (torch.float64
                       if (precision != "fast" and not on_acc)
                       else torch.float32)
     coeff = sps.csr_matrix(prob.Mc + theta * dt * prob.Ac)
+    if linsolver == "schur":
+        # the element values of the index pipeline, for the banded gate's
+        # cost model (accepted by the solver, not read yet)
+        space = getattr(prob, "space", None)
+        nvals = (None if space is None
+                 else int(np.prod(space.vdofs_of_cells().shape)))
+        if layout == "full":
+            from ..ops.affine import AffineVectorOps
+
+            afful = AffineVectorOps.build(prob, work_dtype, full_dofs=True,
+                                          device=device)
+            solver = SchurSaddleSolver(
+                coeff, prob.Jc, prob.JTc, dtype=work_dtype,
+                full_map=(prob.invinds, prob.nv_full),
+                band_extra=prob.Ac, index_nvals=nvals, winv=winv,
+                device=device)
+            ops = TimeIntOps(solver=solver, M=afful.view("m"),
+                             A=afful.view("a"), dt=dt, theta=theta,
+                             wdtype=work_dtype, device=device)
+            ops.full_schur = afful
+            return ops
+        # the banded solver applies its own operators (the element views
+        # the JAX package hands it serve only its non-banded path)
+        solver = SchurSaddleSolver(coeff, prob.Jc, prob.JTc,
+                                   dtype=work_dtype, index_nvals=nvals,
+                                   winv=winv, device=device)
+        aff = prob.affine_ops(work_dtype, device=device)
+        if aff is not None:
+            Mop, Aop = aff.view("m"), aff.view("a")
+        else:
+            Mop = ell_from_scipy_fast(prob.Mc, dtype=work_dtype,
+                                      device=device)
+            Aop = ell_from_scipy_fast(prob.Ac, dtype=work_dtype,
+                                      device=device)
+        return TimeIntOps(solver=solver, M=Mop, A=Aop, dt=dt, theta=theta,
+                          wdtype=work_dtype, device=device)
     aff = prob.affine_ops(work_dtype, device=device)
     if refine is None:
         # increment solves need only relative-to-delta accuracy; one
@@ -409,6 +460,97 @@ def _timer(device):
     return lap, timing
 
 
+def _cnab_wspace(prob, ops, bs, v0, cn, dt, trange, save_every,
+                 check_ff_maxv, warm_refine, outfunc, out_bundle, device,
+                 lap):
+    """The CNAB loop of the banded Schur solver in its PERMUTED state
+    layout (w-space): ``v = [v_inner in RCM order; bc dofs]``, the pressure
+    in the solver's ``pp`` order.  The solver's rhs is then the slice
+    ``rhs[:nin]`` (no gather or scatter a step), the convection tables are
+    re-indexed once (``with_dof_map``), and the explicit diffusion is the
+    solver's banded ``A`` on the inner rows (conv/A split: the constant
+    ``A_ib v_bc`` coupling cancels against the bc fold of ``fv``).  The
+    warm start ``y`` of the solver is extrapolated from the last two.
+    Natural order comes back at exit, in the saved rows and for
+    ``outfunc``."""
+    slv = ops.solver
+    if slv.Eblk is None:
+        raise ValueError("the w-space step needs the solver's banded "
+                         "explicit operator (band_extra=prob.Ac)")
+    w = ops.wdtype
+    nf, nin_p = prob.nv_full, slv._nin
+    inv_np = np.asarray(prob.invinds)
+    wsrc = np.concatenate([
+        slv.permf.cpu().numpy(),
+        np.setdiff1d(np.arange(nf), inv_np)]).astype(np.int64)
+    iposx = np.full(nf + 1, nf, np.int64)
+    iposx[wsrc] = np.arange(nf)
+    pidx = slv.pidx
+    qpos = torch.argsort(pidx)                     # pp -> natural
+    wsrc_t = torch.as_tensor(wsrc, device=device)
+    kern_w = _kern(prob, "fast" if w == torch.float32 else "accurate",
+                   device).with_dof_map(torch.as_tensor(iposx))
+    fvf = np.zeros(nf)
+    fvf[inv_np] = np.asarray(prob.fv).ravel()
+    fv_use = torch.as_tensor(fvf).to(device=device, dtype=w)[wsrc_t]
+    fp_use = cn["fp"][pidx]
+    vf0 = _embed(cn, bs["v"])[wsrc_t]
+    # the AB2 "previous convection" entering the first step is the one at
+    # the ORIGINAL v0 (time_int_utils.py:78+:112)
+    nfc0 = (-kern_w.vector(_embed(cn, v0)[wsrc_t])).to(w)
+
+    def fstep(b, c, t):
+        vf, nfc_o = c["v"], c["nfc"]
+        # the element kernel carries the convection alone; the diffusion
+        # is one banded matvec in permuted inner space
+        nfc_c = (-b["kern"].vector(vf)).to(w)
+        av_i = slv.band_extra_mv(vf[:nin_p])
+        rhs = (0.5 * dt) * (3.0 * nfc_c - nfc_o) + dt * b["fv"]
+        rhs[:nin_p] += (-dt) * av_i.to(w)
+        rp = (b["fp"] - c["gp"]).to(w)
+        y0 = 2.0 * c["ysol"] - c["ysol_p"]
+        dvp, q_pp, y_n = slv.solve_warm_wspace(
+            rhs, rp, y0, niter=_NITER_WARM, refine=warm_refine)
+        v_n = vf.clone()
+        v_n[:nin_p] += dvp.to(vf.dtype)
+        p_n = (-q_pp / dt).to(c["p"].dtype)
+        flag = _blowup_flag(c["flag"], v_n, check_ff_maxv)
+        return dict(v=torch.where(flag, vf, v_n),
+                    p=torch.where(flag, c["p"], p_n),
+                    nfc=nfc_c, gp=b["fp"], flag=flag,
+                    ysol=torch.where(flag, c["ysol"], y_n),
+                    ysol_p=torch.where(flag, c["ysol_p"], c["ysol"]))
+
+    outfunc_use = outfunc
+    if outfunc is not None:
+        # outfunc reads NATURAL-ordered (v_full, p)
+        ip_t = torch.as_tensor(iposx[:nf], device=device)
+
+        def outfunc_use(b, cn_, cc, _of=outfunc):
+            return _of(b, dict(cn_, v=cn_["v"][ip_t], p=cn_["p"][qpos]),
+                       dict(cc, v=cc["v"][ip_t], p=cc["p"][qpos]))
+
+    fb = dict(fv=fv_use, kern=kern_w, fp=fp_use, ob=out_bundle)
+    ysz = slv.warm_size
+    carry = dict(v=vf0, p=bs["p"][pidx], nfc=nfc0, gp=bs["gp"][pidx],
+                 flag=torch.zeros((), dtype=torch.bool, device=device),
+                 ysol=torch.zeros(ysz, dtype=w, device=device),
+                 ysol_p=torch.zeros(ysz, dtype=w, device=device))
+    lap("setup_s")
+    carry, ys, tout, outs = _run_scan(fstep, fb, carry, trange[2:],
+                                      save_every, outfunc_use)
+    ffflag = bool(carry["flag"])
+    lap("loop_s")
+    # natural order, once at exit (and for each saved row)
+    vnat = torch.as_tensor(iposx[inv_np], device=device)
+    return dict(
+        v=carry["v"][vnat], p=carry["p"][qpos], ffflag=ffflag, times=tout,
+        vs=None if ys is None else ys[0][:, vnat],
+        ps=None if ys is None else ys[1][:, qpos],
+        outs=outs, out_times=np.asarray(trange[2:]),
+        bootstrap=bs, ops=ops, carry=carry)
+
+
 def cnab(trange=None, prob=None, inivel=None, inip=None,
          stokes_flow=False,
          f_tdp=None, g_tdp=None, dynamic_rhs=None, dynamic_rhs_memory=None,
@@ -431,7 +573,18 @@ def cnab(trange=None, prob=None, inivel=None, inip=None,
     ``outfunc(bundle, c_new, c_old)``: optional per-step observable
     evaluated INSIDE the loop (stacked into the returned ``outs``; see
     models/functionals.make_inscan_liftdrag); ``out_bundle`` is handed to
-    it as ``bundle['ob']``.
+    it as ``bundle['ob']``.  It sees the natural dof order whatever the
+    state layout.
+
+    ``linsolver`` 'auto' takes the dense inverse up to 6000 condensed rows
+    and the banded block-Schur solver above (``winv``: its truncated
+    inverse W, see :class:`SchurSaddleSolver`).  A plain Schur run keeps
+    its state in the solver's permuted order ("w-space": RCM-ordered inner
+    velocity, then the bc dofs; pressure in the solver's ``pp`` order): the
+    solver's right-hand side is a slice, the convection tables are
+    re-indexed once, the diffusion is the banded ``A`` of the solver, and
+    natural order is restored at exit and in the saved rows.
+    ``warm_refine`` residual rounds follow each of its solves.
 
     Returns a dict with the final ``(v, p)`` (inner dofs / physical
     pressure), the blow-up flag, the decimated trajectory
@@ -442,8 +595,7 @@ def cnab(trange=None, prob=None, inivel=None, inip=None,
     via ``resume_carry`` continues the AB2 recursion *exactly* (no
     re-bootstrap) with ``trange[0]`` being the carry's time point.
     """
-    _not_ported("cnab", controls=controls or None, umat=umat, vmat=vmat,
-                winv=winv)
+    _not_ported("cnab", controls=controls or None, umat=umat, vmat=vmat)
     device = resolve_device(device if ops is None or device is not None
                             else ops.device)
     trange = np.asarray(trange)
@@ -455,9 +607,12 @@ def cnab(trange=None, prob=None, inivel=None, inip=None,
     want_full = (state_layout != "inner" and plain_rhs and not stokes_flow
                  and resume_carry is None and hasattr(prob, "ctx"))
     if ops is None:
+        lin_res = _resolve_linsolver(prob, linsolver)
         ops = _build_ops(prob, dt, theta=0.5, inv_dtype=inv_dtype,
                          refine=refine, precision=precision,
-                         linsolver=_resolve_linsolver(prob, linsolver),
+                         linsolver=lin_res, winv=winv,
+                         layout=("full" if want_full and lin_res == "schur"
+                                 else "inner"),
                          device=device)
     nin = len(prob.invinds)
     cn = _consts(prob, device)
@@ -483,8 +638,17 @@ def cnab(trange=None, prob=None, inivel=None, inip=None,
     # full-dof state layout: the fast path for plain runs (no per-step
     # inner<->full index translation; see build_full_layout) — only when
     # the ops were built on the affine element kernels of THIS problem
-    use_full = (want_full and hasattr(ops.solver, "KinvT")
-                and getattr(ops.solver, "res_ops", None) is not None)
+    # (dense) or over the full dof set (Schur, _build_ops layout='full')
+    schur_full = hasattr(ops, "full_schur")
+    use_full = want_full and (schur_full or (
+        hasattr(ops.solver, "KinvT")
+        and getattr(ops.solver, "res_ops", None) is not None))
+    if use_full and schur_full:
+        out = _cnab_wspace(prob, ops, bs, v0, cn, dt, trange, save_every,
+                           check_ff_maxv, warm_refine, outfunc, out_bundle,
+                           device, lap)
+        out["timing"] = timing
+        return out
     if use_full:
         fl = build_full_layout(prob, dt, ops, device)
         nf, w = fl["nf"], fl["w"]

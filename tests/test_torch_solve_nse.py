@@ -188,7 +188,8 @@ def test_stokes_start_matches_the_host_solve():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(linsolver="schur"), "block-Schur"),
+    # the Krylov solver's SIMPLE-type block-Schur preconditioner, on sbdf2
+    (dict(linsolver="krylov", time_int_scheme="sbdf2"), "block-Schur"),
     (dict(linsolver="krylov"), "Krylov"),
     (dict(time_int_scheme="sbdf2", controls=[object()]), "controls"),
     (dict(closed_loop=True), "closed_loop"),
@@ -214,6 +215,9 @@ def test_unported_paths_raise(kwargs, match):
 
 
 def test_auto_linsolver_raises_above_the_dense_window():
+    """'auto' takes the banded block-Schur solver above 6000 condensed rows
+    (it raised there until that solver was ported); 'krylov' still
+    raises."""
     from types import SimpleNamespace
 
     from dolfin_navier_scipy_tpu_torch.solve.timeint import _resolve_linsolver
@@ -221,8 +225,10 @@ def test_auto_linsolver_raises_above_the_dense_window():
     small = SimpleNamespace(invinds=np.arange(5000), np_cond=1000)
     big = SimpleNamespace(invinds=np.arange(5001), np_cond=1000)
     assert _resolve_linsolver(small, "auto") == "dense"
-    with pytest.raises(NotImplementedError, match="linsolver='dense'"):
-        _resolve_linsolver(big, "auto")
+    assert _resolve_linsolver(big, "auto") == "schur"
+    assert _resolve_linsolver(small, "schur") == "schur"
+    with pytest.raises(NotImplementedError, match="Krylov"):
+        _resolve_linsolver(big, "krylov")
     with pytest.raises(ValueError):
         _resolve_linsolver(small, "lu")
     with pytest.raises(ValueError, match="time_int_scheme"):

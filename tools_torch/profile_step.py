@@ -3,12 +3,15 @@
 
     python3 tools_torch/profile_step.py [--level 1] [--steps 100]
                     [--scheme cnab|sbdf2] [--layout auto|inner]
+                    [--linsolver dense|schur] [--warm-refine 0]
                     [--trace step_trace.json] [--root CHECKOUT]
 
 Runs the main path and the chosen loop once to build and warm everything
 (``--root``: import the package from another checkout, e.g. the parent
 commit, so that two versions are profiled by the same tool), then traces
-``--steps`` loop steps of ``cnab`` (same operators, dense solver, the full
+``--steps`` loop steps of ``cnab`` (same operators; the dense solver or with
+``--linsolver schur`` the banded block-Schur one, whose full layout is the
+permuted w-space step with ``--warm-refine`` residual rounds; the full
 state layout or with ``--layout inner`` the inner one) or of ``sbdf2``
 (always the inner layout) with ``torch.profiler`` and prints, as JSON
 lines: the card, the loop's wall time per step, the device-busy share (sum
@@ -39,6 +42,9 @@ def main():
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--scheme", choices=("cnab", "sbdf2"), default="cnab")
     ap.add_argument("--layout", choices=("auto", "inner"), default="auto")
+    ap.add_argument("--linsolver", choices=("dense", "schur"),
+                    default="dense")
+    ap.add_argument("--warm-refine", type=int, default=0)
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -57,17 +63,21 @@ def main():
     dt = 1e-3
     step_loop = getattr(solve, args.scheme)
     warm = solve_nse(prob=prob, t0=0.0, tE=30 * dt, Nts=30,
-                     start_ssstokes=True, linsolver="dense", save_every=0,
-                     time_int_scheme=args.scheme)
+                     start_ssstokes=True, linsolver=args.linsolver,
+                     save_every=0, time_int_scheme=args.scheme,
+                     state_layout=args.layout)
     trange = np.linspace(0.0, (args.steps + 1) * dt, args.steps + 2)
     kw = dict(trange=trange, prob=prob, inivel=warm["iniv"],
               inip=warm["inip"], ops=warm["ops"], save_every=0,
               state_layout=args.layout)
+    if args.scheme == "cnab":
+        kw["warm_refine"] = args.warm_refine
 
     step_loop(**kw)           # this loop's own first-use costs, untimed
     # untraced, for the wall time the tracer does not inflate
     wrappers = [getattr(kernels, name) for name in
-                ("vecmat", "conv_vector", "conv_vector_amatvec")
+                ("vecmat", "conv_vector", "conv_vector_amatvec", "banded_mv",
+                 "rect_mv", "rect_mv_levels")
                 if hasattr(kernels, name)]
     before = [w.launches for w in wrappers]
     plain = step_loop(**kw)["timing"]["loop_s"]
@@ -89,6 +99,8 @@ def main():
     print(json.dumps(dict(
         level=args.level, steps=args.steps, scheme=args.scheme,
         layout=args.layout if args.scheme == "cnab" else "inner",
+        linsolver=args.linsolver,
+        warm_refine=args.warm_refine if args.scheme == "cnab" else None,
         wrapper_calls_untraced_run=wrapper_calls,
         loop_ms_per_step=1e3 * plain / args.steps,
         loop_ms_per_step_traced=1e3 * traced / args.steps,
