@@ -30,7 +30,16 @@ Needs one CUDA card, ``nvcc`` and no network; takes no arguments.  It
    stacks, the w-space CNAB step — with ``warm_refine`` 0 and 1, a bitwise
    rerun, exact launch counts of the banded kernels, and the final velocity
    against the CPU f64 run of step 4; then ``sbdf2`` on the same solver
-   against its CPU f64 run.
+   against its CPU f64 run,
+7. builds the block-Schur factors on the device (``setup="device"``: X by
+   block PCG over the banded F) and from the host's splu on the level-1
+   F: X and the solves of the two agree, two device builds give the same
+   bits, and no hand-written kernel runs during a setup,
+8. drives the default call at level 2 of the wake (29 507 condensed rows,
+   where ``setup="auto"`` is the device setup): ``warm_refine`` 0 and 1, a
+   bitwise rerun, exact launch counts, against the same run on the card's
+   dense route (the ~29 507^2 inverse through ``vecmat``), and holds the
+   kernels against their plain versions on the level-2 operands.
 
 Step 2 also holds the three banded kernels of the Schur route
 (``banded_mv``, ``rect_mv``, ``rect_mv_levels``) against their plain
@@ -48,6 +57,7 @@ import sys
 import time
 
 import numpy as np
+import scipy.sparse as sps
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -79,10 +89,15 @@ NONE_BANDED = dict(banded_mv=0, rect_mv=0, rect_mv_levels=0)
 
 SEED = 0
 LEVEL, RE, CHARVEL = 1, 100.0, 0.2
+LEVEL2 = 2
 T0, TE, NTS, SAVE_EVERY = 0.0, 0.3, 300, 60
 RAGGED = (2049, 1023)
 DESIGN = "pr3"       # one launch per call: bulk-copy ring / quad-point lanes
 BAND_DESIGN = "pr4"  # a warp per row, the x window in shared memory
+BAND_REPLACES = dict(
+    banded_mv="dolfin_navier_scipy_tpu/solve/sadpnt.py:782",
+    rect_mv="dolfin_navier_scipy_tpu/solve/sadpnt.py:1021",
+    rect_mv_levels="dolfin_navier_scipy_tpu/solve/sadpnt.py:1075")
 
 
 def say(**kw):
@@ -457,6 +472,228 @@ def rel(a, b):
                  / torch.linalg.vector_norm(b))
 
 
+def divergence_rel(prob, v):
+    """``max|J v - fp| / max(|J||v|)`` of a natural-order inner velocity."""
+    vh = v.cpu().numpy()
+    return float(np.abs(prob.Jc @ vh - prob.fp.ravel()).max()
+                 / (abs(prob.Jc) @ np.abs(vh)).max())
+
+
+def device_setup_path(prob, dev, dt):
+    """The block-Schur factors built on the card (``setup="device"``: X by
+    block PCG over the banded F, S from the stored X, ``S^-1`` from an f64
+    inverse on the card) against the ones from the host's splu, on the
+    level-1 ``F = M + dt/2 A``.  In f32 storage (no bf16 levels, no W: what
+    is compared is X) X agrees to 1e-5 of its largest entry and the solves
+    (refine 0 and 1) to 1e-5; two builds in the card's default storage
+    (bf16 levels, W) give the same bits; no hand-written kernel runs in a
+    setup."""
+    F = sps.csr_matrix(prob.Mc + 0.5 * dt * prob.Ac)
+    args = (F, prob.Jc, prob.JTc)
+    zero_counts()
+    built = {}
+    for name, kw in (("host_f32", dict(setup="host", lowbit=False,
+                                       winv=False)),
+                     ("device_f32", dict(setup="device", lowbit=False,
+                                         winv=False)),
+                     ("device", dict(setup="device")),
+                     ("device_again", dict(setup="device"))):
+        t0 = time.time()
+        built[name] = SchurSaddleSolver(*args, device=dev, **kw)
+        torch.cuda.synchronize()
+        built[name + "_seconds"] = time.time() - t0
+    setup_counts = counts()
+    require(setup_counts == {w.__name__: 0 for w in WRAPPERS},
+            f"kernel launches during the setups: {setup_counts}")
+    host, devs = built["host_f32"], built["device_f32"]
+    require(host.setup == "host" and devs.setup == "device", "setups")
+    xscale = float(host.Xb.abs().max())
+    x_err = float((devs.Xb - host.Xb).abs().max()) / xscale
+    require(x_err <= 1e-5, f"device X vs host X: {x_err:.3e} of max|X|")
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
+    bv = torch.randn(host.nv, generator=gen).to(dev)
+    bp = torch.randn(host.np, generator=gen).to(dev)
+    solve_err = {}
+    for refine in (0, 1):
+        host.refine = devs.refine = refine
+        solve_err[refine] = rel(devs.solve(bv, bp), host.solve(bv, bp))
+        require(solve_err[refine] <= 1e-5, f"device vs host setup, solve "
+                f"with refine {refine}: {solve_err[refine]:.3e}")
+    a, b = built["device"], built["device_again"]
+    for name, levels in (("Wb", 3), ("Xb", 2), ("Sinv", 3)):
+        st = getattr(a, name)
+        require(st.dtype == torch.bfloat16 and st.shape[1] == levels,
+                f"{name}: {levels} bf16 levels")
+        require(torch.equal(st, getattr(b, name)),
+                f"two device builds differ in {name}")
+    say(phase="device_setup_path", problem="cylinderwake level 1, Re 100",
+        F="M + dt/2 A, dt 1e-3", nv=host.nv, np=host.np,
+        x_err_over_max_x=x_err, solve_rel_err=solve_err,
+        builds_bitwise_equal=True, launches_during_setups=setup_counts,
+        seconds={k: v for k, v in built.items() if k.endswith("seconds")},
+        parts_seconds={k: built[k].setup_timing
+                       for k in ("host_f32", "device_f32", "device")})
+
+
+def level2_path(dev, gen, nsteps):
+    """The default call at level 2 (``setup="auto"`` is the device setup
+    there): ``warm_refine`` 0 and 1, a bitwise rerun, exact launch counts,
+    divergence, and the final velocity against the same run on the card's
+    dense route (inner layout: the ~29 507^2 inverse through ``vecmat``,
+    one apply and one refinement round a step); then every kernel against
+    its plain version on that path's operands.  Returns the rows for the
+    ``kernels`` line."""
+    t0 = time.time()
+    prob = cylinderwake_problem(level=LEVEL2, Re=RE, charvel=CHARVEL)
+    problem_s = time.time() - t0
+    dkw = dict(t0=T0, tE=TE, Nts=NTS, start_ssstokes=True,
+               save_every=SAVE_EVERY)
+    runs = {}
+    for wr in (0, 1, "rerun"):
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        o = solve_nse(prob=prob, warm_refine=wr if wr != "rerun" else 0,
+                      **dkw)
+        torch.cuda.synchronize()
+        runs[wr] = (o, counts(), time.time() - t0,
+                    torch.cuda.max_memory_allocated())
+    o0, c0 = runs[0][0], runs[0][1]
+    slv = o0["ops"].solver
+    require(isinstance(slv, SchurSaddleSolver) and slv.setup == "device"
+            and hasattr(o0["ops"], "full_schur"), "the default route at "
+            "level 2 is the banded block-Schur solver with its factors "
+            "built on the card")
+    for name, levels in (("Wb", 3), ("Xb", 2), ("Sinv", 3)):
+        st = getattr(slv, name)
+        require(st is not None and st.is_cuda and st.dtype == torch.bfloat16
+                and st.shape[1] == levels,
+                f"level 2 {name}: {levels} bf16 levels on the card")
+    again = runs.pop("rerun")
+    require(again[1] == c0, "launches of the level-2 rerun")
+    rerun_diff = rel(again[0]["v"], o0["v"])
+    require(rerun_diff == 0.0 and torch.equal(again[0]["v"], o0["v"])
+            and torch.equal(again[0]["p"], o0["p"]),
+            f"two level-2 runs on the card differ: {rerun_diff:.3e}")
+    del again
+    # the oracle: the same call on the card's dense route
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    ref = solve_nse(prob=prob, linsolver="dense", state_layout="inner",
+                    **dkw)
+    torch.cuda.synchronize()
+    ref_wall = time.time() - t0
+    ref_counts = counts()
+    ref_peak = torch.cuda.max_memory_allocated()
+    require(ref_counts == dict(vecmat=2 * nsteps, conv_vector=nsteps + 3,
+                               conv_vector_amatvec=0, **NONE_BANDED),
+            f"launches of the level-2 dense run: {ref_counts}")
+    require(ref["ffflag"] is False, "level-2 dense run")
+    ref_div = divergence_rel(prob, ref["v"])
+    rows = {}
+    for wr, (o, c, wall_s, peak) in runs.items():
+        want = dict(vecmat=0, conv_vector=nsteps + 4, conv_vector_amatvec=0,
+                    banded_mv=nsteps * (1 + wr),
+                    rect_mv=nsteps * (1 + 3 * wr),
+                    rect_mv_levels=nsteps * 3 * (1 + wr))
+        require(c == want, f"launches of the level-2 run, warm_refine={wr}:"
+                f" {c} != {want}")
+        require(o["ffflag"] is False and o["v"].is_cuda
+                and o["v"].dtype == torch.float64, "level-2 run")
+        for k in ("v", "p", "vs", "ps"):
+            require(bool(torch.isfinite(o[k]).all()), f"{k} not finite")
+        div = divergence_rel(prob, o["v"])
+        require(div <= 1e-6, f"level-2 run, warm_refine={wr}: divergence "
+                f"residual {div:.3e}")
+        e = {k: rel(o[k], ref[k]) for k in ("v", "p", "vs", "ps")}
+        bar = 1e-6 if wr else 1e-4
+        require(e["v"] <= bar and e["vs"] <= bar,
+                f"level-2 run, warm_refine={wr}, vs the dense route: {e}")
+        t = o["timing"]
+        rows[wr] = dict(
+            launches=c, wall_seconds=wall_s, setup_seconds=t["setup_s"],
+            solver_parts_seconds=o["ops"].solver.setup_timing,
+            bootstrap_seconds=t["bootstrap_s"], loop_seconds=t["loop_s"],
+            ms_per_step=1e3 * t["loop_s"] / nsteps,
+            divergence_residual_rel=div, rel_err_vs_dense_route=e, bar=bar,
+            peak_device_mem_bytes=peak)
+    # the kernels on the operands of this path: the dense route's inverse
+    # under M v of its final state, the level-2 solver's blocks under
+    # seeded vectors, the level-2 convection tables
+    KinvT = ref["ops"].solver.KinvT
+    n2 = KinvT.shape[0]
+    x_ref = torch.zeros(n2, dtype=torch.float32, device=dev)
+    x_ref[: len(prob.invinds)] = torch.as_tensor(
+        (prob.Mc @ ref["v"].cpu().numpy()).astype(np.float32), device=dev)
+    vec_check = check_vecmat(x_ref, KinvT, "level-2 inverse of the dense "
+                             "run", 20)
+    del ref, KinvT
+    band_checks = check_band(band_forms(slv, gen), profiled=False)
+    aff = AffineVectorOps.build(prob, torch.float32, full_dofs=True)
+    u, u2 = (torch.randn(prob.nv_full, generator=gen,
+                         dtype=torch.float64).to(dev) for _ in range(2))
+    conv_checks = check_conv(prob.conv_kernel_on(torch.float32), aff,
+                             aff.fac_dofs, u, u2, "random, level 2",
+                             bool(prob.gradvsymmtrc), True)
+    say(phase="level2_path", problem=f"cylinderwake level {LEVEL2}, Re 100",
+        call="solve_nse(prob, t0, tE, Nts=300, start_ssstokes=True, "
+             "save_every=60, warm_refine=0|1)",
+        nv_full=prob.nv_full, nin=len(prob.invinds), np_cond=prob.np_cond,
+        problem_seconds=problem_s, steps=nsteps,
+        solver=dict(setup=slv.setup, bs=slv._bs, nblk=slv._nblk, ww=slv._ww,
+                    wx=slv._wx, ncg=slv.ncg, Wb=list(slv.Wb.shape),
+                    Xb=list(slv.Xb.shape), Sinv=list(slv.Sinv.shape),
+                    Jb=list(slv.Jb.shape), JTb=list(slv.JTb.shape),
+                    Eblk=list(slv.Eblk.shape)),
+        warm_refine_0=rows[0], warm_refine_1=rows[1],
+        rel_diff_v_to_first_run=rerun_diff,
+        dense_route=dict(launches=ref_counts, wall_seconds=ref_wall,
+                         peak_device_mem_bytes=ref_peak,
+                         divergence_residual_rel=ref_div,
+                         inverse_shape=[n2, n2]),
+        vecmat=vec_check, banded=band_checks, convection=conv_checks)
+
+    def band_row(name, operand, launches):
+        chk = next(c for c in band_checks
+                   if c["name"] == name and c["operand"] == operand)
+        return dict(name=f"{name}_level2", route="cuda",
+                    source="dolfin_navier_scipy_tpu_torch/csrc/bandmv.cu",
+                    replaces=BAND_REPLACES[name], launches=launches,
+                    operand=operand, shape=chk["shape"],
+                    max_abs_err=chk["max_abs_err"], ms=chk["ms"],
+                    plain_ms=chk["plain_ms"], bound_ms=chk["bound_ms"],
+                    bound_by=chk["bound_by"], library_ms=chk["library_ms"],
+                    library=chk["library"], eager_ms=chk["eager_ms"],
+                    design=BAND_DESIGN)
+
+    conv = next(c for c in conv_checks if c["form"] == "vector")
+    return [
+        dict(name="vecmat_level2", route="cuda",
+             source="dolfin_navier_scipy_tpu_torch/csrc/vecmat.cu",
+             replaces="dolfin_navier_scipy_tpu/ops/pallas_kernels.py:31",
+             launches=ref_counts["vecmat"], shape=vec_check["shape"],
+             max_abs_err=vec_check["max_abs_err"], ms=vec_check["ms"],
+             plain_ms=vec_check["plain_ms"], bound_ms=vec_check["bound_ms"],
+             bound_by=vec_check["bound_by"],
+             library_ms=vec_check["library_ms"],
+             eager_ms=vec_check["eager_ms"], design=DESIGN),
+        dict(name="convection_vector_level2", route="cuda",
+             source="dolfin_navier_scipy_tpu_torch/csrc/convection.cu",
+             replaces="tools/probe_pallas_gather.py:14",
+             launches=c0["conv_vector"],
+             shape=dict(nc=conv["nc"], nv_full=conv["nv_full"],
+                        tables=conv["tables"], state=conv["state"]),
+             max_abs_err=conv["max_abs_err"], ms=conv["ms"],
+             plain_ms=conv["plain_ms"], bound_ms=conv["bound_ms"],
+             bound_by=conv["bound_by"], library_ms=None,
+             eager_ms=conv["eager_ms"], design=DESIGN),
+        band_row("banded_mv", "E band (explicit A)", c0["banded_mv"]),
+        band_row("rect_mv", "J", c0["rect_mv"]),
+        band_row("rect_mv_levels", "W, 3 bf16 levels",
+                 c0["rect_mv_levels"])]
+
+
 def main():
     t_start = time.time()
     dev = torch.device("cuda")
@@ -538,6 +775,7 @@ def main():
     say(phase="kernel_checks", vecmat=checks, convection=conv_checks,
         banded=band_checks, schur_solver_build_seconds=schur_build_s)
     del sops, slv
+    device_setup_path(prob, dev, dt_main)
 
     # -- 3. the main path, through the user's entry points -----------------
     kw = dict(t0=T0, tE=TE, Nts=NTS, start_ssstokes=True,
@@ -573,10 +811,7 @@ def main():
     require(main_counts == dict(vecmat=nsteps, conv_vector=4,
                                 conv_vector_amatvec=nsteps, **NONE_BANDED),
             f"launches on the main path: {main_counts}")
-    vh = v.cpu().numpy()
-    div = prob.Jc @ vh - prob.fp.ravel()
-    div_scale = abs(prob.Jc) @ np.abs(vh)
-    div_rel = float(np.abs(div).max() / div_scale.max())
+    div_rel = divergence_rel(prob, v)
     # each f32 increment solve leaves a divergence residual of f32 size
     # relative to |J||delta|; 300 of them stay far below 1e-6 of |J||v|
     require(div_rel <= 1e-6, f"divergence residual {div_rel:.3e}")
@@ -768,10 +1003,7 @@ def main():
     del again
     schur_rows = {}
     for wr, (o, c, wall_s) in schur.items():
-        vh = o["v"].cpu().numpy()
-        div = prob.Jc @ vh - prob.fp.ravel()
-        div_rel = float(np.abs(div).max()
-                        / (abs(prob.Jc) @ np.abs(vh)).max())
+        div_rel = divergence_rel(prob, o["v"])
         require(div_rel <= 1e-6, f"Schur run, warm_refine={wr}: divergence "
                 f"residual {div_rel:.3e}")
         e = {k: rel(o[k], ref[k]) for k in ("v", "p", "vs", "ps")}
@@ -818,18 +1050,21 @@ def main():
                    setup_seconds=sbs["timing"]["setup_s"],
                    ms_per_step=1e3 * sbs["timing"]["loop_s"] / nsteps,
                    rel_err_vs_cpu_f64=sbs_errs))
-    del sbs
+    del sbs, schur, o0, slv
+
+    # -- 8. the default call at level 2: the factors built on the card -------
+    level2_rows = level2_path(dev, gen, nsteps)
 
     # -- the kernels table and the verdict ----------------------------------
     main_chk = checks[0]
 
-    def band_row(name, operand, launches, replaces):
+    def band_row(name, operand, launches):
         chk = next(c for c in band_checks
                    if c["name"] == name and c["operand"] == operand)
         return dict(
             name=name, route="cuda",
             source="dolfin_navier_scipy_tpu_torch/csrc/bandmv.cu",
-            replaces=replaces, launches=launches, operand=operand,
+            replaces=BAND_REPLACES[name], launches=launches, operand=operand,
             shape=chk["shape"], max_abs_err=chk["max_abs_err"],
             ms=chk["ms"], plain_ms=chk["plain_ms"],
             bound_ms=chk["bound_ms"], bound_by=chk["bound_by"],
@@ -894,12 +1129,11 @@ def main():
                  main_counts["conv_vector"]),
         # the banded kernels, with the launches of the default call
         # (warm_refine=0) and their largest operand on that route
-        band_row("banded_mv", "E band (explicit A)", c0["banded_mv"],
-                 "dolfin_navier_scipy_tpu/solve/sadpnt.py:782"),
-        band_row("rect_mv", "J", c0["rect_mv"],
-                 "dolfin_navier_scipy_tpu/solve/sadpnt.py:1021"),
-        band_row("rect_mv_levels", "W, 3 bf16 levels", c0["rect_mv_levels"],
-                 "dolfin_navier_scipy_tpu/solve/sadpnt.py:1075")])
+        band_row("banded_mv", "E band (explicit A)", c0["banded_mv"]),
+        band_row("rect_mv", "J", c0["rect_mv"]),
+        band_row("rect_mv_levels", "W, 3 bf16 levels", c0["rect_mv_levels"]),
+        # the same kernels on the level-2 operands, launches of that path
+        *level2_rows])
     say(ok=True, device=dict(platform="gpu",
                              kind=torch.cuda.get_device_name(0),
                              count=torch.cuda.device_count()))

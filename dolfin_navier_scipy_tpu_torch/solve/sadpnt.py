@@ -11,18 +11,19 @@ reference's CNAB loop fast, time_int_utils.py:89-91):
 * :class:`InverseSaddleSolver` — explicit dense inverse, applied by the
   hand-written kernel :func:`..ops.kernels.vecmat`; optional residual
   refinement on the sparse/element operators.
-* :class:`SchurSaddleSolver` — the banded block-Schur solver with host
-  (``splu``) setup: RCM-banded ``F``, static-window ``J``/``J^T``, banded
-  ``X = F^-1 J^T``, dense ``S^-1`` and the truncated inverse ``W ~ F^-1``;
-  every per-step application is one of the hand-written kernels
+* :class:`SchurSaddleSolver` — the banded block-Schur solver: RCM-banded
+  ``F``, static-window ``J``/``J^T``, banded ``X = F^-1 J^T`` (from a host
+  ``splu`` or, ``setup="device"``, by block PCG on the device), dense
+  ``S^-1`` and the truncated inverse ``W ~ F^-1``; every per-step
+  application is one of the hand-written kernels
   :func:`..ops.kernels.banded_mv`, :func:`..ops.kernels.rect_mv`,
   :func:`..ops.kernels.rect_mv_levels`.
 * ``host`` — scipy SuperLU (:func:`host_saddle_factorized`), the
   correctness oracle and the one-off setup solver.
 
-Not ported yet (raise ``NotImplementedError``): the device-built Schur
-factors (``setup="device"``), the non-banded (element-operator) Schur path,
-the LU and Sherman-Morrison-Woodbury solvers.
+Not ported yet (raise ``NotImplementedError``): the non-banded
+(element-operator) Schur path, the LU and Sherman-Morrison-Woodbury
+solvers.
 
 Sign convention: the raw saddle solution ``q`` relates to the physical
 pressure as ``p = -q`` (the reference flips it too:
@@ -35,7 +36,7 @@ import scipy.sparse as sps
 import scipy.sparse.linalg as spsla
 import torch
 
-from ..device import resolve_device
+from ..device import resolve_device, timer
 from ..ops.kernels import (
     as_band_operand, as_vecmat_operand, band_operand, banded_mv, pair_stack,
     rect_mv, rect_mv_levels, vecmat)
@@ -268,6 +269,106 @@ def _build_banded_rect(A, row_order, col_order, bs_r, lane=128):
     return blocks, tuple(bases), w, ncl_pad
 
 
+def _tridiag_bmm(blks, P):
+    """``F_perm @ P`` for a block of columns ``P (nblk bs, k)``, with
+    ``blks (nblk, bs, 3bs)`` F's block-tridiagonal form (no neighbour past
+    either end): the three neighbour slices side by side, one
+    ``torch.bmm`` over the row blocks."""
+    nblk, bs = blks.shape[0], blks.shape[1]
+    Pb = P.reshape(nblk, bs, -1)
+    zero = Pb.new_zeros((1, *Pb.shape[1:]))
+    win = torch.cat([torch.cat([zero, Pb[:-1]]), Pb,
+                     torch.cat([Pb[1:], zero])], dim=1)
+    return torch.bmm(blks, win).reshape(nblk * bs, -1)
+
+
+def _block_pcg(fmv, dinv, B, niter):
+    """Jacobi-PCG on ``F X = B`` for a block of right-hand sides ``B (n,
+    k)``: per-column step sizes, a FIXED count, the 0/0 guards of
+    :func:`jacobi_pcg` (an all-zero column stays exactly zero).  ``fmv``
+    applies F to an ``(n, k)`` block (:func:`_tridiag_bmm` in the Schur
+    setup: one-off work that the JAX package left to XLA, so a library
+    product; TF32 is off package-wide)."""
+    X = torch.zeros_like(B)
+    R = B
+    Z = dinv[:, None] * R
+    P = Z
+    rz = (R * Z).sum(dim=0)
+    for _ in range(niter):
+        AP = fmv(P)
+        pAp = (P * AP).sum(dim=0)
+        alpha = rz / torch.where(pAp == 0, 1.0, pAp)
+        X = X + alpha[None, :] * P
+        R = R - alpha[None, :] * AP
+        Z = dinv[:, None] * R
+        rz_n = (R * Z).sum(dim=0)
+        beta = rz_n / torch.where(rz == 0, 1.0, rz)
+        P = Z + beta[None, :] * P
+        rz = rz_n
+    return X
+
+
+def _xt_parts_to_banded(parts, bases, bs, nblk, wx, nin, start=0,
+                        out=None):
+    """Fold row-parts of ``X^T`` (pressure rows ``start ...``, permuted
+    velocity columns; a part may be a transposed view of a solved column
+    chunk) into the banded layout ``(nblk, bs, wx)`` at the windows
+    ``bases``: static slices, each entry written once (copies, no
+    accumulation: the result does not depend on the order).  ``out``
+    (:func:`..ops.kernels.band_operand` storage, f32, zero where nothing
+    lands) is made on the first part's device when not given."""
+    if out is None:
+        out = band_operand((nblk, bs, wx), torch.float32, parts[0].device)
+    lo = start
+    for p in parts:
+        hi = lo + int(p.shape[0])
+        for kb in range(nblk):
+            b = bases[kb]
+            s, e = max(b, lo), min(b + wx, hi)
+            r0, ce = kb * bs, min(kb * bs + bs, nin)
+            if s >= e or r0 >= ce:
+                continue
+            out[kb, : ce - r0, s - b: e - b] = p[s - lo: e - lo, r0: ce].T
+        lo = hi
+    return out
+
+
+def _build_x_banded(Bblk, dinv_perm, jTp, xbases, wx, niter, chunk=256):
+    """``X = F^{-1} J^T`` built on ``Bblk``'s device, straight into its
+    banded form: column chunks of ``jTp`` (``J^T`` with RCM rows and
+    pressure columns in ``pp`` order, scipy) are uploaded as triplets,
+    solved by :func:`_block_pcg` over the banded F in f32, and folded into
+    X's windows as soon as they are solved (no dense ``X``: 5.2 GB at
+    level 3).  Returns ``(Xb (nblk, bs, wx) f32, f64 sum of squares of the
+    solved X)`` — the latter for the truncation check."""
+    dev = Bblk.device
+    nblk, bs = Bblk.shape[0], Bblk.shape[1]
+    nin, npp = jTp.shape
+    dpad = torch.zeros(nblk * bs, dtype=torch.float32, device=dev)
+    dpad[:nin] = torch.as_tensor(np.asarray(dinv_perm, np.float32),
+                                 device=dev)
+    co = sps.csc_matrix(jTp).tocoo()
+    order = np.argsort(co.col, kind="stable")
+    rows = torch.as_tensor(co.row[order].astype(np.int64), device=dev)
+    cols = torch.as_tensor(co.col[order].astype(np.int64), device=dev)
+    vals = torch.as_tensor(co.data[order].astype(np.float32), device=dev)
+    bounds = np.searchsorted(co.col[order], np.arange(0, npp + chunk, chunk))
+    Xb = band_operand((nblk, bs, wx), torch.float32, dev)
+    tot = torch.zeros((), dtype=torch.float64, device=dev)
+    for k, c0 in enumerate(range(0, npp, chunk)):
+        c1 = min(c0 + chunk, npp)
+        s, e = int(bounds[k]), int(bounds[k + 1])
+        B = torch.zeros((nblk * bs, c1 - c0), dtype=torch.float32,
+                        device=dev)
+        # CSC entries are unique: a plain store, no accumulation
+        B[rows[s:e], cols[s:e] - c0] = vals[s:e]
+        Xc = _block_pcg(lambda P: _tridiag_bmm(Bblk, P), dpad, B, niter)
+        tot += Xc.double().square().sum()
+        _xt_parts_to_banded((Xc.T,), xbases, bs, nblk, wx, nin, start=c0,
+                            out=Xb)
+    return Xb, float(tot)
+
+
 def _build_winv_banded(Bblk, dinv_perm, bs, nblk, nin, wbases, ww, niter):
     """Localized banded build of the truncated inverse ``W ~ F^{-1}``
     (static windows ``wbases``, width ``ww``) on ``Bblk``'s device.
@@ -292,40 +393,17 @@ def _build_winv_banded(Bblk, dinv_perm, bs, nblk, nin, wbases, ww, niter):
     wb = torch.as_tensor(np.asarray(wbases, np.int64), device=dev)
     W = band_operand((nblk, bs, ww), f32, dev)
     ar = torch.arange(bs, device=dev)
-    zero = torch.zeros((1, bs, bs), dtype=f32, device=dev)
     for kc in range(nblk):
         kb0 = min(max(kc - (nlocb - 1) // 2, 0), nblk - nlocb)
         blks = Bblk[kb0:kb0 + nlocb].to(f32).contiguous().clone()
         # the local operator stays a principal submatrix of F (SPD)
         blks[0, :, :bs] = 0.0
         blks[nlocb - 1, :, 2 * bs:] = 0.0
-        dl = dpad[kb0 * bs: kb0 * bs + nloc][:, None]
         gcol = kc * bs + ar
         B = torch.zeros((nloc, bs), dtype=f32, device=dev)
         B[(kc - kb0) * bs + ar, ar] = (gcol < nin).to(f32)
-
-        def fmv(P):
-            Pb = P.reshape(nlocb, bs, bs)
-            win = torch.cat([torch.cat([zero, Pb[:-1]]), Pb,
-                             torch.cat([Pb[1:], zero])], dim=1)
-            return torch.bmm(blks, win).reshape(nloc, bs)
-
-        X = torch.zeros_like(B)
-        R = B
-        Z = dl * R
-        P = Z
-        rz = (R * Z).sum(dim=0)
-        for _ in range(niter):
-            AP = fmv(P)
-            pAp = (P * AP).sum(dim=0)
-            alpha = rz / torch.where(pAp == 0, 1.0, pAp)
-            X = X + alpha[None, :] * P
-            R = R - alpha[None, :] * AP
-            Z = dl * R
-            rz_n = (R * Z).sum(dim=0)
-            beta = rz_n / torch.where(rz == 0, 1.0, rz)
-            P = Z + beta[None, :] * P
-            rz = rz_n
+        X = _block_pcg(lambda P: _tridiag_bmm(blks, P),
+                       dpad[kb0 * bs: kb0 * bs + nloc], B, niter)
         # X[t bs + i, c] = F^-1[(kb0+t) bs + i, kc bs + c] goes to
         # W[kb0+t, i, kc bs + c - wbases[kb0+t]] where that is in [0, ww)
         Xb3 = X.reshape(nlocb, bs, bs)
@@ -366,35 +444,52 @@ def _sinv_tri(hi, lo):
     return s1, s2, r2.to(torch.bfloat16)
 
 
-def _schur_of_banded(Jp, xl, xbases, nv, npp):
-    """``S = J X`` (f64, host) for the banded ``X`` as stored: ``Jp`` the
-    pp-row / RCM-column ``J``, ``xl (nblk, bs, wx)`` the stored X blocks
-    summed in f64."""
-    nblk, bs, wx = xl.shape
-    Xd = np.zeros((nv, npp))
-    for kb, b in enumerate(xbases):
-        r0 = kb * bs
-        rows, cols = min(bs, nv - r0), min(wx, npp - b)
-        Xd[r0:r0 + rows, b:b + cols] = xl[kb, :rows, :cols]
-    return np.asarray(Jp @ Xd)
+def _schur_of_banded(JTb, jtbases, Xb, xbases, npp):
+    """``S = J X`` in f64 on the blocks' device, from the operators as the
+    solve applies them: ``JTb (nblk, bs, wjt)`` the f32 ``J^T`` blocks at
+    ``jtbases`` and ``Xb`` the stored X (``(nblk, bs, wx)`` or its bf16
+    levels ``(nblk, L, bs, wx)``, summed in f64 in level order) at
+    ``xbases``.  Row block k adds ``JTb[k]^T Xb[k]`` into the tile of S at
+    ``(jtbases[k], xbases[k])``, in block order; nothing of size ``nv x
+    np`` is formed."""
+    nblk, _, wjt = JTb.shape
+    wx = Xb.shape[-1]
+    npad = max(npp, max(jtbases) + wjt, max(xbases) + wx)
+    S = torch.zeros((npad, npad), dtype=torch.float64, device=Xb.device)
+    for k in range(nblk):
+        xk = Xb[k].double()
+        if Xb.dim() == 4:
+            xk = xk.sum(0)
+        jb, xbk = jtbases[k], xbases[k]
+        S[jb: jb + wjt, xbk: xbk + wx] += JTb[k].double().T @ xk
+    return S[:npp, :npp]
 
 
 class SchurSaddleSolver:
     """Block-Schur saddle solver for ``[[F, J^T],[J, 0]]`` with SPD ``F = M
-    + theta dt A`` (mass-dominated at CFL-scale dt), banded mode with host
-    setup — the JAX package's default route above 6000 condensed rows.
+    + theta dt A`` (mass-dominated at CFL-scale dt), banded mode — the JAX
+    package's default route above 6000 condensed rows.
 
-    * setup (host, seconds): RCM order ``perm`` of ``F`` and the pressure
-      order ``pp`` (rows of ``J`` sorted by the mean RCM position of their
-      couplings), banded ``F`` (``Bblk``, and ``Eblk`` for ``band_extra``),
-      static-window ``J`` / ``J^T`` (``Jb``, ``JTb``), one ``splu(F)`` for
-      ``X = F^{-1} J^T`` (stored banded, ``Xb``) and ``S = J X``, the dense
-      ``S^{-1}`` (f32 hi/lo pair under f32 work), and where it pays the
-      truncated inverse ``W ~ F^{-1}`` (``Wb``) built on the device.  On
-      the card (``lowbit``) W, X and ``S^{-1}`` are stored as 3, 2 and 3
-      row-stacked bf16 levels (:func:`..ops.kernels.pair_stack`), and S is
-      then formed from the stored X (the JAX package: from the exact X),
-      so that an unrefined solve keeps ``J v = g`` to f32 grade.
+    * setup: host probes (the fixed PCG count ``ncg``, X's and W's
+      windows, by host CG), the RCM order ``perm`` of ``F`` and the
+      pressure order ``pp`` (rows of ``J`` sorted by the mean RCM position
+      of their couplings), banded ``F`` (``Bblk``, and ``Eblk`` for
+      ``band_extra``), static-window ``J`` / ``J^T`` (``Jb``, ``JTb``),
+      then the factors: the banded ``X = F^{-1} J^T`` (``Xb``), ``S = J
+      X``, the dense ``S^{-1}`` (f32 hi/lo pair under f32 work) from an
+      f64 inverse, and where it pays the truncated inverse ``W ~ F^{-1}``
+      (``Wb``) built on the device.  ``setup="host"`` takes X from one
+      ``splu(F)``; ``setup="device"`` solves it on the device by a
+      fixed-count block PCG over the banded F, 256 pressure columns at a
+      time, folded into the band as each chunk is solved ('auto': the
+      device on the card at nv > 12000 or np > 1500, np <= 16000 — level
+      2 and 3 of the DFG wake).  On the card (``lowbit``) W, X and
+      ``S^{-1}`` are stored as 3, 2 and 3 row-stacked bf16 levels
+      (:func:`..ops.kernels.pair_stack`).  S is formed from the stored X
+      on the device (:func:`_schur_of_banded`) except on the host setup
+      in f32 storage, which keeps the JAX package's exact S: then an
+      unrefined solve keeps ``J v = g`` to f32 grade.  ``setup`` says which
+      setup ran, ``setup_timing`` the seconds of each part.
     * per solve, all in permuted space: ``y = W b`` (or a fixed-count
       :func:`jacobi_pcg` on the banded F), ``q = S^{-1}(J y - g)``, ``v = y
       - X q``, then ``refine`` residual rounds against the exact banded F —
@@ -410,11 +505,11 @@ class SchurSaddleSolver:
     cost-model half of the JAX package's banded gate waits for a
     measurement on the card: ``banded="auto"`` takes the banded form
     whenever its band fits ``banded_maxgb``; ``index_nvals`` is accepted
-    for it and not read.
+    for it and not read.  A failure anywhere in the device setup raises;
+    nothing falls back to the host.
 
-    Not ported (``NotImplementedError``): ``setup="device"`` (which 'auto'
-    picks on the card at nv > 12000 or np > 1500) and the non-banded
-    element-operator path.
+    Not ported (``NotImplementedError``): the non-banded element-operator
+    path.
     """
 
     def __init__(self, coeff=None, jmat=None, jmatT=None, res_ops=None,
@@ -425,6 +520,7 @@ class SchurSaddleSolver:
                  winv_maxgb=4.0, device=None):
         device = resolve_device(device)
         self.device = device
+        lap, self.setup_timing = timer(device)
         dtype = dtype or torch.float32
         self.dtype = dtype
         self.res_ops = res_ops
@@ -447,23 +543,22 @@ class SchurSaddleSolver:
         self.ncg = int(ncg)
 
         if setup == "auto":
+            # the JAX package's rule; its npp ceiling is a TPU LU limit,
+            # still to re-derive on the card (ROADMAP F3)
             setup = ("device" if on_card and npp <= 16000
                      and (nv > 12000 or npp > 1500) else "host")
-        if setup == "device":
-            raise NotImplementedError(
-                "SchurSaddleSolver(setup='device'): the block-Schur factors "
-                "built on the device (block PCG, staged inverse) are not "
-                "ported yet (ROADMAP A5); setup='auto' picks them on the "
-                "card above 12000 velocity or 1500 pressure rows")
-        if setup != "host":
+        if setup not in ("host", "device"):
             raise ValueError(f"setup {setup!r}")
+        self.setup = setup
         if banded == "auto":
             banded = _banded_bandwidth_gb(F) <= banded_maxgb
         if not banded:
             raise NotImplementedError(
                 "SchurSaddleSolver: the non-banded (element-operator) "
-                "block-Schur path is not ported yet (ROADMAP A5); the banded "
-                f"form needs its F band within banded_maxgb={banded_maxgb}")
+                "block-Schur path is not ported yet (ROADMAP A11); the "
+                "banded form needs its F band within "
+                f"banded_maxgb={banded_maxgb}")
+        lap("probes_s")
 
         # ---- banded forms, all in RCM-permuted velocity / pp pressure order
         blocks, perm, bs, nblk = _build_banded(F)
@@ -507,6 +602,7 @@ class SchurSaddleSolver:
         self.JTb = as_band_operand(jtb, device=device)
         self._wjt, self._jtbases, self._ncolpad_jt = (
             int(wjt), jtbases, int(njtpad))
+        lap("banded_s")
 
         # banded X: F^{-1} decays exponentially off the diagonal, so X = F^-1
         # J^T is banded to the f32 floor within a few F bandwidths; the
@@ -556,22 +652,45 @@ class SchurSaddleSolver:
                 self._wbases = tuple(
                     min(max(k * bs + (bs - ww) // 2, 0), ncpw - ww)
                     for k in range(nblk))
+        lap("probes_s")
 
-        # ---- host factors: one splu, X banded in permuted layout, S^-1
-        lu = spsla.splu(F)
-        X = lu.solve(np.asarray(sps.csc_matrix(jT)[:, pp].todense()))
-        S = np.asarray(sps.csr_matrix(J)[pp] @ X)
-        Xp = np.asarray(X, np.float32)[perm]
-        xb = np.zeros((nblk, bs, wx), np.float32)
-        for kb, b in enumerate(xbases):
-            r0 = kb * bs
-            sub = Xp[r0: min(r0 + bs, nv), b: min(b + wx, npp)]
-            xb[kb, : sub.shape[0], : sub.shape[1]] = sub
-        # f64 sums: the two are nearly equal, f32 noise would read as a
-        # spurious truncation
-        tot = float((Xp.astype(np.float64) ** 2).sum()) or 1.0
-        kept = float((xb.astype(np.float64) ** 2).sum())
-        trunc = np.sqrt(max(tot - kept, 0.0) / tot)
+        # ---- the factors, in permuted layout: banded X, S = J X, S^-1.
+        # Host: one splu, X from its backsolves.  Device: X by block PCG
+        # on the banded F, folded chunk by chunk (X comes first because S
+        # is formed from it; the JAX package's S-before-X order staged TPU
+        # memory).  Low-bit storage on the card: the solve factors as bf16
+        # row-stacked levels (W and S^-1 three, X two), f32-grade in the
+        # full stack, half the f32 bytes in the hi rows alone; the residual
+        # operators (banded F, J, J^T, E) stay f32
+        use_lb = (on_card if lowbit == "auto" else bool(lowbit)) and \
+            dtype == torch.float32
+        S = None
+        if setup == "device":
+            xb, tot = _build_x_banded(
+                self.Bblk, (1.0 / dv)[perm],
+                sps.csc_matrix(jT)[perm][:, pp], xbases, wx,
+                max(40, self.ncg + 12))
+            # f64 sums, one block at a time
+            kept = sum(float(b.double().square().sum()) for b in xb)
+        else:
+            lu = spsla.splu(F)
+            X = lu.solve(np.asarray(sps.csc_matrix(jT)[:, pp].todense()))
+            if not use_lb:
+                # the exact S: the f32 path's parity with the JAX package
+                S = np.asarray(sps.csr_matrix(J)[pp] @ X)
+            Xp = np.asarray(X, np.float32)[perm]
+            del X
+            xb = np.zeros((nblk, bs, wx), np.float32)
+            for kb, b in enumerate(xbases):
+                r0 = kb * bs
+                sub = Xp[r0: min(r0 + bs, nv), b: min(b + wx, npp)]
+                xb[kb, : sub.shape[0], : sub.shape[1]] = sub
+            # f64 sums: the two are nearly equal, f32 noise would read as a
+            # spurious truncation
+            tot = float((Xp.astype(np.float64) ** 2).sum())
+            kept = float((xb.astype(np.float64) ** 2).sum())
+            xb = torch.from_numpy(xb)
+        trunc = np.sqrt(max(tot - kept, 0.0) / (tot or 1.0))
         if trunc > 1e-4:
             import warnings
 
@@ -579,29 +698,27 @@ class SchurSaddleSolver:
                           "raise xband_k")
         if full_map is not None:
             self.nv = full_map[1]
-        # low-bit factor storage on the card: the solve factors as bf16
-        # row-stacked levels (W and S^-1 three, X two), f32-grade in the
-        # full stack, half the f32 bytes in the hi rows alone; the residual
-        # operators (banded F, J, J^T, E) stay f32
-        use_lb = (on_card if lowbit == "auto" else bool(lowbit)) and \
-            dtype == torch.float32
-        if use_lb:
-            # S is formed from the X the solve applies (its two levels),
-            # not from the exact one: then J v = g holds to f32 grade in
-            # every solve (v = y - X S^-1 (J y - g)), where the exact S
-            # leaves a 16-bit divergence residual in every unrefined solve
-            # (2.5e-6 of |J||v| after 300 level-1 steps on the card; the JAX
-            # package forms S from the exact X)
-            xb = pair_stack(torch.from_numpy(xb), parts=2)
-            S = _schur_of_banded(sps.csr_matrix(J)[pp][:, perm],
-                                 xb.double().sum(1).numpy(), xbases, nv, npp)
-        self.Xb = as_band_operand(xb, device=device)
-        if on_card and npp > 3000:
-            # the f64 inverse on the card (the host's single-core inv takes
-            # minutes at these sizes)
-            Sinv64 = torch.linalg.inv(torch.as_tensor(S, device=device))
-        else:
-            Sinv64 = torch.as_tensor(np.linalg.inv(S), device=device)
+        self.Xb = as_band_operand(pair_stack(xb, parts=2) if use_lb else xb,
+                                  device=device)
+        del xb
+        lap("x_s")
+        if S is None:
+            # S from the X the solve applies (its levels summed), not from
+            # the exact one: then J v = g holds to f32 grade in every solve
+            # (v = y - X S^-1 (J y - g)), where the exact S leaves a 16-bit
+            # divergence residual in every unrefined solve (2.5e-6 of
+            # |J||v| after 300 level-1 steps on the card; the JAX package
+            # forms S from the exact X)
+            S = _schur_of_banded(self.JTb, jtbases, self.Xb, xbases, npp)
+        elif on_card and npp > 3000:
+            # the host's single-core inv takes minutes at these sizes
+            S = torch.as_tensor(S, device=device)
+        lap("s_s")
+        # an f64 LU inverse on S's device (the JAX package's f32 LU +
+        # Newton-Schulz construction stood in for the TPU's missing f64 LU)
+        Sinv64 = (torch.linalg.inv(S) if torch.is_tensor(S) else
+                  torch.as_tensor(np.linalg.inv(S))).to(device)
+        del S
         if dtype == torch.float32:
             hi = Sinv64.to(torch.float32)
             lo = (Sinv64 - hi.to(torch.float64)).to(torch.float32)
@@ -615,21 +732,24 @@ class SchurSaddleSolver:
         for i, lev in enumerate(levels):
             self.Sinv[0, i] = lev
         self._sbase = torch.zeros(1, dtype=torch.int32, device=device)
+        del levels
+        lap("sinv_s")
 
         self.Wb = None
         if self._ww:
             # W columns need only the truncation tolerance
             niter_w = _cg_count(F, np.random.default_rng(2).standard_normal(
                 nv), wtol, Mdiag) + 3
+            lap("probes_s")
             self.Wb = _build_winv_banded(self.Bblk, (1.0 / dv)[perm], bs,
                                          nblk, nv, self._wbases, self._ww,
                                          niter_w)
-
-        if use_lb and self.Wb is not None:
-            self.Wb = pair_stack(self.Wb, parts=3)
+            if use_lb:
+                self.Wb = pair_stack(self.Wb, parts=3)
         self._jbases_t, self._jtbases_t = bases_t(jbases), bases_t(jtbases)
         self._xbases_t = bases_t(xbases)
         self._wbases_t = bases_t(self._wbases) if self._ww else None
+        lap("w_s")
 
         # refine stays 0 here: the integrators pass warm_refine per call
         self.refine = int(refine or 0)

@@ -36,13 +36,11 @@ Dirichlet controls, static feedback (``umat``/``vmat``) and the Krylov
 solver raise ``NotImplementedError``.
 """
 
-import time
-
 import numpy as np
 import scipy.sparse as sps
 import torch
 
-from ..device import resolve_device
+from ..device import resolve_device, timer
 from ..ops.kernels import vecmat, vecmat_operand
 from ..ops.sparse import ell_from_scipy_fast
 from .sadpnt import (
@@ -443,23 +441,6 @@ def _host_vec(x, device):
                            device=device)
 
 
-def _timer(device):
-    """``(lap, timing)``: ``lap(name)`` adds the host seconds since the
-    last lap — taken after the device has finished — to ``timing[name]``
-    (a few calls per run, never inside the loop)."""
-    tick = [time.perf_counter()]
-    timing = {}
-
-    def lap(name):
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        now = time.perf_counter()
-        timing[name] = timing.get(name, 0.0) + now - tick[0]
-        tick[0] = now
-
-    return lap, timing
-
-
 def _cnab_wspace(prob, ops, bs, v0, cn, dt, trange, save_every,
                  check_ff_maxv, warm_refine, outfunc, out_bundle, device,
                  lap):
@@ -600,7 +581,7 @@ def cnab(trange=None, prob=None, inivel=None, inip=None,
                             else ops.device)
     trange = np.asarray(trange)
     dt = float(trange[1] - trange[0])
-    lap, timing = _timer(device)
+    lap, timing = timer(device)
 
     has_dyn = dynamic_rhs is not None
     plain_rhs = f_tdp is None and g_tdp is None and not has_dyn
@@ -787,7 +768,7 @@ def sbdf2(trange=None, prob=None, inivel=None, inip=None,
                             else ops.device)
     trange = np.asarray(trange)
     dt = float(trange[1] - trange[0])
-    lap, timing = _timer(device)
+    lap, timing = timer(device)
     if ops is None:
         ops = _build_ops(prob, dt, theta=2.0 / 3.0, inv_dtype=inv_dtype,
                          refine=refine, precision=precision,

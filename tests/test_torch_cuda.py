@@ -368,3 +368,54 @@ def test_schur_route_on_the_card_matches_the_cpu():
     err = (torch.linalg.vector_norm(out["v"].cpu() - ref["v"])
            / torch.linalg.vector_norm(ref["v"]))
     assert float(err) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_device_setup_on_the_card_matches_host_and_cpu(monkeypatch):
+    """Wake level 0 on the card: the factors of ``setup="device"`` (X by
+    block PCG) against those of the host's splu — X to 1e-5 of its largest
+    entry, solves to 1e-5, two builds bitwise equal — and a short default
+    (w-space) run on device-setup factors within 1e-6 of the same run on
+    the CPU in f64."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    import scipy.sparse as sps
+
+    import dolfin_navier_scipy_tpu_torch.solve.timeint as tti
+    from dolfin_navier_scipy_tpu_torch.solve import SchurSaddleSolver
+
+    prob = cylinderwake_problem(level=0, Re=100)
+    F = sps.csr_matrix(prob.Mc + 0.5 * 1e-2 * prob.Ac)
+    host, dev = (SchurSaddleSolver(F, prob.Jc, prob.JTc, setup=s,
+                                   lowbit=False, winv=True)
+                 for s in ("host", "device"))
+    assert dev.setup == "device" and dev.Xb.is_cuda
+    assert float((dev.Xb - host.Xb).abs().max()) <= 1e-5 * float(
+        host.Xb.abs().max())
+    rng = np.random.default_rng(12)
+    bv = torch.from_numpy(rng.normal(size=dev.nv)).float().cuda()
+    bp = torch.from_numpy(rng.normal(size=dev.np)).float().cuda()
+    for refine in (0, 1):
+        host.refine = dev.refine = refine
+        a, b = dev.solve(bv, bp), host.solve(bv, bp)
+        assert float(torch.linalg.vector_norm(a - b)
+                     / torch.linalg.vector_norm(b)) <= 1e-5, refine
+    one, two = (SchurSaddleSolver(F, prob.Jc, prob.JTc, setup="device",
+                                  winv=True) for _ in range(2))
+    for k in ("Xb", "Sinv", "Wb"):
+        assert getattr(one, k).dtype == torch.bfloat16, k
+        assert torch.equal(getattr(one, k), getattr(two, k)), k
+
+    class DeviceSetup(SchurSaddleSolver):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, setup="device", **kw)
+
+    monkeypatch.setattr(tti, "SchurSaddleSolver", DeviceSetup)
+    kw = dict(prob=prob, t0=0.0, tE=0.2, Nts=20, start_ssstokes=True,
+              linsolver="schur", winv=True, save_every=5, warm_refine=1)
+    out = solve_nse(**kw)
+    assert out["ops"].solver.setup == "device" and out["v"].is_cuda
+    ref = solve_nse(device="cpu", **kw)
+    err = (torch.linalg.vector_norm(out["v"].cpu() - ref["v"])
+           / torch.linalg.vector_norm(ref["v"]))
+    assert float(err) <= 1e-6

@@ -212,7 +212,6 @@ def test_lowbit_storage_matches_jax(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(setup="device"), "setup='device'"),
     (dict(banded=False), "non-banded"),
 ])
 def test_unported_schur_paths_raise(kw, match):
