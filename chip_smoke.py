@@ -50,8 +50,10 @@ code is non-zero and the final line is missing.  The last line is
 ``{"ok": true, "device": {...}}``, the one before it the ``kernels`` table.
 """
 
+import copy
 import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -65,17 +67,19 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: no CUDA device (torch.cuda.is_available() is "
              "False); this script only runs on the card")
 
+from dolfin_navier_scipy_tpu_torch.control import (
+    apply_robin_penalty, get_heunab_lti)
 from dolfin_navier_scipy_tpu_torch.models import (
-    cylinderwake_problem, make_inscan_liftdrag)
+    cylinderwake_problem, make_inscan_liftdrag, observation_operator)
 from dolfin_navier_scipy_tpu_torch.ops import kernels
 from dolfin_navier_scipy_tpu_torch.ops.affine import AffineVectorOps
 from dolfin_navier_scipy_tpu_torch.ops.kernels import (
-    _windows, as_band_operand, as_vecmat_operand, banded_mv, banded_mv_ref,
-    conv_vector, conv_vector_amatvec, conv_vector_amatvec_ref,
-    conv_vector_ref, rect_mv, rect_mv_levels, rect_mv_levels_ref,
-    rect_mv_ref, vecmat, vecmat_ref)
+    _windows, affine_mv, affine_mv_ref, as_band_operand, as_vecmat_operand,
+    banded_mv, banded_mv_ref, conv_vector, conv_vector_amatvec,
+    conv_vector_amatvec_ref, conv_vector_ref, rect_mv, rect_mv_levels,
+    rect_mv_levels_ref, rect_mv_ref, vecmat, vecmat_ref)
 from dolfin_navier_scipy_tpu_torch.solve import (
-    SchurSaddleSolver, sbdf2, solve_nse)
+    DirichletControl, SchurSaddleSolver, sbdf2, solve_nse)
 from dolfin_navier_scipy_tpu_torch.solve.timeint import _build_ops
 
 # published peaks of one H100 SXM (NVIDIA data sheet): device memory rate
@@ -84,7 +88,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 F64_FLOP_PER_S = 34e12
 WRAPPERS = (vecmat, conv_vector, conv_vector_amatvec, banded_mv, rect_mv,
-            rect_mv_levels)
+            rect_mv_levels, affine_mv)
 NONE_BANDED = dict(banded_mv=0, rect_mv=0, rect_mv_levels=0)
 
 SEED = 0
@@ -168,6 +172,7 @@ def device_kernels(fn, tries=3):
 def zero_counts():
     for w in WRAPPERS:
         w.launches = 0
+    affine_mv.mode_launches = dict.fromkeys(affine_mv.mode_launches, 0)
 
 
 def counts():
@@ -385,7 +390,8 @@ def band_forms(slv, gen):
             ("S^-1, 3 bf16 levels", slv.Sinv, slv._sbase, npp, npp),
             ("S^-1, 3 f32 levels", sinv32, slv._sbase, npp, npp)):
         x = vec(nx)
-        for hi in ((False, True) if operand[0] in "WX" else (False,)):
+        # W's level 0 alone is the predictor of a refined solve
+        for hi in ((False, True) if operand[0] == "W" else (False,)):
             lev = 1 if hi else S.shape[1]
             add("rect_mv_levels", operand + (", hi_only" if hi else ""), S,
                 lambda S, b=bases, x=x, n=nrows, hi=hi:
@@ -472,10 +478,13 @@ def rel(a, b):
                  / torch.linalg.vector_norm(b))
 
 
-def divergence_rel(prob, v):
-    """``max|J v - fp| / max(|J||v|)`` of a natural-order inner velocity."""
+def divergence_rel(prob, v, g=None):
+    """``max|J v - g| / max(|J||v|)`` of a natural-order inner velocity;
+    ``g`` the continuity rhs (default ``fp``; a controlled run's last one
+    carries the control dofs' ``-J_bc cvals``: its carry's ``gp``)."""
     vh = v.cpu().numpy()
-    return float(np.abs(prob.Jc @ vh - prob.fp.ravel()).max()
+    g = prob.fp.ravel() if g is None else g.cpu().numpy()
+    return float(np.abs(prob.Jc @ vh - g).max()
                  / (abs(prob.Jc) @ np.abs(vh)).max())
 
 
@@ -586,8 +595,11 @@ def level2_path(dev, gen, nsteps):
     ref_wall = time.time() - t0
     ref_counts = counts()
     ref_peak = torch.cuda.max_memory_allocated()
+    # a step: the apply and one refinement round; A v, the round's residual
+    # (K, J^T, J) and the continuity rhs (J v, f64) through the affine kernel
     require(ref_counts == dict(vecmat=2 * nsteps, conv_vector=nsteps + 3,
-                               conv_vector_amatvec=0, **NONE_BANDED),
+                               conv_vector_amatvec=0, affine_mv=5 * nsteps,
+                               **NONE_BANDED),
             f"launches of the level-2 dense run: {ref_counts}")
     require(ref["ffflag"] is False, "level-2 dense run")
     ref_div = divergence_rel(prob, ref["v"])
@@ -596,7 +608,7 @@ def level2_path(dev, gen, nsteps):
         want = dict(vecmat=0, conv_vector=nsteps + 4, conv_vector_amatvec=0,
                     banded_mv=nsteps * (1 + wr),
                     rect_mv=nsteps * (1 + 3 * wr),
-                    rect_mv_levels=nsteps * 3 * (1 + wr))
+                    rect_mv_levels=nsteps * 3 * (1 + wr), affine_mv=0)
         require(c == want, f"launches of the level-2 run, warm_refine={wr}:"
                 f" {c} != {want}")
         require(o["ffflag"] is False and o["v"].is_cuda
@@ -693,6 +705,482 @@ def level2_path(dev, gen, nsteps):
         band_row("rect_mv_levels", "W, 3 bf16 levels",
                  c0["rect_mv_levels"])]
 
+# ---------------------------------------------------------------------------
+# the affine element matvecs (csrc/affine.cu) and the control slice
+# ---------------------------------------------------------------------------
+
+AFFINE_REPLACES = "dolfin_navier_scipy_tpu/ops/affine.py:54"
+AFFINE_DESIGN = "element-lanes"  # 8 lanes an element, grid barrier, ELL sum
+AFFINE_MODES = (("m", 1.0, 0.0), ("a", 0.0, 1.0), ("ma", 1.0, 5e-4),
+                ("j", 1.0, 0.0), ("jt", 1.0, 0.0))
+# the vector type each mode gets on the paths: the f64 carry under A v, f32
+# work vectors elsewhere (M dv, the dense solver's residual K, J^T, J)
+AFFINE_STATE = dict(m=torch.float32, a=torch.float64, ma=torch.float32,
+                    j=torch.float32, jt=torch.float32)
+# the box behind the cylinder the observation operator averages over
+WAKE_BOX = dict(xmin=0.3, xmax=0.5, ymin=0.1, ymax=0.3)
+
+
+def abs_tables(aff):
+    """The affine tables with every entry replaced by its absolute value:
+    the plain version on them, under ``|x|``, bounds each output row by the
+    sum of the absolute products it adds (every quadrature-point term of
+    every element and facet row) — the scale of that row's rounding."""
+    t = copy.copy(aff)
+    for k in ("W2", "W2T", "MrefI2", "N1q", "JinvT", "wdet", "detJ",
+              "fac_elem"):
+        setattr(t, k, getattr(aff, k).abs())
+    return t
+
+
+def affine_bound_ms(t, mode, x_item, facets):
+    """Least time for one affine matvec on tables ``t``: the vector, the
+    int32 dof table, the geometry (``JinvT``, ``wdet``, ``detJ``), the
+    reference tables and the facet blocks read once and the output written
+    once over the memory rate; the multiply-adds of the per-point chain,
+    the facet rows and the reduction over the rate of the work type."""
+    s = t.wdet.element_size()
+    nc, Q, dim, nvpc, pn = t.nc, t.Q, t.dim, t.nvpc, t.pnpc
+    nd = nvpc * dim
+    nfac = int(t.fac_elem.shape[0]) if facets else 0
+    nin, nout = ((t.npc, t.nin) if mode == "jt" else
+                 (t.nin, t.npc if mode == "j" else t.nin))
+    ids = pn if mode == "jt" else nd
+    nbytes = (x_item * (nin + nout) + 4 * nc * ids
+              + s * nc * (dim * dim + Q + (1 if mode in ("m", "ma") else 0))
+              + s * Q * (nvpc * (1 + dim) + pn + 1)
+              + nfac * nd * (s * nd + 4))
+    grad = 2 * nvpc * dim * dim + 2 * dim ** 3
+    per_q = dict(
+        m=2 * nvpc * dim + 2 * nvpc * dim + dim + 2,
+        a=grad + 4 * dim ** 3 + 2 * nvpc * dim * dim,
+        j=grad + dim + 2 * pn,
+        jt=2 * pn + 2 * nvpc * dim * dim + 2 * nvpc * dim)
+    per_q["ma"] = per_q["a"] + per_q["m"]
+    flops = nc * Q * per_q[mode] + 2 * nfac * nd * nd + nc * (
+        pn if mode == "j" else nd)
+    rate = F32_FLOP_PER_S if s == 4 else F64_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def check_affine(aff, prob, full_dofs, what, gen, timed, profiled=False):
+    """The affine kernel in every mode against its plain version on the
+    same inputs (f32 and f64 vectors): both sum at most a few hundred
+    products of one row in another order; the bar is 1e-5 of the row's sum
+    of the absolute products (:func:`abs_tables`; as for the banded
+    kernels).  Two launches must give the same bits.
+    ``timed``: for the
+    vector type each mode gets on the paths, the kernel (graph replay and
+    eager), its plain version, the one-call library equivalent (a cuSPARSE
+    CSR matvec with the assembled matrix) and the bound."""
+    dev = aff.wdet.device
+    absaff = abs_tables(aff)
+    # the assembled matrices, for the library's one-call equivalent
+    f = prob.full
+    M, A, J, JT = ((f["M"], f["A"], f["J"], f["JT"]) if full_dofs
+                   else (prob.Mc, prob.Ac, prob.Jc, prob.JTc))
+    out = []
+    for mode, cm, ca in AFFINE_MODES:
+        B = dict(m=M, a=A, j=J, jt=JT,
+                 ma=sps.csr_matrix(cm * M + ca * A))[mode]
+        n = aff.npc if mode == "jt" else aff.nin
+        for xdt in (torch.float32, torch.float64):
+            x = torch.randn(n, generator=gen, dtype=torch.float64)
+            xd = x.to(device=dev, dtype=xdt)
+            y = affine_mv(mode, xd, aff, cm, ca)
+            again = affine_mv(mode, xd, aff, cm, ca)
+            ref = affine_mv_ref(mode, xd, aff, cm, ca)
+            torch.cuda.synchronize()
+            require(y.dtype == xdt and y.shape == ref.shape,
+                    f"affine_mv {mode}: output type")
+            require(bool(torch.isfinite(y).all()), f"affine_mv {mode} not "
+                    "finite")
+            rowbar = 1e-5 * affine_mv_ref(mode, xd.double().abs(), absaff,
+                                          abs(cm), abs(ca)) + 1e-30
+            err = (y.double() - ref.double()).abs()
+            ratio = float((err / rowbar).max())
+            require(ratio <= 1.0, f"affine kernel ({mode}, {what}, {xdt}) "
+                    f"disagrees with its plain version: worst ratio to the "
+                    f"row bar {ratio:.3e}")
+            require(torch.equal(y, again), f"affine kernel ({mode}, {what}) "
+                    "is not reproducible launch to launch")
+            row = dict(name="affine_mv", mode=mode, operand=what,
+                       tables=str(aff.wdet.dtype), state=str(xdt),
+                       nc=aff.nc, nin=aff.nin, npc=aff.npc,
+                       facet_blocks=int(aff.fac_elem.shape[0]),
+                       max_abs_err=float(err.max()),
+                       max_err_over_row_bar=ratio,
+                       max_abs_ref=float(ref.abs().max()))
+            if timed and xdt == AFFINE_STATE[mode]:
+                def run(xd=xd, mode=mode, cm=cm, ca=ca):
+                    return affine_mv(mode, xd, aff, cm, ca)
+
+                def plain(xd=xd, mode=mode, cm=cm, ca=ca):
+                    return affine_mv_ref(mode, xd, aff, cm, ca)
+
+                csr = torch.sparse_csr_tensor(
+                    torch.as_tensor(B.indptr, dtype=torch.int64),
+                    torch.as_tensor(B.indices, dtype=torch.int64),
+                    torch.as_tensor(B.data), size=B.shape).to(
+                        device=dev, dtype=aff.wdet.dtype)
+                xl = xd.to(aff.wdet.dtype)[:, None]
+                if profiled and mode == "a":
+                    # one profiled mode: every mode is the same single
+                    # launch in the wrapper (and a profiler session here
+                    # sometimes sees no device event, retries included)
+                    ran = device_kernels(run)
+                    require(len(ran) == 1, f"affine kernel ({mode}, {what}) "
+                            f"ran {len(ran)} device kernels: {ran}")
+                    row["device_kernels_per_call"] = len(ran)
+                bound, by = affine_bound_ms(
+                    aff, mode, xd.element_size(),
+                    mode in ("a", "ma") and ca != 0.0)
+                row.update(ms=graph_ms(run), eager_ms=time_ms(run, 200),
+                           plain_ms=time_ms(plain, 50),
+                           library_ms=time_ms(lambda: csr @ xl, 200),
+                           library="cuSPARSE CSR matvec (torch sparse CSR @) "
+                                   "with the assembled matrix",
+                           bound_ms=bound, bound_by=by)
+                row["roofline_share"] = bound / row["ms"]
+            out.append(row)
+    return out
+
+
+def affine_rows(checks, suffix, launches):
+    """The ``kernels`` line's rows of the affine kernel: one per mode of
+    the timed checks, with that mode's launches on its path."""
+    rows = []
+    for c in checks:
+        if "ms" not in c or c["mode"] not in launches:
+            continue
+        rows.append(dict(
+            name=f"affine_mv_{c['mode']}{suffix}", route="cuda",
+            source="dolfin_navier_scipy_tpu_torch/csrc/affine.cu",
+            replaces=AFFINE_REPLACES, launches=launches[c["mode"]],
+            mode=c["mode"], operand=c["operand"],
+            shape=dict(nc=c["nc"], nin=c["nin"], npc=c["npc"],
+                       facet_blocks=c["facet_blocks"], tables=c["tables"],
+                       state=c["state"]),
+            max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"],
+            bound_ms=c["bound_ms"], bound_by=c["bound_by"],
+            library_ms=c["library_ms"], library=c["library"],
+            eager_ms=c["eager_ms"],
+            device_kernels_per_call=c.get("device_kernels_per_call"),
+            design=AFFINE_DESIGN))
+    return rows
+
+
+def schur_inner_counts(nsteps, refine, affine_per_step, smw_cols=0):
+    """Launches of an inner-layout run on the banded Schur solver with W:
+    a step's convection vector, its ``affine_per_step`` affine matvecs (A v
+    and the continuity rhs's f64 J v; sbdf2 also M dv), the solve (W, J,
+    S^-1, X) and per refine round the residual (F, J^T, J) and a second
+    solve; the Heun bootstrap's three convection vectors; the SMW setup's
+    ``smw_cols`` column solves (with the same refine rounds)."""
+    solves = nsteps + smw_cols
+    return dict(vecmat=0, conv_vector=nsteps + 3, conv_vector_amatvec=0,
+                banded_mv=solves * refine,
+                rect_mv=solves * (1 + 3 * refine),
+                rect_mv_levels=3 * solves * (1 + refine),
+                affine_mv=affine_per_step * nsteps)
+
+
+def rot_control(prob, dev):
+    """The rotating cylinder of the problem (``movingwallcntrl``) as a
+    :class:`DirichletControl`: ``sin(20 t)`` times its tangent stencil."""
+    dofs, stencil = prob.dircntrl[0]
+    return [DirichletControl(dofs, stencil,
+                             lambda t, v, p, mem, mode: (math.sin(20.0 * t),
+                                                         mem))]
+
+
+def control_path(dev, gen, nsteps):
+    """The control slice at level 1 on the default (block-Schur) route,
+    inner state layout: (a) the rotating cylinder, a Dirichlet control
+    ``sin(20 t)``; (b) Robin control through ``f_tdp`` on a
+    Robin-penalized problem; (c) static feedback ``umat = -0.5 C^T``,
+    ``vmat = C`` over the SMW-wrapped solver; (d) ``sbdf2`` with the control
+    of (a) — each with ``warm_refine`` 0 and 1, against the port's CPU f64
+    run of the same call on the exact (dense) solver: 1e-6 refined, 1e-4
+    unrefined; divergence, a bitwise rerun, the control values, exact
+    launch counts.  Then the affine kernel on the Robin tables.  Returns
+    the affine kernel's launches by mode in (a) and (d)."""
+    t0 = time.time()
+    rot = cylinderwake_problem(level=LEVEL, Re=RE, charvel=CHARVEL,
+                               movingwallcntrl=True)
+    rob = cylinderwake_problem(level=LEVEL, Re=RE, charvel=CHARVEL,
+                               bccontrol=True)
+    Brob = apply_robin_penalty(rob, palpha=1e-3)
+    problems_s = time.time() - t0
+    C = observation_operator(rot, odcoo=WAKE_BOX, ny=4)[:, rot.invinds]
+    bdiff = (Brob[:, 0] - Brob[:, 1]).ravel()
+
+    def robin_f(device):
+        fv = torch.as_tensor(rob.fv.ravel(), device=device)
+        bd = torch.as_tensor(bdiff, device=device)
+        return lambda t: fv + math.sin(10.0 * t) * bd
+
+    trange_end = float(np.linspace(T0, TE, NTS + 1)[-1])
+    dkw = dict(t0=T0, tE=TE, Nts=NTS, start_ssstokes=True,
+               save_every=SAVE_EVERY)
+    cases = dict(
+        a=(rot, "cnab", lambda d: dict(controls=rot_control(rot, d)), 2, 0),
+        b=(rob, "cnab", lambda d: dict(f_tdp=robin_f(d)), 2, 0),
+        c=(rot, "cnab", lambda d: dict(umat=-0.5 * C.T, vmat=C), 2,
+           C.shape[0]),
+        d=(rot, "sbdf2", lambda d: dict(controls=rot_control(rot, d)), 3, 0))
+    rows, mode_launches, cpu_ops = {}, {}, {}
+    stencil = torch.as_tensor(np.asarray(rot.dircntrl[0][1]).ravel(),
+                              device=dev)
+    for name, (prob, scheme, extra, aff_per_step, ncols) in cases.items():
+        # the port's CPU f64 run of the same call on the exact solver
+        okey = (id(prob), scheme)
+        t0 = time.time()
+        before = counts()
+        ref = solve_nse(prob=prob, device="cpu", linsolver="dense",
+                        time_int_scheme=scheme, ops=cpu_ops.get(okey),
+                        **extra("cpu"), **dkw)
+        require(counts() == before, "the CPU run launched a kernel")
+        cpu_ops.setdefault(okey, ref["ops"])
+        cpu_s = time.time() - t0
+        require(ref["ffflag"] is False, f"control {name}: CPU run")
+        row = dict(scheme=scheme, cpu_f64_seconds=cpu_s)
+        ops = None
+        for wr in (0, 1):
+            zero_counts()
+            t0 = time.time()
+            o = solve_nse(prob=prob, time_int_scheme=scheme, warm_refine=wr,
+                          ops=ops, **extra(dev), **dkw)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            c = counts()
+            slv = o["ops"].solver
+            require(isinstance(getattr(slv, "base", slv), SchurSaddleSolver),
+                    f"control {name}: the default route is the Schur solver")
+            if ncols == 0:
+                # the next runs reuse the solver (an SMW-wrapped one is
+                # built anew: cnab wraps what it is given)
+                ops = o["ops"]
+            want = schur_inner_counts(nsteps, wr, aff_per_step, ncols)
+            div = divergence_rel(prob, o["v"], o["carry"]["gp"])
+            e = {k: rel(o[k], ref[k]) for k in ("v", "p", "vs", "ps")}
+            bar = 1e-6 if wr else 1e-4
+            # each run's numbers before its checks
+            say(phase="control_path_run", case=name, warm_refine=wr,
+                rel_err_vs_cpu_f64=e, divergence_residual_rel=div,
+                launches=c)
+            require(c == want, f"launches of control {name}, warm_refine="
+                    f"{wr}: {c} != {want}")
+            if name in ("a", "d") and wr == 0:
+                mode_launches[name] = dict(affine_mv.mode_launches)
+            require(o["ffflag"] is False and o["v"].is_cuda
+                    and o["v"].dtype == torch.float64, f"control {name}")
+            for k in ("v", "p", "vs", "ps"):
+                require(bool(torch.isfinite(o[k]).all()),
+                        f"control {name}: {k} not finite")
+            require(div <= 1e-6, f"control {name}, warm_refine={wr}: "
+                    f"divergence residual {div:.3e}")
+            require(e["v"] <= bar and e["vs"] <= bar,
+                    f"control {name}, warm_refine={wr}, card vs CPU f64: {e}")
+            if "controls" in extra("cpu"):
+                cv = o["carry"]["cvals"]
+                require(torch.equal(cv, math.sin(20.0 * trange_end)
+                                    * stencil),
+                        f"control {name}: the control dofs do not carry "
+                        "sin(20 t_end) * stencil")
+            t = o["timing"]
+            row[f"warm_refine_{wr}"] = dict(
+                launches=c, wall_seconds=wall, setup_seconds=t["setup_s"],
+                bootstrap_seconds=t["bootstrap_s"], loop_seconds=t["loop_s"],
+                ms_per_step=1e3 * t["loop_s"] / nsteps,
+                launches_per_step={k: v / nsteps for k, v in c.items()},
+                divergence_residual_rel=div, rel_err_vs_cpu_f64=e, bar=bar)
+            if name == "a" and wr == 0:
+                zero_counts()
+                again = solve_nse(prob=prob, time_int_scheme=scheme,
+                                  warm_refine=0, ops=ops, **extra(dev),
+                                  **dkw)
+                require(counts() == c, "launches of the control rerun")
+                require(torch.equal(again["v"], o["v"])
+                        and torch.equal(again["p"], o["p"]),
+                        "two controlled runs on the card differ: "
+                        f"{rel(again['v'], o['v']):.3e}")
+                row["rel_diff_v_to_first_run"] = rel(again["v"], o["v"])
+                del again
+        rows[name] = row
+        del ref
+    # the affine kernel on the Robin tables: the penalty in the facet rows
+    aff_rob = rob.affine_ops(torch.float32, device=dev)
+    require(aff_rob.fac_elem.shape[0]
+            > AffineVectorOps.build(rot, torch.float32,
+                                    device=dev).fac_elem.shape[0],
+            "the Robin arcs add facet blocks")
+    rob_checks = check_affine(aff_rob, rob, False,
+                              "level 1, Robin-penalized", gen, timed=False)
+    say(phase="control_path", problem="cylinderwake level 1, Re 100: (a) "
+        "movingwallcntrl, DirichletControl sin(20 t); (b) bccontrol, "
+        "apply_robin_penalty(1e-3), f_tdp = fv + sin(10 t)(Brob0 - Brob1); "
+        "(c) umat = -0.5 C^T, vmat = C, C = observation_operator(ny=4, "
+        f"odcoo={WAKE_BOX}); (d) sbdf2 with (a)",
+        call="solve_nse(prob, t0, tE, Nts=300, start_ssstokes=True, "
+             "save_every=60, warm_refine=0|1, controls=|f_tdp=|umat=,vmat=)",
+        oracle="the same call on the CPU in f64, linsolver='dense'",
+        problems_seconds=problems_s, steps=nsteps, runs=rows,
+        affine_robin=rob_checks)
+    return mode_launches
+
+
+def busy_share(fn):
+    """``(device busy ms, device kernels, wall s)`` of one call of ``fn``
+    under ``torch.profiler``; busy None where the profiler saw no device
+    event (printed, not checked)."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    dev_ev = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev_ev:
+        return None, None, wall     # the profiler saw no device event
+    return (1e-3 * sum(e.device_time_total for e in dev_ev),
+            sum(e.count for e in dev_ev), wall)
+
+
+def control_level2(dev, gen, nsteps):
+    """The control slice at level 2 (full width, device setup; no CPU
+    oracle at this size): (a) the rotating cylinder of ``control_path``;
+    (b) ``solve_nse(closed_loop=True, dynamic_feedback=True,
+    dyn_fb_disc="AB2")`` with a stable observer made from the seed, held
+    bitwise against the same run through a hand-built ``dynamic_rhs``;
+    (c) static feedback through ``feedbackthroughdict``.  Refine 0 against
+    refine 1 within 1e-4, divergence, a bitwise rerun, exact launches.
+    Printed: ms and launches a step, the device-busy share of a traced
+    run.  Returns the ``kernels`` rows of the affine kernel at level 2."""
+    t0 = time.time()
+    prob = cylinderwake_problem(level=LEVEL2, Re=RE, charvel=CHARVEL,
+                                movingwallcntrl=True)
+    problem_s = time.time() - t0
+    nin = len(prob.invinds)
+    C = observation_operator(prob, odcoo=WAKE_BOX, ny=4)[:, prob.invinds]
+    ny, hN = C.shape[0], 4
+    rng = np.random.default_rng(SEED)
+    dfb = dict(ha=-np.eye(hN) + 0.05 * rng.normal(size=(hN, hN)),
+               hb=0.3 * rng.normal(size=(hN, ny)),
+               hc=0.05 * rng.normal(size=(ny, hN)), inihx=np.ones(hN))
+    # the actuation acts where the observation looks (a random B over
+    # every dof would be a grid-scale forcing)
+    B = 1e-2 * C.T
+    fbtd = {None: dict(mtxtb=0.5 * C.T, w=np.linspace(0.0, 1.0, nin))}
+    dkw = dict(t0=T0, tE=TE, Nts=NTS, start_ssstokes=True,
+               save_every=SAVE_EVERY)
+    ctl = rot_control(prob, dev)
+    cases = dict(
+        a=(dict(controls=ctl), 0),
+        b=(dict(closed_loop=True, dynamic_feedback=True, dyn_fb_dict=dfb,
+                dyn_fb_disc="AB2", b_mat=B, cv_mat=C), 0),
+        c=(dict(closed_loop=True, static_feedback=True,
+                feedbackthroughdict=fbtd, b_mat=1e-2 * C.T), ny))
+    rows, ops, outs = {}, None, {}
+    for name, (extra, ncols) in cases.items():
+        row = {}
+        for wr in (0, 1):
+            zero_counts()
+            t0 = time.time()
+            o = solve_nse(prob=prob, warm_refine=wr, ops=ops, **extra, **dkw)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            c = counts()
+            if ops is None:
+                ops = o["ops"]
+                require(isinstance(ops.solver, SchurSaddleSolver)
+                        and ops.solver.setup == "device",
+                        "level-2 controls: the Schur solver, device setup")
+                setup_s = o["timing"]["setup_s"]
+                iniv, inip = o["iniv"], o["inip"]
+                modes = dict(affine_mv.mode_launches)
+            want = schur_inner_counts(nsteps, wr, 2, ncols)
+            # the first run builds the solver: no launch in a setup
+            require(c == want, f"launches of level-2 control {name}, "
+                    f"warm_refine={wr}: {c} != {want}")
+            require(o["ffflag"] is False, f"level-2 control {name}")
+            for k in ("v", "p", "vs", "ps"):
+                require(bool(torch.isfinite(o[k]).all()),
+                        f"level-2 control {name}: {k} not finite")
+            div = divergence_rel(prob, o["v"], o["carry"]["gp"])
+            require(div <= 1e-6, f"level-2 control {name}, warm_refine="
+                    f"{wr}: divergence residual {div:.3e}")
+            t = o["timing"]
+            row[f"warm_refine_{wr}"] = dict(
+                launches=c, wall_seconds=wall,
+                bootstrap_seconds=t["bootstrap_s"], loop_seconds=t["loop_s"],
+                ms_per_step=1e3 * t["loop_s"] / nsteps,
+                launches_per_step={k: v / nsteps for k, v in c.items()},
+                divergence_residual_rel=div)
+            outs[name, wr] = o
+        e = rel(outs[name, 0]["v"], outs[name, 1]["v"])
+        require(e <= 1e-4, f"level-2 control {name}: refine 0 vs refine 1 "
+                f"{e:.3e}")
+        row["rel_v_refine0_vs_refine1"] = e
+        rows[name] = row
+    # (a) again: the same bits
+    zero_counts()
+    again = solve_nse(prob=prob, warm_refine=0, ops=ops, **cases["a"][0],
+                      **dkw)
+    require(torch.equal(again["v"], outs["a", 0]["v"])
+            and torch.equal(again["p"], outs["a", 0]["p"]),
+            "two level-2 controlled runs differ")
+    rows["a"]["rel_diff_v_to_first_run"] = rel(again["v"], outs["a", 0]["v"])
+    del again
+    # (b) against the hand-built dynamic_rhs: the same bits
+    fbk, mem0 = get_heunab_lti(hb=dfb["hb"], ha=dfb["ha"], hc=dfb["hc"],
+                               inihx=dfb["inihx"], device=dev)
+    Bt, Ct = (torch.as_tensor(m, device=dev) for m in (B, C))
+
+    def dynamic_rhs(t, vc=None, memory=None, mode=None):
+        u, memory = fbk(t, vc=Ct @ vc, memory=memory, mode=mode)
+        return Bt @ u, memory
+
+    hand = solve_nse(prob=prob, warm_refine=1, ops=ops,
+                     dynamic_rhs=dynamic_rhs, dynamic_rhs_memory=mem0, **dkw)
+    require(torch.equal(hand["v"], outs["b", 1]["v"])
+            and torch.equal(hand["p"], outs["b", 1]["p"]),
+            "closed_loop dynamic feedback differs from the hand-built "
+            f"dynamic_rhs: {rel(hand['v'], outs['b', 1]['v']):.3e}")
+    del hand, outs
+    # a traced run of (a), refine 0 (printed, not checked): device time
+    # over the untraced run's loop time
+    busy, nk, wall = busy_share(lambda: solve_nse(
+        prob=prob, t0=T0, tE=TE, Nts=NTS, iniv=iniv, inip=inip, ops=ops,
+        controls=ctl, save_every=0))
+    loop_a = rows["a"]["warm_refine_0"]["loop_seconds"]
+    # the affine kernel on the level-2 tables (A v under the f64 carry)
+    aff = prob.affine_ops(torch.float32, device=dev)
+    checks = check_affine(aff, prob, False, "level 2", gen, timed=True)
+    say(phase="control_level2", problem=f"cylinderwake level {LEVEL2}, "
+        "Re 100, movingwallcntrl: (a) DirichletControl sin(20 t); (b) "
+        "closed_loop dynamic_feedback AB2, hN 4 (hA, hB, hC seeded), C = "
+        f"observation_operator(ny=4, odcoo={WAKE_BOX}), B = 1e-2 C^T; (c) "
+        "closed_loop static_feedback "
+        "feedbackthroughdict (mtxtb = 0.5 C^T, b_mat = 1e-2 C^T)",
+        nin=nin, np_cond=prob.np_cond, problem_seconds=problem_s,
+        solver_setup_seconds=setup_s,
+        solver_parts_seconds=ops.solver.setup_timing, steps=nsteps,
+        runs=rows, closed_loop_equals_hand_built=True,
+        traced_run_a=dict(
+            device_busy_ms=busy, device_kernels=nk, traced_wall_seconds=wall,
+            note="bootstrap included (host splu; three convection kernels)",
+            device_busy_ms_per_step=(None if busy is None
+                                     else busy / nsteps),
+            device_busy_share_of_untraced_loop=(
+                None if busy is None else 1e-3 * busy / loop_a)),
+        affine=checks)
+    return affine_rows(checks, "_level2", dict(a=modes["a"]))
+
 
 def main():
     t_start = time.time()
@@ -772,16 +1260,28 @@ def main():
     schur_build_s = time.time() - t0
     slv = sops.solver
     band_checks = check_band(band_forms(slv, gen))
+    # the affine kernel on the level-1 tables: f32 under the vectors the
+    # paths give it (timed), over the full dof set, and f64
+    aff_checks = check_affine(prob.affine_ops(torch.float32, device=dev),
+                              prob, False, "level 1", gen, timed=True,
+                              profiled=True)
+    aff_checks += check_affine(affs[torch.float32], prob, True,
+                               "level 1, full dofs", gen, timed=False)
+    aff_checks += check_affine(prob.affine_ops(torch.float64, device=dev),
+                               prob, False, "level 1", gen, timed=False)
     say(phase="kernel_checks", vecmat=checks, convection=conv_checks,
-        banded=band_checks, schur_solver_build_seconds=schur_build_s)
+        banded=band_checks, affine=aff_checks,
+        schur_solver_build_seconds=schur_build_s)
     del sops, slv
     device_setup_path(prob, dev, dt_main)
+    # the control slice at level 2 (profiled here: before any CPU run)
+    nsteps = NTS - 1          # the Heun bootstrap takes the first interval
+    control2_rows = control_level2(dev, gen, nsteps)
 
     # -- 3. the main path, through the user's entry points -----------------
     kw = dict(t0=T0, tE=TE, Nts=NTS, start_ssstokes=True,
               time_int_scheme="cnab", linsolver="dense",
               save_every=SAVE_EVERY)
-    nsteps = NTS - 1          # the Heun bootstrap takes the first interval
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     t0 = time.time()
@@ -809,7 +1309,8 @@ def main():
     # convection vector three times in the Heun bootstrap and once for the
     # AB2 start value (the Stokes start brings its own pressure)
     require(main_counts == dict(vecmat=nsteps, conv_vector=4,
-                                conv_vector_amatvec=nsteps, **NONE_BANDED),
+                                conv_vector_amatvec=nsteps, affine_mv=0,
+                                **NONE_BANDED),
             f"launches on the main path: {main_counts}")
     div_rel = divergence_rel(prob, v)
     # each f32 increment solve leaves a divergence residual of f32 size
@@ -882,10 +1383,14 @@ def main():
     zero_counts()
     sb = solve_nse(prob=prob, **skw)
     sb_counts = counts()
+    sb_modes = dict(affine_mv.mode_launches)
     # inner layout with f32 work: the dense apply and one refinement round
-    # a step; one convection vector a step and three in the Heun bootstrap
+    # a step; one convection vector a step and three in the Heun bootstrap;
+    # the affine kernel for M dv, A v, the round's residual (K, J^T, J) and
+    # the continuity rhs (J v, f64)
     require(sb_counts == dict(vecmat=2 * nsteps, conv_vector=nsteps + 3,
-                              conv_vector_amatvec=0, **NONE_BANDED),
+                              conv_vector_amatvec=0, affine_mv=6 * nsteps,
+                              **NONE_BANDED),
             f"launches of the sbdf2 run: {sb_counts}")
     require(sb["ffflag"] is False and sb["v"].is_cuda, "sbdf2 run")
     # the inner layout gives the dense kernel another operand: the unpadded
@@ -986,7 +1491,7 @@ def main():
         want = dict(vecmat=0, conv_vector=nsteps + 4, conv_vector_amatvec=0,
                     banded_mv=nsteps * (1 + wr),
                     rect_mv=nsteps * (1 + 3 * wr),
-                    rect_mv_levels=nsteps * 3 * (1 + wr))
+                    rect_mv_levels=nsteps * 3 * (1 + wr), affine_mv=0)
         require(c == want, f"launches of the Schur run, warm_refine={wr}: "
                 f"{c} != {want}")
         require(o["ffflag"] is False and o["v"].is_cuda
@@ -1027,7 +1532,8 @@ def main():
     sbs = solve_nse(prob=prob, **dict(skw, linsolver="schur"))
     sbs_counts = counts()
     want = dict(vecmat=0, conv_vector=nsteps + 3, conv_vector_amatvec=0,
-                banded_mv=0, rect_mv=nsteps, rect_mv_levels=3 * nsteps)
+                banded_mv=0, rect_mv=nsteps, rect_mv_levels=3 * nsteps,
+                affine_mv=3 * nsteps)
     require(sbs_counts == want, f"launches of the Schur sbdf2 run: "
             f"{sbs_counts} != {want}")
     require(isinstance(sbs["ops"].solver, SchurSaddleSolver)
@@ -1051,6 +1557,9 @@ def main():
                    ms_per_step=1e3 * sbs["timing"]["loop_s"] / nsteps,
                    rel_err_vs_cpu_f64=sbs_errs))
     del sbs, schur, o0, slv
+
+    # -- 7. the control slice at level 1, against CPU f64 ------------------
+    control_modes = control_path(dev, gen, nsteps)
 
     # -- 8. the default call at level 2: the factors built on the card -------
     level2_rows = level2_path(dev, gen, nsteps)
@@ -1133,7 +1642,14 @@ def main():
         band_row("rect_mv", "J", c0["rect_mv"]),
         band_row("rect_mv_levels", "W, 3 bf16 levels", c0["rect_mv_levels"]),
         # the same kernels on the level-2 operands, launches of that path
-        *level2_rows])
+        *level2_rows,
+        # the affine kernel: A v of the controlled step (control_path (a)),
+        # M dv of its sbdf2 (d), the dense solver's residual (K, J^T, J) of
+        # the sbdf2 run of the DFG path; and A v at level 2
+        *affine_rows(aff_checks, "", dict(
+            a=control_modes["a"]["a"], m=control_modes["d"]["m"],
+            ma=sb_modes["ma"], j=sb_modes["j"], jt=sb_modes["jt"])),
+        *control2_rows])
     say(ok=True, device=dict(platform="gpu",
                              kind=torch.cuda.get_device_name(0),
                              count=torch.cuda.device_count()))

@@ -10,5 +10,6 @@ from .cylinderwake import cylinderwake_problem, geosetup_from_json  # noqa: F401
 from .functionals import (  # noqa: F401
     LiftDragSurfForce,
     make_inscan_liftdrag,
+    observation_operator,
     pressure_drop,
 )

@@ -14,7 +14,8 @@ dofs* — no extra assembly:
 (A_full already carries the symmetrized-gradient outflow correction,
 dolfin_to_sparrays.py:246-248.)  ``p`` is the physical pressure.
 
-``observation_operator`` waits for the control slice of the port.
+``observation_operator`` builds the velocity observation ``C`` of the
+feedback paths.
 """
 
 import numpy as np
@@ -187,3 +188,30 @@ def pressure_drop(prob, p, a1=(0.15, 0.2), a2=(0.25, 0.2)):
         p = np.concatenate([p, [0.0]])
     vals = prob.space.eval_pressure(p, np.array([a1, a2]))
     return float(vals[0] - vals[1])
+
+
+def observation_operator(prob, odcoo=None, ny=8):
+    """Velocity observation ``y = C v`` over an observation box.
+
+    A light-weight analogue of the reference's optional
+    ``distributed_control_fenics.cont_obs_utils`` dependency
+    (tests/time_dep_nse_bigchannel.py:30-33): averages each velocity
+    component over ``ny`` horizontal strips of the observation domain
+    ``odcoo`` (a dict with ``xmin xmax ymin ymax``; default the problem's
+    ``geo.odcoo``).  Returns a dense ``(2*ny, nv_full)`` numpy matrix.
+    """
+    odcoo = odcoo or prob.geo.odcoo
+    if odcoo is None:
+        raise ValueError("no observation domain configured")
+    coords = prob.space.p2_coords
+    inx = (coords[:, 0] >= odcoo["xmin"]) & (coords[:, 0] <= odcoo["xmax"])
+    C = np.zeros((2 * ny, prob.nv_full))
+    yedges = np.linspace(odcoo["ymin"], odcoo["ymax"], ny + 1)
+    for k in range(ny):
+        sel = inx & (coords[:, 1] >= yedges[k]) & (coords[:, 1] < yedges[k + 1])
+        nodes = np.flatnonzero(sel)
+        if len(nodes) == 0:
+            continue
+        C[2 * k, 2 * nodes] = 1.0 / len(nodes)
+        C[2 * k + 1, 2 * nodes + 1] = 1.0 / len(nodes)
+    return C

@@ -75,6 +75,10 @@ class NSEProblem:
     # analogue of the reference's diricontbcinds/diricontbcvals
     # (stokes_navier_utils.py:259-265)
     dircntrl: Optional[List] = None
+    # Robin control operators (bccontrol=True): boundary mass and input
+    # columns over the inner dofs
+    Arob: Optional[sps.spmatrix] = None
+    Brob: Optional[np.ndarray] = None
     elem_tensors: Optional[Dict] = None      # per-element M/A/J blocks
     gradvsymmtrc: bool = True
     device: Optional[object] = None          # None = the card
@@ -170,9 +174,6 @@ def build_problem(
         raise NotImplementedError(
             f"scheme {scheme!r} in {dim}D: only 2D Taylor-Hood is ported so "
             "far (3D and CR follow in a later slice)")
-    if bccontrol:
-        raise NotImplementedError(
-            "Robin boundary control is not ported yet (control slice)")
     space = TaylorHoodSpace(mesh)
     ctx = AssemblyContext(space)
 
@@ -186,6 +187,8 @@ def build_problem(
         nu=nu,
         gradvsymmtrc=gradvsymmtrc,
         outflow_tag=geo.outflow_tag,
+        control_tags=geo.control_tags if bccontrol else None,
+        control_shapefuns=geo.control_shapefuns if bccontrol else None,
     )
 
     # ---- Dirichlet data ------------------------------------------------------
@@ -205,8 +208,9 @@ def build_problem(
             bcdict.update({int(i): 0.0 for i in cdofs})
         else:
             bcdict.update(space.dirichlet_dofs(tag, fn))
-    for tag in geo.control_tags:
-        bcdict.update(space.dirichlet_dofs(tag, zerofn))
+    if not bccontrol:
+        for tag in geo.control_tags:
+            bcdict.update(space.dirichlet_dofs(tag, zerofn))
     if geo.inflow_tag is not None:
         bcdict.update(space.dirichlet_dofs(geo.inflow_tag, geo.inflow_fn))
     dbcinds = np.array(sorted(bcdict), dtype=np.int64)
@@ -252,6 +256,16 @@ def build_problem(
     )
     if dircntrl:
         prob.dircntrl = dircntrl
+    if bccontrol and "amatrob" in mats:
+        from ..ops.condense import condense_velmat
+
+        Arob, fvrob = condense_velmat(
+            mats["amatrob"], dbcinds=[dbcinds], dbcvals=[dbcvals]
+        )
+        if np.linalg.norm(fvrob) > 1e-15:
+            raise UserWarning("dirichlet and control bcs must not intersect")
+        prob.Arob = Arob
+        prob.Brob = mats["bmatrob"][invinds, :]
     if geo.liftdrag_tag is not None:
         nodes = space.boundary_nodes(geo.liftdrag_tag)
         prob.ldsbcinds = np.concatenate(

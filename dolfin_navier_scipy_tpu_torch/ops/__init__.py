@@ -10,6 +10,8 @@ from .sparse import EllMatrix  # noqa: F401
 from .affine import AffineVectorOps, OpView  # noqa: F401
 from .kernels import (  # noqa: F401
     DofTable,
+    affine_mv,
+    affine_mv_ref,
     as_vecmat_operand,
     conv_vector,
     conv_vector_amatvec,

@@ -3,8 +3,11 @@ straight triangles.
 
 On affine elements every FEM operator factorizes as
 ``sum_r geo_r[e] * (constant reference matrix)``: applying M/A/J/J^T
-reduces to a few LARGE constant-weight matmuls plus small per-element
-geometry contractions around one gather and one scatter-add.
+reduces to per-element geometry contractions against constant reference
+tables around one gather and one fixed-order reduction.  Each matvec is
+one call of :func:`..ops.kernels.affine_mv`: the hand-written kernel of
+``csrc/affine.cu`` on the card, its plain PyTorch version (constant-weight
+matmuls, einsums, segment sums over the tables built here) on the CPU.
 
 Dirichlet condensation is realized by index masking (a dropped extra
 segment for rows + zero-padded columns).
@@ -15,7 +18,7 @@ import torch
 
 from ..device import resolve_device
 from .convection import reference_weight_matrices
-from .kernels import DofTable, dof_slot_table
+from .kernels import DofTable, affine_mv, dof_slot_table
 
 
 def _volume_a_elements(ctx, nu, gradvsymmtrc=True):
@@ -57,10 +60,11 @@ class AffineVectorOps:
     ``full_dofs``, on the full velocity dof vector)."""
 
     def __init__(self, **kw):
-        # tensors: W1 W2 W2T MrefI2 N1q JinvT wdet detJ vdofs pdofs
-        # fac_elem fac_vdofs; fac_dofs: the DofTable of fac_vdofs (what the
-        # fused convection kernel takes); (pos, mask) segment tables: vseg
-        # pseg fseg;
+        # tensors: W1 W2 W2T MrefI2 (the plain version's) N2 dN2 qw N1q
+        # JinvT wdet detJ vdofs pdofs fac_elem fac_vdofs; DofTables (what
+        # the kernels take): vtab (vdofs), ptab (pdofs), fac_dofs
+        # (fac_vdofs, also the fused convection kernel's); (pos, mask)
+        # segment tables of the plain version: vseg pseg fseg;
         # scalars: nin npc Q nu nc nvpc pnpc sym dim
         self.__dict__.update(kw)
 
@@ -112,11 +116,14 @@ class AffineVectorOps:
                 device=device, dtype=dt)
 
         fac_vdofs = dev(vdofs[fsel], torch.int64)
+        vdofs_t, pdofs_t = dev(vdofs, torch.int64), dev(pdofs, torch.int64)
         return cls(
             W1=dev(W1), W2=dev(W2), W2T=dev(W2.T), MrefI2=dev(MrefI2),
+            N2=dev(ctx.N2), dN2=dev(ctx.dN2), qw=dev(ctx.qwts),
             N1q=dev(ctx.N1), JinvT=dev(ctx.JinvT), wdet=dev(ctx.wdet),
             detJ=dev(ctx.detJ),
-            vdofs=dev(vdofs, torch.int64), pdofs=dev(pdofs, torch.int64),
+            vdofs=vdofs_t, pdofs=pdofs_t,
+            vtab=DofTable(vdofs_t, nin), ptab=DofTable(pdofs_t, npc),
             fac_elem=dev(corr[fsel]),
             fac_vdofs=fac_vdofs, fac_dofs=DofTable(fac_vdofs, nin),
             vseg=_segment_table(vdofs, nin, dtype, device),
@@ -124,88 +131,27 @@ class AffineVectorOps:
             fseg=_segment_table(vdofs[fsel], nin, dtype, device),
             nin=nin, npc=npc, Q=Q, nu=float(prob.nu),
             nc=ctx.wdet.shape[0], nvpc=nvpc, pnpc=pnpc, sym=sym, dim=dim,
+            _plans={},
         )
 
-    # -- core pipelines -------------------------------------------------------
-    def _pad(self, x):
-        dt = self.wdet.dtype
-        return torch.cat([x.to(dt), x.new_zeros(1, dtype=dt)])
-
-    def _gather(self, x):
-        return self._pad(x)[self.vdofs]                     # (nc, 2nvpc)
-
-    def _segsum(self, vals, seg, out_dtype):
-        """Sum ``vals`` into the segments of a :func:`_segment_table`, each
-        segment's summands in a fixed order."""
-        pos, mask = seg
-        return (vals.reshape(-1)[pos] * mask).sum(1).to(out_dtype)
-
-    def _scatter(self, fe, out_dtype):
-        return self._segsum(fe, self.vseg, out_dtype)
-
-    def _grad(self, xe):
-        """D[e,q,c,d] = d x_c / d x_d at quad points."""
-        d = self.dim
-        rg = (xe @ self.W2).reshape(self.nc, self.Q, d, d)  # (q,k,c)
-        return torch.einsum("edk,eqkc->eqcd", self.JinvT, rg)
-
-    def _grad_pullback(self, F):
-        """y_e[(a,c)] = sum_q wdet F[e,q,c,d] gphi[e,q,a,d] via W2^T."""
-        G = torch.einsum("edk,eqcd->eqkc", self.JinvT, F)
-        G = (self.wdet[:, :, None, None]
-             * G).reshape(self.nc, self.dim * self.dim * self.Q)
-        return G @ self.W2T
-
-    def _facet_corr(self, x, scale=1.0):
-        if self.fac_elem.shape[0] == 0:
-            return None
-        xfe = self._pad(x)[self.fac_vdofs]
-        ffe = torch.einsum("fab,fb->fa", self.fac_elem, xfe) * scale
-        return self._segsum(ffe, self.fseg, ffe.dtype)
-
-    # -- matvecs ---------------------------------------------------------------
+    # -- matvecs: each one call of the hand-written kernel ------------------
     def m_matvec(self, x):
-        xe = self._gather(x)
-        fe = self.detJ[:, None] * (xe @ self.MrefI2)
-        return self._scatter(fe, x.dtype)
+        return affine_mv("m", x, self)
 
     def a_matvec(self, x):
-        return self.ma_matvec(x, 0.0, 1.0)
+        return affine_mv("a", x, self)
 
     def ma_matvec(self, x, cm, ca):
         """Fused ``cm * M @ x + ca * A @ x`` sharing gather/scatter."""
-        xe = self._gather(x)
-        D = self._grad(xe)
-        if self.sym:
-            F = (ca * self.nu) * (D + D.transpose(2, 3))
-        else:
-            F = (ca * self.nu) * D
-        fe = self._grad_pullback(F)
-        if cm != 0.0:
-            fe = fe + (cm * self.detJ)[:, None] * (xe @ self.MrefI2)
-        out = self._scatter(fe, x.dtype)
-        corr = self._facet_corr(x, scale=ca)
-        if corr is not None:
-            out = out + corr.to(x.dtype)
-        return out
+        return affine_mv("ma", x, self, cm, ca)
 
     def j_matvec(self, x):
         """``J @ x``: q-weighted divergence."""
-        xe = self._gather(x)
-        D = self._grad(xe)
-        div = torch.diagonal(D, dim1=2, dim2=3).sum(-1)      # (nc,Q)
-        fe = (self.wdet * div) @ self.N1q                    # (nc,pnpc)
-        return self._segsum(fe, self.pseg, x.dtype)
+        return affine_mv("j", x, self)
 
     def jt_matvec(self, q):
         """``J^T @ q``."""
-        dtp = self.wdet.dtype
-        qe = self._pad(q)[self.pdofs]                        # (nc,pnpc)
-        qq = torch.einsum("qp,ep->eq", self.N1q, qe)         # (nc,Q)
-        eye = torch.eye(self.dim, dtype=dtp, device=qq.device)
-        F = qq[:, :, None, None] * eye[None, None]           # (nc,Q,c,d)
-        fe = self._grad_pullback(F)
-        return self._scatter(fe, q.dtype)
+        return affine_mv("jt", q, self)
 
     def view(self, kind, cm=1.0, ca=0.0):
         """A matvec-interface view: kind in {'m','a','ma','j'}; 'ma' is

@@ -9,11 +9,13 @@ Produces the same operator set as the reference's
   outflow do-nothing correction ``- nu * int (grad u^T n) . v ds_out``
   (dolfin_to_sparrays.py:245-248),
 * ``J``  divergence ``int q div(u) dx``, ``JT = J.T`` the gradient,
-* ``MP`` pressure mass.
+* ``MP`` pressure mass,
+* optional Robin boundary-control operators ``amatrob``/``bmatrob``
+  (dolfin_to_sparrays.py:277-320).
 
 These are one-time setup costs; matrices are returned as scipy CSR and
-converted to device formats by :mod:`.sparse`.  The Robin boundary-control
-operators, 3D and Crouzeix-Raviart elements are not ported yet.
+converted to device formats by :mod:`.sparse`.  3D and Crouzeix-Raviart
+elements are not ported yet.
 """
 
 from dataclasses import dataclass
@@ -100,10 +102,6 @@ def assemble_stokes(
     dolfin_to_sparrays.py:239-245, which doubles the viscosity; we treat
     that as a quirk, not behavior to preserve).
     """
-    if control_tags:
-        raise NotImplementedError(
-            "Robin boundary-control operators are not ported yet "
-            "(control slice)")
     space, mesh = ctx.space, ctx.space.mesh
     nc = mesh.num_cells
     wdet = ctx.wdet
@@ -165,6 +163,19 @@ def assemble_stokes(
             "A": Avec.reshape(nc, dim * nvpc, dim * nvpc),
             "J": Je.reshape(nc, pnpc, dim * nvpc),
         }
+
+    # ---- Robin boundary control ops ---------------------------------------
+    if control_tags:
+        amats, bvecs = [], []
+        for tag, sfun in zip(control_tags, control_shapefuns):
+            am, bm = assemble_robin_facets(ctx, tag, sfun)
+            amats.append(am)
+            bvecs.append(bm)
+        amatrob = amats[0]
+        for am in amats[1:]:
+            amatrob = amatrob + am
+        out["amatrob"] = amatrob
+        out["bmatrob"] = np.hstack(bvecs)
     return out
 
 
@@ -221,6 +232,49 @@ def gradT_normal_facet_elements(ctx: AssemblyContext, tag: int):
         "fq,fqa,fqbi,fj->faibj", fq["w"], fq["N"], fq["gphi"], fq["normal"]
     )
     return fq["cells"], elem
+
+
+def _boundary_mass_elements(fq):
+    """``(nf, 6, 2, 6, 2)`` vector boundary-mass blocks ``delta_ij int
+    phi_a phi_b ds`` from :func:`facet_quad_data` tables."""
+    me = np.einsum("fq,fqa,fqb->fab", fq["w"], fq["N"], fq["N"])
+    nvpc = me.shape[1]
+    elem = np.zeros(me.shape[:1] + (nvpc, 2, nvpc, 2))
+    elem[:, :, 0, :, 0] = me
+    elem[:, :, 1, :, 1] = me
+    return elem
+
+
+def robin_facet_elements(ctx: AssemblyContext, tag: int):
+    """Per-facet vector boundary-mass blocks ``(cells, elem (nf,6,2,6,2))``
+    — the element form of ``amatrob`` for folding into element tensors."""
+    fq = facet_quad_data(ctx, tag)
+    return fq["cells"], _boundary_mass_elements(fq)
+
+
+def assemble_robin_facets(ctx: AssemblyContext, tag: int, shapefun):
+    """Robin control operators on a tagged boundary.
+
+    ``amatrob[(a,i),(b,j)] = delta_ij int phi_a phi_b ds`` and
+    ``bmatrob[(a,i)] = int phi_a g_i(x) ds`` for the control shape
+    function ``g`` (dolfin_to_sparrays.py:303-313).
+    """
+    space = ctx.space
+    fq = facet_quad_data(ctx, tag)
+    elem = _boundary_mass_elements(fq)
+    vd = space.vdofs_of_cells()[fq["cells"]]
+    rows = np.broadcast_to(vd[:, :, :, None, None], elem.shape)
+    cols = np.broadcast_to(vd[:, None, None, :, :], elem.shape)
+    n = space.nv_full
+    amat = sps.coo_matrix(
+        (elem.ravel(), (rows.ravel(), cols.ravel())), shape=(n, n)
+    ).tocsr()
+
+    gq = np.apply_along_axis(shapefun, -1, fq["xq"])
+    be = np.einsum("fq,fqa,fqi->fai", fq["w"], fq["N"], gq)
+    bvec = np.zeros(n)
+    np.add.at(bvec, vd.ravel(), be.ravel())
+    return amat, bvec.reshape(-1, 1)
 
 
 def assemble_rhs(ctx: AssemblyContext, fv_fn=None, fp_fn=None, t=None):

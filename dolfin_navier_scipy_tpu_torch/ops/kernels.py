@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch versions.
 
-Three sources:
+Four sources:
 
 * the dense inverse apply ``y = x @ KT`` (``csrc/vecmat.cu``), the
   counterpart of the JAX package's Pallas kernel
@@ -17,6 +17,10 @@ Three sources:
   (``csrc/bandmv.cu``) behind :func:`banded_mv`, :func:`rect_mv` and
   :func:`rect_mv_levels`: the JAX package's XLA einsums ``_banded_mv``,
   ``_rect_mv``, ``_rect_mv_pair`` and ``SchurSaddleSolver._sapply``.
+* the affine element matvecs ``M x``, ``A x``, ``cm M x + ca A x``, ``J x``
+  and ``J^T q`` (``csrc/affine.cu``) behind :func:`affine_mv`: the JAX
+  package's ``ops/affine.py: AffineVectorOps`` pipelines (left to XLA),
+  one launch with the mode as an argument.
 
 Build and binding: each ``csrc/*.cu`` is compiled at first use by ``nvcc``
 for ``sm_90a`` into a shared library with a plain C interface (under
@@ -1017,3 +1021,226 @@ def conv_vector_amatvec(u, nu, sym, tables, fac_elem=None, fac_vdofs=None):
 
 
 conv_vector_amatvec.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the affine element matvecs (M, A, cm M + ca A, J, J^T)
+# ---------------------------------------------------------------------------
+
+# the kernel's mode argument per matvec kind ('m' and 'a' are the fused
+# form with cm, ca = 1, 0 and 0, 1)
+_AFFINE_MODES = {"m": 0, "a": 0, "ma": 0, "j": 1, "jt": 2}
+
+
+def _aff_pad(t, x):
+    dt = t.wdet.dtype
+    return torch.cat([x.to(dt), x.new_zeros(1, dtype=dt)])
+
+
+def _aff_segsum(vals, seg, out_dtype):
+    """Sum ``vals`` into the segments of a ``(pos, mask)`` gather table,
+    each segment's summands in a fixed order."""
+    pos, mask = seg
+    return (vals.reshape(-1)[pos] * mask).sum(1).to(out_dtype)
+
+
+def _aff_grad(t, xe):
+    """D[e,q,c,d] = d x_c / d x_d at quad points."""
+    d = t.dim
+    rg = (xe @ t.W2).reshape(t.nc, t.Q, d, d)               # (q,k,c)
+    return torch.einsum("edk,eqkc->eqcd", t.JinvT, rg)
+
+
+def _aff_pullback(t, F):
+    """y_e[(a,c)] = sum_q wdet F[e,q,c,d] gphi[e,q,a,d] via W2^T."""
+    G = torch.einsum("edk,eqcd->eqkc", t.JinvT, F)
+    G = (t.wdet[:, :, None, None] * G).reshape(t.nc, t.dim * t.dim * t.Q)
+    return G @ t.W2T
+
+
+def _aff_facet(t, x, scale):
+    if t.fac_elem.shape[0] == 0:
+        return None
+    xfe = _aff_pad(t, x)[t.fac_vdofs]
+    ffe = torch.einsum("fab,fb->fa", t.fac_elem, xfe) * scale
+    return _aff_segsum(ffe, t.fseg, ffe.dtype)
+
+
+def affine_mv_ref(mode, x, t, cm=1.0, ca=0.0):
+    """Plain PyTorch version of :func:`affine_mv`: one gather, constant
+    Kronecker-expanded weight matrices (``W2``, ``W2T``, ``MrefI2``),
+    small per-element geometry einsums, fixed-order segment sums through
+    the ``(pos, mask)`` tables ``vseg``/``pseg``/``fseg`` of the tables
+    ``t`` (an :class:`..ops.affine.AffineVectorOps`)."""
+    if mode == "jt":
+        dtp = t.wdet.dtype
+        qe = _aff_pad(t, x)[t.pdofs]                          # (nc,pnpc)
+        qq = torch.einsum("qp,ep->eq", t.N1q, qe)             # (nc,Q)
+        eye = torch.eye(t.dim, dtype=dtp, device=qq.device)
+        F = qq[:, :, None, None] * eye[None, None]            # (nc,Q,c,d)
+        return _aff_segsum(_aff_pullback(t, F), t.vseg, x.dtype)
+    xe = _aff_pad(t, x)[t.vdofs]                              # (nc,2nvpc)
+    if mode == "m":
+        fe = t.detJ[:, None] * (xe @ t.MrefI2)
+        return _aff_segsum(fe, t.vseg, x.dtype)
+    D = _aff_grad(t, xe)
+    if mode == "j":
+        div = torch.diagonal(D, dim1=2, dim2=3).sum(-1)       # (nc,Q)
+        fe = (t.wdet * div) @ t.N1q                           # (nc,pnpc)
+        return _aff_segsum(fe, t.pseg, x.dtype)
+    if mode == "a":
+        cm, ca = 0.0, 1.0
+    elif mode != "ma":
+        raise ValueError(f"affine_mv mode {mode!r}")
+    if t.sym:
+        F = (ca * t.nu) * (D + D.transpose(2, 3))
+    else:
+        F = (ca * t.nu) * D
+    fe = _aff_pullback(t, F)
+    if cm != 0.0:
+        fe = fe + (cm * t.detJ)[:, None] * (xe @ t.MrefI2)
+    out = _aff_segsum(fe, t.vseg, x.dtype)
+    corr = _aff_facet(t, x, ca)
+    if corr is not None:
+        out = out + corr.to(x.dtype)
+    return out
+
+
+class _AffinePlanC(ctypes.Structure):
+    # csrc/affine.cu: AffinePlan, field for field
+    _fields_ = ([(f, ctypes.c_void_p) for f in (
+        "vd", "pd", "JinvT", "wdet", "detJ", "qw", "N2", "dN2", "N1",
+        "fac_elem", "fac_vd", "vell", "pell", "fell", "scratch", "bar")]
+        + [(f, ctypes.c_int) for f in (
+            "nc", "nin", "npc", "nfac", "vwidth", "pwidth", "fwidth",
+            "work_f64")])
+
+
+class AffinePlan:
+    """Launch plan of ``csrc/affine.cu`` for one table set and one stream:
+    every constant pointer and size in one C structure (``c``), the tensors
+    behind them, and the kernel's scratch and barrier counter (the
+    stream's, see :class:`ConvPlan`)."""
+
+    def __init__(self, t, stream):
+        dev = t.wdet.device
+        vd32, vell = t.vtab.kernel_tables()
+        pd32, pell = t.ptab.kernel_tables()
+        nfac = int(t.fac_elem.shape[0])
+        fe = fv = fell = None
+        if nfac:
+            fe = t.fac_elem.contiguous()
+            fv, fell = t.fac_dofs.kernel_tables()
+        self.keep = [vd32, vell, pd32, pell, fe, fv, fell]
+        nd = t.nvpc * t.dim
+        self.scratch = torch.empty((t.nc + nfac) * nd, dtype=t.wdet.dtype,
+                                   device=dev)
+        self.bar = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.stream = stream
+        self.nfac = nfac
+
+        def ptr(x):
+            return None if x is None else x.data_ptr()
+
+        self.c = _AffinePlanC(
+            ptr(vd32), ptr(pd32), ptr(t.JinvT), ptr(t.wdet), ptr(t.detJ),
+            ptr(t.qw), ptr(t.N2), ptr(t.dN2), ptr(t.N1q), ptr(fe), ptr(fv),
+            ptr(vell), ptr(pell), ptr(fell), ptr(self.scratch),
+            ptr(self.bar), t.nc, t.nin, t.npc, nfac, vell.shape[0],
+            pell.shape[0], 0 if fell is None else fell.shape[0],
+            int(t.wdet.dtype == torch.float64))
+
+
+def _affine_lib():
+    lib = _load("affine")
+    if not getattr(lib, "_dns_typed", False):
+        ptr, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        lib.affine_th2d.argtypes = (
+            [ctypes.POINTER(_AffinePlanC), i, ptr, ptr, i, d, d, d, i, i,
+             ptr])
+        lib.affine_th2d.restype = i
+        lib.affine_error_string.argtypes = [i]
+        lib.affine_error_string.restype = ctypes.c_char_p
+        lib._dns_typed = True
+    return lib
+
+
+def _affine_launch(mode, x, t, cm, ca):
+    """Launch ``csrc/affine.cu`` on the current stream through the tables'
+    plan for it; returns ``y`` in ``x``'s type."""
+    ok = (torch.float32, torch.float64)
+    if t.wdet.dtype not in ok or x.dtype not in ok:
+        raise TypeError(f"affine_mv kernel takes f32 or f64, not tables "
+                        f"{t.wdet.dtype} / vector {x.dtype}")
+    if (t.nvpc, t.Q, t.dim, t.pnpc) != (6, 7, 2, 3):
+        raise NotImplementedError(
+            f"affine_mv kernel: only the 2D Taylor-Hood instantiation (nvpc "
+            f"6, Q 7, dim 2, pnpc 3) is built, not "
+            f"{(t.nvpc, t.Q, t.dim, t.pnpc)}")
+    dev = x.get_device()
+    stream = _raw_stream(dev)
+    plan = t._plans.get(stream)
+    if plan is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "the affine kernel's plan for this stream is made at its "
+                "first call: call it once on the capture stream before "
+                "capturing")
+        plan = t._plans[stream] = AffinePlan(t, stream)
+    kmode = _AFFINE_MODES[mode]
+    facets = int(kmode == 0 and ca != 0.0 and plan.nfac > 0)
+    x = x.contiguous()
+    y = torch.empty(t.npc if mode == "j" else t.nin, dtype=x.dtype,
+                    device=x.device)
+    lib = _affine_lib()
+    with _on_device(dev):
+        err = lib.affine_th2d(
+            plan.c, kmode, x.data_ptr(), y.data_ptr(),
+            int(x.dtype == torch.float64), float(cm), float(ca),
+            float(t.nu), int(bool(t.sym)), facets, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"affine_mv kernel launch failed (mode {mode!r}, nc {t.nc}, nin "
+            f"{t.nin}, {plan.nfac} facet blocks): "
+            f"{lib.affine_error_string(err).decode()}")
+    return y
+
+
+def affine_mv(mode, x, tables, cm=1.0, ca=0.0):
+    """The affine element matvecs of :class:`..ops.affine.AffineVectorOps`
+    (``tables``): ``mode`` 'm' (``M x``), 'a' (``A x``, with its facet
+    rows), 'ma' (``cm M x + ca A x``; host scalars), 'j' (``J x``, over
+    the condensed pressure dofs) or 'jt' (``J^T x`` for a pressure vector
+    ``x``).  Arithmetic in the tables' type, result in ``x``'s.
+
+    On a CUDA tensor this launches the hand-written kernel of
+    ``csrc/affine.cu`` (element phase, grid barrier, fixed-order reduction:
+    one device kernel, with the mode as an argument) on the current
+    stream, through the tables' :class:`AffinePlan` for that stream, and
+    counts it in ``affine_mv.launches`` (and by mode in
+    ``affine_mv.mode_launches``); on a CPU tensor it is
+    :func:`affine_mv_ref`."""
+    if mode not in _AFFINE_MODES:
+        raise ValueError(f"affine_mv mode {mode!r}")
+    n = tables.npc if mode == "jt" else tables.nin
+    if not torch.is_tensor(x) or x.dim() != 1 or x.shape[0] != n:
+        raise ValueError(
+            f"affine_mv {mode!r}: x must be a 1-D tensor of {n} dofs, got "
+            f"{tuple(getattr(x, 'shape', ()))}")
+    if x.get_device() != tables.wdet.get_device():
+        raise ValueError(f"affine_mv: x is on {x.device}, the tables on "
+                         f"{tables.wdet.device}")
+    if mode == "m":
+        cm, ca = 1.0, 0.0
+    elif mode == "a":
+        cm, ca = 0.0, 1.0
+    if not x.is_cuda:
+        return affine_mv_ref(mode, x, tables, cm, ca)
+    y = _affine_launch(mode, x, tables, cm, ca)
+    affine_mv.launches += 1
+    affine_mv.mode_launches[mode] += 1
+    return y
+
+
+affine_mv.launches = 0
+affine_mv.mode_launches = dict.fromkeys(_AFFINE_MODES, 0)

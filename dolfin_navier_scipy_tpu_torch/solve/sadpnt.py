@@ -18,12 +18,15 @@ reference's CNAB loop fast, time_int_utils.py:89-91):
   application is one of the hand-written kernels
   :func:`..ops.kernels.banded_mv`, :func:`..ops.kernels.rect_mv`,
   :func:`..ops.kernels.rect_mv_levels`.
+* :class:`SMWSolver` — Sherman-Morrison-Woodbury wrap of any of them for
+  static low-rank feedback updates.
+* :class:`SaddleSolver` — dense LU on the device; small systems and
+  one-shot solves (:func:`solve_sadpnt`).
 * ``host`` — scipy SuperLU (:func:`host_saddle_factorized`), the
   correctness oracle and the one-off setup solver.
 
 Not ported yet (raise ``NotImplementedError``): the non-banded
-(element-operator) Schur path, the LU and Sherman-Morrison-Woodbury
-solvers.
+(element-operator) Schur path and the Krylov solver.
 
 Sign convention: the raw saddle solution ``q`` relates to the physical
 pressure as ``p = -q`` (the reference flips it too:
@@ -137,11 +140,12 @@ class InverseSaddleSolver:
             rp = self.J_ell.matvec(v)
         return torch.cat([rv, rp])
 
-    def solve(self, rhsv, rhsp):
-        """Stacked raw solution ``[v; q] (nv+np,)`` in ``dtype``."""
+    def solve(self, rhsv, rhsp, refine=None):
+        """Stacked raw solution ``[v; q] (nv+np,)`` in ``dtype``, with
+        ``refine`` residual rounds (default: the solver's ``refine``)."""
         rhs = torch.cat([rhsv.reshape(-1), rhsp.reshape(-1)])
         x = self._apply_inv(rhs).to(self.dtype)
-        for _ in range(self.refine):
+        for _ in range(self.refine if refine is None else refine):
             r = rhs - self._K_matvec(x)
             x = x + self._apply_inv(r).to(self.dtype)
         return x
@@ -790,10 +794,9 @@ class SchurSaddleSolver:
                                   hi_only)
         return rect_mv(self.Wb, self._wbases_t, bp, self._nin)
 
-    def _xapply(self, q, hi_only=False):
+    def _xapply(self, q):
         if self.Xb.dim() == 4:
-            return rect_mv_levels(self.Xb, self._xbases_t, q, self._nin,
-                                  hi_only)
+            return rect_mv_levels(self.Xb, self._xbases_t, q, self._nin)
         return rect_mv(self.Xb, self._xbases_t, q, self._nin)
 
     def _sapply(self, g):
@@ -807,8 +810,13 @@ class SchurSaddleSolver:
         Returns ``(v_perm, q_perm, y_perm)``.  With W the velocity-block
         solves are one wide banded matvec (warm starts unused); the refine
         residuals always use the exact banded F."""
-        # the predictor reads W/X's level 0 alone when a refine round
-        # follows; without W the PCG refine cannot absorb that rounding
+        # the predictor reads W's level 0 alone when a refine round
+        # follows (without W the PCG refine cannot absorb that rounding);
+        # X it applies whole: X's level-0 rounding (~4e-3 of X q) outlives
+        # one refine round when the pressure increments are large (static
+        # feedback switched on at level 1: 1.3e-6 from the f64 run after
+        # 300 refined steps against 1.1e-7, H100; the JAX package reads X's
+        # level 0 alone here, sadpnt.py:1859)
         hi_only = refine > 0 and self.Wb is not None
         if self.Wb is not None:
             y = self._wapply(bvp, hi_only=hi_only)
@@ -816,7 +824,7 @@ class SchurSaddleSolver:
             y = jacobi_pcg(self._fmv_perm, self.dinv_b, bvp,
                            niter or self.ncg, x0=y0p)
         q = self._sapply(self._jmv_perm(y) - bpp)
-        v = y - self._xapply(q, hi_only=hi_only)
+        v = y - self._xapply(q)
         for _ in range(refine):
             rv = bvp - (self._fmv_perm(v) + self._jtmv_perm(q))
             rp = bpp - self._jmv_perm(v)
@@ -856,10 +864,12 @@ class SchurSaddleSolver:
         qo[self.pidx] = q
         return torch.cat([vo, qo])
 
-    def solve(self, rhsv, rhsp):
-        """Raw stacked ``[v; q]`` like :class:`InverseSaddleSolver`."""
+    def solve(self, rhsv, rhsp, refine=None):
+        """Raw stacked ``[v; q]`` like :class:`InverseSaddleSolver`;
+        ``refine`` residual rounds (default: the solver's ``refine``)."""
         bvp, bpp = self._perm_in(rhsv, rhsp)
-        v, q, _ = self._solve_core_perm(bvp, bpp, refine=self.refine)
+        v, q, _ = self._solve_core_perm(
+            bvp, bpp, refine=self.refine if refine is None else refine)
         return self._perm_out(v, q)
 
     def solve_warm(self, rhsv, rhsp, y0, niter=None, refine=0,
@@ -902,9 +912,155 @@ def host_saddle_factorized(amat, jmat, jmatT=None):
 
 def solve_sadpnt_host(amat=None, jmat=None, jmatT=None, rhsv=None, rhsp=None,
                       umat=None, vmat=None):
-    """One-shot host solve; returns the stacked raw ``(nv+np, 1)``."""
-    if umat is not None or vmat is not None:
+    """One-shot host solve; returns the stacked raw ``(nv+np, 1)``.  A
+    low-rank update ``A -> A - umat @ vmat`` is handled by an explicit
+    dense Sherman-Morrison-Woodbury correction."""
+    solve = host_saddle_factorized(amat, jmat, jmatT)
+    x0 = solve(rhsv, rhsp)
+    if umat is None:
+        return x0
+    nv, npp = amat.shape[0], jmat.shape[0]
+    k = umat.shape[1]
+    uh = np.vstack([_to_dense(umat), np.zeros((npp, k))])
+    W = np.hstack([solve(uh[: nv, i], uh[nv:, i]) for i in range(k)])
+    vh = np.hstack([_to_dense(vmat), np.zeros((vmat.shape[0], npp))])
+    coef = np.linalg.solve(np.eye(k) - vh @ W, vh @ x0)
+    return x0 + W @ coef
+
+
+# ---------------------------------------------------------------------------
+# low-rank updates and the one-shot LU solver
+# ---------------------------------------------------------------------------
+
+class SMWSolver:
+    """Wrap any reusable saddle solver with the implicit low-rank update
+    ``A -> A - c * umat @ vmat`` via Sherman-Morrison-Woodbury.
+
+    The k base solves for the update columns (``W``, on the base solver's
+    device, in its work type) and the k-by-k capacitance inverse (from an
+    f64 inverse on the host) are computed ONCE; each wrapped solve costs
+    the base solve plus two small dense matvecs — the property that lets
+    static feedback ride the step loops (the reference supports feedback
+    only in its per-step-LU implicit loop,
+    stokes_navier_utils.py:1505-1512).  ``solve_kw`` (e.g. the block-Schur
+    solver's ``refine``) go to the base solves of the columns, and
+    keywords of :meth:`solve` to the base solve of each right-hand side.
+    """
+
+    def __init__(self, base=None, umat=None, vmat=None, c=1.0, **solve_kw):
+        self.base = base
+        self.nv, self.np = base.nv, base.np
+        U = np.asarray(_to_dense(umat), dtype=np.float64)
+        V = np.asarray(_to_dense(vmat), dtype=np.float64)
+        k = U.shape[1]
+        dev = base.device
+        zp = torch.zeros(self.np, dtype=torch.float64, device=dev)
+        cols = [base.solve(torch.as_tensor(c * U[:, i], device=dev), zp,
+                           **solve_kw)
+                for i in range(k)]
+        W = torch.stack(cols, dim=1)                      # (nv+np, k)
+        cap = np.eye(k) - V @ W[: self.nv].double().cpu().numpy()
+        self.W = W
+        self.capinv = torch.as_tensor(np.linalg.inv(cap)).to(
+            device=dev, dtype=W.dtype)
+        self.vmat = torch.as_tensor(V).to(device=dev, dtype=W.dtype)
+
+    def solve(self, rhsv, rhsp, **kw):
+        x0 = self.base.solve(rhsv, rhsp, **kw)
+        coef = self.capinv @ (self.vmat @ x0[: self.nv].to(self.W.dtype))
+        return x0 + (self.W @ coef).to(x0.dtype)
+
+
+class SaddleSolver:
+    """Reusable LU factorization of one dense saddle matrix on ``device``
+    (``None`` = the card): small systems and one-shot solves.
+
+    The JAX package factors in f32 with f64 iterative refinement on a TPU
+    (which has no f64 LU); the card and the CPU both factor in ``dtype``
+    (default f64) directly, so no refinement is needed.
+    """
+
+    def __init__(self, amat, jmat, jmatT=None, dtype=None, device=None):
+        device = resolve_device(device)
+        self.device = device
+        dtype = dtype or torch.float64
+        nv = amat.shape[0]
+        npp = jmat.shape[0]
+        jT = jmat.T if jmatT is None else jmatT
+        K = np.zeros((nv + npp, nv + npp))
+        K[:nv, :nv] = _to_dense(amat)
+        K[:nv, nv:] = _to_dense(jT)
+        K[nv:, :nv] = _to_dense(jmat)
+        self.nv, self.np = nv, npp
+        self.dtype = dtype
+        self.lu, self.piv = torch.linalg.lu_factor(
+            torch.as_tensor(K).to(device=device, dtype=dtype))
+
+    def _backsolve(self, B):
+        """LU backsolve; ``B`` is (n,) or (n, k)."""
+        vec = B.dim() == 1
+        X = torch.linalg.lu_solve(self.lu, self.piv,
+                                  (B[:, None] if vec else B).to(self.dtype))
+        return X[:, 0] if vec else X
+
+    def solve(self, rhsv, rhsp):
+        """Solve for stacked ``[v; q] (nv+np,)``."""
+        rhs = torch.cat([torch.as_tensor(rhsv, device=self.device)
+                         .reshape(-1).to(self.dtype),
+                         torch.as_tensor(rhsp, device=self.device)
+                         .reshape(-1).to(self.dtype)])
+        return self._backsolve(rhs)
+
+    def solve_smw(self, rhsv, rhsp, umat, vmat):
+        """Solve with the rank-k update ``A -> A - umat @ vmat``.
+
+        SMW around the base factorization:
+        ``x = x0 + W (I - V W)^{-1} V x0`` with ``W = K^{-1} U_hat``.
+        """
+        x0 = self.solve(rhsv, rhsp)
+        umat = torch.as_tensor(umat, device=self.device).to(self.dtype)
+        vmat = torch.as_tensor(vmat, device=self.device).to(self.dtype)
+        k = umat.shape[1]
+        uhat = torch.cat([umat, umat.new_zeros((self.np, k))])
+        W = self._backsolve(uhat)
+        vhat = torch.cat([vmat, vmat.new_zeros((vmat.shape[0], self.np))],
+                         dim=1)
+        small = torch.eye(k, dtype=self.dtype, device=self.device) - vhat @ W
+        coef = torch.linalg.solve(small, vhat @ x0)
+        return x0 + W @ coef
+
+
+def solve_sadpnt(amat=None, jmat=None, jmatT=None, rhsv=None, rhsp=None,
+                 umat=None, vmat=None, return_solver=False,
+                 krylov=None, krpslvprms=None, krplsprms=None, device=None):
+    """Functional one-shot API mirroring ``lau.solve_sadpnt_smw``.
+
+    Returns the stacked raw solution ``(nv+np, 1)`` (numpy); with
+    ``return_solver=True`` also the reusable :class:`SaddleSolver` (on
+    ``device``, ``None`` = the card).  ``krylov`` (the Krylov path) is not
+    ported yet.
+    """
+    if krylov:
         raise NotImplementedError(
-            "low-rank (Sherman-Morrison-Woodbury) updates belong to the "
-            "control slice of the port and are not ported yet")
-    return host_saddle_factorized(amat, jmat, jmatT)(rhsv, rhsp)
+            "solve_sadpnt(krylov=...): the Krylov saddle solver is not "
+            "ported yet (ROADMAP A8)")
+    solver = SaddleSolver(amat, jmat, jmatT, device=device)
+    if rhsp is None:
+        rhsp = np.zeros((solver.np,))
+    if umat is not None:
+        out = solver.solve_smw(np.asarray(rhsv), np.asarray(rhsp),
+                               _to_dense(umat), _to_dense(vmat))
+    else:
+        out = solver.solve(np.asarray(rhsv), np.asarray(rhsp))
+    out = out.cpu().numpy().reshape(-1, 1)
+    if return_solver:
+        return out, solver
+    return out
+
+
+def apply_massinv(massmat, rhsa, output=None):
+    """``M^{-1} rhs`` on the host — parity with ``lau.apply_massinv``
+    (used e.g. in tests/time_dep_nse_bigchannel.py:33)."""
+    rhs = np.asarray(_to_dense(rhsa))
+    out = spsla.spsolve(sps.csc_matrix(massmat), rhs)
+    return np.asarray(out).reshape(rhs.shape)

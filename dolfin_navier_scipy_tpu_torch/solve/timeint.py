@@ -27,14 +27,18 @@ Sign conventions: ``nfc = -N(v)v`` goes to the rhs with plus signs
 (get_v_conv_conts ``semi_explicit``, stokes_navier_utils.py:103-107);
 the raw saddle pressure is rescaled ``p = -q/dt`` (time_int_utils.py:137).
 
-Ported so far: ``cnab`` (both state layouts; the w-space step of the
-block-Schur solver), ``sbdf2`` and ``semi_implicit_euler``, on the dense and
-the banded block-Schur solver, with time-dependent right-hand sides
-(``f_tdp``, ``g_tdp``, ``dynamic_rhs`` with memory), in-loop observables
-(``outfunc``/``out_bundle``) and exact resume (``resume_carry``).
-Dirichlet controls, static feedback (``umat``/``vmat``) and the Krylov
-solver raise ``NotImplementedError``.
+Ported: ``cnab`` (both state layouts; the w-space step of the block-Schur
+solver), ``sbdf2`` and ``semi_implicit_euler``, on the dense and the banded
+block-Schur solver, with time-dependent right-hand sides (``f_tdp``,
+``g_tdp``, ``dynamic_rhs`` with memory), Dirichlet controls
+(:class:`DirichletControl`), static low-rank feedback (``umat``/``vmat``,
+through :class:`SMWSolver`), in-loop observables (``outfunc``/``out_bundle``)
+and exact resume (``resume_carry``).  The Krylov solver raises
+``NotImplementedError``.
 """
+
+from dataclasses import dataclass
+from typing import Callable
 
 import numpy as np
 import scipy.sparse as sps
@@ -44,11 +48,32 @@ from ..device import resolve_device, timer
 from ..ops.kernels import vecmat, vecmat_operand
 from ..ops.sparse import ell_from_scipy_fast
 from .sadpnt import (
-    InverseSaddleSolver, SchurSaddleSolver, host_saddle_factorized)
+    InverseSaddleSolver, SchurSaddleSolver, SMWSolver, _to_dense,
+    host_saddle_factorized, solve_sadpnt_host)
 
 # warm-started PCG iterations of the w-space step when the Schur solver has
 # no W (an extrapolated start is O(dt^2) from the solution)
 _NITER_WARM = 6
+
+
+@dataclass
+class DirichletControl:
+    """Time/state-dependent Dirichlet boundary control.
+
+    ``dofs`` are *full-space* velocity dofs (must be excluded from the
+    problem's inner dofs at build time); ``stencil`` is the spatial shape
+    (e.g. a rotating-cylinder tangent field);
+    ``ufunc(t, v_full, p, memory, mode) -> (scalar, memory)`` scales the
+    stencil (a host number or a 0-d tensor) — the analogue of the
+    reference's ``diricontfuncs`` memory-dict protocol
+    (stokes_navier_utils.py:164-183).  ``v_full`` and ``p`` are tensors on
+    the run's device.
+    """
+
+    dofs: np.ndarray
+    stencil: np.ndarray
+    ufunc: Callable
+    memory: object = None
 
 
 class TimeIntOps:
@@ -237,8 +262,34 @@ def _kern(prob, precision, device=None):
         torch.float32 if precision == "fast" else torch.float64, device)
 
 
-def _consts(prob, device=None):
-    """Static per-problem device vectors."""
+def _control_blocks(prob, controls, device):
+    """The column blocks (A, J, M)[:, control-dofs] (f64 sparse, on
+    ``device``) and the stencils; None without controls.  The JAX package
+    keeps the blocks dense: at wake level 3 (768 control dofs, 99 778 inner
+    rows) each would be 0.6 GB streamed a step for its ~7700 entries."""
+    if not controls:
+        return None
+
+    def sparse(block):
+        return ell_from_scipy_fast(block, dtype=torch.float64, device=device)
+
+    dofs = np.concatenate([np.asarray(c.dofs) for c in controls])
+    inv = prob.invinds
+    Jbc = sps.csr_matrix(prob.full["J"])[:, dofs]
+    if prob.geo.ppin is not None:
+        Jbc = Jbc[:-1]
+    return dict(
+        dofs=torch.as_tensor(dofs.astype(np.int64), device=device),
+        Abc=sparse(sps.csr_matrix(prob.full["A"])[inv][:, dofs]),
+        Jbc=sparse(Jbc),
+        Mbc=sparse(sps.csr_matrix(prob.full["M"])[inv][:, dofs]),
+        stencils=[torch.as_tensor(np.asarray(c.stencil, dtype=np.float64)
+                                  .ravel(), device=device)
+                  for c in controls])
+
+
+def _consts(prob, device=None, controls=None):
+    """Static per-problem device vectors (and the control blocks)."""
     device = resolve_device(device)
 
     def dev(a):
@@ -249,12 +300,36 @@ def _consts(prob, device=None):
         v_bc=dev(prob.bc_full_vec()),
         fv=dev(np.asarray(prob.fv).ravel()),
         fp=dev(np.asarray(prob.fp).ravel()),
+        cb=_control_blocks(prob, controls, device),
     )
 
 
-def _embed(cn, v_inner):
+def _eval_controls(controls, cn, t, v_full, p, mems, mode):
+    """-> (cvals concatenated, new memories, bfv, bfp, mbc); without
+    controls ``(None, (), 0.0, 0.0, 0.0)``."""
+    if not controls:
+        return None, (), 0.0, 0.0, 0.0
+    cb = cn["cb"]
+    vals, newmems = [], []
+    for c, stn, mem in zip(controls, cb["stencils"], mems):
+        scal, mem = c.ufunc(t, v_full, p, mem, mode)
+        if torch.is_tensor(scal):
+            vals.append(scal.to(stn) * stn)
+        else:
+            vals.append(float(scal) * stn)
+        newmems.append(mem)
+    cvals = torch.cat(vals)
+    bfv = -(cb["Abc"] @ cvals)
+    bfp = -(cb["Jbc"] @ cvals)
+    mbc = cb["Mbc"] @ cvals
+    return cvals, tuple(newmems), bfv, bfp, mbc
+
+
+def _embed(cn, v_inner, cvals=None):
     full = cn["v_bc"].to(v_inner.dtype, copy=True)
     full[cn["invinds"]] = v_inner
+    if cvals is not None:
+        full[cn["cb"]["dofs"]] = cvals.to(full.dtype)
     return full
 
 
@@ -288,16 +363,6 @@ def _zero_fns(cn, f_tdp, g_tdp, dynamic_rhs, device):
     return f_use, g_use, d_use
 
 
-def _not_ported(name, **given):
-    """Controls and static feedback wait for the control slice."""
-    given = sorted(k for k, v in given.items() if v is not None)
-    if given:
-        raise NotImplementedError(
-            f"{name}: {', '.join(given)} not ported yet (Dirichlet "
-            "controls and static feedback follow in the control slice of "
-            "the port)")
-
-
 def ell_matvec_np(spmat, x):
     """scipy matvec on a torch/numpy vector, returning numpy."""
     if torch.is_tensor(x):
@@ -305,65 +370,154 @@ def ell_matvec_np(spmat, x):
     return spmat @ np.asarray(x)
 
 
-def _heun_bootstrap(prob, t0, t1, v0, f_vdp, f_tdp, g_tdp, dynamic_rhs,
-                    drm, predictor="IMEX-Euler"):
+def _dense64(m):
+    return np.asarray(_to_dense(m), dtype=np.float64)
+
+
+def _heun_bootstrap(prob, t0, t1, v0, p0, f_vdp, f_tdp, g_tdp, dynamic_rhs,
+                    drm, controls, cn, predictor="IMEX-Euler", umat=None,
+                    vmat=None):
     """One Heun (predictor/corrector) step on the host
     (time_int_utils.py:366-477); runs once, outside the loop.
 
-    ``v0`` and the returned states are device tensors; the linear
-    algebra is host SuperLU, only the convection terms ``f_vdp(v_inner)``
-    and the caller's ``dynamic_rhs(t, vc=, memory=, mode=)`` (modes
-    'init', 'heunpred', 'heuncorr', in that order, threading the memory
-    ``drm``) are evaluated on the device."""
+    ``v0``, ``p0`` and the returned states are device tensors; the linear
+    algebra is host SuperLU, only the convection terms ``f_vdp(v_full)``,
+    the caller's ``dynamic_rhs(t, vc=, memory=, mode=)`` (modes 'init',
+    'heunpred', 'heuncorr', in that order, threading the memory ``drm``)
+    and the controls' ``ufunc`` (same modes; the initial pressure ``p0``
+    is what they see first) are evaluated on the device.
+
+    Static feedback ``A -> A - umat @ vmat`` is implicit in the predictor
+    solve and explicit-trapezoidal in the corrector (mirroring how the
+    viscous term is treated)."""
     dt = t1 - t0
+    if umat is not None:
+        U, V = _dense64(umat), _dense64(vmat)
+
+        def fb(v):
+            return U @ (V @ v)
+    else:
+        fb = None
     nin = len(prob.invinds)
     dev, dtp = v0.device, v0.dtype
 
     def host(x):
+        if not torch.is_tensor(x):
+            return x                      # the 0.0 of an absent term
         return x.detach().cpu().numpy().astype(np.float64)
 
     def todev(x):
         return torch.as_tensor(np.ascontiguousarray(x)).to(
             device=dev, dtype=dtp)
 
+    mems0 = tuple(c.memory for c in (controls or []))
+    zero_c = (torch.zeros(cn["cb"]["dofs"].shape[0], dtype=dtp, device=dev)
+              if controls else None)
+    cvals_c, cmems, bfv_c, bfp_c, mbc_c = _eval_controls(
+        controls, cn, t0, _embed(cn, v0, zero_c), p0, mems0, "init")
+    v0f = _embed(cn, v0, cvals_c)
     v0h = host(v0)
     fv_c = host(f_tdp(t0))
-    nfc_c = f_vdp(v0)
+    nfc_c = f_vdp(v0f)
     nfc_ch = host(nfc_c)
     dfv_c, drm = dynamic_rhs(t0, vc=v0, memory=drm, mode="init")
     tdfv, drm = dynamic_rhs(t1, vc=v0, memory=drm, mode="heunpred")
     dfv_c, tdfv = host(dfv_c), host(tdfv)
+
+    tcvals, cmems, tbfv, tbfp, tmbc = _eval_controls(
+        controls, cn, t1, v0f, p0, cmems, "heunpred")
     fv_n, fp_n = host(f_tdp(t1)), host(g_tdp(t1))
+    bfv_c, bfp_c, mbc_c_h = host(bfv_c), host(bfp_c), host(mbc_c)
+    tbfv, tbfp, tmbc = host(tbfv), host(tbfp), host(tmbc)
 
     Mv0 = ell_matvec_np(prob.Mc, v0h)
     Av0 = ell_matvec_np(prob.Ac, v0h)
     if predictor == "IMEX-Euler":
-        tfv = Mv0 + dt * (fv_n + tdfv) + dt * nfc_ch
-        pre_amat = prob.Mc + dt * prob.Ac
+        tfv = (Mv0 + dt * (fv_n + tbfv + tdfv) + dt * nfc_ch
+               - (tmbc - mbc_c_h))
+        pre_amat, pre_uscal = prob.Mc + dt * prob.Ac, dt
     else:  # IMEX-trpz
         tfv = (Mv0 - 0.5 * dt * Av0
-               + 0.5 * dt * (fv_c + fv_n + tdfv + dfv_c) + dt * nfc_ch)
+               + 0.5 * dt * (fv_c + fv_n + tbfv + bfv_c + tdfv + dfv_c)
+               + dt * nfc_ch - (tmbc - mbc_c_h))
+        if fb is not None:
+            tfv = tfv + 0.5 * dt * fb(v0h)
+        pre_uscal = 0.5 * dt
         pre_amat = prob.Mc + 0.5 * dt * prob.Ac
-    presolve = host_saddle_factorized(pre_amat, prob.Jc, prob.JTc)
-    tvp = presolve(tfv, fp_n)
-    tv_n = todev(tvp[:nin].ravel())
+    if fb is None:
+        presolve = host_saddle_factorized(pre_amat, prob.Jc, prob.JTc)
+        tvp = presolve(tfv, fp_n + tbfp)
+    else:
+        tvp = solve_sadpnt_host(
+            amat=pre_amat, jmat=prob.Jc, jmatT=prob.JTc, rhsv=tfv,
+            rhsp=fp_n + tbfp, umat=pre_uscal * U, vmat=V)
+    tv_nh = tvp[:nin].ravel()
+    tv_n = todev(tv_nh)
     tp_n = todev(-tvp[nin:].ravel() / dt)
 
     # corrector: explicit trapezoidal, implicit only in the projection
     dfv_n, drm = dynamic_rhs(t1, vc=tv_n, memory=drm, mode="heuncorr")
-    tnfc_n = host(f_vdp(tv_n))
-    rhs_n = (Mv0
-             - 0.5 * dt * (Av0 + ell_matvec_np(prob.Ac, tvp[:nin].ravel()))
-             + 0.5 * dt * (fv_c + fv_n + host(dfv_n) + dfv_c
-                           + nfc_ch + tnfc_n))
+    tvf = _embed(cn, tv_n, tcvals)
+    tnfc_n = host(f_vdp(tvf))
+    cvals_n, cmems, bfv_n, bfp_n, mbc_n = _eval_controls(
+        controls, cn, t1, tvf, tp_n, cmems, "heuncorr")
+    bfv_nh, bfp_nh = host(bfv_n), host(bfp_n)
+    rhs_n = (Mv0 - (host(mbc_n) - mbc_c_h)
+             - 0.5 * dt * (Av0 + ell_matvec_np(prob.Ac, tv_nh))
+             + 0.5 * dt * (fv_c + fv_n + bfv_nh + bfv_c + host(dfv_n)
+                           + dfv_c + nfc_ch + tnfc_n))
+    if fb is not None:
+        rhs_n = rhs_n + 0.5 * dt * (fb(v0h) + fb(tv_nh))
     msolve = host_saddle_factorized(prob.Mc, prob.Jc, prob.JTc)
-    vp = msolve(rhs_n, fp_n)
+    vp = msolve(rhs_n, fp_n + bfp_nh)
     v_n = todev(vp[:nin].ravel())
     p_n = todev(-vp[nin:].ravel() / dt)
-    nfc_n = f_vdp(v_n)
+    nfc_n = f_vdp(_embed(cn, v_n, cvals_n))
     return dict(v=v_n, p=p_n, nfc_c=nfc_c, nfc_n=nfc_n, fv_n=todev(fv_n),
-                dfv_n=dfv_n, drm=drm, gp=todev(fp_n), v_pred=tv_n,
-                p_pred=tp_n)
+                dfv_n=dfv_n, drm=drm, cvals=cvals_n, cmems=cmems,
+                bfv=bfv_n, mbc=mbc_n, mbc_c=mbc_c,
+                gp=todev(fp_n + bfp_nh), v_pred=tv_n, p_pred=tp_n)
+
+
+def _wrap_feedback(ops, umat, vmat, c, warm_refine=0):
+    """Fold the static low-rank feedback ``A -> A - umat @ vmat`` into the
+    reusable solver (SMW, precomputed once; its columns solved with the
+    steps' ``warm_refine`` rounds) and return the device ``(umat, vmat)``
+    pair (f64) for the explicit rhs half."""
+    if umat is None:
+        return ops, None
+    U, V = _dense64(umat), _dense64(vmat)
+    kw = dict(refine=warm_refine) if warm_refine else {}
+    wrapped = TimeIntOps(solver=SMWSolver(base=ops.solver, umat=U, vmat=V,
+                                          c=c, **kw),
+                         M=ops.M, A=ops.A, dt=ops.dt, theta=ops.theta,
+                         wdtype=ops.wdtype, device=ops.device)
+    return wrapped, (torch.as_tensor(U, device=ops.device),
+                     torch.as_tensor(V, device=ops.device))
+
+
+def _continuity_rhs(prob, wdtype, device):
+    """``rhs(g_n, carry)``: the pressure-block right-hand side of an inner
+    step's increment system, ``g_n - J v_c`` formed in f64 before any
+    work-dtype cast.  In f64 work ``J v_c`` is the previous ``g`` by
+    div-free induction (the JAX package's form, ``g_n - g_c``); in f32
+    work the increment solves leave a residual each step, so ``J v_c`` is
+    taken from the carried state (one f64 ``J`` matvec: the affine kernel
+    on f64 tables) and those residuals do not add up over the run."""
+    if wdtype != torch.float32:
+        return lambda g_n, c: g_n - c["gp"]
+    aff = prob.affine_ops(torch.float64, device=device)
+    jop = (aff.view("j") if aff is not None else ell_from_scipy_fast(
+        prob.Jc, dtype=torch.float64, device=device))
+    return lambda g_n, c: g_n - jop.matvec(c["v"])
+
+
+def _inner_solve(solver, warm_refine):
+    """The saddle solve of an inner-layout step: the solver's own, or with
+    ``warm_refine`` residual rounds when that is > 0."""
+    if not warm_refine:
+        return solver.solve
+    return lambda rv, rp: solver.solve(rv, rp, refine=warm_refine)
 
 
 def _run_scan(step, bundle, carry, ts, save_every, outfunc=None):
@@ -548,8 +702,13 @@ def cnab(trange=None, prob=None, inivel=None, inip=None,
     ``f_tdp(t)``, ``g_tdp(t)``: time-dependent momentum / continuity
     right-hand sides over the inner / condensed pressure dofs;
     ``dynamic_rhs(t, vc=, memory=, mode=) -> (value, memory)``: a
-    state-dependent forcing with threaded memory.  Any of them, like
-    ``stokes_flow`` or ``resume_carry``, takes the inner state layout.
+    state-dependent forcing with threaded memory.  ``controls``: a list of
+    :class:`DirichletControl` (their dofs carry ``ufunc(t, v_full, p,
+    memory, mode) * stencil``; the first ``p`` they see is ``inip``);
+    ``umat``/``vmat``: static feedback ``A -> A - umat @ vmat`` (implicit
+    through an SMW-wrapped solver, explicit-trapezoidal on the right-hand
+    side).  Any of them, like ``stokes_flow`` or ``resume_carry``, takes
+    the inner state layout.
 
     ``outfunc(bundle, c_new, c_old)``: optional per-step observable
     evaluated INSIDE the loop (stacked into the returned ``outs``; see
@@ -565,7 +724,9 @@ def cnab(trange=None, prob=None, inivel=None, inip=None,
     solver's right-hand side is a slice, the convection tables are
     re-indexed once, the diffusion is the banded ``A`` of the solver, and
     natural order is restored at exit and in the saved rows.
-    ``warm_refine`` residual rounds follow each of its solves.
+    ``warm_refine`` residual rounds follow each of its solves; on the inner
+    layout ``warm_refine`` > 0 sets the residual rounds of each solve (the
+    JAX package reads it on the w-space step only).
 
     Returns a dict with the final ``(v, p)`` (inner dofs / physical
     pressure), the blow-up flag, the decimated trajectory
@@ -576,7 +737,6 @@ def cnab(trange=None, prob=None, inivel=None, inip=None,
     via ``resume_carry`` continues the AB2 recursion *exactly* (no
     re-bootstrap) with ``trange[0]`` being the carry's time point.
     """
-    _not_ported("cnab", controls=controls or None, umat=umat, vmat=vmat)
     device = resolve_device(device if ops is None or device is not None
                             else ops.device)
     trange = np.asarray(trange)
@@ -584,8 +744,10 @@ def cnab(trange=None, prob=None, inivel=None, inip=None,
     lap, timing = timer(device)
 
     has_dyn = dynamic_rhs is not None
+    has_c = bool(controls)
     plain_rhs = f_tdp is None and g_tdp is None and not has_dyn
-    want_full = (state_layout != "inner" and plain_rhs and not stokes_flow
+    want_full = (state_layout != "inner" and not has_c and plain_rhs
+                 and not stokes_flow and umat is None
                  and resume_carry is None and hasattr(prob, "ctx"))
     if ops is None:
         lin_res = _resolve_linsolver(prob, linsolver)
@@ -595,25 +757,29 @@ def cnab(trange=None, prob=None, inivel=None, inip=None,
                          layout=("full" if want_full and lin_res == "schur"
                                  else "inner"),
                          device=device)
+    ops, fbk = _wrap_feedback(ops, umat, vmat, c=0.5 * dt,
+                              warm_refine=warm_refine)
     nin = len(prob.invinds)
-    cn = _consts(prob, device)
+    cn = _consts(prob, device, controls)
     bundle = dict(ops=ops, kern=_kern(prob, precision, device), cn=cn,
-                  ob=out_bundle)
+                  fbk=fbk, ob=out_bundle)
     f_vdp_b = _make_f_vdp(stokes_flow, nin)
     f_tdp, g_tdp, dynamic_rhs = _zero_fns(cn, f_tdp, g_tdp, dynamic_rhs,
                                           device)
     lap("setup_s")
 
-    # a plain run never reads ``inip``: the bootstrap recomputes the
-    # pressure (only controls consume the initial one)
+    # the initial pressure is read by the controls only (a plain run's
+    # bootstrap recomputes it)
     bs = None
     if resume_carry is None:
         v0 = _host_vec(inivel, device)
+        p0 = (torch.zeros(prob.np_cond, dtype=v0.dtype, device=device)
+              if inip is None else _host_vec(inip, device))
         bs = _heun_bootstrap(
-            prob, trange[0], trange[1], v0,
-            lambda v: f_vdp_b(bundle, _embed(cn, v)),
-            f_tdp, g_tdp, dynamic_rhs, dynamic_rhs_memory,
-            predictor=predictor)
+            prob, trange[0], trange[1], v0, p0,
+            lambda vf: f_vdp_b(bundle, vf),
+            f_tdp, g_tdp, dynamic_rhs, dynamic_rhs_memory, controls, cn,
+            predictor=predictor, umat=umat, vmat=vmat)
         lap("bootstrap_s")
 
     # full-dof state layout: the fast path for plain runs (no per-step
@@ -682,6 +848,9 @@ def cnab(trange=None, prob=None, inivel=None, inip=None,
             bootstrap=bs, ops=ops, carry=carry, timing=timing,
         )
 
+    solve = _inner_solve(ops.solver, warm_refine)
+    grhs = _continuity_rhs(prob, ops.wdtype, device)
+
     def step(b, c, t):
         # INCREMENT form: solve for delta = v_n - v_c.  With
         # K = M + dt/2 A and E = M - dt/2 A the CNAB update
@@ -691,30 +860,44 @@ def cnab(trange=None, prob=None, inivel=None, inip=None,
         ops_, cn_ = b["ops"], b["cn"]
         w = ops_.wdtype
         nfc_o = c["nfc"]
-        v_full = _embed(cn_, c["v"])
+        v_full = _embed(cn_, c["v"], c["cvals"] if has_c else None)
         nfc_c = f_vdp_b(b, v_full).to(w)
+        cvals_n, cmems, bfv_n, bfp_n, mbc_n = _eval_controls(
+            controls, cn_, t, v_full, c["p"], c["cmems"] if has_c else (),
+            "abtwo")
         fv_n = f_tdp(t)
         fsum = c["fv"].to(w) + fv_n.to(w)
+        if has_c:
+            fsum = fsum + bfv_n.to(w) + c["bfv"].to(w)
         dfv_n, drm_n = c["dfv"], c["drm"]
         if has_dyn:
             dfv_n, drm_n = dynamic_rhs(t, vc=c["v"], memory=c["drm"],
                                        mode="abtwo")
             fsum = fsum + dfv_n.to(w) + c["dfv"].to(w)
-        rhs_d = (-dt * ops_.A.matvec(c["v"]).to(w)
-                 + (0.5 * dt) * (3.0 * nfc_c - nfc_o)
+        rhs_d = -dt * ops_.A.matvec(c["v"]).to(w)
+        if has_c:
+            rhs_d = rhs_d - (mbc_n - c["mbc"]).to(w)
+        rhs_d = (rhs_d + (0.5 * dt) * (3.0 * nfc_c - nfc_o)
                  + (0.5 * dt) * fsum)
-        # pressure-block rhs of the delta system: g_new - J v_c; by
-        # div-free induction J v_c equals the PREVIOUS g, so the exact
-        # O(dt) difference is formed in f64 before any work-dtype cast
-        gp_n = g_tdp(t)
-        sol = ops_.solver.solve(rhs_d, (gp_n - c["gp"]).to(w))
+        if b["fbk"] is not None:
+            # trapezoidal feedback: K' = K - dt/2 uv (in the SMW-wrapped
+            # solver), E' = E + dt/2 uv, so the delta-rhs gains dt uv v_c
+            fu, fvm = b["fbk"]
+            rhs_d = rhs_d + dt * (fu @ (fvm @ c["v"])).to(w)
+        # pressure-block rhs of the delta system: g_new - J v_c, formed in
+        # f64 before the work-dtype cast (see _continuity_rhs)
+        gp_n = g_tdp(t) + bfp_n
+        sol = solve(rhs_d, grhs(gp_n, c).to(w))
         v_n = c["v"] + sol[:ops_.nin].to(c["v"].dtype)
         p_n = (-sol[ops_.nin:] / dt).to(c["p"].dtype)
         flag = _blowup_flag(c["flag"], v_n, check_ff_maxv)
-        return dict(v=torch.where(flag, c["v"], v_n),
-                    p=torch.where(flag, c["p"], p_n),
-                    nfc=nfc_c, fv=fv_n, dfv=dfv_n, drm=drm_n,
-                    gp=torch.where(flag, c["gp"], gp_n), flag=flag)
+        out = dict(v=torch.where(flag, c["v"], v_n),
+                   p=torch.where(flag, c["p"], p_n),
+                   nfc=nfc_c, fv=fv_n, dfv=dfv_n, drm=drm_n,
+                   gp=torch.where(flag, c["gp"], gp_n), flag=flag)
+        if has_c:
+            out.update(cvals=cvals_n, cmems=cmems, bfv=bfv_n, mbc=mbc_n)
+        return out
 
     if resume_carry is None:
         # the carried "previous" convection entering the first AB2 step is
@@ -724,6 +907,10 @@ def cnab(trange=None, prob=None, inivel=None, inip=None,
                      fv=bs["fv_n"], dfv=bs["dfv_n"], drm=bs["drm"],
                      gp=bs["gp"],
                      flag=torch.zeros((), dtype=torch.bool, device=device))
+        if has_c:
+            # the control state (the JAX carry's cvals cmems bfv mbc)
+            carry.update(cvals=bs["cvals"], cmems=bs["cmems"],
+                         bfv=bs["bfv"], mbc=bs["mbc"])
         ts = trange[2:]
     else:
         carry = _restore_carry(resume_carry, device)
@@ -747,18 +934,20 @@ def sbdf2(trange=None, prob=None, inivel=None, inip=None,
           controls=None,
           check_ff_maxv=1e8, save_every=1,
           inv_dtype=None, refine=None, ops=None, precision="accurate",
-          linsolver="auto", state_layout="inner",
+          linsolver="auto", state_layout="inner", warm_refine=0,
           resume_carry=None, umat=None, vmat=None,
           outfunc=None, out_bundle=None,
           verbose=False, device=None, **kw):
     """Semi-implicit BDF2 (reference ``sbdftwo``, time_int_utils.py:260):
     implicit ``M + 2/3 dt A``, extrapolated convection ``2 N(v_c)-N(v_p)``.
-    Always on the inner state layout.
+    Always on the inner state layout; ``warm_refine`` > 0 sets the residual
+    rounds of each solve (see :func:`cnab`).  Static feedback
+    (``umat``/``vmat``) is treated fully implicitly (folded into the
+    SMW-wrapped solver).
 
     ``resume_carry`` continues the BDF2 recursion exactly from a stored
     loop carry (see :func:`cnab`).  The in-loop observable hook is
     :func:`cnab`'s only (its observables read the AB2 carry)."""
-    _not_ported("sbdf2", controls=controls or None, umat=umat, vmat=vmat)
     if outfunc is not None or out_bundle is not None:
         raise NotImplementedError(
             "sbdf2: outfunc/out_bundle (in-loop observables) are evaluated "
@@ -774,9 +963,15 @@ def sbdf2(trange=None, prob=None, inivel=None, inip=None,
                          refine=refine, precision=precision,
                          linsolver=_resolve_linsolver(prob, linsolver),
                          device=device)
+    # BDF2 treats the linear feedback term fully implicitly: the 2/3 dt
+    # weighted update is folded into the solver
+    ops, fbk = _wrap_feedback(ops, umat, vmat, c=2.0 / 3.0 * dt,
+                              warm_refine=warm_refine)
     nin = len(prob.invinds)
-    cn = _consts(prob, device)
-    bundle = dict(ops=ops, kern=_kern(prob, precision, device), cn=cn)
+    has_c = bool(controls)
+    cn = _consts(prob, device, controls)
+    bundle = dict(ops=ops, kern=_kern(prob, precision, device), cn=cn,
+                  fbk=fbk)
     f_vdp_b = _make_f_vdp(stokes_flow, nin)
     has_dyn = dynamic_rhs is not None
     f_tdp, g_tdp, dynamic_rhs = _zero_fns(cn, f_tdp, g_tdp, dynamic_rhs,
@@ -786,11 +981,16 @@ def sbdf2(trange=None, prob=None, inivel=None, inip=None,
     bs = None
     if resume_carry is None:
         v0 = _host_vec(inivel, device)
+        p0 = (torch.zeros(prob.np_cond, dtype=v0.dtype, device=device)
+              if inip is None else _host_vec(inip, device))
         bs = _heun_bootstrap(
-            prob, trange[0], trange[1], v0,
-            lambda v: f_vdp_b(bundle, _embed(cn, v)),
-            f_tdp, g_tdp, dynamic_rhs, dynamic_rhs_memory)
+            prob, trange[0], trange[1], v0, p0,
+            lambda vf: f_vdp_b(bundle, vf),
+            f_tdp, g_tdp, dynamic_rhs, dynamic_rhs_memory, controls, cn,
+            umat=umat, vmat=vmat)
         lap("bootstrap_s")
+    solve = _inner_solve(ops.solver, warm_refine)
+    grhs = _continuity_rhs(prob, ops.wdtype, device)
 
     def step(b, c, t):
         # INCREMENT form: with K2 = M + 2/3 dt A, the BDF2 update
@@ -800,8 +1000,11 @@ def sbdf2(trange=None, prob=None, inivel=None, inip=None,
         ops_, cn_ = b["ops"], b["cn"]
         w = ops_.wdtype
         nfc_p = c["nfc_p"]
-        v_full = _embed(cn_, c["v"])
+        v_full = _embed(cn_, c["v"], c["cvals"] if has_c else None)
         nfc_c = f_vdp_b(b, v_full).to(w)
+        cvals_n, cmems, bfv_n, bfp_n, mbc_n = _eval_controls(
+            controls, cn_, t, v_full, c["p"], c["cmems"] if has_c else (),
+            "abtwo")
         fv_n = f_tdp(t)
         fsum = fv_n.to(w)
         dfv_n, drm_n = c["dfv"], c["drm"]
@@ -810,27 +1013,51 @@ def sbdf2(trange=None, prob=None, inivel=None, inip=None,
                                        mode="abtwo")
             fsum = fsum + dfv_n.to(w)
         rhs_d = ((1.0 / 3.0) * ops_.M.matvec(c["dv"]).to(w)
-                 - (2.0 / 3.0 * dt) * ops_.A.matvec(c["v"]).to(w)
-                 + (2.0 / 3.0 * dt) * (2.0 * nfc_c - nfc_p)
+                 - (2.0 / 3.0 * dt) * ops_.A.matvec(c["v"]).to(w))
+        if has_c:
+            # the three-level Dirichlet mass correction
+            rhs_d = (rhs_d
+                     - (mbc_n - 4.0 / 3.0 * c["mbc"]
+                        + 1.0 / 3.0 * c["mbc_p"]).to(w)
+                     + (2.0 / 3.0 * dt) * bfv_n.to(w))
+        rhs_d = (rhs_d + (2.0 / 3.0 * dt) * (2.0 * nfc_c - nfc_p)
                  + (2.0 / 3.0 * dt) * fsum)
-        gp_n = g_tdp(t)
-        sol = ops_.solver.solve(rhs_d, (gp_n - c["gp"]).to(w))
+        if b["fbk"] is not None:
+            # fully-implicit feedback: K2' = K2 - 2/3 dt uv (SMW-wrapped
+            # solver); the delta-rhs gains 2/3 dt uv v_c
+            fu, fvm = b["fbk"]
+            rhs_d = rhs_d + (2.0 / 3.0 * dt) * (fu @ (fvm @ c["v"])).to(w)
+        gp_n = g_tdp(t) + bfp_n
+        sol = solve(rhs_d, grhs(gp_n, c).to(w))
         dv_n = sol[:ops_.nin].to(w)
         v_n = c["v"] + dv_n.to(c["v"].dtype)
         p_n = (-sol[ops_.nin:] / dt).to(c["p"].dtype)
         flag = _blowup_flag(c["flag"], v_n, check_ff_maxv)
-        return dict(v=torch.where(flag, c["v"], v_n),
-                    dv=torch.where(flag, c["dv"], dv_n),
-                    p=torch.where(flag, c["p"], p_n),
-                    nfc_p=nfc_c, fv=fv_n, dfv=dfv_n, drm=drm_n,
-                    gp=torch.where(flag, c["gp"], gp_n), flag=flag)
+        out = dict(v=torch.where(flag, c["v"], v_n),
+                   dv=torch.where(flag, c["dv"], dv_n),
+                   p=torch.where(flag, c["p"], p_n),
+                   nfc_p=nfc_c, fv=fv_n, dfv=dfv_n, drm=drm_n,
+                   gp=torch.where(flag, c["gp"], gp_n), flag=flag)
+        if has_c:
+            out.update(cvals=cvals_n, cmems=cmems, mbc=mbc_n,
+                       mbc_p=torch.where(flag, c["mbc_p"], c["mbc"]))
+        return out
 
     if resume_carry is None:
+        # previous-step control mass term of the 3-level correction: the
+        # bootstrap's t0 value (mode 'init') — re-evaluating the ufuncs in
+        # 'abtwo' mode here would hand stateful controllers
+        # (get_heunab_lti) a negative curdt = t0 - t1 (the reference uses
+        # the initial bc mass term from _onestepheun,
+        # time_int_utils.py:333-345)
         carry = dict(v=bs["v"], dv=(bs["v"] - v0).to(ops.wdtype),
                      p=bs["p"], nfc_p=bs["nfc_c"].to(ops.wdtype),
                      fv=bs["fv_n"], dfv=bs["dfv_n"], drm=bs["drm"],
                      gp=bs["gp"],
                      flag=torch.zeros((), dtype=torch.bool, device=device))
+        if has_c:
+            carry.update(cvals=bs["cvals"], cmems=bs["cmems"],
+                         mbc=bs["mbc"], mbc_p=bs["mbc_c"])
         ts = trange[2:]
     else:
         carry = _restore_carry(resume_carry, device)

@@ -22,11 +22,11 @@ from ..models.problem import GeoSetup, NSEProblem
 from ..solve.sadpnt import InverseSaddleSolver
 from ..solve.timeint import _restore_carry
 
-# the carry keys of the port's inner-layout cnab / sbdf2 loops; the JAX
-# carries also hold control state (cvals cmems bfv mbc mbc_p), which is
-# empty in a run without controls and has no counterpart here yet
+# the carry keys of the port's inner-layout cnab / sbdf2 loops (the same
+# as the JAX integrators'); the control state only in a run with controls
 _CARRY_KEYS = ("v", "dv", "p", "nfc", "nfc_p", "fv", "dfv", "drm", "gp",
                "flag")
+_CONTROL_KEYS = ("cvals", "cmems", "bfv", "mbc", "mbc_p")
 _CTX_TABLES = ("N2", "dN2", "N1", "dN1", "qpts", "qwts", "JinvT", "detJ",
                "wdet", "gphi2", "gphi1")
 
@@ -100,17 +100,19 @@ def inverse_solver_from_numpy(Kinv, amat, jmat, jmatT=None, refine=None,
 
 def carry_from_jax(carry, device=None):
     """The port's ``resume_carry`` from the final carry of a JAX
-    inner-layout ``cnab`` or ``sbdf2`` run without controls.
+    inner-layout ``cnab`` or ``sbdf2`` run, with or without controls.
 
     ``carry``: the JAX ``out["carry"]`` with its array leaves as numpy
     arrays (``jax.tree_util.tree_map(np.asarray, out["carry"])``; the
     port imports no jax).  Leaves keep their dtypes (f64 state, work-dtype
     convection terms, bool flag) and land on ``device`` (``None`` = the
-    card); ``drm``, the memory of a ``dynamic_rhs``, may be any nesting of
-    dicts, lists and tuples."""
+    card); ``drm``, the memory of a ``dynamic_rhs``, and ``cmems``, the
+    controls' memories, may be any nesting of dicts, lists and tuples;
+    the control terms ``cvals cmems bfv mbc mbc_p`` are carried over when
+    the run had controls (``cvals`` not None), as the port's own loops
+    carry them."""
+    keys = _CARRY_KEYS
     if carry.get("cvals") is not None:
-        raise NotImplementedError(
-            "carry_from_jax: the carry of a run with Dirichlet controls "
-            "(controls are not ported yet)")
-    return _restore_carry({k: carry[k] for k in _CARRY_KEYS if k in carry},
+        keys = keys + _CONTROL_KEYS
+    return _restore_carry({k: carry[k] for k in keys if k in carry},
                           resolve_device(device))

@@ -81,8 +81,6 @@ def test_unported_discretisations_raise():
 
     with pytest.raises(NotImplementedError, match="Taylor-Hood"):
         build_problem(unit_square(2), GeoSetup(), nu=1.0, scheme="CR")
-    with pytest.raises(NotImplementedError, match="Robin"):
-        torch_wake(level=0, Re=50, bccontrol=True)
 
 
 def test_interpolate_velocity_matches():

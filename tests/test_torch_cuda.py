@@ -16,10 +16,10 @@ from dolfin_navier_scipy_tpu_torch.models import (
     cylinderwake_problem, drivencavity_problem)
 from dolfin_navier_scipy_tpu_torch.ops.affine import AffineVectorOps
 from dolfin_navier_scipy_tpu_torch.ops.kernels import (
-    as_band_operand, as_vecmat_operand, band_operand, banded_mv,
-    banded_mv_ref, conv_vector, conv_vector_amatvec, conv_vector_amatvec_ref,
-    conv_vector_ref, rect_mv, rect_mv_levels, rect_mv_levels_ref,
-    rect_mv_ref, vecmat)
+    affine_mv, affine_mv_ref, as_band_operand, as_vecmat_operand,
+    band_operand, banded_mv, banded_mv_ref, conv_vector, conv_vector_amatvec,
+    conv_vector_amatvec_ref, conv_vector_ref, rect_mv, rect_mv_levels,
+    rect_mv_levels_ref, rect_mv_ref, vecmat)
 from dolfin_navier_scipy_tpu_torch.solve import sbdf2, solve_nse
 
 NEEDS_CARD = ("needs a CUDA card: a CUDA kernel has no interpret mode; "
@@ -75,6 +75,8 @@ def _card_calls():
     single = _band_stack(rng, 9, 1, 256, 1021, torch.float32)[:, 0]
     bases = torch.arange(9, dtype=torch.int32, device="cuda") * 200
     xe = torch.from_numpy(rng.normal(size=2058)).float().cuda()
+    ain = prob.affine_ops(torch.float32, device="cuda")
+    xa = torch.from_numpy(rng.normal(size=ain.nin)).float().cuda()
     return {
         "vecmat": lambda: (vecmat(x, KT),),
         "conv_vector": lambda: (conv_vector(u, None, t),),
@@ -83,6 +85,7 @@ def _card_calls():
         "banded_mv": lambda: (banded_mv(E, xe),),
         "rect_mv": lambda: (rect_mv(single, bases, xe, 2058),),
         "rect_mv_levels": lambda: (rect_mv_levels(stack, bases, xe, 2058),),
+        "affine_mv": lambda: (affine_mv("ma", xa, ain, 1.0, 5e-3),),
     }
 
 
@@ -112,7 +115,7 @@ _BAND_CASES = {
 
 
 _WRAPPERS = ["vecmat", "conv_vector", "conv_vector_amatvec", "banded_mv",
-             "rect_mv", "rect_mv_levels"]
+             "rect_mv", "rect_mv_levels", "affine_mv"]
 
 
 @pytest.mark.cuda
@@ -419,3 +422,75 @@ def test_device_setup_on_the_card_matches_host_and_cpu(monkeypatch):
     err = (torch.linalg.vector_norm(out["v"].cpu() - ref["v"])
            / torch.linalg.vector_norm(ref["v"]))
     assert float(err) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("full_dofs", [False, True])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.float64])
+def test_affine_kernel_on_the_card(wdtype, full_dofs):
+    """The affine kernel in every mode against its plain version on a
+    Robin-penalized wake (outflow and arc facet rows), f32 and f64 vectors:
+    within 1e-5 of each row's sum of absolute products, the same bits
+    twice, one launch counted a call."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    from dolfin_navier_scipy_tpu_torch.control import apply_robin_penalty
+
+    prob = cylinderwake_problem(level=0, Re=100, bccontrol=True)
+    apply_robin_penalty(prob, palpha=1e-3)
+    import copy
+
+    aff = AffineVectorOps.build(prob, wdtype, full_dofs=full_dofs)
+    # the rounding scale of each row: the plain version over the absolute
+    # tables and |x| (the sum of the absolute products the row adds)
+    absaff = copy.copy(aff)
+    for k in ("W2", "W2T", "MrefI2", "N1q", "JinvT", "wdet", "detJ",
+              "fac_elem"):
+        setattr(absaff, k, getattr(aff, k).abs())
+    rng = np.random.default_rng(19)
+    for mode, cm, ca in (("m", 1.0, 0.0), ("a", 0.0, 1.0), ("ma", 1.0, 5e-3),
+                         ("j", 1, 0), ("jt", 1, 0)):
+        n = aff.npc if mode == "jt" else aff.nin
+        for xdt in (torch.float32, torch.float64):
+            x = torch.from_numpy(rng.normal(size=n)).to(xdt).cuda()
+            before = affine_mv.launches
+            y = affine_mv(mode, x, aff, cm, ca)
+            torch.cuda.synchronize()
+            assert affine_mv.launches == before + 1
+            ref = affine_mv_ref(mode, x, aff, cm, ca)
+            bar = 1e-5 * affine_mv_ref(mode, x.double().abs(), absaff,
+                                       cm, ca) + 1e-30
+            err = (y.double() - ref.double()).abs()
+            assert bool((err <= bar).all()), (mode, xdt,
+                                              float((err / bar).max()))
+            assert y.dtype == xdt
+            assert torch.equal(y, affine_mv(mode, x, aff, cm, ca)), mode
+
+
+@pytest.mark.cuda
+def test_controlled_run_on_the_card_matches_the_cpu():
+    """The rotating-cylinder control on the Schur route (inner layout, one
+    refine round): two affine launches a step (A v, and J v for the
+    continuity rhs), and within 1e-6 of the CPU f64 run on the exact
+    solver; the control dofs carry the prescribed values."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    import math
+
+    from dolfin_navier_scipy_tpu_torch.solve import DirichletControl
+
+    prob = cylinderwake_problem(level=0, Re=100, movingwallcntrl=True)
+    dofs, stencil = prob.dircntrl[0]
+    ctl = [DirichletControl(dofs, stencil, lambda t, v, p, mem, mode: (
+        math.sin(20.0 * t), mem))]
+    kw = dict(prob=prob, t0=0.0, tE=0.02, Nts=20, start_ssstokes=True,
+              save_every=5, controls=ctl)
+    before = affine_mv.launches
+    out = solve_nse(linsolver="schur", warm_refine=1, **kw)
+    assert affine_mv.launches - before == 2 * 19
+    ref = solve_nse(device="cpu", linsolver="dense", **kw)
+    err = (torch.linalg.vector_norm(out["v"].cpu() - ref["v"])
+           / torch.linalg.vector_norm(ref["v"]))
+    assert float(err) <= 1e-6
+    assert torch.equal(out["carry"]["cvals"].cpu(), math.sin(20.0 * 0.02)
+                       * torch.from_numpy(np.asarray(stencil).ravel()))

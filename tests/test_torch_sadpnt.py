@@ -152,6 +152,13 @@ def test_host_helpers():
     assert np.abs(K @ s["host"] - rhs).max() <= 1e-9
     x0 = host_saddle_factorized(s["coeff"], tp.Jc)(s["rhsv"])
     assert x0.shape == (len(rhs), 1)
-    with pytest.raises(NotImplementedError, match="Woodbury"):
-        solve_sadpnt_host(amat=s["coeff"], jmat=tp.Jc, rhsv=s["rhsv"],
-                          umat=np.zeros((3, 1)), vmat=np.zeros((1, 3)))
+    # a rank-2 update A - U V by Sherman-Morrison-Woodbury equals the
+    # dense solve of the updated saddle matrix
+    rng = np.random.default_rng(3)
+    nv = len(s["rhsv"])
+    U, V = 1e-2 * rng.normal(size=(nv, 2)), rng.normal(size=(2, nv))
+    Ku = K.copy()
+    Ku[:nv, :nv] -= U @ V
+    x = solve_sadpnt_host(amat=s["coeff"], jmat=tp.Jc, rhsv=s["rhsv"],
+                          rhsp=s["rhsp"], umat=U, vmat=V)
+    assert np.abs(Ku @ x.ravel() - rhs).max() <= 1e-9

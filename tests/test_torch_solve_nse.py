@@ -191,21 +191,13 @@ def test_stokes_start_matches_the_host_solve():
     # the Krylov solver's SIMPLE-type block-Schur preconditioner, on sbdf2
     (dict(linsolver="krylov", time_int_scheme="sbdf2"), "block-Schur"),
     (dict(linsolver="krylov"), "Krylov"),
-    (dict(time_int_scheme="sbdf2", controls=[object()]), "controls"),
-    (dict(closed_loop=True), "closed_loop"),
     (dict(save_data=True), "save_data"),
     (dict(checkpoint_every=5), "checkpoint_every"),
     (dict(treat_nonl_explicit=False), "newton_in_time"),
     (dict(lin_vel_point={0.0: None}), "lin_vel_point"),
     (dict(paraviewoutput=True), "paraviewoutput"),
     (dict(krylov="gmres"), "krylov"),
-    (dict(controls=[object()]), "controls"),
-    (dict(umat=np.zeros((2, 1)), vmat=np.zeros((1, 2))), "umat"),
-    (dict(dynamic_feedback=True), "dynamic_feedback"),
-    (dict(static_feedback=True), "static_feedback"),
     (dict(useolddata=True), "useolddata"),
-    (dict(time_int_scheme="sbdf2", umat=np.zeros((2, 1)),
-          vmat=np.zeros((1, 2))), "umat"),
 ])
 def test_unported_paths_raise(kwargs, match):
     _, tp = _probs("cavity")

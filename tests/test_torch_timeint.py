@@ -263,18 +263,6 @@ def test_outfunc_is_evaluated_every_step(layout):
     assert cnab(prob=tp, device="cpu", **kw)["outs"] is None
 
 
-@pytest.mark.parametrize("fn", ["cnab", "sbdf2"])
-@pytest.mark.parametrize("what", ["controls", "umat"])
-def test_controls_and_feedback_still_raise(fn, what):
-    _, tp = _probs("cavity")
-    kw = (dict(controls=[object()]) if what == "controls"
-          else dict(umat=np.zeros((2, 1)), vmat=np.zeros((1, 2))))
-    with pytest.raises(NotImplementedError, match=what):
-        dict(cnab=cnab, sbdf2=sbdf2)[fn](
-            trange=TRANGE, prob=tp, inivel=_v0("cavity"), linsolver="dense",
-            device="cpu", **kw)
-
-
 def test_sbdf2_refuses_the_in_loop_hook():
     """The observables hook belongs to cnab: sbdf2 must say so and not
     drop it silently."""

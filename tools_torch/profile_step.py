@@ -5,6 +5,7 @@
                     [--scheme cnab|sbdf2] [--layout auto|inner]
                     [--linsolver dense|schur|auto] [--setup auto|host|device]
                     [--warm-refine 0 [1 ...]] [--check-x 4]
+                    [--control none|rotcyl|static|dynamic]
                     [--trace step_trace.json] [--root CHECKOUT]
 
 Runs the main path and the chosen loop once to build and warm everything
@@ -26,8 +27,15 @@ wrappers per step, the final state's divergence residual and the kernels
 by total device time.  ``--setup`` forces the Schur solver's setup (the
 integrators build it through ``timeint._build_ops``, which takes no such
 keyword, so the tool fixes it on the class they call); ``--check-x N``
-holds N columns of the stored X against exact host-CG solves.  Needs a
-CUDA card; ``--trace`` also writes the chrome trace of the last loop.
+holds N columns of the stored X against exact host-CG solves.
+``--control`` drives the controlled inner-layout step: ``rotcyl`` the
+rotating cylinder (a Dirichlet control ``sin(20 t)``), ``static`` static
+feedback ``umat = -0.5 C^T``, ``vmat = C`` (C averages the velocity over 4
+strips of a box behind the cylinder), ``dynamic`` a seeded LTI observer
+(AB2) through ``dynamic_rhs``; controls and feedback take the inner layout
+(``--layout`` is then ``inner``); the observer's input and the actuation
+are ``C`` and ``1e-2 C^T``.  Needs a CUDA card; ``--trace`` also
+writes the chrome trace of the last loop.
 """
 
 import argparse
@@ -78,6 +86,42 @@ def check_x(slv, prob, dt, ncols):
     return out
 
 
+def control_kwargs(control, prob):
+    """The integrator keywords of ``--control`` on ``prob`` (a wake built
+    with ``movingwallcntrl`` unless ``control`` is 'none')."""
+    if control == "none":
+        return {}
+    import math
+
+    from dolfin_navier_scipy_tpu_torch.control import get_heunab_lti
+    from dolfin_navier_scipy_tpu_torch.models import observation_operator
+    from dolfin_navier_scipy_tpu_torch.solve import DirichletControl
+
+    if control == "rotcyl":
+        dofs, stencil = prob.dircntrl[0]
+        return dict(controls=[DirichletControl(
+            dofs, stencil,
+            lambda t, v, p, mem, mode: (math.sin(20.0 * t), mem))])
+    C = observation_operator(prob, ny=4, odcoo=dict(
+        xmin=0.3, xmax=0.5, ymin=0.1, ymax=0.3))[:, prob.invinds]
+    if control == "static":
+        return dict(umat=-0.5 * C.T, vmat=C)
+    ny, hN = C.shape[0], 4
+    rng = np.random.default_rng(0)
+    fbk, mem0 = get_heunab_lti(
+        ha=-np.eye(hN) + 0.05 * rng.normal(size=(hN, hN)),
+        hb=0.3 * rng.normal(size=(hN, ny)),
+        hc=0.05 * rng.normal(size=(ny, hN)), inihx=np.ones(hN))
+    B = torch.as_tensor(1e-2 * C.T, device="cuda")
+    Ct = torch.as_tensor(C, device="cuda")
+
+    def dynamic_rhs(t, vc=None, memory=None, mode=None):
+        u, memory = fbk(t, vc=Ct @ vc, memory=memory, mode=mode)
+        return B @ u, memory
+
+    return dict(dynamic_rhs=dynamic_rhs, dynamic_rhs_memory=mem0)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
@@ -92,6 +136,8 @@ def main():
                     default="auto")
     ap.add_argument("--warm-refine", type=int, nargs="+", default=[0])
     ap.add_argument("--check-x", type=int, default=0)
+    ap.add_argument("--control", choices=("none", "rotcyl", "static",
+                                          "dynamic"), default="none")
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -110,15 +156,23 @@ def main():
             solve.timeint.SchurSaddleSolver, setup=args.setup)
 
     t0 = time.perf_counter()
-    prob = cylinderwake_problem(level=args.level, Re=100.0, charvel=0.2)
+    prob = cylinderwake_problem(level=args.level, Re=100.0, charvel=0.2,
+                                movingwallcntrl=args.control != "none")
     problem_s = time.perf_counter() - t0
     dt = 1e-3
+    extra = control_kwargs(args.control, prob)
+    if extra:
+        args.layout = "inner"
     step_loop = getattr(solve, args.scheme)
     torch.cuda.reset_peak_memory_stats()
+    # the warm run builds the plain operators (a feedback run wraps them
+    # in an SMW solver anew at every call)
     warm = solve_nse(prob=prob, t0=0.0, tE=30 * dt, Nts=30,
                      start_ssstokes=True, linsolver=args.linsolver,
                      save_every=0, time_int_scheme=args.scheme,
-                     state_layout=args.layout)
+                     state_layout=args.layout,
+                     **{k: v for k, v in extra.items()
+                        if k not in ("umat", "vmat")})
     peak = torch.cuda.max_memory_allocated()
     slv = warm["ops"].solver
     setup = dict(
@@ -137,10 +191,10 @@ def main():
     trange = np.linspace(0.0, (args.steps + 1) * dt, args.steps + 2)
     kw = dict(trange=trange, prob=prob, inivel=warm["iniv"],
               inip=warm["inip"], ops=warm["ops"], save_every=0,
-              state_layout=args.layout)
+              state_layout=args.layout, **extra)
     wrappers = [getattr(kernels, name) for name in
                 ("vecmat", "conv_vector", "conv_vector_amatvec", "banded_mv",
-                 "rect_mv", "rect_mv_levels")
+                 "rect_mv", "rect_mv_levels", "affine_mv")
                 if hasattr(kernels, name)]
     for wr in (args.warm_refine if args.scheme == "cnab" else [None]):
         if wr is not None:
@@ -155,7 +209,12 @@ def main():
         wrapper_calls = {w.__name__: w.launches - b
                          for w, b in zip(wrappers, before)}
         vh = plain_out["v"].cpu().numpy()
-        div_rel = float(np.abs(prob.Jc @ vh - prob.fp.ravel()).max()
+        # the continuity rhs of the last step (fp, and -J_bc cvals with a
+        # Dirichlet control)
+        g = (plain_out["carry"]["gp"].cpu().numpy()
+             if "gp" in plain_out["carry"] and args.layout == "inner"
+             else prob.fp.ravel())
+        div_rel = float(np.abs(prob.Jc @ vh - g).max()
                         / (abs(prob.Jc) @ np.abs(vh)).max())
         del plain_out
         with profile(activities=[ProfilerActivity.CPU,
@@ -171,6 +230,7 @@ def main():
         nlaunch = sum(v[1] for v in dev_us.values())
         print(json.dumps(dict(
             level=args.level, steps=args.steps, scheme=args.scheme,
+            control=args.control,
             layout=args.layout if args.scheme == "cnab" else "inner",
             linsolver=args.linsolver, solver=type(slv).__name__,
             warm_refine=wr,
