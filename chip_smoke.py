@@ -10,7 +10,8 @@ Needs one CUDA card, ``nvcc`` and no network; takes no arguments.  It
 2. holds each kernel against its plain PyTorch version on the card, at the
    shapes the driven paths give it (and ``vecmat`` at a ragged shape, f32
    and f64, every operand in the padded storage the kernel streams), counts
-   the device kernels of one profiled call (one per wrapper), and times
+   the device kernels of one call captured in a CUDA graph (one per
+   wrapper), and times
    kernel (CUDA-graph replay and eager), plain version, the one-call
    library equivalent where there is one, and the card's bound,
 3. drives the main path through the user's entry points: the DFG 2D-2
@@ -43,14 +44,20 @@ Needs one CUDA card, ``nvcc`` and no network; takes no arguments.  It
 
 Step 2 also holds the three banded kernels of the Schur route
 (``banded_mv``, ``rect_mv``, ``rect_mv_levels``) against their plain
-versions on the level-1 solver's own operands under seeded vectors.
+versions on the level-1 solver's own operands under seeded vectors, and
+the single-level products on edge operands (NaN padding, a ragged last
+row block, windows past both ends of x, window starts at the edges, short
+rows), each on the kernel its plan picks and on the bulk-copy ring: one
+kernel node a call in a captured graph, the same bits on a replay.
 
 Every phase prints one JSON line; any failed phase raises, so the exit
 code is non-zero and the final line is missing.  The last line is
 ``{"ok": true, "device": {...}}``, the one before it the ``kernels`` table.
 """
 
+import contextlib
 import copy
+import ctypes
 import itertools
 import json
 import math
@@ -97,7 +104,10 @@ LEVEL2 = 2
 T0, TE, NTS, SAVE_EVERY = 0.0, 0.3, 300, 60
 RAGGED = (2049, 1023)
 DESIGN = "pr3"       # one launch per call: bulk-copy ring / quad-point lanes
-BAND_DESIGN = "pr4"  # a warp per row, the x window in shared memory
+# csrc/bandmv.cu: a warp per row with the x window in shared memory,
+# or, for single-level f32 operands too short in rows for that kernel's
+# grid to fill the card, a bulk-copy ring over a grid of one block an SM
+BAND_DESIGN = {"rows": "warp-per-row", "ring": "bulk-copy ring"}
 BAND_REPLACES = dict(
     banded_mv="dolfin_navier_scipy_tpu/solve/sadpnt.py:782",
     rect_mv="dolfin_navier_scipy_tpu/solve/sadpnt.py:1021",
@@ -150,23 +160,15 @@ def graph_ms(fn, calls=20, replays=10):
     return time_ms(graph.replay, replays) / calls
 
 
-def device_kernels(fn, tries=3):
-    """Device kernels that one call of ``fn`` runs (``torch.profiler``).
-    Used early and sparingly: on an H100 host a profiler session after the
-    CPU f64 reference runs returned no device event at all, retries
-    included; an empty reading is taken again, up to ``tries`` times."""
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and not e.name.startswith(("Memcpy", "Memset"))]
-        if names:
-            break
-    return names
+def device_kernels(fn):
+    """Device kernels that one call of ``fn`` runs: the kernel nodes (type
+    0) of the call captured in a CUDA graph (``captured``), with every
+    node's type.  Copies and memsets are nodes of other types.  Counted from
+    the graph rather than ``torch.profiler``: on an H100 host a profiler
+    session late in this script at times recorded no device event at all,
+    retries included.  Returns ``(kernel nodes, node types)``."""
+    types, _ = captured(fn)
+    return types.count(0), types
 
 
 def zero_counts():
@@ -189,9 +191,9 @@ def vecmat_bound_ms(m, n, itemsize=4):
                                        else "operations")
 
 
-def check_vecmat(x, KT, what, reps, profiled=False):
+def check_vecmat(x, KT, what, reps, counted=False):
     """Kernel vs plain version on the same inputs, then the timings;
-    ``profiled``: also count the device kernels of one call (must be 1)."""
+    ``counted``: also count the device kernels of one call (must be 1)."""
     m, n = KT.shape
     y = vecmat(x, KT)
     torch.cuda.synchronize()
@@ -210,15 +212,16 @@ def check_vecmat(x, KT, what, reps, profiled=False):
             f"max abs err {max_abs:.3e} (atol {atol:.3e}, rtol {rtol})")
     if not torch.equal(y, vecmat(x, KT)):
         raise AssertionError("vecmat kernel is not reproducible run to run")
-    if profiled:
-        ran = device_kernels(lambda: vecmat(x, KT))
-        require(len(ran) == 1, f"vecmat ran {len(ran)} device kernels: {ran}")
+    if counted:
+        ran, types = device_kernels(lambda: vecmat(x, KT))
+        require(ran == 1, f"vecmat ran {ran} device kernels (graph node "
+                f"types {types})")
     KTt = KT.T                      # what the one-call library form takes
     bound, by = vecmat_bound_ms(m, n, KT.element_size())
     out = dict(shape=[m, n], operand=what, dtype=str(KT.dtype),
                ld=KT.stride(0), max_abs_err=max_abs, max_rel_err=max_rel,
                atol=atol, rtol=rtol,
-               device_kernels_per_call=len(ran) if profiled else None,
+               device_kernels_per_call=ran if counted else None,
                ms=graph_ms(lambda: vecmat(x, KT)),
                eager_ms=time_ms(lambda: vecmat(x, KT), reps),
                plain_ms=time_ms(lambda: vecmat_ref(x, KT), reps),
@@ -256,7 +259,7 @@ def conv_bound_ms(t, u_itemsize, fused, two, nfac):
 
 
 def check_conv(kern, aff, facv, u, u2, what, sym_main, timed,
-               profiled=False):
+               counted=False):
     """The convection kernel against its plain version on the same inputs:
     ``conv_vector`` with one and two states, ``conv_vector_amatvec`` with
     ``sym`` both ways and the facet blocks; two launches must give the same
@@ -308,11 +311,11 @@ def check_conv(kern, aff, facv, u, u2, what, sym_main, timed,
                    max_abs_err=max(errs), atol=max(atols), bound_ms=bound,
                    bound_by=by, library_ms=None)
         if timed and name in ("vector", f"amatvec_sym_{sym_main}"):
-            if profiled:
-                ran = device_kernels(run)
-                require(len(ran) == 1, f"convection kernel ({name}, {what}) "
-                        f"ran {len(ran)} device kernels: {ran}")
-                row["device_kernels_per_call"] = len(ran)
+            if counted:
+                ran, types = device_kernels(run)
+                require(ran == 1, f"convection kernel ({name}, {what}) ran "
+                        f"{ran} device kernels (graph node types {types})")
+                row["device_kernels_per_call"] = ran
             row.update(ms=graph_ms(run), plain_ms=graph_ms(plain),
                        eager_ms=time_ms(run, 200),
                        plain_eager_ms=time_ms(plain, 50))
@@ -420,7 +423,141 @@ def cycling(fn, copies):
     return lambda: fn(next(it))
 
 
-def check_band(forms, profiled=True):
+def band_kernel(name, B):
+    """Which kernel of csrc/bandmv.cu a call of wrapper ``name`` on ``B``
+    launches: ``"ring"`` or ``"rows"`` (ops/kernels.py: bandmv_plan)."""
+    if name == "rect_mv_levels" or B.dtype != torch.float32:
+        return "rows"
+    nblk, bs, w = B.shape[0], B.shape[-2], B.shape[-1]
+    return kernels._bandmv_plan_on(nblk, bs, w, B.stride(-2),
+                                   B.get_device()).kernel
+
+
+@contextlib.contextmanager
+def ring_everywhere():
+    """Every single-level f32 product on the ring kernel, whatever the plan
+    would pick (its plans made anew on the way in and out)."""
+    shipped = kernels._BANDMV_PLAN["RING_GRID_BELOW"]
+    kernels._BANDMV_PLAN["RING_GRID_BELOW"] = 1 << 30
+    kernels._bandmv_plan_on.cache_clear()
+    try:
+        yield
+    finally:
+        kernels._BANDMV_PLAN["RING_GRID_BELOW"] = shipped
+        kernels._bandmv_plan_on.cache_clear()
+
+
+def captured(fn):
+    """``fn`` captured once in a CUDA graph (on a side stream that ran it
+    first) and replayed: ``(node types, the replay's output)``; the nodes
+    read through libcuda (``cuGraphGetNodes``; type 0 a kernel), which
+    counts a call's kernels where the profiler may see nothing."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=side):
+        out = fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    require(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0,
+            "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * max(n.value, 1))()
+    require(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0,
+            "cuGraphGetNodes")
+    types = []
+    for i in range(n.value):
+        kind = ctypes.c_int(-1)
+        require(cu.cuGraphNodeGetType(ctypes.c_void_p(nodes[i]),
+                                      ctypes.byref(kind)) == 0,
+                "cuGraphNodeGetType")
+        types.append(kind.value)
+    graph.replay()
+    torch.cuda.synchronize()
+    return types, out
+
+
+def band_edge_forms(slv, gen):
+    """Edge operands of the single-level f32 products, seeded, in
+    band-operand storage with the padding columns filled with NaN: windows
+    past both ends of x (banded), a ragged last row block, window starts
+    before 0, at 0, at and past the end of x, rows of 253 columns (3 NaN
+    columns a row), rows of 6 columns one to a block, and the solver's
+    J^T (256 columns).  ``(name, operand, blocks, call, plain, plain over
+    |B| and |x|)``."""
+    dev = slv.Bblk.device
+
+    def vec(n):
+        return torch.randn(n, generator=gen, dtype=torch.float32).to(dev)
+
+    def blocks(nblk, bs, w):
+        B = as_band_operand(torch.randn((nblk, bs, w), generator=gen),
+                            device=dev)
+        B.as_strided((nblk, bs, B.stride(1)), B.stride())[..., w:] = \
+            float("nan")
+        return B
+
+    def rect(operand, B, bases, nx, nrows):
+        b = torch.as_tensor(np.asarray(bases, np.int32), device=dev)
+        x = vec(nx)
+        return ("rect_mv", operand, B,
+                lambda: rect_mv(B, b, x, nrows),
+                lambda: rect_mv_ref(B, b, x, nrows),
+                lambda: rect_mv_ref(B.abs(), b, x.abs(), nrows))
+
+    E = blocks(5, 96, 288)
+    xe = vec(5 * 96 - 50)
+    return [
+        ("banded_mv", "windows past both ends", E,
+         lambda: banded_mv(E, xe), lambda: banded_mv_ref(E, xe),
+         lambda: banded_mv_ref(E.abs(), xe.abs())),
+        rect("ragged last row block", blocks(7, 128, 300),
+             [100 * k for k in range(7)], 1000, 7 * 128 - 77),
+        rect("window starts at the edges", blocks(5, 64, 120),
+             [-5, 0, 280, 397, 410], 400, 5 * 64),
+        rect("NaN padding, 253 columns", blocks(19, 384, 253),
+             list(range(0, 19 * 300, 300)), 7000, 19 * 384),
+        rect("6 columns, one row a block", blocks(50, 1, 6), list(range(50)),
+             60, 50),
+        rect("J^T of the solver", slv.JTb, slv._jtbases, slv.np, slv._nin)]
+
+
+def check_band_edges(forms):
+    """Each edge form on the kernel the plan picks and on the ring kernel:
+    within the row bar, the same bits twice, one kernel node a call, and
+    the same bits from a CUDA-graph replay."""
+    out = []
+    for name, operand, B, call, plain, absplain in forms:
+        for forced in (False, True):
+            with (ring_everywhere() if forced else contextlib.nullcontext()):
+                kernel = band_kernel(name, B)
+                y, again = call(), call()
+                torch.cuda.synchronize()
+                ref = plain()
+                err = (y - ref).abs()
+                tol = 1e-5 * absplain() + 1e-30
+                what = f"{name} ({operand}, {kernel} kernel)"
+                require(bool(torch.isfinite(y).all()), f"{what} not finite")
+                require(bool((err <= tol).all()), f"{what} disagrees with its "
+                        f"plain version: worst ratio to the row bar "
+                        f"{float((err / tol).max()):.3e}")
+                require(torch.equal(y, again), f"{what} is not reproducible")
+                types, replayed = captured(call)
+                require(types.count(0) == 1, f"{what}: graph nodes {types}")
+                require(torch.equal(replayed, y), f"{what}: the graph replay "
+                        "differs from the eager call")
+            out.append(dict(name=name, operand=operand, kernel=kernel,
+                            shape=list(B.shape),
+                            max_abs_err=float(err.max()),
+                            max_err_over_row_bar=float((err / tol).max()),
+                            graph_kernel_nodes=types.count(0),
+                            bitwise_twice=True, graph_replay_equal=True))
+    return out
+
+
+def check_band(forms, counted=True):
     """Each banded kernel against its plain version: both sum at most a
     few thousand f32 products of one row in another order, each off the
     exact sum by a few eps32 times the row's sum of |B||x|; the bar is
@@ -445,16 +582,16 @@ def check_band(forms, profiled=True):
                 f"row bar {float((err / tol).max()):.3e}")
         require(torch.equal(y, again),
                 f"{name} kernel ({operand}) is not reproducible")
-        row = dict(name=name, operand=operand,
+        row = dict(name=name, operand=operand, kernel=band_kernel(name, B),
                    shape=list(bargs[1:5]), bytes_per_entry=bargs[0],
                    max_abs_err=max_abs,
                    max_err_over_row_bar=float((err / tol).max()),
                    max_abs_ref=float(ref.abs().max()))
-        if profiled:
-            ran = device_kernels(lambda: call(B))
-            require(len(ran) == 1, f"{name} ({operand}) ran {len(ran)} "
-                    f"device kernels: {ran}")
-            row["device_kernels_per_call"] = len(ran)
+        if counted:
+            ran, types = device_kernels(lambda: call(B))
+            require(ran == 1, f"{name} ({operand}) ran {ran} device kernels "
+                    f"(graph node types {types})")
+            row["device_kernels_per_call"] = ran
         copies = cold_copies(B)
         run = cycling(call, copies)
         bound, by = band_bound_ms(*bargs)
@@ -641,7 +778,7 @@ def level2_path(dev, gen, nsteps):
     vec_check = check_vecmat(x_ref, KinvT, "level-2 inverse of the dense "
                              "run", 20)
     del ref, KinvT
-    band_checks = check_band(band_forms(slv, gen), profiled=False)
+    band_checks = check_band(band_forms(slv, gen), counted=False)
     aff = AffineVectorOps.build(prob, torch.float32, full_dofs=True)
     u, u2 = (torch.randn(prob.nv_full, generator=gen,
                          dtype=torch.float64).to(dev) for _ in range(2))
@@ -677,7 +814,7 @@ def level2_path(dev, gen, nsteps):
                     plain_ms=chk["plain_ms"], bound_ms=chk["bound_ms"],
                     bound_by=chk["bound_by"], library_ms=chk["library_ms"],
                     library=chk["library"], eager_ms=chk["eager_ms"],
-                    design=BAND_DESIGN)
+                    kernel=chk["kernel"], design=BAND_DESIGN[chk["kernel"]])
 
     conv = next(c for c in conv_checks if c["form"] == "vector")
     return [
@@ -765,7 +902,7 @@ def affine_bound_ms(t, mode, x_item, facets):
                                        else "operations")
 
 
-def check_affine(aff, prob, full_dofs, what, gen, timed, profiled=False):
+def check_affine(aff, prob, full_dofs, what, gen, timed, counted=False):
     """The affine kernel in every mode against its plain version on the
     same inputs (f32 and f64 vectors): both sum at most a few hundred
     products of one row in another order; the bar is 1e-5 of the row's sum
@@ -826,14 +963,14 @@ def check_affine(aff, prob, full_dofs, what, gen, timed, profiled=False):
                     torch.as_tensor(B.data), size=B.shape).to(
                         device=dev, dtype=aff.wdet.dtype)
                 xl = xd.to(aff.wdet.dtype)[:, None]
-                if profiled and mode == "a":
-                    # one profiled mode: every mode is the same single
-                    # launch in the wrapper (and a profiler session here
-                    # sometimes sees no device event, retries included)
-                    ran = device_kernels(run)
-                    require(len(ran) == 1, f"affine kernel ({mode}, {what}) "
-                            f"ran {len(ran)} device kernels: {ran}")
-                    row["device_kernels_per_call"] = len(ran)
+                if counted and mode == "a":
+                    # one counted mode: every mode is the same single
+                    # launch in the wrapper
+                    ran, types = device_kernels(run)
+                    require(ran == 1, f"affine kernel ({mode}, {what}) ran "
+                            f"{ran} device kernels (graph node types "
+                            f"{types})")
+                    row["device_kernels_per_call"] = ran
                 bound, by = affine_bound_ms(
                     aff, mode, xd.element_size(),
                     mode in ("a", "ma") and ca != 0.0)
@@ -1219,7 +1356,7 @@ def main():
                                device=dev)
         x = torch.randn(m, generator=gen, dtype=dt).to(dev)
         checks.append(check_vecmat(x, KT, "random", reps,
-                                   profiled=len(checks) < 2))
+                                   counted=len(checks) < 2))
         del KT, x
     # the convection kernel on the level-1 tables: f32 tables under the f64
     # state (what the loop runs) and under an f32 state, f64 tables, and a
@@ -1238,7 +1375,7 @@ def main():
         conv_checks += check_conv(
             prob.conv_kernel_on(wdt), affs[wdt], affs[wdt].fac_dofs,
             u64.to(udt), v64.to(udt), "random", sym_main, timed,
-            profiled=not conv_checks)
+            counted=not conv_checks)
     perm = torch.randperm(nv, generator=gen)
     dofmap = torch.cat([perm, torch.tensor([nv])]).to(dev)
     aff32 = affs[torch.float32]
@@ -1250,7 +1387,7 @@ def main():
         "random, permuted dof map", sym_main, False)
     require(aff32.fac_elem.shape[0] > 0, "the wake has outflow facet blocks")
     # the banded kernels on the operands of the default route's solver (the
-    # same dt, so the same blocks as the schur_path runs below), profiled
+    # same dt, so the same blocks as the schur_path runs below), checked
     # here: before any CPU run
     dt_main = (TE - T0) / NTS
     t0 = time.time()
@@ -1260,21 +1397,22 @@ def main():
     schur_build_s = time.time() - t0
     slv = sops.solver
     band_checks = check_band(band_forms(slv, gen))
+    band_edges = check_band_edges(band_edge_forms(slv, gen))
     # the affine kernel on the level-1 tables: f32 under the vectors the
     # paths give it (timed), over the full dof set, and f64
     aff_checks = check_affine(prob.affine_ops(torch.float32, device=dev),
                               prob, False, "level 1", gen, timed=True,
-                              profiled=True)
+                              counted=True)
     aff_checks += check_affine(affs[torch.float32], prob, True,
                                "level 1, full dofs", gen, timed=False)
     aff_checks += check_affine(prob.affine_ops(torch.float64, device=dev),
                                prob, False, "level 1", gen, timed=False)
     say(phase="kernel_checks", vecmat=checks, convection=conv_checks,
-        banded=band_checks, affine=aff_checks,
+        banded=band_checks, banded_edges=band_edges, affine=aff_checks,
         schur_solver_build_seconds=schur_build_s)
     del sops, slv
     device_setup_path(prob, dev, dt_main)
-    # the control slice at level 2 (profiled here: before any CPU run)
+    # the control slice at level 2 (traced here: before any CPU run)
     nsteps = NTS - 1          # the Heun bootstrap takes the first interval
     control2_rows = control_level2(dev, gen, nsteps)
 
@@ -1483,6 +1621,13 @@ def main():
                 f"{name}: {levels} bf16 levels on the card")
     require(tuple(o0["carry"]["v"].shape) == (prob.nv_full,)
             and "ysol" in o0["carry"], "w-space carry")
+    # the kernel each single-level product of the step runs on: J's 8 row
+    # blocks are too few for the warp-per-row grid, so J takes the ring
+    operand_kernels = {op: band_kernel(name, B) for op, name, B in (
+        ("E", "banded_mv", slv.Eblk), ("F", "banded_mv", slv.Bblk),
+        ("J", "rect_mv", slv.Jb), ("J^T", "rect_mv", slv.JTb))}
+    require(operand_kernels["J"] == "ring", "at level 1 J runs on the "
+            f"bulk-copy ring kernel: {operand_kernels}")
     for wr, (o, c, _) in schur.items():
         # a loop step: one convection vector, the banded A, the solve (W,
         # J, S^-1, X) and per refine round the residual (F, J^T, J) and a
@@ -1550,7 +1695,7 @@ def main():
             Sinv=list(slv.Sinv.shape), Jb=list(slv.Jb.shape),
             JTb=list(slv.JTb.shape), Eblk=list(slv.Eblk.shape)),
         warm_refine_0=schur_rows[0], warm_refine_1=schur_rows[1],
-        rel_diff_v_to_first_run=rerun_diff,
+        rel_diff_v_to_first_run=rerun_diff, operand_kernels=operand_kernels,
         sbdf2=dict(launches=sbs_counts, bar=1e-4,
                    loop_seconds=sbs["timing"]["loop_s"],
                    setup_seconds=sbs["timing"]["setup_s"],
@@ -1580,7 +1725,7 @@ def main():
             library_ms=chk["library_ms"], library=chk["library"],
             eager_ms=chk["eager_ms"],
             device_kernels_per_call=chk["device_kernels_per_call"],
-            design=BAND_DESIGN)
+            kernel=chk["kernel"], design=BAND_DESIGN[chk["kernel"]])
 
     def conv_row(name, form, launches):
         chk = next(c for c in conv_checks
@@ -1626,8 +1771,7 @@ def main():
              bound_by=sb_check["bound_by"],
              library_ms=sb_check["library_ms"],
              eager_ms=sb_check["eager_ms"],
-             # profiled on the random operand of the same shape (the profiler
-             # sees no device event after the CPU f64 runs)
+             # counted on the random operand of the same shape
              device_kernels_per_call=checks[1]["device_kernels_per_call"],
              device_kernels_operand=(f'{checks[1]["operand"]} '
                                      f'{checks[1]["shape"]}'),

@@ -4,8 +4,8 @@
 //
 // for row blocks k < nblk, rows i < bs with k*bs + i < nrows; x is read as
 // zero outside [0, nx) (no host padding), the L level dots of a row are
-// reduced each on its own and added in level order.  One kernel, three
-// forms (bound in ops/kernels.py):
+// reduced each on its own and added in level order.  Three forms (bound in
+// ops/kernels.py), two kernels:
 //
 //   * banded_mv: L = 1, f32, w = 3 bs, base_k = (k - 1) bs — the block-
 //     tridiagonal F_perm @ x of the RCM-banded saddle solver.  Replaces the
@@ -13,8 +13,8 @@
 //     (no Pallas kernel there: eager torch would need a pad, two shifted
 //     concatenations, a bmm and a slice).
 //   * rect_mv: L = 1, f32, base_k = bases[k] — the static-window
-//     rectangular product of `_rect_mv` (J, J^T, and W / X when stored in
-//     f32).
+//     rectangular product `_rect_mv` of the same file (J, J^T, and W / X
+//     when stored in f32).
 //   * rect_mv_levels: L in {1, 2, 3} row-stacked levels of bf16 (or f32),
 //     base_k = bases[k] — `_rect_mv_pair` over the `_pair_stack`-ed W and X
 //     (hi_only = level 0 alone) and `SchurSaddleSolver._sapply` over the
@@ -25,22 +25,72 @@
 // line; x and y are a few KB.  The least time is the blocks' bytes over the
 // memory rate.
 //
-// Design (a simple first form, right before fast):
-//   * grid (nblk, ceil(bs / ROWS)): a block of 8 warps owns ROWS rows of one
-//     row block; it stages that block's x window once into shared memory
-//     (zero fill outside [0, nx) and past w), so rows never touch x in
-//     device memory.
+// Two kernels.  rect_mv_levels, and rect_mv on bf16 blocks, always run on
+// bandmv_kernel (a warp per row).  A single-level f32 product (banded_mv,
+// rect_mv) runs on ring_kernel where bandmv_kernel's grid (nblk,
+// ceil(bs / ROWS)) would have fewer blocks than the card has SMs, and on
+// bandmv_kernel elsewhere; ops/kernels.py: bandmv_plan decides.
+//
+// What bandmv_kernel lost on the single-level forms (H100 80GB HBM3, 700 W,
+// graph replay over L2-cold copies): J 8x128x1408 at 0.00697 ms, 25 % of
+// its bound, because its 64 blocks leave 68 of 132 SMs idle.  Elsewhere it
+// streams at 2.9-3.1 TB/s while it runs (E 51x512x1536 0.055 ms, 87 %; E
+// 112x896x2688 0.343 ms, 94 %); what it loses on small operands (E
+// 19x384x1152 at 73 %) is the launch and the first round trip, which a
+// bulk-copy ring pays as well.  Measured on the same card:
+//   * 1-D bulk copies, 16-byte cp.async and plain loads all stream device
+//     memory at 3.16-3.2 TB/s with one or two blocks an SM; a bulk copy
+//     is not faster, and a ring kernel that moves every byte through
+//     shared memory pays about 1 us more than bandmv_kernel on a call
+//     (barrier set-up, the copy's round trip, the wake-up) plus the
+//     reduction of the last units after they land;
+//   * a static even split of rows over a persistent grid leaves SMs
+//     finishing up to 20 us apart on a 160 MB operand; units handed out
+//     from a ticket counter close that but add an atomic round trip where
+//     a block runs out of work.  Both lose to bandmv_kernel wherever its
+//     grid fills the card (E, J^T, and J at level 2 and 3).
+// So ring_kernel serves the operands whose rows are too few for
+// bandmv_kernel to fill the card (J at level 1: 0.0055 ms against 0.0070):
+//   * one block an SM; the units (runs of at most unit_rows rows of one
+//     row block: rows are ld apart there, so a unit is one contiguous
+//     16-byte aligned range, up to the last row's last vector inside w)
+//     split in order into equal shares of the blocks — a static schedule,
+//     no counter; each block gets a unit where rows allow.
+//   * a producer warp: lane 0 starts each unit as one 1-D `cp.async.bulk`
+//     into the next free slot of a ring of `stages` slots (the whole share
+//     of a block in flight at once where the ring holds it; L2::evict_first:
+//     the operand is read once), completing on the slot's `full` mbarrier;
+//     the 32 lanes copy the unit's x window (zero outside [0, nx) and past
+//     w) into the slot by 4-byte cp.async that complete on the same
+//     mbarrier, so the consumers never stop to stage a window.
+//   * CONSUMERS threads take the rows of a unit in turn (row r of the
+//     block's units goes to warp r % WARPS): lane t adds the 16-byte
+//     vectors t, t+64, ... and t+32, t+96, ... of a row each in ascending
+//     order, then the two sums, and a fixed xor-shuffle tree joins the
+//     lanes (short rows, 512 columns or fewer: a group of 8 or 16 lanes a
+//     row, a fixed tree inside the group); a warp takes two rows at a time
+//     where it has two; it releases the slot on its `empty` mbarrier.
+//   * the sums do not depend on the schedule: bitwise reproducible launch
+//     to launch; no atomics, no scratch, no grid barrier: captured in a
+//     CUDA graph as it is.
+//   * entries in a row's padding (columns >= w) are masked, so padding of
+//     any content (NaN included) is never used.
+//
+// bandmv_kernel:
+//   * grid (nblk, ceil(bs / ROWS)): a block of 8 warps owns ROWS rows of
+//     one row block; it stages that block's x window once into shared
+//     memory (zero fill outside [0, nx) and past w), so rows never touch x
+//     in device memory.
 //   * one warp per row: lane t reads the 16-byte vectors t, t+32, ... of
 //     the row (4 f32 or 8 bf16 values; bf16 -> f32 is a 16-bit shift in
 //     registers), UNROLL vectors of every level in flight before the
 //     multiply-adds, and adds them in ascending order; a fixed xor-shuffle
-//     tree joins the lanes.  Entries in the row's padding (columns >= w)
-//     are masked, so padding of any content is never used.
-//   * no atomics, no scratch, no grid barrier: bitwise reproducible launch
-//     to launch, and trivially captured in a CUDA graph.
-//   * operands: rows `ld` elements apart, level and block strides `slev`,
-//     `sblk`; all three and the base pointer 16-byte aligned (the wrapper
-//     checks; ops/kernels.py: band_operand allocates so).
+//     tree joins the lanes.  Padding columns are masked.
+//   * no atomics, no scratch, no grid barrier.
+//
+// Operands: rows `ld` elements apart, level and block strides `slev`,
+// `sblk`; all three and the base pointer 16-byte aligned (the wrapper
+// checks; ops/kernels.py: band_operand allocates so).
 //
 // Plain C interface, loaded with ctypes (no PyTorch headers: seconds to
 // build).  The caller allocates y and passes raw device pointers and the
@@ -51,10 +101,15 @@
 
 namespace {
 
+// the geometry, from ops/kernels.py: _BANDMV_GEOMETRY
+#if !defined(BANDMV_CONSUMERS) || !defined(BANDMV_ROWS)
+#error "build through ops/kernels.py: the blocks' geometry comes from its plan"
+#endif
 constexpr int kWarps = 8;
-constexpr int kRowsPerWarp = 2;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = kWarps * kRowsPerWarp;     // rows of one block
+constexpr int kRows = BANDMV_ROWS;               // rows of one block
+constexpr int kRowsPerWarp = kRows / kWarps;
+static_assert(kRows % kWarps == 0, "whole rows a warp");
 constexpr int kUnroll = 4;                       // vectors in flight a lane
 
 struct F32 {
@@ -213,12 +268,393 @@ cudaError_t dispatch(int levels, const void* B, long long sblk,
     }
 }
 
+// ---------------------------------------------------------------------------
+// ring_kernel: single-level f32 blocks through a bulk-copy ring
+// ---------------------------------------------------------------------------
+
+constexpr int CONSUMERS = BANDMV_CONSUMERS;
+constexpr int WARPS = CONSUMERS / 32;          // consumer warps
+constexpr int RING_THREADS = CONSUMERS + 32;   // and one producer warp
+static_assert(CONSUMERS % 32 == 0 && CONSUMERS >= 32 && RING_THREADS <= 1024,
+              "whole consumer warps");
+constexpr long long kMaxSmem = 232448;        // 227 KB a block (sm_90)
+
+// shared memory of a block, per slot: its full and empty mbarriers, its
+// header (the unit's number), its x window (w rounded up to whole 16-byte
+// vectors), its rows
+__host__ __device__ constexpr long long ring_smem(int w, long long ld,
+                                                  int unit_rows, int stages) {
+    return (long long)stages *
+           (32LL + 16LL * ((w + 3) / 4) + (long long)unit_rows * ld * 4);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                 :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+                 :: "r"(smem_addr(bar)) : "memory");
+}
+
+// the arrival of this thread's cp.async copies so far, when they land
+__device__ __forceinline__ void mbar_arrive_copies(uint64_t* bar) {
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];"
+                 :: "r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    uint32_t done = 0;
+    while (!done) {
+        asm volatile(
+            "{\n\t.reg .pred p;\n\t"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+            "selp.u32 %0, 1, 0, p;\n\t}"
+            : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+    }
+}
+
+// `bytes` contiguous bytes (16-byte aligned, a multiple of 16) into shared
+// memory, completing on bar
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar,
+                                          uint64_t policy) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        ".L2::cache_hint [%0], [%1], %2, [%3], %4;"
+        :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)),
+           "l"(policy)
+        : "memory");
+}
+
+// one float of x into shared memory, or a zero where `inside` is false
+// (src-size 0: nothing is read)
+__device__ __forceinline__ void copy_x(float* dst, const float* src,
+                                       bool inside) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+                 :: "r"(smem_addr(dst)), "l"(src), "r"(inside ? 4 : 0)
+                 : "memory");
+}
+
+// unit u: rows [row, row + n) of row block k; the units run through the
+// row blocks in order, upb a block, the last cut at nrows (32-bit: the
+// wrapper keeps nblk * bs below 2^31)
+__device__ __forceinline__ int unit_rows_of(int u, int bs, int unit_rows,
+                                            int upb, int nrows, int* k,
+                                            int* row) {
+    *k = u / upb;
+    const int i = (u - *k * upb) * unit_rows;
+    *row = *k * bs + i;
+    return min(unit_rows, min(bs - i, nrows - *row));
+}
+
+template <bool MASK>
+__device__ __forceinline__ float dot4(float acc, float4 b, float4 x, int c,
+                                      int w) {
+    if (MASK && c + 4 > w) {    // the row's last vector: mask the padding
+        if (c + 1 >= w) b.y = 0.f;
+        if (c + 2 >= w) b.z = 0.f;
+        if (c + 3 >= w) b.w = 0.f;
+    }
+    acc = fmaf(b.x, x.x, acc);
+    acc = fmaf(b.y, x.y, acc);
+    acc = fmaf(b.z, x.z, acc);
+    return fmaf(b.w, x.w, acc);
+}
+
+// R rows, `rs` vectors apart, against the window: lane t adds the vectors
+// t, t+64, ... and t+32, t+96, ... of a row each in ascending order, then
+// the two sums, then the fixed xor-shuffle tree joins the lanes (MASK:
+// entries past w are zeroed, for w not a multiple of 4)
+template <int R, bool MASK>
+__device__ __forceinline__ void row_dots(const float4* b, long long rs,
+                                         const float4* xv, int nvec, int w,
+                                         int lane, float* d) {
+    float a[R], c[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) a[r] = c[r] = 0.f;
+    int v = lane;
+    for (; v + 96 < nvec; v += 128) {
+        const float4 x0 = xv[v], x1 = xv[v + 32], x2 = xv[v + 64],
+                     x3 = xv[v + 96];
+        float4 p[R][4];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+            p[r][0] = b[r * rs + v];
+            p[r][1] = b[r * rs + v + 32];
+            p[r][2] = b[r * rs + v + 64];
+            p[r][3] = b[r * rs + v + 96];
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+            a[r] = dot4<MASK>(a[r], p[r][0], x0, 4 * v, w);
+            c[r] = dot4<MASK>(c[r], p[r][1], x1, 4 * (v + 32), w);
+            a[r] = dot4<MASK>(a[r], p[r][2], x2, 4 * (v + 64), w);
+            c[r] = dot4<MASK>(c[r], p[r][3], x3, 4 * (v + 96), w);
+        }
+    }
+    if (v + 32 < nvec) {
+        const float4 x0 = xv[v], x1 = xv[v + 32];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+            a[r] = dot4<MASK>(a[r], b[r * rs + v], x0, 4 * v, w);
+            c[r] = dot4<MASK>(c[r], b[r * rs + v + 32], x1, 4 * (v + 32), w);
+        }
+        v += 64;
+    }
+    if (v < nvec) {
+        const float4 x0 = xv[v];
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+            a[r] = dot4<MASK>(a[r], b[r * rs + v], x0, 4 * v, w);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) a[r] += c[r];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+            a[r] += __shfl_xor_sync(0xffffffffu, a[r], off);
+#pragma unroll
+    for (int r = 0; r < R; ++r) d[r] = a[r];
+}
+
+// one row a group of G lanes (G < 32: short rows, 32 / G rows a warp at a
+// time): lane q of the group adds the vectors q, q+2G, ... and q+G, q+3G,
+// ... of its row each in ascending order, then the two sums, then a fixed
+// xor-shuffle tree inside the group
+template <int G, bool MASK>
+__device__ __forceinline__ float group_dot(const float4* b,
+                                           const float4* xv, int nvec,
+                                           int w, int q) {
+    float a = 0.f, c = 0.f;
+    int v = q;
+    for (; v + 3 * G < nvec; v += 4 * G) {
+        const float4 p0 = b[v], p1 = b[v + G], p2 = b[v + 2 * G],
+                     p3 = b[v + 3 * G];
+        const float4 x0 = xv[v], x1 = xv[v + G], x2 = xv[v + 2 * G],
+                     x3 = xv[v + 3 * G];
+        a = dot4<MASK>(a, p0, x0, 4 * v, w);
+        c = dot4<MASK>(c, p1, x1, 4 * (v + G), w);
+        a = dot4<MASK>(a, p2, x2, 4 * (v + 2 * G), w);
+        c = dot4<MASK>(c, p3, x3, 4 * (v + 3 * G), w);
+    }
+    if (v + G < nvec) {
+        a = dot4<MASK>(a, b[v], xv[v], 4 * v, w);
+        c = dot4<MASK>(c, b[v + G], xv[v + G], 4 * (v + G), w);
+        v += 2 * G;
+    }
+    if (v < nvec) a = dot4<MASK>(a, b[v], xv[v], 4 * v, w);
+    a += c;
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1)
+        a += __shfl_xor_sync(0xffffffffu, a, off);
+    return a;
+}
+
+// the rows of a unit that fall to this warp, 32 / G at a time
+template <int G, bool MASK>
+__device__ __forceinline__ void group_rows(const float4* slab, long long ld4,
+                                           const float4* xv, int nvec, int w,
+                                           int rows, int j0, int lane,
+                                           float* yrow) {
+    constexpr int RP = 32 / G;
+    const int g = lane / G, q = lane % G;
+    for (int j = j0; j < rows; j += RP * WARPS) {
+        const int jr = j + g * WARPS;
+        const bool mine = jr < rows;
+        const float d = group_dot<G, MASK>(slab + (mine ? jr : j) * ld4, xv,
+                                           nvec, w, q);
+        if (q == 0 && mine) yrow[jr] = d;
+    }
+}
+
+__global__ void __launch_bounds__(RING_THREADS)
+ring_kernel(const float* __restrict__ B, long long sblk, long long ld,
+            const int* __restrict__ bases, const float* __restrict__ x,
+            float* __restrict__ y, int nblk, int bs, int w, int nx,
+            long long nrows, int unit_rows, int stages) {
+    extern __shared__ __align__(128) unsigned char smem[];
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+    uint64_t* empty = full + stages;
+    int* hdr = reinterpret_cast<int*>(empty + stages);   // 16 bytes a slot
+    const int nvec = (w + 3) / 4;
+    float4* win = reinterpret_cast<float4*>(hdr + 4 * stages);
+    float* ring = reinterpret_cast<float*>(win + (long long)stages * nvec);
+    const long long slot = (long long)unit_rows * ld;    // floats a slot
+    const int upb = (bs + unit_rows - 1) / unit_rows;    // units a row block
+    const int nr = static_cast<int>(nrows);
+    const int units = (nr / bs) * upb + (nr % bs + unit_rows - 1) / unit_rows;
+    const int t = threadIdx.x, lane = t & 31;
+
+    if (t == 0) {
+        for (int s = 0; s < stages; ++s) {
+            // the bulk copy's arrival and the producer warp's 32 x copies
+            mbar_init(full + s, 33);
+            mbar_init(empty + s, WARPS);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    }
+    __syncthreads();
+
+    if (t >= CONSUMERS) {
+        // the producer warp: a unit's rows by one bulk copy (lane 0) and
+        // its x window by 4-byte copies (every lane), into the next free
+        // slot
+        uint64_t policy;
+        asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+                     : "=l"(policy));
+        // block b's units: an equal share, the first units % gridDim.x
+        // blocks one more
+        const int per = units / gridDim.x, rem = units % gridDim.x;
+        const int b = blockIdx.x;
+        const int u0 = b * per + min(b, rem), u1 = u0 + per + (b < rem);
+        int n = 0;
+        for (int u = u0; u < u1; ++u, ++n) {
+            const int s = n % stages;
+            if (n >= stages) mbar_wait(empty + s, ((n / stages) - 1) & 1);
+            int k, row;
+            const int rows = unit_rows_of(u, bs, unit_rows, upb, nr, &k, &row);
+            if (lane == 0) {
+                hdr[4 * s] = u;
+                // whole rows, the last one up to its last vector inside w
+                const uint32_t bytes = static_cast<uint32_t>(
+                    ((long long)(rows - 1) * ld + 4 * nvec) * 4);
+                mbar_expect_tx(full + s, bytes);
+                bulk_copy(ring + s * slot,
+                          B + k * sblk + (long long)(row - k * bs) * ld,
+                          bytes, full + s, policy);
+            }
+            const long long base = bases ? (long long)bases[k]
+                                         : (long long)(k - 1) * bs;
+            float* xw = reinterpret_cast<float*>(win + (long long)s * nvec);
+            for (int j = lane; j < 4 * nvec; j += 32) {
+                const long long g = base + j;
+                const bool in = j < w && g >= 0 && g < nx;
+                copy_x(xw + j, in ? x + g : x, in);
+            }
+            mbar_arrive_copies(full + s);
+        }
+        // a header saying there is no more, with the slot's 33 arrivals
+        const int s = n % stages;
+        if (n >= stages) mbar_wait(empty + s, ((n / stages) - 1) & 1);
+        if (lane == 0) {
+            hdr[4 * s] = -1;
+            mbar_arrive(full + s);
+        }
+        __syncwarp();
+        mbar_arrive(full + s);
+        return;
+    }
+
+    // the consumers: row j of a unit goes to warp (j + rot) % WARPS, rot
+    // turning with the block's units; a warp takes two of its rows at a
+    // time where it has two, or four (eight lanes a row) where the rows
+    // are short
+    const int warp = t >> 5;
+    int rot = 0;
+    for (int n = 0;; ++n) {
+        const int s = n % stages;
+        mbar_wait(full + s, (n / stages) & 1);
+        const int u = hdr[4 * s];
+        if (u < 0) break;
+        int k, row;
+        const int rows = unit_rows_of(u, bs, unit_rows, upb, nr, &k, &row);
+        const float4* slab = reinterpret_cast<const float4*>(ring + s * slot);
+        const float4* xv = win + (long long)s * nvec;
+        const long long ld4 = ld / 4;
+        const int j0 = (warp - rot + WARPS) % WARPS;
+        if (nvec <= 128) {
+            // short rows (J^T): 8 or 16 lanes a row
+            if (nvec <= 64) {
+                if (w & 3)
+                    group_rows<8, true>(slab, ld4, xv, nvec, w, rows, j0,
+                                        lane, y + row);
+                else
+                    group_rows<8, false>(slab, ld4, xv, nvec, w, rows, j0,
+                                         lane, y + row);
+            } else {
+                if (w & 3)
+                    group_rows<16, true>(slab, ld4, xv, nvec, w, rows, j0,
+                                         lane, y + row);
+                else
+                    group_rows<16, false>(slab, ld4, xv, nvec, w, rows, j0,
+                                          lane, y + row);
+            }
+        }
+        for (int j = j0; nvec > 128 && j < rows; j += 2 * WARPS) {
+            float d[2];
+            const float4* b = slab + j * ld4;
+            if (j + WARPS < rows) {
+                if (w & 3)
+                    row_dots<2, true>(b, WARPS * ld4, xv, nvec, w, lane, d);
+                else
+                    row_dots<2, false>(b, WARPS * ld4, xv, nvec, w, lane, d);
+                if (lane == 0) {
+                    y[row + j] = d[0];
+                    y[row + j + WARPS] = d[1];
+                }
+            } else {
+                if (w & 3)
+                    row_dots<1, true>(b, 0, xv, nvec, w, lane, d);
+                else
+                    row_dots<1, false>(b, 0, xv, nvec, w, lane, d);
+                if (lane == 0) y[row + j] = d[0];
+            }
+        }
+        __syncwarp();                       // the warp is done with slot s
+        if (lane == 0) mbar_arrive(empty + s);
+        rot = (rot + rows) % WARPS;
+    }
+}
+
+cudaError_t launch_ring(const float* B, long long sblk, long long ld,
+                        const int* bases, const float* x, float* y, int nblk,
+                        int bs, int w, int nx, long long nrows, int blocks,
+                        int unit_rows, int stages, long long smem,
+                        cudaStream_t stream) {
+    if (blocks <= 0 || unit_rows <= 0 || stages <= 0 || ld < w ||
+        (ld * 4) % 16 != 0 || (sblk * 4) % 16 != 0 ||
+        (reinterpret_cast<uintptr_t>(B) % 16) != 0 ||
+        smem != ring_smem(w, ld, unit_rows, stages) || smem > kMaxSmem)
+        return cudaErrorInvalidValue;
+    // once per device: the opt-in to large shared memory
+    static bool ready[64] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev >= 64) return cudaErrorInvalidDevice;
+    if (!ready[dev]) {
+        err = cudaFuncSetAttribute(ring_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   static_cast<int>(kMaxSmem));
+        if (err != cudaSuccess) return err;
+        ready[dev] = true;
+    }
+    ring_kernel<<<blocks, RING_THREADS, static_cast<size_t>(smem), stream>>>(
+        B, sblk, ld, bases, x, y, nblk, bs, w, nx, nrows, unit_rows,
+        stages);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// y (nrows,) f32 = the product above.  B: `storage` 0 = f32, 1 = bf16;
-// `levels` 1..3; strides sblk, slev, ld in elements (each times the element
+// y (nrows,) f32 = the product above, on bandmv_kernel.  B: `storage` 0 =
+// f32, 1 = bf16; `levels` 1..3; strides sblk, slev, ld in elements (each times the element
 // size a multiple of 16, B 16-byte aligned).  bases: nblk int32 window
 // starts on the device, or null for the banded form base_k = (k-1) bs.
 // nblk*bs >= nrows (rows past nblk*bs would stay unwritten).  Returns the
@@ -241,6 +677,26 @@ int bandmv_f32x(const void* B, int storage, int levels, long long sblk,
         return dispatch<BF16>(levels, B, sblk, slev, ld, b, xf, yf, nblk,
                               bs, w, nx, nrows, s);
     return cudaErrorInvalidValue;
+}
+
+// y (nrows,) f32 = the single-level f32 product above, on ring_kernel.
+// Strides sblk, ld in elements (each times 4 a multiple of 16, B 16-byte
+// aligned); bases as for bandmv_f32x; nblk*bs below 2^31.  blocks,
+// unit_rows, stages, smem: the launch plan of ops/kernels.py: bandmv_plan
+// (smem must equal the kernel's layout for them).  Returns the cudaError_t
+// of the launch (0 = success).
+int bandmv_ring_f32(const void* B, long long sblk, long long ld,
+                    const void* bases, const void* x, void* y, int nblk,
+                    int bs, int w, int nx, long long nrows, int blocks,
+                    int unit_rows, int stages, long long smem, void* stream) {
+    if (nblk <= 0 || bs <= 0 || w <= 0 || nx < 0 || nrows <= 0
+        || (long long)nblk * bs < nrows || (long long)nblk * bs >= (1LL << 31))
+        return cudaErrorInvalidValue;
+    return launch_ring(static_cast<const float*>(B), sblk, ld,
+                       static_cast<const int*>(bases),
+                       static_cast<const float*>(x), static_cast<float*>(y),
+                       nblk, bs, w, nx, nrows, blocks, unit_rows, stages,
+                       smem, static_cast<cudaStream_t>(stream));
 }
 
 const char* bandmv_error_string(int err) {

@@ -14,9 +14,12 @@ Four sources:
   for (``tools/probe_pallas_gather.py``: a gather inside a kernel body)
   and had to leave to XLA.
 * the banded and static-window block matvecs of the block-Schur solver
-  (``csrc/bandmv.cu``) behind :func:`banded_mv`, :func:`rect_mv` and
-  :func:`rect_mv_levels`: the JAX package's XLA einsums ``_banded_mv``,
-  ``_rect_mv``, ``_rect_mv_pair`` and ``SchurSaddleSolver._sapply``.
+  (``csrc/bandmv.cu``: a warp-per-row kernel, and a bulk-copy ring kernel
+  for single-level f32 operands too small in rows for the first to fill
+  the card; :func:`bandmv_plan` picks) behind :func:`banded_mv`,
+  :func:`rect_mv` and :func:`rect_mv_levels`: the JAX package's XLA
+  einsums ``_banded_mv``, ``_rect_mv``, ``_rect_mv_pair`` and
+  ``SchurSaddleSolver._sapply``.
 * the affine element matvecs ``M x``, ``A x``, ``cm M x + ca A x``, ``J x``
   and ``J^T q`` (``csrc/affine.cu``) behind :func:`affine_mv`: the JAX
   package's ``ops/affine.py: AffineVectorOps`` pipelines (left to XLA),
@@ -58,8 +61,26 @@ _LIBS = {}
 # that multiply-add.
 _VECMAT_GEOMETRY = {"BOX_ROWS": 64, "GROUPS": 64, "STAGES": 3,
                     "CONSUMERS": 256}
+# How csrc/bandmv.cu cuts its operands, decided here alone.  Compiled in
+# (-DBANDMV_<key>): ROWS, the rows of a block of the warp-per-row kernel,
+# and CONSUMERS, the threads of the ring kernel that multiply-add (besides
+# one producer warp).  The rest feeds bandmv_plan: a single-level f32
+# product takes the ring kernel where the warp-per-row kernel's grid
+# (nblk * ceil(bs / ROWS) blocks) would have fewer than RING_GRID_BELOW
+# blocks an SM, the warp-per-row kernel elsewhere; the ring kernel runs
+# BLOCKS_PER_SM blocks an SM, units of about UNIT_BYTES (whole rows, one
+# bulk copy each), at least MIN_UNITS a block where rows allow, a ring of
+# about RING_BYTES.
+_BANDMV_GEOMETRY = {"ROWS": 16, "CONSUMERS": 256}
+_BANDMV_PLAN = {"RING_GRID_BELOW": 1, "BLOCKS_PER_SM": 1,
+                "UNIT_BYTES": 48 * 1024, "RING_BYTES": 192 * 1024,
+                "MIN_UNITS": 2}
 _SOURCE_FLAGS = {"vecmat": tuple(f"-DVECMAT_{k}={v}"
-                                 for k, v in _VECMAT_GEOMETRY.items())}
+                                 for k, v in _VECMAT_GEOMETRY.items()),
+                 "bandmv": tuple(f"-DBANDMV_{k}={v}"
+                                 for k, v in _BANDMV_GEOMETRY.items())}
+# the most shared memory one block may take (sm_90)
+_SMEM_PER_BLOCK = 232448
 
 
 def build_dir():
@@ -432,6 +453,10 @@ def _bandmv_lib():
         lib.bandmv_f32x.argtypes = ([ptr, i, i, ll, ll, ll, ptr, ptr, ptr]
                                     + [i] * 4 + [ll, ptr])
         lib.bandmv_f32x.restype = i
+        lib.bandmv_ring_f32.argtypes = ([ptr, ll, ll, ptr, ptr, ptr]
+                                        + [i] * 4 + [ll] + [i] * 3
+                                        + [ll, ptr])
+        lib.bandmv_ring_f32.restype = i
         lib.bandmv_error_string.argtypes = [i]
         lib.bandmv_error_string.restype = ctypes.c_char_p
         lib._dns_typed = True
@@ -441,10 +466,89 @@ def _bandmv_lib():
 _BAND_STORAGE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+class BandmvPlan(collections.namedtuple(
+        "BandmvPlan", "kernel blocks unit_rows stages slot_bytes smem_bytes")):
+    """Launch plan of ``csrc/bandmv.cu`` for one single-level f32 operand
+    shape: ``kernel``, ``"ring"`` or ``"rows"`` (the warp-per-row kernel,
+    whose grid ``blocks`` is ``nblk * ceil(bs / ROWS)``; it needs nothing
+    more); for the ring kernel ``blocks`` (the grid), ``unit_rows`` (unit
+    ``u`` is the rows ``[i, i + unit_rows)`` of row block ``k = u // upb``,
+    ``i = (u % upb) unit_rows``, ``upb = ceil(bs / unit_rows)``, cut at
+    ``bs`` and at ``nrows``: one bulk copy of ``((rows - 1) ld + 4 ceil(w /
+    4)) itemsize`` bytes; block ``b`` takes the units ``[b U // G + min(b, U
+    % G), ...)``, ``U // G`` of them and one more for ``b < U % G``), the
+    ring of ``stages`` slots of ``slot_bytes``, and the block's shared
+    memory (per slot: two mbarriers, a header, the f32 x window of ``w``
+    rounded up to whole 16-byte vectors, the rows).  The kernel refuses a
+    shared-memory size other than its own layout for these numbers."""
+
+
+def _ring_smem(w, ld, itemsize, unit_rows, stages):
+    return stages * (32 + 16 * (-(-w // 4)) + unit_rows * ld * itemsize)
+
+
+def bandmv_plan(nblk, bs, w, ld, itemsize, sm_count):
+    """The :class:`BandmvPlan` of a single-level ``(nblk, bs, w)`` operand
+    with rows ``ld`` elements of ``itemsize`` bytes apart, on a card with
+    ``sm_count`` SMs.  The ring kernel where the warp-per-row kernel's grid
+    has fewer than ``RING_GRID_BELOW`` blocks an SM (on an H100 the
+    warp-per-row kernel was as fast or faster wherever its grid filled the
+    card; ``PERF.md``): ``BLOCKS_PER_SM`` blocks an SM, units of about
+    ``UNIT_BYTES``, fewer rows where a block would otherwise get fewer than
+    ``MIN_UNITS`` of them, so that a small operand spreads over every SM
+    with copies in flight; as many slots as ``RING_BYTES`` holds and a
+    block can use.  The warp-per-row kernel also where the ring cannot
+    hold one row beside its window in a block's 227 KB; ``ValueError``
+    where neither kernel can place the rows."""
+    g = _BANDMV_PLAN
+    rows, row_bytes = nblk * bs, ld * itemsize
+    if min(nblk, bs, w, sm_count) <= 0 or ld < w or row_bytes % 16:
+        raise ValueError(f"bandmv_plan: no plan for ({nblk}, {bs}, {w}) "
+                         f"rows {ld} x {itemsize} bytes apart")
+    row_grid = nblk * -(-bs // _BANDMV_GEOMETRY["ROWS"])
+    rows_plan = BandmvPlan("rows", row_grid, 0, 0, 0, 0)
+    # the warp-per-row kernel's block holds its x window (w rounded up to
+    # 8) in shared memory
+    rows_fit = 4 * (-(-w // 8) * 8) <= _SMEM_PER_BLOCK
+    if row_grid >= g["RING_GRID_BELOW"] * sm_count and rows_fit:
+        return rows_plan
+    blocks = min(g["BLOCKS_PER_SM"] * sm_count, rows)
+    per_block = -(-rows // blocks)
+    unit_rows = max(1, min(g["UNIT_BYTES"] // row_bytes,
+                           -(-per_block // g["MIN_UNITS"])))
+    while unit_rows > 1 and _ring_smem(w, ld, itemsize, unit_rows,
+                                       1) > _SMEM_PER_BLOCK:
+        unit_rows -= 1
+    # a block's most units: its share of the units of all row blocks
+    most = -(-(nblk * -(-bs // unit_rows)) // blocks)
+    slot = unit_rows * row_bytes
+    stages = max(1, min(g["RING_BYTES"] // slot, most))
+    while stages > 1 and _ring_smem(w, ld, itemsize, unit_rows,
+                                    stages) > _SMEM_PER_BLOCK:
+        stages -= 1
+    smem = _ring_smem(w, ld, itemsize, unit_rows, stages)
+    if smem <= _SMEM_PER_BLOCK:
+        return BandmvPlan("ring", blocks, unit_rows, stages, slot, smem)
+    if rows_fit:
+        return rows_plan
+    raise ValueError(
+        f"bandmv_plan: rows of {row_bytes} bytes (w {w}) fit neither kernel "
+        f"in {_SMEM_PER_BLOCK} bytes of shared memory a block")
+
+
+@functools.lru_cache(maxsize=None)
+def _bandmv_plan_on(nblk, bs, w, ld, device):
+    return bandmv_plan(nblk, bs, w, ld, 4, _sm_count(device))
+
+
 def _bandmv_launch(name, stack, bases, x, nrows):
     """Launch ``csrc/bandmv.cu`` on ``stack (nblk, L, bs, w)`` (``bases``:
     int32 window starts on the device, or None for the banded form) on the
-    current stream; returns ``y (nrows,)`` f32."""
+    current stream; returns ``y (nrows,)`` f32.  :func:`banded_mv` and
+    :func:`rect_mv` on f32 blocks run on the kernel :func:`bandmv_plan`
+    picks (the ring kernel where the warp-per-row kernel's grid would not
+    fill the card), :func:`rect_mv_levels` and bf16 blocks on the
+    warp-per-row kernel."""
     if stack.dtype not in _BAND_STORAGE or x.dtype != torch.float32:
         raise TypeError(
             f"{name} kernel takes f32 or bf16 blocks under an f32 vector, "
@@ -466,6 +570,10 @@ def _bandmv_launch(name, stack, bases, x, nrows):
     if not 1 <= levels <= 3 or nblk * bs < nrows or nrows <= 0:
         raise ValueError(f"{name} kernel: {levels} levels of {nblk} blocks "
                          f"of {bs} rows for {nrows} output rows")
+    plan = None
+    if name != "rect_mv_levels" and stack.dtype == torch.float32:
+        plan = _bandmv_plan_on(nblk, bs, w, ld, stack.get_device())
+    ring = plan is not None and plan.kernel == "ring"
     if bases is not None and (
             bases.dtype != torch.int32 or bases.device != stack.device
             or bases.shape != (nblk,) or not bases.is_contiguous()):
@@ -476,12 +584,19 @@ def _bandmv_launch(name, stack, bases, x, nrows):
     lib = _bandmv_lib()
     dev = stack.get_device()
     y = torch.empty(nrows, dtype=torch.float32, device=stack.device)
+    bp = None if bases is None else bases.data_ptr()
     with _on_device(dev):
-        err = lib.bandmv_f32x(
-            stack.data_ptr(), _BAND_STORAGE[stack.dtype], levels, sblk,
-            slev if levels > 1 else 0, ld,
-            None if bases is None else bases.data_ptr(), x.data_ptr(),
-            y.data_ptr(), nblk, bs, w, x.shape[0], nrows, _raw_stream(dev))
+        if ring:
+            err = lib.bandmv_ring_f32(
+                stack.data_ptr(), sblk, ld, bp, x.data_ptr(), y.data_ptr(),
+                nblk, bs, w, x.shape[0], nrows, plan.blocks, plan.unit_rows,
+                plan.stages, plan.smem_bytes, _raw_stream(dev))
+        else:
+            err = lib.bandmv_f32x(
+                stack.data_ptr(), _BAND_STORAGE[stack.dtype], levels, sblk,
+                slev if levels > 1 else 0, ld, bp, x.data_ptr(),
+                y.data_ptr(), nblk, bs, w, x.shape[0], nrows,
+                _raw_stream(dev))
     if err != 0:
         raise RuntimeError(
             f"{name} kernel launch failed ({levels} x {tuple(stack.shape)} "

@@ -57,6 +57,37 @@ def test_vecmat_kernel_on_the_card(dtype):
         vecmat(x.half(), KT.half())
 
 
+def _captured(run):
+    """``run`` captured once in a CUDA graph on a side stream that ran it
+    first, the graph's nodes read through libcuda (``cuGraphGetNodes``,
+    type 0 a kernel), then replayed: ``(node types, the replay's output)``.
+    (Counts what a call launches without the profiler, which on an H100
+    host sometimes records no device event late in a process.)"""
+    import ctypes
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=side):
+        out = run()
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * max(n.value, 1))()
+    assert cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0
+    types = []
+    for i in range(n.value):
+        kind = ctypes.c_int(-1)
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(nodes[i]),
+                                     ctypes.byref(kind)) == 0
+        types.append(kind.value)
+    graph.replay()
+    torch.cuda.synchronize()
+    return types, out
+
+
 def _card_calls():
     """``name -> call`` of each wrapper on level-0 wake operands."""
     prob = cylinderwake_problem(level=0, Re=100)
@@ -123,22 +154,13 @@ _WRAPPERS = ["vecmat", "conv_vector", "conv_vector_amatvec", "banded_mv",
 def test_each_wrapper_is_one_device_kernel(name):
     if not torch.cuda.is_available():
         pytest.skip(NEEDS_CARD)
-    from torch.profiler import ProfilerActivity, profile
     call = _card_calls()[name]
     call()
     torch.cuda.synchronize()
-    # a profiler session on an H100 host sometimes records no device event
-    # at all; an empty reading is taken again, up to three times
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            call()
-            torch.cuda.synchronize()
-        kernels_run = [e.name for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA
-                       and not e.name.startswith(("Memcpy", "Memset"))]
-        if kernels_run:
-            break
-    assert len(kernels_run) == 1, kernels_run
+    # the kernel nodes of one call captured in a graph (the profiler on an
+    # H100 host sometimes records no device event late in a process)
+    types, _ = _captured(call)
+    assert types.count(0) == 1, types
 
 
 @pytest.mark.cuda
@@ -328,6 +350,84 @@ def test_band_kernels_on_the_card(name):
             tol = 1e-6 * terms ** 0.5 * float(ref.abs().max()) + 1e-6
             assert float((got - ref).abs().max()) <= tol, (name, case)
             assert torch.equal(got, run()), (name, case)
+
+
+def _band_edge_case(name, rng):
+    """``(wrapper, call, plain, plain over |B| and |x|)`` of one edge
+    operand of the ring kernel (single-level f32 blocks, NaN padding)."""
+    def vec(n):
+        return torch.from_numpy(rng.normal(size=n)).float().cuda()
+
+    def rect(nblk, bs, w, nrows, nx, bases):
+        B = _band_stack(rng, nblk, 1, bs, w, torch.float32)[:, 0]
+        b = torch.tensor(bases, dtype=torch.int32, device="cuda")
+        x = vec(nx)
+        return (rect_mv, lambda: rect_mv(B, b, x, nrows),
+                lambda: rect_mv_ref(B, b, x, nrows),
+                lambda: rect_mv_ref(B.abs(), b, x.abs(), nrows))
+
+    if name == "windows_past_both_ends":
+        # banded: the first window starts at -bs, the last runs past x
+        B = _band_stack(rng, 5, 1, 96, 288, torch.float32)[:, 0]
+        x = vec(5 * 96 - 50)
+        return (banded_mv, lambda: banded_mv(B, x),
+                lambda: banded_mv_ref(B, x),
+                lambda: banded_mv_ref(B.abs(), x.abs()))
+    if name == "nan_padding":               # w = 253: 3 NaN columns a row
+        return rect(19, 384, 253, 19 * 384, 7000,
+                    list(range(0, 19 * 300, 300)))
+    if name == "ragged_last_block":
+        return rect(7, 128, 300, 7 * 128 - 77, 1000,
+                    [100 * k for k in range(7)])
+    if name == "rect_bases_at_edges":       # before 0, at 0, at and past nx
+        return rect(5, 64, 120, 5 * 64, 400, [-5, 0, 280, 397, 410])
+    if name == "jt_short_rows":             # J^T's 256 columns
+        return rect(19, 384, 256, 6994, 1022,
+                    [min(54 * k, 766) for k in range(19)])
+    if name == "very_short_rows":           # 6 columns, bs 1
+        return rect(50, 1, 6, 50, 60, list(range(50)))
+    raise KeyError(name)
+
+
+_BAND_EDGES = ["windows_past_both_ends", "nan_padding", "ragged_last_block",
+               "rect_bases_at_edges", "jt_short_rows", "very_short_rows"]
+
+
+@pytest.fixture(params=["shipped", "ring"])
+def band_kernel(request, monkeypatch):
+    """Each single-level f32 product as the shipped plan runs it, and on
+    the ring kernel whatever the plan would pick."""
+    from dolfin_navier_scipy_tpu_torch.ops import kernels
+    if request.param == "ring":
+        monkeypatch.setitem(kernels._BANDMV_PLAN, "RING_GRID_BELOW", 1 << 30)
+    kernels._bandmv_plan_on.cache_clear()
+    yield request.param
+    kernels._bandmv_plan_on.cache_clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", _BAND_EDGES)
+def test_band_edge_operands_on_the_card(name, band_kernel):
+    """Single-level f32 products on edge operands: within the row bar (1e-5
+    of the row's sum of |B||x|), the same bits twice, one launch counted,
+    one device kernel a call, and the same bits from a CUDA-graph
+    replay."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    wrapper, run, plain, absplain = _band_edge_case(
+        name, np.random.default_rng(21))
+    before = wrapper.launches
+    got = run()
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    ref = plain()
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got - ref).abs() <= 1e-5 * absplain() + 1e-30).all())
+    assert torch.equal(got, run())
+    types, replayed = _captured(run)
+    assert types == [0], types
+    assert torch.equal(replayed, got)
 
 
 @pytest.mark.cuda

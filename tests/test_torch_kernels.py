@@ -1,7 +1,8 @@
 """The dense inverse apply: plain version vs the Pallas kernel (interpret
 mode) and numpy; the CPU route of the wrapper; the launch plan.  The
-convection wrappers: the fixed-order reduction table, the kernel's index
-tables, the argument checks and the CPU route."""
+banded matvecs' ring kernel: its launch plan and its schedule, replayed in
+numpy.  The convection wrappers: the fixed-order reduction table, the
+kernel's index tables, the argument checks and the CPU route."""
 
 import numpy as np
 import pytest
@@ -14,8 +15,9 @@ from dolfin_navier_scipy_tpu_torch.ops import kernels
 from dolfin_navier_scipy_tpu_torch.models import cylinderwake_problem
 from dolfin_navier_scipy_tpu_torch.ops.affine import AffineVectorOps
 from dolfin_navier_scipy_tpu_torch.ops.kernels import (
-    conv_vector, conv_vector_amatvec, conv_vector_amatvec_ref,
-    conv_vector_ref, dof_slot_table, reduce_slots_ref, vecmat, vecmat_plan,
+    band_operand, banded_mv_ref, bandmv_plan, conv_vector,
+    conv_vector_amatvec, conv_vector_amatvec_ref, conv_vector_ref,
+    dof_slot_table, rect_mv_ref, reduce_slots_ref, vecmat, vecmat_plan,
     vecmat_ref)
 
 torch.set_num_threads(1)
@@ -138,6 +140,178 @@ def test_vecmat_plan_fills_the_card_at_the_main_path_shape(m, n):
         if m > 4000:
             assert max(size) <= 0.04 * m * n * itemsize / plan.blocks
             assert len(units) >= 30 * plan.blocks
+
+
+# -- the banded matvecs' ring kernel (csrc/bandmv.cu) -------------------------
+
+def _ring_units(plan, nblk, bs, nrows):
+    """The ring kernel's units, ``block -> [(row, k, i, rows), ...]``: the
+    row blocks cut into runs of ``plan.unit_rows`` rows (the last at
+    ``bs``), all cut at ``nrows``, split in order into equal shares of the
+    blocks (the first ``units % blocks`` one more)."""
+    upb = -(-bs // plan.unit_rows)
+    units = []
+    for u in range(nblk * upb):
+        k, i = divmod(u, upb)
+        i *= plan.unit_rows
+        row = k * bs + i
+        if row >= nrows:
+            break
+        units.append((row, k, i, min(plan.unit_rows, bs - i, nrows - row)))
+    per, rem = divmod(len(units), plan.blocks)
+    out = {}
+    for b in range(plan.blocks):
+        u0 = b * per + min(b, rem)
+        out[b] = units[u0:u0 + per + (b < rem)]
+    return out
+
+
+# (nblk, bs, w, nrows): the main path's E/F bands, J and J^T at levels 1
+# and 2; ragged: nrows < nblk*bs, w not a multiple of 4, one block, bs 1
+_RING_SHAPES = {
+    "E_L1": (19, 384, 1152, 6994), "E_L2": (51, 512, 1536, 25966),
+    "J_L1": (8, 128, 1408, 1022), "J_L2": (28, 128, 2048, 3541),
+    "JT_L1": (19, 384, 256, 6994), "JT_L2": (51, 512, 256, 25966),
+    "ragged": (3, 40, 101, 101), "one_block": (1, 1022, 77, 1000),
+    "bs_1": (50, 1, 9, 50), "short_rows": (5, 48, 6, 230),
+}
+
+
+def _ring_plan(monkeypatch, nblk, bs, w, ld, sm_count=132):
+    """The ring kernel's plan for a shape, whichever kernel the shipped
+    plan picks for it."""
+    monkeypatch.setitem(kernels._BANDMV_PLAN, "RING_GRID_BELOW", 1 << 30)
+    plan = bandmv_plan(nblk, bs, w, ld, 4, sm_count=sm_count)
+    assert plan.kernel == "ring"
+    return plan
+
+
+@pytest.mark.parametrize("shape", list(_RING_SHAPES.values()),
+                         ids=list(_RING_SHAPES))
+def test_bandmv_plan_covers_every_row_within_shared_memory(shape,
+                                                           monkeypatch):
+    nblk, bs, w, nrows = shape
+    for key, value in kernels._BANDMV_GEOMETRY.items():
+        assert f"-DBANDMV_{key}={value}" in kernels._SOURCE_FLAGS["bandmv"]
+    ld = -(-w // 4) * 4                          # band_operand's rows
+    nvec = -(-w // 4)
+    plan = _ring_plan(monkeypatch, nblk, bs, w, ld)
+    # the kernel's layout: two mbarriers a slot, the x window, the ring
+    assert plan.slot_bytes == plan.unit_rows * ld * 4
+    # per slot: two mbarriers, a header, the x window, the rows
+    assert plan.smem_bytes == plan.stages * (32 + 16 * nvec + plan.slot_bytes)
+    assert plan.smem_bytes <= 232448                 # 227 KB a block
+    shares = _ring_units(plan, nblk, bs, nrows)
+    units = [u for share in shares.values() for u in share]
+    # every row exactly once, each unit whole rows of one row block
+    covered = sorted(r for row, _, _, n in units
+                     for r in range(row, row + n))
+    assert covered == list(range(nrows))
+    for row, k, i, n in units:
+        assert row == k * bs + i and 1 <= n <= plan.unit_rows
+        assert i + n <= bs
+        # one bulk copy: 16-byte aligned, a multiple of 16 bytes, in a slot
+        start, nbytes = 4 * (k * bs * ld + i * ld), 4 * ((n - 1) * ld + 4 * nvec)
+        assert start % 16 == 0 and nbytes % 16 == 0
+        assert nbytes <= plan.slot_bytes
+    # equal shares; the ring holds a block's share where RING_BYTES allows
+    sizes = [len(share) for share in shares.values()]
+    assert max(sizes) - min(sizes) <= 1
+    assert plan.stages >= min(max(sizes),
+                              kernels._BANDMV_PLAN["RING_BYTES"]
+                              // plan.slot_bytes)
+    if nblk * bs >= 1000:
+        # a small operand still spreads over the card: a block an SM, every
+        # one with units, two copies in flight where it has two units
+        assert plan.blocks == 132 and min(sizes) >= 1
+        assert plan.stages >= min(2, max(sizes))
+
+
+@pytest.mark.parametrize("form,shape", [
+    ("banded", (3, 40, 120, 101)), ("banded", (1, 64, 192, 50)),
+    ("rect", (5, 48, 77, 230)), ("rect", (8, 128, 1408, 1022)),
+    ("rect", (50, 1, 9, 50)), ("rect", (6, 16, 6, 90))])
+def test_bandmv_ring_schedule_replays_the_product(form, shape, monkeypatch):
+    """The ring kernel's schedule replayed in numpy on the operand's flat
+    storage, its padding filled with NaN: each unit's bulk copy (whole rows
+    but the last, which stops at its last vector inside w), the x window
+    of its row block, the masked padding — every row written once, equal
+    to the plain version, and no copy reads past the storage."""
+    nblk, bs, w, n = shape
+    rng = np.random.default_rng(7)
+    B = band_operand((nblk, bs, w), torch.float32)
+    B.copy_(torch.from_numpy(rng.normal(size=(nblk, bs, w))))
+    ld, sblk = B.stride(1), B.stride(0)
+    flat = B.as_strided((nblk * sblk,), (1,)).clone().numpy()
+    flat.reshape(nblk, bs, ld)[..., w:] = np.nan
+    if form == "banded":
+        nx = nrows = n
+        base = (np.arange(nblk) - 1) * bs
+        x = rng.normal(size=nx).astype(np.float32)
+        ref = banded_mv_ref(B, torch.from_numpy(x)).numpy()
+    else:
+        nrows, nx = n, w + 40
+        # window starts at both edges of x and past them
+        base = np.sort(rng.integers(-w // 2, nx - w // 2, size=nblk))
+        base[0], base[-1] = -3, nx - 2
+        x = rng.normal(size=nx).astype(np.float32)
+        ref = rect_mv_ref(B, torch.from_numpy(base.astype(np.int32)),
+                          torch.from_numpy(x), nrows).numpy()
+    plan = _ring_plan(monkeypatch, nblk, bs, w, ld, sm_count=4)
+    nvec = -(-w // 4)
+    y = np.full(nrows, np.nan)
+    for row, k, i, m in (u for share in _ring_units(plan, nblk, bs,
+                                                    nrows).values()
+                         for u in share):
+        start, count = k * sblk + i * ld, (m - 1) * ld + 4 * nvec
+        assert start + count <= flat.size
+        slab = np.zeros(m * ld, np.float32)
+        slab[:count] = flat[start:start + count]
+        rows = slab.reshape(m, ld)[:, :4 * nvec].copy()
+        rows[:, w:] = 0.0                        # the masked padding
+        g = base[k] + np.arange(4 * nvec)
+        inside = (np.arange(4 * nvec) < w) & (g >= 0) & (g < nx)
+        xs = np.where(inside, x[np.clip(g, 0, nx - 1)], 0.0)
+        assert np.isnan(y[row:row + m]).all()    # written once
+        y[row:row + m] = rows.astype(np.float64) @ xs
+    assert np.isfinite(y).all()
+    np.testing.assert_allclose(y, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_bandmv_plan_refuses_rows_past_shared_memory():
+    # one row block of 8 rows would take the ring kernel, but a row of
+    # 30000 f32 and its window do not fit a block: the warp-per-row kernel
+    # (its window alone) takes it; past 227 KB of window neither can
+    plan = bandmv_plan(1, 8, 30000, 30000, 4, sm_count=132)
+    assert plan.kernel == "rows"
+    assert bandmv_plan(1, 8, 20000, 20000, 4, sm_count=132).kernel == "ring"
+    with pytest.raises(ValueError, match="shared memory"):
+        bandmv_plan(1, 8, 60000, 60000, 4, sm_count=132)
+    with pytest.raises(ValueError):
+        bandmv_plan(2, 8, 30, 31, 4, sm_count=132)   # rows not 16-byte apart
+
+
+@pytest.mark.parametrize("name,shape,kernel", [
+    ("J_L1", _RING_SHAPES["J_L1"], "ring"),
+    ("E_L1", _RING_SHAPES["E_L1"], "rows"),
+    ("E_L2", _RING_SHAPES["E_L2"], "rows"),
+    ("J_L2", _RING_SHAPES["J_L2"], "rows"),
+    ("JT_L1", _RING_SHAPES["JT_L1"], "rows"),
+    ("JT_L2", _RING_SHAPES["JT_L2"], "rows"),
+    ("one_block", _RING_SHAPES["one_block"], "ring")])
+def test_bandmv_plan_takes_the_ring_where_row_blocks_cannot_fill_the_card(
+        name, shape, kernel):
+    """A single-level f32 product takes the ring kernel where the
+    warp-per-row kernel's grid (a block of ROWS rows) has fewer blocks than
+    the card has SMs; elsewhere the warp-per-row kernel was as fast or
+    faster on an H100 (PERF.md)."""
+    nblk, bs, w, _ = shape
+    plan = bandmv_plan(nblk, bs, w, -(-w // 4) * 4, 4, sm_count=132)
+    rows = kernels._BANDMV_GEOMETRY["ROWS"]
+    assert plan.kernel == kernel
+    assert (nblk * -(-bs // rows) < 132) == (kernel == "ring")
+    if kernel == "rows":
+        assert plan.blocks == nblk * -(-bs // rows)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
