@@ -48,7 +48,12 @@ versions on the level-1 solver's own operands under seeded vectors, and
 the single-level products on edge operands (NaN padding, a ragged last
 row block, windows past both ends of x, window starts at the edges, short
 rows), each on the kernel its plan picks and on the bulk-copy ring: one
-kernel node a call in a captured graph, the same bits on a replay.
+kernel node a call in a captured graph, the same bits on a replay; and
+``rect_mv_levels`` on every level stack of the route (W, W's level 0
+alone, X, ``S^-1`` in bf16 and in f32) forced onto each kernel form that
+can take it (warp-per-row, row shares, ring), at level 1 and at level 2.
+The default calls must launch each stack on the form its plan picks
+(``rect_mv_levels.kernel_launches``, ``stack_launches``).
 
 Every phase prints one JSON line; any failed phase raises, so the exit
 code is non-zero and the final line is missing.  The last line is
@@ -104,10 +109,18 @@ LEVEL2 = 2
 T0, TE, NTS, SAVE_EVERY = 0.0, 0.3, 300, 60
 RAGGED = (2049, 1023)
 DESIGN = "pr3"       # one launch per call: bulk-copy ring / quad-point lanes
-# csrc/bandmv.cu: a warp per row with the x window in shared memory,
-# or, for single-level f32 operands too short in rows for that kernel's
-# grid to fill the card, a bulk-copy ring over a grid of one block an SM
-BAND_DESIGN = {"rows": "warp-per-row", "ring": "bulk-copy ring"}
+# csrc/bandmv.cu: a warp per row with the x window in shared memory, a
+# bulk-copy ring over a grid of one block an SM (single-level f32 operands
+# and level stacks too short in rows for the warp-per-row grid to fill the
+# card), or a warp per row over equal contiguous row shares of a grid sized
+# from the SM count (level stacks: ops/kernels.py: stack_plan)
+BAND_DESIGN = {"rows": "warp-per-row", "ring": "bulk-copy ring",
+               "share": "row shares"}
+BAND_WRAPPERS = (banded_mv, rect_mv, rect_mv_levels)
+# the kernels line's rows of the level stacks: W keeps the wrapper's name;
+# S^-1 stands for SchurSaddleSolver._sapply of the JAX package
+STACK_ROWS = {"X, 2 bf16 levels": "_X", "S^-1, 3 bf16 levels": "_S_inv"}
+SAPPLY = "dolfin_navier_scipy_tpu/solve/sadpnt.py:1763"
 BAND_REPLACES = dict(
     banded_mv="dolfin_navier_scipy_tpu/solve/sadpnt.py:782",
     rect_mv="dolfin_navier_scipy_tpu/solve/sadpnt.py:1021",
@@ -175,6 +188,9 @@ def zero_counts():
     for w in WRAPPERS:
         w.launches = 0
     affine_mv.mode_launches = dict.fromkeys(affine_mv.mode_launches, 0)
+    for w in BAND_WRAPPERS:
+        w.kernel_launches = dict.fromkeys(w.kernel_launches, 0)
+    rect_mv_levels.stack_launches = {}
 
 
 def counts():
@@ -423,14 +439,117 @@ def cycling(fn, copies):
     return lambda: fn(next(it))
 
 
-def band_kernel(name, B):
+def band_kernel(name, B, levels=None):
     """Which kernel of csrc/bandmv.cu a call of wrapper ``name`` on ``B``
-    launches: ``"ring"`` or ``"rows"`` (ops/kernels.py: bandmv_plan)."""
-    if name == "rect_mv_levels" or B.dtype != torch.float32:
-        return "rows"
+    (a level stack: its first ``levels`` levels) launches: ``"ring"``,
+    ``"rows"`` or ``"share"`` (ops/kernels.py: bandmv_plan, stack_plan)."""
     nblk, bs, w = B.shape[0], B.shape[-2], B.shape[-1]
+    if name == "rect_mv_levels":
+        return kernels._stack_plan_on(
+            nblk, levels or B.shape[1], bs, w, B.stride(-2),
+            B.element_size(), B.get_device(),
+            kernels._STACK_PLAN["FORM"]).kernel
+    if B.dtype != torch.float32:
+        return "rows"
     return kernels._bandmv_plan_on(nblk, bs, w, B.stride(-2),
                                    B.get_device()).kernel
+
+
+@contextlib.contextmanager
+def stack_form(form):
+    """Every level stack on kernel form ``form`` (ops/kernels.py:
+    stack_plan), whatever the plan would pick."""
+    kernels._STACK_PLAN["FORM"] = form
+    try:
+        yield
+    finally:
+        kernels._STACK_PLAN["FORM"] = None
+
+
+def stack_operands(slv):
+    """The level stacks of the Schur route: ``(label, stack, bases, nx,
+    nrows, hi_only)`` for W, W's level 0 alone, X, and S^-1 in bf16 and as
+    an f32 stack."""
+    nin, npp = slv._nin, slv.np
+    return [("W, 3 bf16 levels", slv.Wb, slv._wbases_t, nin, nin, False),
+            ("W, 3 bf16 levels, hi_only", slv.Wb, slv._wbases_t, nin, nin,
+             True),
+            ("X, 2 bf16 levels", slv.Xb, slv._xbases_t, npp, nin, False),
+            ("S^-1, 3 bf16 levels", slv.Sinv, slv._sbase, npp, npp, False),
+            ("S^-1, 3 f32 levels", as_band_operand(slv.Sinv.float()),
+             slv._sbase, npp, npp, False)]
+
+
+def check_stack_forms(slv, gen):
+    """``rect_mv_levels`` on every level stack of the route, forced onto
+    each kernel form that can take it: within the row bar, the same bits
+    twice, one kernel node a call in a captured graph, the same bits from
+    its replay; and the forms' results bitwise equal (their row sums do
+    not depend on the schedule).  Returns the rows and ``{label: the form
+    the plan picks}``."""
+    out, picked = [], {}
+    dev = slv.Bblk.device
+    for label, S, bases, nx, nrows, hi in stack_operands(slv):
+        x = torch.randn(nx, generator=gen, dtype=torch.float32).to(dev)
+        lev = 1 if hi else S.shape[1]
+        picked[label] = band_kernel("rect_mv_levels", S, lev)
+        ref = rect_mv_levels_ref(S, bases, x, nrows, hi)
+        tol = 1e-5 * rect_mv_levels_ref(S.abs(), bases, x.abs(), nrows,
+                                        hi) + 1e-30
+        first = None
+        for form in ("rows", "share", "ring"):
+            try:
+                kernels.stack_plan(S.shape[0], lev, S.shape[2], S.shape[3],
+                                   S.stride(2), S.element_size(),
+                                   kernels._sm_count(dev), form)
+            except ValueError:
+                continue                  # this form cannot take the stack
+
+            def call(S=S, x=x, hi=hi):
+                return rect_mv_levels(S, bases, x, nrows, hi)
+            with stack_form(form):
+                y, again = call(), call()
+                torch.cuda.synchronize()
+                err = (y - ref).abs()
+                what = f"rect_mv_levels ({label}, {form} kernel)"
+                require(bool(torch.isfinite(y).all()), f"{what} not finite")
+                require(bool((err <= tol).all()), f"{what} disagrees with "
+                        f"its plain version: worst ratio to the row bar "
+                        f"{float((err / tol).max()):.3e}")
+                require(torch.equal(y, again), f"{what} is not reproducible")
+                types, replayed = captured(call)
+                require(types.count(0) == 1, f"{what}: graph nodes {types}")
+                require(torch.equal(replayed, y), f"{what}: the graph replay "
+                        "differs from the eager call")
+            if first is None:
+                first = y
+            out.append(dict(operand=label, kernel=form,
+                            picked=form == picked[label],
+                            shape=[S.shape[0], lev, *S.shape[2:]],
+                            max_abs_err=float(err.max()),
+                            max_err_over_row_bar=float((err / tol).max()),
+                            equal_to_first_form=bool(torch.equal(y, first)),
+                            graph_kernel_nodes=types.count(0),
+                            bitwise_twice=True, graph_replay_equal=True))
+    return out, picked
+
+
+def stack_counts_want(slv, picked, nsteps, refine):
+    """The launches of ``rect_mv_levels`` a default call makes, by launched
+    stack shape and by kernel form: a solve is W (level 0 alone where a
+    refine round follows), S^-1, X; a refine round another W, S^-1, X."""
+    W, X, S = (tuple(t.shape) for t in (slv.Wb, slv.Xb, slv.Sinv))
+    by_shape = {W: nsteps, X: nsteps * (1 + refine),
+                S: nsteps * (1 + refine)}
+    forms = {"W, 3 bf16 levels": nsteps, "X, 2 bf16 levels": by_shape[X],
+             "S^-1, 3 bf16 levels": by_shape[S]}
+    if refine:
+        by_shape[(W[0], 1, *W[2:])] = nsteps
+        forms["W, 3 bf16 levels, hi_only"] = nsteps
+    by_form = dict.fromkeys(rect_mv_levels.kernel_launches, 0)
+    for label, n in forms.items():
+        by_form[picked[label]] += n
+    return by_shape, by_form
 
 
 @contextlib.contextmanager
@@ -582,7 +701,8 @@ def check_band(forms, counted=True):
                 f"row bar {float((err / tol).max()):.3e}")
         require(torch.equal(y, again),
                 f"{name} kernel ({operand}) is not reproducible")
-        row = dict(name=name, operand=operand, kernel=band_kernel(name, B),
+        row = dict(name=name, operand=operand,
+                   kernel=band_kernel(name, B, bargs[2]),
                    shape=list(bargs[1:5]), bytes_per_entry=bargs[0],
                    max_abs_err=max_abs,
                    max_err_over_row_bar=float((err / tol).max()),
@@ -694,7 +814,7 @@ def level2_path(dev, gen, nsteps):
     problem_s = time.time() - t0
     dkw = dict(t0=T0, tE=TE, Nts=NTS, start_ssstokes=True,
                save_every=SAVE_EVERY)
-    runs = {}
+    runs, stack_runs = {}, {}
     for wr in (0, 1, "rerun"):
         zero_counts()
         torch.cuda.reset_peak_memory_stats()
@@ -704,12 +824,17 @@ def level2_path(dev, gen, nsteps):
         torch.cuda.synchronize()
         runs[wr] = (o, counts(), time.time() - t0,
                     torch.cuda.max_memory_allocated())
+        stack_runs[wr] = (dict(rect_mv_levels.kernel_launches),
+                          dict(rect_mv_levels.stack_launches))
     o0, c0 = runs[0][0], runs[0][1]
     slv = o0["ops"].solver
     require(isinstance(slv, SchurSaddleSolver) and slv.setup == "device"
             and hasattr(o0["ops"], "full_schur"), "the default route at "
             "level 2 is the banded block-Schur solver with its factors "
             "built on the card")
+    # every level stack on every kernel form that can take it, and the
+    # forms the plan picks at this level
+    stack_checks, picked = check_stack_forms(slv, gen)
     for name, levels in (("Wb", 3), ("Xb", 2), ("Sinv", 3)):
         st = getattr(slv, name)
         require(st is not None and st.is_cuda and st.dtype == torch.bfloat16
@@ -748,6 +873,12 @@ def level2_path(dev, gen, nsteps):
                     rect_mv_levels=nsteps * 3 * (1 + wr), affine_mv=0)
         require(c == want, f"launches of the level-2 run, warm_refine={wr}:"
                 f" {c} != {want}")
+        by_form, by_shape = stack_runs[wr]
+        want_shape, want_form = stack_counts_want(slv, picked, nsteps, wr)
+        require(by_shape == want_shape and by_form == want_form,
+                f"rect_mv_levels launches of the level-2 run, warm_refine="
+                f"{wr}: by stack {by_shape} != {want_shape}, by kernel form "
+                f"{by_form} != {want_form}")
         require(o["ffflag"] is False and o["v"].is_cuda
                 and o["v"].dtype == torch.float64, "level-2 run")
         for k in ("v", "p", "vs", "ps"):
@@ -761,7 +892,8 @@ def level2_path(dev, gen, nsteps):
                 f"level-2 run, warm_refine={wr}, vs the dense route: {e}")
         t = o["timing"]
         rows[wr] = dict(
-            launches=c, wall_seconds=wall_s, setup_seconds=t["setup_s"],
+            launches=c, rect_mv_levels_by_form=by_form,
+            wall_seconds=wall_s, setup_seconds=t["setup_s"],
             solver_parts_seconds=o["ops"].solver.setup_timing,
             bootstrap_seconds=t["bootstrap_s"], loop_seconds=t["loop_s"],
             ms_per_step=1e3 * t["loop_s"] / nsteps,
@@ -801,14 +933,18 @@ def level2_path(dev, gen, nsteps):
                          peak_device_mem_bytes=ref_peak,
                          divergence_residual_rel=ref_div,
                          inverse_shape=[n2, n2]),
-        vecmat=vec_check, banded=band_checks, convection=conv_checks)
+        vecmat=vec_check, banded=band_checks,
+        level_stack_forms=stack_checks, stack_plan_picks=picked,
+        convection=conv_checks)
 
     def band_row(name, operand, launches):
         chk = next(c for c in band_checks
                    if c["name"] == name and c["operand"] == operand)
-        return dict(name=f"{name}_level2", route="cuda",
+        return dict(name=f"{name}{STACK_ROWS.get(operand, '')}_level2",
+                    route="cuda",
                     source="dolfin_navier_scipy_tpu_torch/csrc/bandmv.cu",
-                    replaces=BAND_REPLACES[name], launches=launches,
+                    replaces=(SAPPLY if operand.startswith("S^-1")
+                              else BAND_REPLACES[name]), launches=launches,
                     operand=operand, shape=chk["shape"],
                     max_abs_err=chk["max_abs_err"], ms=chk["ms"],
                     plain_ms=chk["plain_ms"], bound_ms=chk["bound_ms"],
@@ -839,8 +975,11 @@ def level2_path(dev, gen, nsteps):
              eager_ms=conv["eager_ms"], design=DESIGN),
         band_row("banded_mv", "E band (explicit A)", c0["banded_mv"]),
         band_row("rect_mv", "J", c0["rect_mv"]),
-        band_row("rect_mv_levels", "W, 3 bf16 levels",
-                 c0["rect_mv_levels"])]
+        *(band_row("rect_mv_levels", label,
+                   stack_runs[0][1][tuple(t.shape)])
+          for label, t in (("W, 3 bf16 levels", slv.Wb),
+                           ("X, 2 bf16 levels", slv.Xb),
+                           ("S^-1, 3 bf16 levels", slv.Sinv)))]
 
 # ---------------------------------------------------------------------------
 # the affine element matvecs (csrc/affine.cu) and the control slice
@@ -1397,6 +1536,7 @@ def main():
     schur_build_s = time.time() - t0
     slv = sops.solver
     band_checks = check_band(band_forms(slv, gen))
+    stack_checks, picked1 = check_stack_forms(slv, gen)
     band_edges = check_band_edges(band_edge_forms(slv, gen))
     # the affine kernel on the level-1 tables: f32 under the vectors the
     # paths give it (timed), over the full dof set, and f64
@@ -1408,8 +1548,9 @@ def main():
     aff_checks += check_affine(prob.affine_ops(torch.float64, device=dev),
                                prob, False, "level 1", gen, timed=False)
     say(phase="kernel_checks", vecmat=checks, convection=conv_checks,
-        banded=band_checks, banded_edges=band_edges, affine=aff_checks,
-        schur_solver_build_seconds=schur_build_s)
+        banded=band_checks, banded_edges=band_edges,
+        level_stack_forms=stack_checks, stack_plan_picks=picked1,
+        affine=aff_checks, schur_solver_build_seconds=schur_build_s)
     del sops, slv
     device_setup_path(prob, dev, dt_main)
     # the control slice at level 2 (traced here: before any CPU run)
@@ -1608,9 +1749,16 @@ def main():
         t0 = time.time()
         o = solve_nse(prob=prob, warm_refine=wr, **dkw)
         torch.cuda.synchronize()
-        schur[wr] = (o, counts(), time.time() - t0)
-    o0, c0, _ = schur[0]
+        schur[wr] = (o, counts(), time.time() - t0,
+                     dict(rect_mv_levels.kernel_launches),
+                     dict(rect_mv_levels.stack_launches))
+    o0, c0 = schur[0][:2]
     slv = o0["ops"].solver
+    # the launches of each level stack in the refine-0 run, for the table
+    stack_launches1 = {
+        label: schur[0][4][tuple(t.shape)] for label, t in (
+            ("W, 3 bf16 levels", slv.Wb), ("X, 2 bf16 levels", slv.Xb),
+            ("S^-1, 3 bf16 levels", slv.Sinv))}
     require(isinstance(slv, SchurSaddleSolver)
             and hasattr(o0["ops"], "full_schur"), "the default route at "
             "8016 rows is the banded block-Schur solver, full layout")
@@ -1628,7 +1776,10 @@ def main():
         ("J", "rect_mv", slv.Jb), ("J^T", "rect_mv", slv.JTb))}
     require(operand_kernels["J"] == "ring", "at level 1 J runs on the "
             f"bulk-copy ring kernel: {operand_kernels}")
-    for wr, (o, c, _) in schur.items():
+    operand_kernels.update((op, picked1[label]) for op, label in (
+        ("W", "W, 3 bf16 levels"), ("W level 0", "W, 3 bf16 levels, hi_only"),
+        ("X", "X, 2 bf16 levels"), ("S^-1", "S^-1, 3 bf16 levels")))
+    for wr, (o, c, _, by_form, by_shape) in schur.items():
         # a loop step: one convection vector, the banded A, the solve (W,
         # J, S^-1, X) and per refine round the residual (F, J^T, J) and a
         # second solve; the start: 3 Heun bootstrap vectors and the AB2
@@ -1639,6 +1790,12 @@ def main():
                     rect_mv_levels=nsteps * 3 * (1 + wr), affine_mv=0)
         require(c == want, f"launches of the Schur run, warm_refine={wr}: "
                 f"{c} != {want}")
+        # each level stack on the kernel form its plan picks
+        want_shape, want_form = stack_counts_want(slv, picked1, nsteps, wr)
+        require(by_shape == want_shape and by_form == want_form,
+                f"rect_mv_levels launches of the Schur run, warm_refine="
+                f"{wr}: by stack {by_shape} != {want_shape}, by kernel form "
+                f"{by_form} != {want_form}")
         require(o["ffflag"] is False and o["v"].is_cuda
                 and o["v"].dtype == torch.float64, "Schur run")
         for k in ("v", "p", "vs", "ps"):
@@ -1652,7 +1809,7 @@ def main():
             f"two Schur runs on the card differ: {rerun_diff:.3e}")
     del again
     schur_rows = {}
-    for wr, (o, c, wall_s) in schur.items():
+    for wr, (o, c, wall_s, by_form, _) in schur.items():
         div_rel = divergence_rel(prob, o["v"])
         require(div_rel <= 1e-6, f"Schur run, warm_refine={wr}: divergence "
                 f"residual {div_rel:.3e}")
@@ -1665,7 +1822,8 @@ def main():
                 f"Schur run, warm_refine={wr}, card vs CPU f64: {e}")
         t = o["timing"]
         schur_rows[wr] = dict(
-            launches=c, wall_seconds=wall_s, setup_seconds=t["setup_s"],
+            launches=c, rect_mv_levels_by_form=by_form,
+            wall_seconds=wall_s, setup_seconds=t["setup_s"],
             bootstrap_seconds=t["bootstrap_s"], loop_seconds=t["loop_s"],
             steps_per_s=nsteps / t["loop_s"],
             ms_per_step=1e3 * t["loop_s"] / nsteps,
@@ -1716,9 +1874,11 @@ def main():
         chk = next(c for c in band_checks
                    if c["name"] == name and c["operand"] == operand)
         return dict(
-            name=name, route="cuda",
+            name=name + STACK_ROWS.get(operand, ""), route="cuda",
             source="dolfin_navier_scipy_tpu_torch/csrc/bandmv.cu",
-            replaces=BAND_REPLACES[name], launches=launches, operand=operand,
+            replaces=(SAPPLY if operand.startswith("S^-1")
+                      else BAND_REPLACES[name]),
+            launches=launches, operand=operand,
             shape=chk["shape"], max_abs_err=chk["max_abs_err"],
             ms=chk["ms"], plain_ms=chk["plain_ms"],
             bound_ms=chk["bound_ms"], bound_by=chk["bound_by"],
@@ -1784,7 +1944,9 @@ def main():
         # (warm_refine=0) and their largest operand on that route
         band_row("banded_mv", "E band (explicit A)", c0["banded_mv"]),
         band_row("rect_mv", "J", c0["rect_mv"]),
-        band_row("rect_mv_levels", "W, 3 bf16 levels", c0["rect_mv_levels"]),
+        # the level stacks, each with its launches in that call
+        *(band_row("rect_mv_levels", label, n)
+          for label, n in stack_launches1.items()),
         # the same kernels on the level-2 operands, launches of that path
         *level2_rows,
         # the affine kernel: A v of the controlled step (control_path (a)),

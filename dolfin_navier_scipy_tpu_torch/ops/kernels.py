@@ -75,6 +75,18 @@ _BANDMV_GEOMETRY = {"ROWS": 16, "CONSUMERS": 256}
 _BANDMV_PLAN = {"RING_GRID_BELOW": 1, "BLOCKS_PER_SM": 1,
                 "UNIT_BYTES": 48 * 1024, "RING_BYTES": 192 * 1024,
                 "MIN_UNITS": 2}
+# How stack_plan picks the kernel of a level stack (rect_mv_levels): the
+# share kernel on SHARE_BLOCKS_PER_SM blocks an SM for a stack of one row
+# block (S^-1, dense: its rows fill no grid of ROWS-row blocks evenly); the
+# share kernel on blocks of SHARE_ROWS rows for stacks of SHARE_LEVELS or
+# more levels whose window takes SHARE_WINDOW_BYTES or more (W at level
+# 3); the ring (with the geometry above) for such stacks where the
+# warp-per-row grid has fewer than RING_GRID_BELOW blocks an SM (W at
+# level 1: a wave and a bit at three blocks an SM); the warp-per-row
+# kernel elsewhere.  FORM, when set, forces one form.
+_STACK_PLAN = {"FORM": None, "SHARE_BLOCKS_PER_SM": 2, "SHARE_LEVELS": 3,
+               "SHARE_WINDOW_BYTES": 16 * 1024, "SHARE_ROWS": 8,
+               "RING_GRID_BELOW": 4}
 _SOURCE_FLAGS = {"vecmat": tuple(f"-DVECMAT_{k}={v}"
                                  for k, v in _VECMAT_GEOMETRY.items()),
                  "bandmv": tuple(f"-DBANDMV_{k}={v}"
@@ -457,6 +469,9 @@ def _bandmv_lib():
                                         + [i] * 4 + [ll] + [i] * 3
                                         + [ll, ptr])
         lib.bandmv_ring_f32.restype = i
+        lib.bandmv_stack.argtypes = ([ptr, i, i, ll, ll, ll, ptr, ptr, ptr]
+                                     + [i] * 4 + [ll] + [i] * 4 + [ll, ptr])
+        lib.bandmv_stack.restype = i
         lib.bandmv_error_string.argtypes = [i]
         lib.bandmv_error_string.restype = ctypes.c_char_p
         lib._dns_typed = True
@@ -468,23 +483,60 @@ _BAND_STORAGE = {torch.float32: 0, torch.bfloat16: 1}
 
 class BandmvPlan(collections.namedtuple(
         "BandmvPlan", "kernel blocks unit_rows stages slot_bytes smem_bytes")):
-    """Launch plan of ``csrc/bandmv.cu`` for one single-level f32 operand
-    shape: ``kernel``, ``"ring"`` or ``"rows"`` (the warp-per-row kernel,
-    whose grid ``blocks`` is ``nblk * ceil(bs / ROWS)``; it needs nothing
-    more); for the ring kernel ``blocks`` (the grid), ``unit_rows`` (unit
+    """Launch plan of ``csrc/bandmv.cu`` for one operand shape: ``kernel``,
+    ``"ring"``, ``"rows"`` (the warp-per-row kernel, whose grid ``blocks``
+    is ``nblk * ceil(bs / ROWS)``; it needs nothing more) or ``"share"``
+    (level stacks: :func:`stack_plan`); for the ring kernel ``blocks`` (the
+    grid), ``unit_rows`` (unit
     ``u`` is the rows ``[i, i + unit_rows)`` of row block ``k = u // upb``,
     ``i = (u % upb) unit_rows``, ``upb = ceil(bs / unit_rows)``, cut at
-    ``bs`` and at ``nrows``: one bulk copy of ``((rows - 1) ld + 4 ceil(w /
-    4)) itemsize`` bytes; block ``b`` takes the units ``[b U // G + min(b, U
+    ``bs`` and at ``nrows``: one bulk copy a level of ``((rows - 1) ld + v
+    ceil(w / v)) itemsize`` bytes, ``v = 16 / itemsize``; block ``b`` takes the units ``[b U // G + min(b, U
     % G), ...)``, ``U // G`` of them and one more for ``b < U % G``), the
     ring of ``stages`` slots of ``slot_bytes``, and the block's shared
     memory (per slot: two mbarriers, a header, the f32 x window of ``w``
-    rounded up to whole 16-byte vectors, the rows).  The kernel refuses a
+    rounded up to whole 16-byte vectors, the rows of every level).  The
+    kernel refuses a
     shared-memory size other than its own layout for these numbers."""
 
 
-def _ring_smem(w, ld, itemsize, unit_rows, stages):
-    return stages * (32 + 16 * (-(-w // 4)) + unit_rows * ld * itemsize)
+def _ring_smem(w, ld, itemsize, unit_rows, stages, levels=1):
+    vec = 16 // itemsize
+    return stages * (32 + 4 * vec * -(-w // vec)
+                     + levels * unit_rows * ld * itemsize)
+
+
+def _ring_launch(nblk, bs, w, ld, itemsize, sm_count, levels=1):
+    """The ring kernel's :class:`BandmvPlan` for ``levels`` row-stacked
+    levels (a unit's rows of every level in one slot, one bulk copy a
+    level), or None where one row of every level beside its window does
+    not fit a block's shared memory."""
+    g = _BANDMV_PLAN
+    rows, row_bytes = nblk * bs, levels * ld * itemsize
+    blocks = min(g["BLOCKS_PER_SM"] * sm_count, rows)
+    per_block = -(-rows // blocks)
+    unit_rows = max(1, min(g["UNIT_BYTES"] // row_bytes,
+                           -(-per_block // g["MIN_UNITS"])))
+    while unit_rows > 1 and _ring_smem(w, ld, itemsize, unit_rows, 1,
+                                       levels) > _SMEM_PER_BLOCK:
+        unit_rows -= 1
+    # a block's most units: its share of the units of all row blocks
+    most = -(-(nblk * -(-bs // unit_rows)) // blocks)
+    slot = unit_rows * row_bytes
+    stages = max(1, min(g["RING_BYTES"] // slot, most))
+    while stages > 1 and _ring_smem(w, ld, itemsize, unit_rows, stages,
+                                    levels) > _SMEM_PER_BLOCK:
+        stages -= 1
+    smem = _ring_smem(w, ld, itemsize, unit_rows, stages, levels)
+    if smem > _SMEM_PER_BLOCK:
+        return None
+    return BandmvPlan("ring", blocks, unit_rows, stages, slot, smem)
+
+
+def _check_plan_args(nblk, bs, w, ld, itemsize, sm_count):
+    if min(nblk, bs, w, sm_count) <= 0 or ld < w or (ld * itemsize) % 16:
+        raise ValueError(f"bandmv_plan: no plan for ({nblk}, {bs}, {w}) "
+                         f"rows {ld} x {itemsize} bytes apart")
 
 
 def bandmv_plan(nblk, bs, w, ld, itemsize, sm_count):
@@ -500,40 +552,81 @@ def bandmv_plan(nblk, bs, w, ld, itemsize, sm_count):
     block can use.  The warp-per-row kernel also where the ring cannot
     hold one row beside its window in a block's 227 KB; ``ValueError``
     where neither kernel can place the rows."""
-    g = _BANDMV_PLAN
-    rows, row_bytes = nblk * bs, ld * itemsize
-    if min(nblk, bs, w, sm_count) <= 0 or ld < w or row_bytes % 16:
-        raise ValueError(f"bandmv_plan: no plan for ({nblk}, {bs}, {w}) "
-                         f"rows {ld} x {itemsize} bytes apart")
+    _check_plan_args(nblk, bs, w, ld, itemsize, sm_count)
     row_grid = nblk * -(-bs // _BANDMV_GEOMETRY["ROWS"])
     rows_plan = BandmvPlan("rows", row_grid, 0, 0, 0, 0)
     # the warp-per-row kernel's block holds its x window (w rounded up to
     # 8) in shared memory
-    rows_fit = 4 * (-(-w // 8) * 8) <= _SMEM_PER_BLOCK
-    if row_grid >= g["RING_GRID_BELOW"] * sm_count and rows_fit:
+    rows_fit = _window_bytes(w) <= _SMEM_PER_BLOCK
+    if row_grid >= _BANDMV_PLAN["RING_GRID_BELOW"] * sm_count and rows_fit:
         return rows_plan
-    blocks = min(g["BLOCKS_PER_SM"] * sm_count, rows)
-    per_block = -(-rows // blocks)
-    unit_rows = max(1, min(g["UNIT_BYTES"] // row_bytes,
-                           -(-per_block // g["MIN_UNITS"])))
-    while unit_rows > 1 and _ring_smem(w, ld, itemsize, unit_rows,
-                                       1) > _SMEM_PER_BLOCK:
-        unit_rows -= 1
-    # a block's most units: its share of the units of all row blocks
-    most = -(-(nblk * -(-bs // unit_rows)) // blocks)
-    slot = unit_rows * row_bytes
-    stages = max(1, min(g["RING_BYTES"] // slot, most))
-    while stages > 1 and _ring_smem(w, ld, itemsize, unit_rows,
-                                    stages) > _SMEM_PER_BLOCK:
-        stages -= 1
-    smem = _ring_smem(w, ld, itemsize, unit_rows, stages)
-    if smem <= _SMEM_PER_BLOCK:
-        return BandmvPlan("ring", blocks, unit_rows, stages, slot, smem)
+    ring = _ring_launch(nblk, bs, w, ld, itemsize, sm_count)
+    if ring is not None:
+        return ring
     if rows_fit:
         return rows_plan
     raise ValueError(
-        f"bandmv_plan: rows of {row_bytes} bytes (w {w}) fit neither kernel "
-        f"in {_SMEM_PER_BLOCK} bytes of shared memory a block")
+        f"bandmv_plan: rows of {ld * itemsize} bytes (w {w}) fit neither "
+        f"kernel in {_SMEM_PER_BLOCK} bytes of shared memory a block")
+
+
+def _window_bytes(w):
+    """Shared memory of the warp-per-row and share kernels' f32 window."""
+    return 4 * (-(-w // 8) * 8)
+
+
+def stack_plan(nblk, levels, bs, w, ld, itemsize, sm_count, form=None):
+    """The :class:`BandmvPlan` of a level stack ``(nblk, levels, bs, w)``
+    of :func:`rect_mv_levels` (rows ``ld`` elements of ``itemsize`` bytes
+    apart) on a card with ``sm_count`` SMs: ``kernel`` ``"rows"`` (the
+    warp-per-row kernel on its grid ``nblk * ceil(bs / ROWS)``),
+    ``"share"`` (the rows cut into ``blocks`` equal contiguous shares, a
+    block staging each window of its share once; ``smem_bytes`` the
+    window) or ``"ring"`` (the bulk-copy ring of :func:`bandmv_plan`, a
+    unit's rows of every level in one slot).  ``form`` (or ``FORM`` of
+    ``_STACK_PLAN``) forces one of them; ``ValueError`` where it cannot
+    place the rows.  Otherwise as ``_STACK_PLAN`` says (measured on an
+    H100: ``PERF.md``, section 6)."""
+    _check_plan_args(nblk, bs, w, ld, itemsize, sm_count)
+    if not 1 <= levels <= 3:
+        raise ValueError(f"stack_plan: {levels} levels")
+    g = _STACK_PLAN
+    form = form or g["FORM"]
+    rows = nblk * bs
+    row_grid = nblk * -(-bs // _BANDMV_GEOMETRY["ROWS"])
+    window = _window_bytes(w)
+    blocks = min(g["SHARE_BLOCKS_PER_SM"] * sm_count, rows)
+    if form is None:
+        form = "rows"
+        if nblk == 1:
+            form = "share"
+        elif levels >= g["SHARE_LEVELS"]:
+            if window >= g["SHARE_WINDOW_BYTES"]:
+                form, blocks = "share", -(-rows // g["SHARE_ROWS"])
+            elif row_grid < g["RING_GRID_BELOW"] * sm_count:
+                form = "ring"
+    if form == "ring":
+        plan = _ring_launch(nblk, bs, w, ld, itemsize, sm_count, levels)
+    elif form not in ("rows", "share"):
+        raise ValueError(f"stack_plan: no kernel form {form!r}")
+    elif window > _SMEM_PER_BLOCK:
+        plan = None
+    elif form == "rows":
+        plan = BandmvPlan("rows", row_grid, 0, 0, 0, window)
+    else:
+        plan = BandmvPlan("share", blocks, 0, 0, 0, window)
+    if plan is None:
+        raise ValueError(
+            f"stack_plan: {levels} levels of rows of {ld * itemsize} bytes "
+            f"(w {w}) do not fit the {form} kernel in {_SMEM_PER_BLOCK} "
+            f"bytes of shared memory a block")
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
+def _stack_plan_on(nblk, levels, bs, w, ld, itemsize, device, form):
+    return stack_plan(nblk, levels, bs, w, ld, itemsize, _sm_count(device),
+                      form)
 
 
 @functools.lru_cache(maxsize=None)
@@ -544,11 +637,19 @@ def _bandmv_plan_on(nblk, bs, w, ld, device):
 def _bandmv_launch(name, stack, bases, x, nrows):
     """Launch ``csrc/bandmv.cu`` on ``stack (nblk, L, bs, w)`` (``bases``:
     int32 window starts on the device, or None for the banded form) on the
-    current stream; returns ``y (nrows,)`` f32.  :func:`banded_mv` and
-    :func:`rect_mv` on f32 blocks run on the kernel :func:`bandmv_plan`
-    picks (the ring kernel where the warp-per-row kernel's grid would not
-    fill the card), :func:`rect_mv_levels` and bf16 blocks on the
-    warp-per-row kernel."""
+    current stream; returns ``(y (nrows,) f32, the kernel form)``.
+
+    The kernels are bound by bytes: each stored entry is read once for one
+    multiply-add.  :func:`banded_mv` and :func:`rect_mv` on f32 blocks run
+    on the kernel :func:`bandmv_plan` picks (the bulk-copy ring where the
+    warp-per-row kernel's grid would not fill the card), bf16 blocks on the
+    warp-per-row kernel.  :func:`rect_mv_levels` runs on the form
+    :func:`stack_plan` picks for the stack's shape: the share kernel for
+    the one row block of ``S^-1`` (64 warp-per-row blocks at level 1, each
+    restaging all of x; two blocks an SM stage it once each) and for W's
+    three levels under a window of 16 KB or more; the ring for W's three
+    levels where the warp-per-row grid runs a wave and a bit (level 1); the
+    warp-per-row kernel elsewhere."""
     if stack.dtype not in _BAND_STORAGE or x.dtype != torch.float32:
         raise TypeError(
             f"{name} kernel takes f32 or bf16 blocks under an f32 vector, "
@@ -570,10 +671,14 @@ def _bandmv_launch(name, stack, bases, x, nrows):
     if not 1 <= levels <= 3 or nblk * bs < nrows or nrows <= 0:
         raise ValueError(f"{name} kernel: {levels} levels of {nblk} blocks "
                          f"of {bs} rows for {nrows} output rows")
-    plan = None
-    if name != "rect_mv_levels" and stack.dtype == torch.float32:
-        plan = _bandmv_plan_on(nblk, bs, w, ld, stack.get_device())
-    ring = plan is not None and plan.kernel == "ring"
+    dev = stack.get_device()
+    if name == "rect_mv_levels":
+        plan = _stack_plan_on(nblk, levels, bs, w, ld, item, dev,
+                              _STACK_PLAN["FORM"])
+    elif stack.dtype == torch.float32:
+        plan = _bandmv_plan_on(nblk, bs, w, ld, dev)
+    else:
+        plan = BandmvPlan("rows", 0, 0, 0, 0, 0)
     if bases is not None and (
             bases.dtype != torch.int32 or bases.device != stack.device
             or bases.shape != (nblk,) or not bases.is_contiguous()):
@@ -582,11 +687,18 @@ def _bandmv_launch(name, stack, bases, x, nrows):
                          f"{tuple(bases.shape)} on {bases.device}")
     x = x.contiguous()
     lib = _bandmv_lib()
-    dev = stack.get_device()
     y = torch.empty(nrows, dtype=torch.float32, device=stack.device)
     bp = None if bases is None else bases.data_ptr()
+    slev = slev if levels > 1 else 0
     with _on_device(dev):
-        if ring:
+        if name == "rect_mv_levels" and plan.kernel != "rows":
+            err = lib.bandmv_stack(
+                stack.data_ptr(), _BAND_STORAGE[stack.dtype], levels, sblk,
+                slev, ld, bp, x.data_ptr(), y.data_ptr(), nblk, bs, w,
+                x.shape[0], nrows, _STACK_FORMS[plan.kernel], plan.blocks,
+                plan.unit_rows, plan.stages, plan.smem_bytes,
+                _raw_stream(dev))
+        elif plan.kernel == "ring":
             err = lib.bandmv_ring_f32(
                 stack.data_ptr(), sblk, ld, bp, x.data_ptr(), y.data_ptr(),
                 nblk, bs, w, x.shape[0], nrows, plan.blocks, plan.unit_rows,
@@ -594,14 +706,22 @@ def _bandmv_launch(name, stack, bases, x, nrows):
         else:
             err = lib.bandmv_f32x(
                 stack.data_ptr(), _BAND_STORAGE[stack.dtype], levels, sblk,
-                slev if levels > 1 else 0, ld, bp, x.data_ptr(),
-                y.data_ptr(), nblk, bs, w, x.shape[0], nrows,
-                _raw_stream(dev))
+                slev, ld, bp, x.data_ptr(), y.data_ptr(), nblk, bs, w,
+                x.shape[0], nrows, _raw_stream(dev))
     if err != 0:
         raise RuntimeError(
             f"{name} kernel launch failed ({levels} x {tuple(stack.shape)} "
-            f"{stack.dtype}): {lib.bandmv_error_string(err).decode()}")
-    return y
+            f"{stack.dtype}, {plan.kernel} kernel): "
+            f"{lib.bandmv_error_string(err).decode()}")
+    return y, plan.kernel
+
+
+_STACK_FORMS = {"share": 1, "ring": 2}
+
+
+def _count(wrapper, kernel):
+    wrapper.launches += 1
+    wrapper.kernel_launches[kernel] += 1
 
 
 def banded_mv(blocks, x):
@@ -614,7 +734,8 @@ def banded_mv(blocks, x):
     On a CUDA tensor this launches the hand-written kernel of
     ``csrc/bandmv.cu`` (f32 blocks under an f32 ``x``, 16-byte aligned
     rows: :func:`band_operand`; anything else raises) and counts it in
-    ``banded_mv.launches``; on a CPU tensor it is :func:`banded_mv_ref`
+    ``banded_mv.launches`` (and by kernel form in ``kernel_launches``); on
+    a CPU tensor it is :func:`banded_mv_ref`
     (an einsum in the promoted type: f32 blocks under f64 work stay f32
     entries in f64 arithmetic)."""
     nblk, bs, w3 = blocks.shape
@@ -623,12 +744,14 @@ def banded_mv(blocks, x):
                          f"{tuple(x.shape)}")
     if not x.is_cuda:
         return banded_mv_ref(blocks, x)
-    y = _bandmv_launch("banded_mv", blocks[:, None], None, x, x.shape[0])
-    banded_mv.launches += 1
+    y, kernel = _bandmv_launch("banded_mv", blocks[:, None], None, x,
+                               x.shape[0])
+    _count(banded_mv, kernel)
     return y
 
 
 banded_mv.launches = 0
+banded_mv.kernel_launches = dict(rows=0, ring=0)
 
 
 def rect_mv(blocks, bases, x, nrows):
@@ -640,18 +763,20 @@ def rect_mv(blocks, bases, x, nrows):
 
     On a CUDA tensor this launches ``csrc/bandmv.cu`` (f32 blocks, f32
     ``x``, :func:`band_operand` storage) and counts it in
-    ``rect_mv.launches``; on a CPU tensor it is :func:`rect_mv_ref`."""
+    ``rect_mv.launches`` (and by kernel form in ``kernel_launches``); on a
+    CPU tensor it is :func:`rect_mv_ref`."""
     if blocks.dim() != 3 or x.dim() != 1:
         raise ValueError(f"rect_mv: blocks {tuple(blocks.shape)} @ x "
                          f"{tuple(x.shape)}")
     if not x.is_cuda:
         return rect_mv_ref(blocks, bases, x, nrows)
-    y = _bandmv_launch("rect_mv", blocks[:, None], bases, x, nrows)
-    rect_mv.launches += 1
+    y, kernel = _bandmv_launch("rect_mv", blocks[:, None], bases, x, nrows)
+    _count(rect_mv, kernel)
     return y
 
 
 rect_mv.launches = 0
+rect_mv.kernel_launches = dict(rows=0, ring=0)
 
 
 def rect_mv_levels(stack, bases, x, nrows, hi_only=False):
@@ -662,21 +787,30 @@ def rect_mv_levels(stack, bases, x, nrows, hi_only=False):
     whole ``S^-1`` stack (base 0), ``SchurSaddleSolver._sapply``.
 
     On a CUDA tensor this launches ``csrc/bandmv.cu`` (one to three f32 or
-    bf16 levels under an f32 ``x``, :func:`band_operand` storage) and
-    counts it in ``rect_mv_levels.launches``; on a CPU tensor it is
+    bf16 levels under an f32 ``x``, :func:`band_operand` storage) on the
+    kernel form :func:`stack_plan` picks, and counts it in
+    ``rect_mv_levels.launches`` (and by form in ``kernel_launches``, by the
+    launched stack's shape in ``stack_launches``); on a CPU tensor it is
     :func:`rect_mv_levels_ref`."""
     if stack.dim() != 4 or x.dim() != 1:
         raise ValueError(f"rect_mv_levels: stack {tuple(stack.shape)} @ x "
                          f"{tuple(x.shape)}")
     if not x.is_cuda:
         return rect_mv_levels_ref(stack, bases, x, nrows, hi_only)
-    y = _bandmv_launch("rect_mv_levels", stack[:, :1] if hi_only else stack,
-                       bases, x, nrows)
-    rect_mv_levels.launches += 1
+    stack = stack[:, :1] if hi_only else stack
+    y, kernel = _bandmv_launch("rect_mv_levels", stack, bases, x, nrows)
+    _count(rect_mv_levels, kernel)
+    shape = tuple(stack.shape)
+    rect_mv_levels.stack_launches[shape] = \
+        rect_mv_levels.stack_launches.get(shape, 0) + 1
     return y
 
 
 rect_mv_levels.launches = 0
+rect_mv_levels.kernel_launches = dict(rows=0, ring=0, share=0)
+# launches by the shape of the stack launched ((nblk, L, bs, w); hi_only
+# launches level 0 alone)
+rect_mv_levels.stack_launches = {}
 
 
 # ---------------------------------------------------------------------------

@@ -386,40 +386,92 @@ def _band_edge_case(name, rng):
                     [min(54 * k, 766) for k in range(19)])
     if name == "very_short_rows":           # 6 columns, bs 1
         return rect(50, 1, 6, 50, 60, list(range(50)))
+    return _stack_edge_case(name, rng, vec)
+
+
+def _stack_edge_case(name, rng, vec):
+    """The level-stack edge operands (NaN padding in every level)."""
+    def stack(nblk, lev, bs, w, nrows, nx, bases, dtype, hi=False):
+        S = _band_stack(rng, nblk, lev, bs, w, dtype)
+        b = torch.tensor(bases, dtype=torch.int32, device="cuda")
+        x = vec(nx)
+        return (rect_mv_levels, lambda: rect_mv_levels(S, b, x, nrows, hi),
+                lambda: rect_mv_levels_ref(S, b, x, nrows, hi),
+                lambda: rect_mv_levels_ref(S.abs(), b, x.abs(), nrows, hi))
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    spread = list(range(0, 19 * 300, 300))
+    if name == "stack_nan_padding_3_levels":     # w = 253: 3 NaN columns
+        return stack(19, 3, 384, 253, 19 * 384, 7000, spread, bf16)
+    if name == "stack_nan_padding_hi_only":
+        return stack(19, 3, 384, 253, 19 * 384, 7000, spread, bf16, hi=True)
+    if name == "stack_ragged_last_block_f32":
+        return stack(7, 2, 128, 300, 7 * 128 - 77, 1000,
+                     [100 * k for k in range(7)], f32)
+    if name == "stack_bases_at_edges":       # before 0, at 0, at and past nx
+        return stack(5, 3, 64, 120, 5 * 64, 400, [-5, 0, 280, 397, 410],
+                     bf16)
+    if name == "stack_one_block_bf16":           # S^-1 at level 1
+        return stack(1, 3, 1022, 1022, 1022, 1022, [0], bf16)
+    if name == "stack_one_block_f32":
+        return stack(1, 3, 1022, 1022, 1022, 1022, [0], f32)
     raise KeyError(name)
 
 
 _BAND_EDGES = ["windows_past_both_ends", "nan_padding", "ragged_last_block",
-               "rect_bases_at_edges", "jt_short_rows", "very_short_rows"]
+               "rect_bases_at_edges", "jt_short_rows", "very_short_rows",
+               "stack_nan_padding_3_levels", "stack_nan_padding_hi_only",
+               "stack_ragged_last_block_f32", "stack_bases_at_edges",
+               "stack_one_block_bf16", "stack_one_block_f32"]
 
 
-@pytest.fixture(params=["shipped", "ring"])
+# each edge operand as the shipped plans run it and forced onto each form
+# that takes it (the share kernel takes level stacks only)
+_BAND_EDGE_FORMS = [(name, form) for name in _BAND_EDGES
+                    for form in ("shipped", "ring", "rows")
+                    + (("share",) if name.startswith("stack") else ())]
+
+
+@pytest.fixture
 def band_kernel(request, monkeypatch):
-    """Each single-level f32 product as the shipped plan runs it, and on
-    the ring kernel whatever the plan would pick."""
+    """Each product as the shipped plans run it, and forced onto one kernel
+    form whatever the plan would pick: the ring kernel (single-level f32
+    blocks and level stacks), the warp-per-row kernel, the share kernel
+    (level stacks only)."""
     from dolfin_navier_scipy_tpu_torch.ops import kernels
-    if request.param == "ring":
+    form = request.param
+    if form == "ring":
         monkeypatch.setitem(kernels._BANDMV_PLAN, "RING_GRID_BELOW", 1 << 30)
+    if form == "rows":
+        monkeypatch.setitem(kernels._BANDMV_PLAN, "RING_GRID_BELOW", 0)
+    if form != "shipped":
+        monkeypatch.setitem(kernels._STACK_PLAN, "FORM", form)
     kernels._bandmv_plan_on.cache_clear()
-    yield request.param
+    kernels._stack_plan_on.cache_clear()
+    yield form
     kernels._bandmv_plan_on.cache_clear()
+    kernels._stack_plan_on.cache_clear()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", _BAND_EDGES)
+@pytest.mark.parametrize("name,band_kernel", _BAND_EDGE_FORMS,
+                         indirect=["band_kernel"])
 def test_band_edge_operands_on_the_card(name, band_kernel):
-    """Single-level f32 products on edge operands: within the row bar (1e-5
-    of the row's sum of |B||x|), the same bits twice, one launch counted,
-    one device kernel a call, and the same bits from a CUDA-graph
-    replay."""
+    """Single-level f32 products and level stacks on edge operands: within
+    the row bar (1e-5 of the row's sum of |B||x|), the same bits twice, one
+    launch counted (on the forced form), one device kernel a call, and the
+    same bits from a CUDA-graph replay."""
     if not torch.cuda.is_available():
         pytest.skip(NEEDS_CARD)
     wrapper, run, plain, absplain = _band_edge_case(
         name, np.random.default_rng(21))
     before = wrapper.launches
+    by_form = dict(wrapper.kernel_launches)
     got = run()
     torch.cuda.synchronize()
     assert wrapper.launches == before + 1
+    if band_kernel != "shipped":
+        assert wrapper.kernel_launches[band_kernel] == by_form[band_kernel] + 1
     ref = plain()
     assert got.dtype == torch.float32 and got.shape == ref.shape
     assert bool(torch.isfinite(got).all())
@@ -448,6 +500,30 @@ def test_band_kernels_refuse_what_they_cannot_take():
         rect_mv(ok, bases.long(), x, 32)
     with pytest.raises(ValueError):
         rect_mv(ok, bases, x, 33)               # past nblk * bs rows
+    # level stacks: the type, the level count, a misaligned start, the
+    # rows, the bases, a window past a block's shared memory on every form
+    st = band_operand((2, 3, 16, 13), torch.bfloat16, "cuda")
+    with pytest.raises(TypeError):
+        rect_mv_levels(st.half(), bases, x, 32)
+    with pytest.raises(ValueError):
+        rect_mv_levels(band_operand((2, 4, 16, 13), torch.bfloat16, "cuda"),
+                       bases, x, 32)
+    with pytest.raises(ValueError, match="band_operand"):
+        rect_mv_levels(band_operand((2, 3, 16, 14), torch.bfloat16,
+                                    "cuda")[..., 1:], bases, x, 32)
+    with pytest.raises(ValueError):
+        rect_mv_levels(st, bases, x, 33)
+    with pytest.raises(ValueError, match="int32"):
+        rect_mv_levels(st, bases.long(), x, 32)
+    from dolfin_navier_scipy_tpu_torch.ops import kernels
+    wide = band_operand((1, 1, 8, 60000), torch.bfloat16, "cuda")
+    for form in ("share", "ring", "rows"):
+        kernels._STACK_PLAN["FORM"] = form
+        try:
+            with pytest.raises(ValueError, match="shared memory"):
+                rect_mv_levels(wide, bases[:1], x, 8)
+        finally:
+            kernels._STACK_PLAN["FORM"] = None
 
 
 @pytest.mark.cuda

@@ -314,6 +314,216 @@ def test_bandmv_plan_takes_the_ring_where_row_blocks_cannot_fill_the_card(
         assert plan.blocks == nblk * -(-bs // rows)
 
 
+# -- the level stacks of rect_mv_levels (csrc/bandmv.cu: stack_plan) ---------
+
+# (nblk, levels, bs, w): W, X and S^-1 of the default route at levels 1-3
+_STACK_SHAPES = {
+    "W_L1": (19, 3, 384, 1664), "X_L1": (19, 2, 384, 1022),
+    "S_L1": (1, 3, 1022, 1022), "W_L2": (51, 3, 512, 2688),
+    "X_L2": (51, 2, 512, 2048), "S_L2": (1, 3, 3541, 3541),
+    "W_L3": (112, 3, 896, 5248), "X_L3": (112, 2, 896, 3456),
+    "S_L3": (1, 3, 13062, 13062),
+}
+
+
+def _share_rows(plan, nrows):
+    """The share kernel's rows, ``block -> range``: ``nrows`` cut into
+    ``plan.blocks`` equal contiguous shares, the first ``nrows % blocks``
+    one row longer."""
+    per, rem = divmod(nrows, plan.blocks)
+    return {b: range(b * per + min(b, rem), b * per + min(b, rem) + per
+                     + (b < rem)) for b in range(plan.blocks)}
+
+
+def _stack_forms(nblk, levels, bs, w, ld, itemsize, sm_count):
+    out = {}
+    for form in ("rows", "share", "ring"):
+        try:
+            out[form] = kernels.stack_plan(nblk, levels, bs, w, ld, itemsize,
+                                           sm_count, form)
+        except ValueError:
+            pass
+    return out
+
+
+@pytest.mark.parametrize("shape", list(_STACK_SHAPES.values()),
+                         ids=list(_STACK_SHAPES))
+def test_stack_plan_covers_every_row_of_every_level_within_shared_memory(
+        shape):
+    """Each form a level stack can take, from its shape alone: every row of
+    every level read exactly once, each bulk copy 16-byte aligned and
+    inside its slot, each block within 227 KB of shared memory."""
+    nblk, levels, bs, w = shape
+    item, vec = 2, 8
+    ld = -(-w // vec) * vec                       # band_operand's rows
+    sblk, slev, nvec = levels * bs * ld, bs * ld, -(-w // vec)
+    nrows = nblk * bs - (bs // 3 if nblk > 1 else 0)     # a ragged end
+    forms = _stack_forms(nblk, levels, bs, w, ld, item, 132)
+    assert set(forms) >= {"rows", "share"}
+    chosen = kernels.stack_plan(nblk, levels, bs, w, ld, item, 132)
+    assert chosen.kernel in forms
+    window = 4 * (-(-w // 8) * 8)
+    rows = forms["rows"]
+    assert rows.blocks == nblk * -(-bs // kernels._BANDMV_GEOMETRY["ROWS"])
+    assert rows.smem_bytes == window <= 232448
+    # the forced share grid and, where the plan picks it, the plan's
+    for share in {forms["share"], chosen} - {rows, forms.get("ring")}:
+        assert share.kernel == "share"
+        assert share.smem_bytes == window <= 232448
+        shares = _share_rows(share, nrows)
+        assert [r for b in range(share.blocks) for r in shares[b]] == \
+            list(range(nrows))
+        sizes = [len(r) for r in shares.values()]
+        assert max(sizes) - min(sizes) <= 1 and min(sizes) >= 1
+    ring = forms.get("ring")
+    if ring is None:
+        # one row of every level beside its window is past 227 KB
+        assert 32 + 4 * vec * nvec + levels * ld * item > 232448
+        return
+    assert ring.slot_bytes == ring.unit_rows * levels * ld * item
+    assert ring.smem_bytes == ring.stages * (32 + 4 * vec * nvec
+                                             + ring.slot_bytes) <= 232448
+    units = [u for share in _ring_units(ring, nblk, bs, nrows).values()
+             for u in share]
+    covered = sorted(r for row, _, _, n in units
+                     for r in range(row, row + n))
+    assert covered == list(range(nrows))
+    for row, k, i, n in units:
+        assert row == k * bs + i and 1 <= n <= ring.unit_rows and i + n <= bs
+        for lev in range(levels):
+            # one bulk copy a level: whole rows, the last to its last vector
+            start = item * (k * sblk + lev * slev + i * ld)
+            nbytes = item * ((n - 1) * ld + vec * nvec)
+            assert start % 16 == 0 and nbytes % 16 == 0
+            assert nbytes <= ring.slot_bytes // levels
+            assert start + nbytes <= item * nblk * sblk
+
+
+def _replay_stack(form, plan, B, base, x, nrows):
+    """The kernel form's schedule replayed in numpy on the stack's flat
+    storage (its padding NaN): the share kernel's row shares, each row
+    block's window staged once a share; or the ring's units, one copy a
+    level.  Every row written once, the level dots added in order."""
+    nblk, levels, bs, w = B.shape
+    sblk, slev, ld = B.stride(0), B.stride(1), B.stride(2)
+    vec = 16 // B.element_size()
+    nvec = -(-w // vec)
+    flat = B.as_strided((nblk * sblk,), (1,)).float().numpy().copy()
+    flat.reshape(nblk, -1, bs, ld)[..., w:] = np.nan
+    nx = len(x)
+    y = np.full(nrows, np.nan)
+
+    def window(k):
+        g = base[k] + np.arange(vec * nvec)
+        inside = (np.arange(vec * nvec) < w) & (g >= 0) & (g < nx)
+        return np.where(inside, x[np.clip(g, 0, nx - 1)], 0.0)
+
+    def rows_of(k, i, m, lev_rows):
+        # lev_rows[l]: the m rows of level l as read (ld apart), masked
+        xs = window(k)
+        tot = 0.0
+        for lev in range(levels):
+            r = lev_rows[lev].reshape(m, ld)[:, :vec * nvec].copy()
+            r[:, w:] = 0.0
+            tot = tot + r.astype(np.float64) @ xs
+        assert np.isnan(y[k * bs + i:k * bs + i + m]).all()   # once
+        y[k * bs + i:k * bs + i + m] = tot
+
+    if form == "share":
+        for rows in _share_rows(plan, nrows).values():
+            for row in rows:
+                k, i = divmod(row, bs)
+                start = k * sblk + i * ld
+                rows_of(k, i, 1, [flat[start + lev * slev:
+                                       start + lev * slev + ld]
+                                  for lev in range(levels)])
+    else:
+        for row, k, i, m in (u for share in _ring_units(plan, nblk, bs,
+                                                        nrows).values()
+                             for u in share):
+            count = (m - 1) * ld + vec * nvec
+            slabs = []
+            for lev in range(levels):
+                start = k * sblk + lev * slev + i * ld
+                assert start + count <= flat.size
+                slab = np.zeros(m * ld, np.float32)
+                slab[:count] = flat[start:start + count]
+                slabs.append(slab)
+            rows_of(k, i, m, slabs)
+    return y
+
+
+@pytest.mark.parametrize("form", ["share", "ring"])
+@pytest.mark.parametrize("case", [
+    (3, 5, 40, 101, 200, False, torch.bfloat16),   # ragged end, 3 levels
+    (2, 4, 48, 77, 192, True, torch.bfloat16),     # hi_only
+    (1, 3, 90, 90, 90, False, torch.bfloat16),     # one row block, base 0
+    (1, 6, 16, 30, 80, False, torch.bfloat16),     # one level
+    (3, 3, 32, 45, 90, False, torch.float32)])     # f32 levels
+def test_stack_schedule_replays_the_product(form, case):
+    """The share kernel's and the ring's schedules over a level stack,
+    replayed in numpy on the storage with NaN padding, window starts
+    before 0 and past the end of x: equal to ``rect_mv_levels_ref``."""
+    levels, nblk, bs, w, n, hi, dtype = case
+    rng = np.random.default_rng(11)
+    S = band_operand((nblk, levels, bs, w), dtype)
+    S.copy_(torch.from_numpy(rng.normal(size=(nblk, levels, bs, w))))
+    nx = w + 40
+    if nblk == 1:
+        base = np.zeros(1, np.int64)
+        nx = w
+    else:
+        base = np.sort(rng.integers(-w // 2, nx - w // 2, size=nblk))
+        base[0], base[-1] = -3, nx - 2
+    x = rng.normal(size=nx).astype(np.float32)
+    nrows = min(n, nblk * bs)
+    ref = kernels.rect_mv_levels_ref(
+        S, torch.from_numpy(base.astype(np.int32)), torch.from_numpy(x),
+        nrows, hi).numpy()
+    St = S[:, :1] if hi else S
+    plan = kernels.stack_plan(nblk, St.shape[1], bs, w, S.stride(2),
+                              S.element_size(), 4, form)
+    assert plan.kernel == form
+    y = _replay_stack(form, plan, St, base, x, nrows)
+    assert np.isfinite(y).all()
+    np.testing.assert_allclose(y, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name,levels,kernel", [
+    ("W_L1", 3, "ring"), ("W_L1", 1, "rows"), ("X_L1", 2, "rows"),
+    ("S_L1", 3, "share"), ("W_L2", 3, "rows"), ("W_L2", 1, "rows"),
+    ("X_L2", 2, "rows"), ("S_L2", 3, "share"), ("W_L3", 3, "share"),
+    ("W_L3", 1, "rows"), ("X_L3", 2, "rows"), ("S_L3", 3, "share")])
+def test_stack_plan_picks_the_form_measured_fastest(name, levels, kernel):
+    """The form the plan picks for each level stack of the default route
+    (W's level 0 alone: levels 1), the fastest of the three on an H100 in
+    turns (PERF.md): the share kernel for the one row block of S^-1 and for
+    W's 3 levels under a window of 16 KB or more, the ring for W at level 1
+    (its warp-per-row grid runs a wave and a bit), the warp-per-row kernel
+    elsewhere."""
+    nblk, _, bs, w = _STACK_SHAPES[name]
+    plan = kernels.stack_plan(nblk, levels, bs, w, -(-w // 8) * 8, 2, 132)
+    assert plan.kernel == kernel
+    if kernel == "share" and nblk == 1:
+        assert plan.blocks == 2 * 132            # persistent, two an SM
+    elif kernel == "share":
+        assert plan.blocks == -(-nblk * bs // 8)   # 8 rows a block
+
+
+def test_stack_plan_fills_every_sm_for_the_level_1_schur_inverse():
+    """``S^-1`` at level 1 is one row block of 1022 rows: the warp-per-row
+    grid (64 blocks of 16 rows) leaves half of 132 SMs idle; the plan's
+    form gives every SM rows."""
+    nblk, levels, bs, w = _STACK_SHAPES["S_L1"]
+    plan = kernels.stack_plan(nblk, levels, bs, w, 1024, 2, 132)
+    assert plan.kernel != "rows" and plan.blocks >= 132
+    if plan.kernel == "ring":
+        per = _ring_units(plan, nblk, bs, bs).values()
+    else:
+        per = _share_rows(plan, bs).values()
+    assert min(len(p) for p in per) >= 1
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_vecmat_operand_rows_are_16_byte_aligned(dtype):
     rng = np.random.default_rng(3)

@@ -15,9 +15,12 @@ alone), X and ``S^-1``.  One JSON line each, after the card's name and
 power limit, for each version:
 
 * ``this``: this checkout's wrapper, on the kernel its plan picks
-  (``kernel``: ``"ring"`` or ``"rows"``, ``ops/kernels.py: bandmv_plan``);
-  ``ring`` (single-level f32 operands): the same wrapper with every such
-  product sent to the bulk-copy ring kernel; ``other`` with ``--root``;
+  (``kernel``: ``"ring"``, ``"rows"`` or ``"share"``, ``ops/kernels.py:
+  bandmv_plan`` and ``stack_plan``); ``ring`` (single-level f32 operands):
+  the same wrapper with every such product sent to the bulk-copy ring
+  kernel; ``rows``, ``share``, ``ring`` (level stacks): the same wrapper
+  with the stack forced onto that form where it can take it; ``other``
+  with ``--root``;
 * the result against the plain version (``max_err_over_row_bar``: the
   largest error over 1e-5 of the row's sum of |B||x|; must stay <= 1), two
   launches against each other (``bitwise``) and a CUDA-graph replay
@@ -25,7 +28,8 @@ power limit, for each version:
 * device ms a call in a CUDA-graph replay cycling over copies of the
   operand beyond three times the 50 MB L2 (``ms``: in a step each operand
   is read once among ~150 MB of others) and eager ms, read in turns
-  (other, this, ring, ring, this, other, ``--rounds`` times); the byte
+  (other, this, forms, forms reversed, this, other, ``--rounds`` times);
+  the byte
   bound; one ``torch.bmm`` over pre-gathered windows (``library_ms``).
 
 ``--root CHECKOUT`` loads that checkout's ``ops/kernels.py`` (e.g. the
@@ -35,8 +39,10 @@ build/parent``) as a module of its own and builds its ``csrc/bandmv.cu``
 two versions compare only within one call).  ``--sweep`` also times the
 ring kernel under other launch plans (``SWEEP``: blocks an SM, unit bytes,
 ring bytes, fewest units a block; a plan is launch geometry, the kernel is
-the same).  ``--quick`` checks every operand and reads one graph timing a
-version.
+the same) and the share kernel of a level stack over other grids
+(``SHARE_SWEEP``: blocks an SM, or rows a block).  ``--names`` reads only
+the products of the wrappers named.  ``--quick`` checks every operand and
+reads one graph timing a version.
 """
 
 import argparse
@@ -63,6 +69,8 @@ SWEEP = [dict(BLOCKS_PER_SM=b, UNIT_BYTES=u, RING_BYTES=r, MIN_UNITS=m)
          for b, u, r, m in ((1, 49152, 196608, 2), (1, 49152, 196608, 3),
                             (1, 49152, 196608, 1), (2, 24576, 98304, 2),
                             (1, 24576, 196608, 2))]
+SHARE_SWEEP = [dict(SHARE_BLOCKS_PER_SM=b) for b in (1, 2, 3, 4)]
+STACK_FORMS = ("rows", "share", "ring")
 
 
 def say(**kw):
@@ -191,11 +199,45 @@ def plan_override(kernels, **keys):
         kernels._bandmv_plan_on.cache_clear()
 
 
-def ring_everywhere(kernels, on):
-    """Every single-level f32 product on the ring kernel (``on``), or the
-    shipped plans."""
-    return (plan_override(kernels, RING_GRID_BELOW=1 << 30) if on
-            else contextlib.nullcontext())
+@contextlib.contextmanager
+def stack_override(kernels, **keys):
+    """``kernels._STACK_PLAN`` with ``keys`` changed (the plans made anew
+    on the way in and out)."""
+    shipped = dict(kernels._STACK_PLAN)
+    kernels._STACK_PLAN.update(keys)
+    kernels._stack_plan_on.cache_clear()
+    try:
+        yield
+    finally:
+        kernels._STACK_PLAN.clear()
+        kernels._STACK_PLAN.update(shipped)
+        kernels._stack_plan_on.cache_clear()
+
+
+def forced(kernels, tag, stack):
+    """The plans under which version ``tag`` runs: the ring for every
+    single-level f32 product (``ring``), one kernel form for every level
+    stack (``rows``, ``share``, ``ring``), or the shipped plans."""
+    if stack and tag in STACK_FORMS:
+        return stack_override(kernels, FORM=tag)
+    if tag == "ring":
+        return plan_override(kernels, RING_GRID_BELOW=1 << 30)
+    return contextlib.nullcontext()
+
+
+def stack_forms(kernels, B):
+    """The forms that can take level stack ``B``."""
+    nblk, lev, bs, w = B.shape
+    out = []
+    for form in STACK_FORMS:
+        try:
+            kernels.stack_plan(nblk, lev, bs, w, B.stride(2),
+                               B.element_size(),
+                               kernels._sm_count(B.get_device()), form)
+        except ValueError:
+            continue
+        out.append(form)
+    return out
 
 
 def read_form(form, versions, args, kernels):
@@ -217,11 +259,13 @@ def read_form(form, versions, args, kernels):
     copies = cold_copies(kernels, B)
     calls = max(20, len(copies))
     runs = {}
+    stack = name == "rect_mv_levels"
     ring_tag = single and B.dtype == torch.float32
-    tags = [(t, m) for t, m in versions] + ([("ring", kernels)] if ring_tag
-                                            else [])
+    extra = (stack_forms(kernels, B[:, :levels]) if stack
+             else ["ring"] if ring_tag else [])
+    tags = [(t, m) for t, m in versions] + [(t, kernels) for t in extra]
     for tag, mod in tags:
-        with ring_everywhere(kernels, tag == "ring"):
+        with forced(kernels, tag, stack):
             fn = getattr(mod, name)
             y, again = fn(B, *xargs), fn(B, *xargs)
             torch.cuda.synchronize()
@@ -231,9 +275,7 @@ def read_form(form, versions, args, kernels):
                             graph_replay_equal=replay_equal(fn, B, xargs, y),
                             ms=[], eager_ms=[])
             if mod is kernels:
-                row[tag]["kernel"] = (kernels._bandmv_plan_on(
-                    nblk, bs, w, B.stride(-2), B.get_device()).kernel
-                    if ring_tag else "rows")
+                row[tag]["kernel"] = kernel_of(kernels, name, B, levels)
         it = itertools.cycle(copies)
         runs[tag] = lambda fn=fn, it=it: fn(next(it), *xargs)
     # one torch.bmm over the windows gathered beforehand (x cast to the
@@ -253,7 +295,7 @@ def read_form(form, versions, args, kernels):
     turns = order + order[::-1]
     for _ in range(1 if args.quick else args.rounds):
         for tag in turns:
-            with ring_everywhere(kernels, tag == "ring"):
+            with forced(kernels, tag, stack):
                 row[tag]["ms"].append(graph_ms(runs[tag], calls))
                 if not args.quick:
                     row[tag]["eager_ms"].append(
@@ -264,8 +306,33 @@ def read_form(form, versions, args, kernels):
         row[tag]["share_of_bound"] = bound / min(row[tag]["ms"])
     if args.sweep and ring_tag:
         row["sweep"] = sweep(kernels, runs["ring"], B, calls)
+    if args.sweep and "share" in extra:
+        row["sweep"] = share_sweep(kernels, runs["share"], B[:, :levels],
+                                   calls)
     say(**row)
     return row
+
+
+def kernel_of(kernels, name, B, levels):
+    """The kernel form a call of wrapper ``name`` on ``B`` launches."""
+    nblk, bs, w = B.shape[0], B.shape[-2], B.shape[-1]
+    dev = B.get_device()
+    if name == "rect_mv_levels":
+        return kernels._stack_plan_on(nblk, levels, bs, w, B.stride(-2),
+                                      B.element_size(), dev,
+                                      kernels._STACK_PLAN["FORM"]).kernel
+    if B.dtype != torch.float32:
+        return "rows"
+    return kernels._bandmv_plan_on(nblk, bs, w, B.stride(-2), dev).kernel
+
+
+def share_sweep(kernels, run, B, calls):
+    """The share kernel of a level stack over other grids."""
+    out = []
+    for variant in SHARE_SWEEP:
+        with stack_override(kernels, FORM="share", **variant):
+            out.append(dict(plan=variant, ms=graph_ms(run, calls)))
+    return out
 
 
 def sweep(kernels, run, B, calls):
@@ -289,6 +356,8 @@ def main():
     ap.add_argument("--reps", type=int, default=100)
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--quick", action="store_true")
+    ap.add_argument("--names", nargs="+", default=None,
+                    help="read only these wrappers' products")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("band_variants.py needs a CUDA card")
@@ -309,8 +378,8 @@ def main():
     say(build_seconds=time.time() - t0, ptxas=[
         ln.strip() for ln in logs["bandmv"].splitlines()
         if "registers" in ln or "spill" in ln or "Compiling" in ln],
-        plan=kernels._BANDMV_PLAN, geometry=kernels._BANDMV_GEOMETRY,
-        other=args.root)
+        plan=kernels._BANDMV_PLAN, stack_plan=kernels._STACK_PLAN,
+        geometry=kernels._BANDMV_GEOMETRY, other=args.root)
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(0)
     for level in args.level:
@@ -324,7 +393,8 @@ def main():
         say(level=level, setup_seconds=time.time() - t0, setup=slv.setup,
             nin=slv._nin, np=slv.np, bs=slv._bs, nblk=slv._nblk)
         for form in forms(slv, gen):
-            read_form(form, versions, args, kernels)
+            if args.names is None or form[0] in args.names:
+                read_form(form, versions, args, kernels)
         del ops, slv, prob
         torch.cuda.empty_cache()
 
