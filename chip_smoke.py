@@ -55,6 +55,15 @@ can take it (warp-per-row, row shares, ring), at level 1 and at level 2.
 The default calls must launch each stack on the form its plan picks
 (``rect_mv_levels.kernel_launches``, ``stack_launches``).
 
+Step 2 also holds the affine element kernel (``csrc/affine.cu``) in every
+mode of ``affine_mv`` and in its fused saddle residual ``affine_residual``
+against the plain versions at levels 1 and 2 (f32 and f64 tables, inner
+and full dof sets; at level 1 each form forced): one kernel node a call,
+not a cooperative launch, the same bits on a rerun and a graph replay,
+and times beside an empty kernel on the same grid.  The dense inner-layout
+runs (``sbdf2`` at level 1, the dense route at level 2) take the residual
+of their refinement round in one launch.
+
 Every phase prints one JSON line; any failed phase raises, so the exit
 code is non-zero and the final line is missing.  The last line is
 ``{"ok": true, "device": {...}}``, the one before it the ``kernels`` table.
@@ -86,7 +95,8 @@ from dolfin_navier_scipy_tpu_torch.models import (
 from dolfin_navier_scipy_tpu_torch.ops import kernels
 from dolfin_navier_scipy_tpu_torch.ops.affine import AffineVectorOps
 from dolfin_navier_scipy_tpu_torch.ops.kernels import (
-    _windows, affine_mv, affine_mv_ref, as_band_operand, as_vecmat_operand,
+    _affine_launch, _windows, affine_mv, affine_mv_ref, affine_residual,
+    affine_residual_ref, as_band_operand, as_vecmat_operand,
     banded_mv, banded_mv_ref, conv_vector, conv_vector_amatvec,
     conv_vector_amatvec_ref, conv_vector_ref, rect_mv, rect_mv_levels,
     rect_mv_levels_ref, rect_mv_ref, vecmat, vecmat_ref)
@@ -100,7 +110,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 F64_FLOP_PER_S = 34e12
 WRAPPERS = (vecmat, conv_vector, conv_vector_amatvec, banded_mv, rect_mv,
-            rect_mv_levels, affine_mv)
+            rect_mv_levels, affine_mv, affine_residual)
 NONE_BANDED = dict(banded_mv=0, rect_mv=0, rect_mv_levels=0)
 
 SEED = 0
@@ -566,11 +576,13 @@ def ring_everywhere():
         kernels._bandmv_plan_on.cache_clear()
 
 
-def captured(fn):
+def captured(fn, cooperative=None):
     """``fn`` captured once in a CUDA graph (on a side stream that ran it
     first) and replayed: ``(node types, the replay's output)``; the nodes
     read through libcuda (``cuGraphGetNodes``; type 0 a kernel), which
-    counts a call's kernels where the profiler may see nothing."""
+    counts a call's kernels where the profiler may see nothing.  A list
+    ``cooperative`` gets each kernel node's cooperative-launch attribute
+    (``cuGraphKernelNodeGetAttribute``; None where libcuda does not say)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -593,6 +605,12 @@ def captured(fn):
                                       ctypes.byref(kind)) == 0,
                 "cuGraphNodeGetType")
         types.append(kind.value)
+        if cooperative is not None and kind.value == 0:
+            val = (ctypes.c_int * 16)()       # CUlaunchAttributeValue
+            ok = cu.cuGraphKernelNodeGetAttribute(
+                ctypes.c_void_p(nodes[i]), 2,  # ..._ATTRIBUTE_COOPERATIVE
+                ctypes.byref(val)) == 0
+            cooperative.append(bool(val[0]) if ok else None)
     graph.replay()
     torch.cuda.synchronize()
     return types, out
@@ -807,8 +825,9 @@ def level2_path(dev, gen, nsteps):
     divergence, and the final velocity against the same run on the card's
     dense route (inner layout: the ~29 507^2 inverse through ``vecmat``,
     one apply and one refinement round a step); then every kernel against
-    its plain version on that path's operands.  Returns the rows for the
-    ``kernels`` line."""
+    its plain version on that path's operands.  Returns the dense route's
+    launches of the fused residual and the rows for the ``kernels``
+    line."""
     t0 = time.time()
     prob = cylinderwake_problem(level=LEVEL2, Re=RE, charvel=CHARVEL)
     problem_s = time.time() - t0
@@ -857,11 +876,12 @@ def level2_path(dev, gen, nsteps):
     ref_wall = time.time() - t0
     ref_counts = counts()
     ref_peak = torch.cuda.max_memory_allocated()
-    # a step: the apply and one refinement round; A v, the round's residual
-    # (K, J^T, J) and the continuity rhs (J v, f64) through the affine kernel
+    # a step: the apply and one refinement round; A v and the continuity
+    # rhs (J v, f64) through the affine kernel, the round's residual (K v +
+    # J^T q, J v) through its fused form, one launch
     require(ref_counts == dict(vecmat=2 * nsteps, conv_vector=nsteps + 3,
-                               conv_vector_amatvec=0, affine_mv=5 * nsteps,
-                               **NONE_BANDED),
+                               conv_vector_amatvec=0, affine_mv=2 * nsteps,
+                               affine_residual=nsteps, **NONE_BANDED),
             f"launches of the level-2 dense run: {ref_counts}")
     require(ref["ffflag"] is False, "level-2 dense run")
     ref_div = divergence_rel(prob, ref["v"])
@@ -870,7 +890,8 @@ def level2_path(dev, gen, nsteps):
         want = dict(vecmat=0, conv_vector=nsteps + 4, conv_vector_amatvec=0,
                     banded_mv=nsteps * (1 + wr),
                     rect_mv=nsteps * (1 + 3 * wr),
-                    rect_mv_levels=nsteps * 3 * (1 + wr), affine_mv=0)
+                    rect_mv_levels=nsteps * 3 * (1 + wr), affine_mv=0,
+                    affine_residual=0)
         require(c == want, f"launches of the level-2 run, warm_refine={wr}:"
                 f" {c} != {want}")
         by_form, by_shape = stack_runs[wr]
@@ -953,7 +974,7 @@ def level2_path(dev, gen, nsteps):
                     kernel=chk["kernel"], design=BAND_DESIGN[chk["kernel"]])
 
     conv = next(c for c in conv_checks if c["form"] == "vector")
-    return [
+    return ref_counts["affine_residual"], [
         dict(name="vecmat_level2", route="cuda",
              source="dolfin_navier_scipy_tpu_torch/csrc/vecmat.cu",
              replaces="dolfin_navier_scipy_tpu/ops/pallas_kernels.py:31",
@@ -986,13 +1007,18 @@ def level2_path(dev, gen, nsteps):
 # ---------------------------------------------------------------------------
 
 AFFINE_REPLACES = "dolfin_navier_scipy_tpu/ops/affine.py:54"
-AFFINE_DESIGN = "element-lanes"  # 8 lanes an element, grid barrier, ELL sum
+AFFINE_DESIGN = ("element blocks: a chunk and its halo in shared memory, "
+                 "no grid-wide wait")
+# plan settings that cut the elements into chunks of one (the held-against
+# partition: every chunk gives the same bits)
+AFFINE_ONE_CHUNK = dict(MIN_CHUNK=1, BLOCKS_PER_SM=10**6)
 AFFINE_MODES = (("m", 1.0, 0.0), ("a", 0.0, 1.0), ("ma", 1.0, 5e-4),
-                ("j", 1.0, 0.0), ("jt", 1.0, 0.0))
+                ("j", 1.0, 0.0), ("jt", 1.0, 0.0), ("res", 1.0, 5e-4))
 # the vector type each mode gets on the paths: the f64 carry under A v, f32
-# work vectors elsewhere (M dv, the dense solver's residual K, J^T, J)
+# work vectors under M dv and the dense solver's residual; J v of the
+# continuity rhs is f64 on f64 tables (timed there)
 AFFINE_STATE = dict(m=torch.float32, a=torch.float64, ma=torch.float32,
-                    j=torch.float32, jt=torch.float32)
+                    j=torch.float32, jt=torch.float32, res=torch.float32)
 # the box behind the cylinder the observation operator averages over
 WAKE_BOX = dict(xmin=0.3, xmax=0.5, ymin=0.1, ymax=0.3)
 
@@ -1010,20 +1036,21 @@ def abs_tables(aff):
 
 
 def affine_bound_ms(t, mode, x_item, facets):
-    """Least time for one affine matvec on tables ``t``: the vector, the
-    int32 dof table, the geometry (``JinvT``, ``wdet``, ``detJ``), the
+    """Least time for one affine call on tables ``t``: the vectors, the
+    int32 dof tables, the geometry (``JinvT``, ``wdet``, ``detJ``), the
     reference tables and the facet blocks read once and the output written
     once over the memory rate; the multiply-adds of the per-point chain,
-    the facet rows and the reduction over the rate of the work type."""
+    the facet rows and the reduction over the rate of the work type.
+    ``res``: the three matvecs of the residual, sharing the gathers."""
     s = t.wdet.element_size()
     nc, Q, dim, nvpc, pn = t.nc, t.Q, t.dim, t.nvpc, t.pnpc
     nd = nvpc * dim
     nfac = int(t.fac_elem.shape[0]) if facets else 0
-    nin, nout = ((t.npc, t.nin) if mode == "jt" else
-                 (t.nin, t.npc if mode == "j" else t.nin))
-    ids = pn if mode == "jt" else nd
+    nin = dict(jt=t.npc, res=t.nin + t.npc).get(mode, t.nin)
+    nout = dict(j=t.npc, res=t.nin + t.npc).get(mode, t.nin)
+    ids = dict(jt=pn, res=nd + pn).get(mode, nd)
     nbytes = (x_item * (nin + nout) + 4 * nc * ids
-              + s * nc * (dim * dim + Q + (1 if mode in ("m", "ma") else 0))
+              + s * nc * (dim * dim + Q + (mode in ("m", "ma", "res")))
               + s * Q * (nvpc * (1 + dim) + pn + 1)
               + nfac * nd * (s * nd + 4))
     grad = 2 * nvpc * dim * dim + 2 * dim ** 3
@@ -1033,24 +1060,73 @@ def affine_bound_ms(t, mode, x_item, facets):
         j=grad + dim + 2 * pn,
         jt=2 * pn + 2 * nvpc * dim * dim + 2 * nvpc * dim)
     per_q["ma"] = per_q["a"] + per_q["m"]
-    flops = nc * Q * per_q[mode] + 2 * nfac * nd * nd + nc * (
-        pn if mode == "j" else nd)
+    per_q["res"] = per_q["ma"] + per_q["jt"] + dim + 2 * pn
+    out_terms = dict(j=pn, res=2 * nd + pn).get(mode, nd)
+    flops = nc * Q * per_q[mode] + 2 * nfac * nd * nd + nc * out_terms
     rate = F32_FLOP_PER_S if s == 4 else F64_FLOP_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
-def check_affine(aff, prob, full_dofs, what, gen, timed, counted=False):
-    """The affine kernel in every mode against its plain version on the
-    same inputs (f32 and f64 vectors): both sum at most a few hundred
-    products of one row in another order; the bar is 1e-5 of the row's sum
-    of the absolute products (:func:`abs_tables`; as for the banded
-    kernels).  Two launches must give the same bits.
-    ``timed``: for the
-    vector type each mode gets on the paths, the kernel (graph replay and
-    eager), its plain version, the one-call library equivalent (a cuSPARSE
-    CSR matvec with the assembled matrix) and the bound."""
+@contextlib.contextmanager
+def affine_plan_set(**keys):
+    """Every affine plan made inside takes these ``_AFFINE_PLAN`` keys."""
+    shipped = dict(kernels._AFFINE_PLAN)
+    kernels._AFFINE_PLAN.update(keys)
+    try:
+        yield
+    finally:
+        kernels._AFFINE_PLAN.update(shipped)
+
+
+@contextlib.contextmanager
+def affine_wide_slots(rows=16):
+    """Every affine partition made inside has its slot table padded to
+    ``rows`` rows (-1), past the 12 the kernel holds in registers: the
+    kernel then reads every dof's slots from the table."""
+    fit = kernels.affine_fit
+
+    def padded(t, kind, chunk, smem_max=None):
+        part, chunk, smem = fit(t, kind, chunk, smem_max)
+        lell = part["lell"]
+        pad = np.full((rows - lell.shape[0], lell.shape[1]), -1, lell.dtype)
+        return dict(part, lell=np.concatenate([lell, pad])), chunk, smem
+
+    kernels.affine_fit = padded
+    try:
+        yield
+    finally:
+        kernels.affine_fit = fit
+
+
+def fresh_tables(aff):
+    """The tables without their launch plans (another chunk makes its
+    own)."""
+    t = copy.copy(aff)
+    t._plans = {}
+    return t
+
+
+def check_affine(aff, prob, full_dofs, what, gen, timed=None, counted=False,
+                 chunks=False):
+    """The affine kernel in every mode, and the fused residual ('res'),
+    against its plain version on the same inputs (f32 and f64 vectors):
+    both sum at most a few hundred products of one row in another order;
+    the bar is 1e-5 of the row's sum of the absolute products
+    (:func:`abs_tables`; as for the banded kernels).  Two launches must give
+    the same bits; 'res' is also compared with the composition of three
+    launches it replaces (its bits recorded).  ``timed``: ``{mode: vector
+    type}`` to time — the kernel (graph replay and eager), an empty kernel
+    on its grid (the floor), its plain version, the one-call library
+    equivalent (a cuSPARSE CSR matvec with the assembled matrix; none for
+    'res', whose three-launch composition is timed instead) and the bound.
+    ``counted``: one device kernel a call, not cooperative, and a graph
+    replay with the eager call's bits, in every mode.  ``chunks``: the
+    kernel on chunks of one element (another partition of the same
+    elements) and with slot tables wider than its registers (its other
+    path) must give the bits of the plan's chunk."""
+    timed = timed or {}
     dev = aff.wdet.device
     absaff = abs_tables(aff)
     # the assembled matrices, for the library's one-call equivalent
@@ -1059,22 +1135,37 @@ def check_affine(aff, prob, full_dofs, what, gen, timed, counted=False):
                    else (prob.Mc, prob.Ac, prob.Jc, prob.JTc))
     out = []
     for mode, cm, ca in AFFINE_MODES:
-        B = dict(m=M, a=A, j=J, jt=JT,
-                 ma=sps.csr_matrix(cm * M + ca * A))[mode]
         n = aff.npc if mode == "jt" else aff.nin
         for xdt in (torch.float32, torch.float64):
             x = torch.randn(n, generator=gen, dtype=torch.float64)
+            qv = torch.randn(aff.npc, generator=gen, dtype=torch.float64)
             xd = x.to(device=dev, dtype=xdt)
-            y = affine_mv(mode, xd, aff, cm, ca)
-            again = affine_mv(mode, xd, aff, cm, ca)
-            ref = affine_mv_ref(mode, xd, aff, cm, ca)
+            qd = qv.to(device=dev, dtype=xdt)
+
+            def run(t=aff, xd=xd, qd=qd, mode=mode, cm=cm, ca=ca):
+                if mode == "res":
+                    return affine_residual(xd, qd, t, cm, ca)
+                return affine_mv(mode, xd, t, cm, ca)
+
+            def plain(xd=xd, qd=qd, mode=mode, cm=cm, ca=ca):
+                if mode == "res":
+                    return affine_residual_ref(xd, qd, aff, cm, ca)
+                return affine_mv_ref(mode, xd, aff, cm, ca)
+
+            y, again = run(), run()
+            ref = plain()
             torch.cuda.synchronize()
             require(y.dtype == xdt and y.shape == ref.shape,
-                    f"affine_mv {mode}: output type")
-            require(bool(torch.isfinite(y).all()), f"affine_mv {mode} not "
+                    f"affine {mode}: output type")
+            require(bool(torch.isfinite(y).all()), f"affine {mode} not "
                     "finite")
-            rowbar = 1e-5 * affine_mv_ref(mode, xd.double().abs(), absaff,
-                                          abs(cm), abs(ca)) + 1e-30
+            if mode == "res":
+                rowbar = 1e-5 * affine_residual_ref(
+                    xd.double().abs(), qd.double().abs(), absaff, cm, ca)
+            else:
+                rowbar = 1e-5 * affine_mv_ref(mode, xd.double().abs(),
+                                              absaff, abs(cm), abs(ca))
+            rowbar = rowbar + 1e-30
             err = (y.double() - ref.double()).abs()
             ratio = float((err / rowbar).max())
             require(ratio <= 1.0, f"affine kernel ({mode}, {what}, {xdt}) "
@@ -1082,43 +1173,77 @@ def check_affine(aff, prob, full_dofs, what, gen, timed, counted=False):
                     f"row bar {ratio:.3e}")
             require(torch.equal(y, again), f"affine kernel ({mode}, {what}) "
                     "is not reproducible launch to launch")
+            plan = aff._plans[dev.index]
+            chunk = plan.call(mode, cm, ca, xdt).chunk
             row = dict(name="affine_mv", mode=mode, operand=what,
                        tables=str(aff.wdet.dtype), state=str(xdt),
-                       nc=aff.nc, nin=aff.nin, npc=aff.npc,
+                       nc=aff.nc, nin=aff.nin, npc=aff.npc, chunk=chunk,
                        facet_blocks=int(aff.fac_elem.shape[0]),
                        max_abs_err=float(err.max()),
                        max_err_over_row_bar=ratio,
                        max_abs_ref=float(ref.abs().max()))
-            if timed and xdt == AFFINE_STATE[mode]:
-                def run(xd=xd, mode=mode, cm=cm, ca=ca):
-                    return affine_mv(mode, xd, aff, cm, ca)
-
-                def plain(xd=xd, mode=mode, cm=cm, ca=ca):
-                    return affine_mv_ref(mode, xd, aff, cm, ca)
-
-                csr = torch.sparse_csr_tensor(
-                    torch.as_tensor(B.indptr, dtype=torch.int64),
-                    torch.as_tensor(B.indices, dtype=torch.int64),
-                    torch.as_tensor(B.data), size=B.shape).to(
-                        device=dev, dtype=aff.wdet.dtype)
-                xl = xd.to(aff.wdet.dtype)[:, None]
-                if counted and mode == "a":
-                    # one counted mode: every mode is the same single
-                    # launch in the wrapper
-                    ran, types = device_kernels(run)
-                    require(ran == 1, f"affine kernel ({mode}, {what}) ran "
-                            f"{ran} device kernels (graph node types "
-                            f"{types})")
-                    row["device_kernels_per_call"] = ran
+            if mode == "res":
+                comp = torch.cat([
+                    affine_mv("ma", xd, aff, cm, ca) + affine_mv("jt", qd,
+                                                                 aff),
+                    affine_mv("j", xd, aff)])
+                row.update(name="affine_residual",
+                           equals_composition_bits=bool(torch.equal(y, comp)),
+                           vs_composition_max_abs=float(
+                               (y.double() - comp.double()).abs().max()))
+            if counted:
+                coop = []
+                types, replayed = captured(run, coop)
+                ran = types.count(0)
+                require(ran == 1 and coop in ([False], [None]),
+                        f"affine kernel ({mode}, {what}) ran {ran} device "
+                        f"kernels, cooperative {coop} (graph node types "
+                        f"{types})")
+                require(torch.equal(replayed, y), f"affine kernel ({mode}, "
+                        f"{what}): a graph replay differs from the eager "
+                        "call")
+                row.update(device_kernels_per_call=ran,
+                           cooperative_launch=coop[0],
+                           graph_replay_equal=True)
+            if chunks and xdt == torch.float32:
+                with affine_plan_set(**AFFINE_ONE_CHUNK):
+                    yf = run(fresh_tables(aff))
+                require(torch.equal(yf, y), f"affine kernel ({mode}, {what})"
+                        f" on chunks of one element: other bits than on "
+                        f"chunks of {chunk}")
+                with affine_wide_slots():
+                    yw = run(fresh_tables(aff))
+                require(torch.equal(yw, y), f"affine kernel ({mode}, {what})"
+                        f" with slot tables of 16 rows: other bits")
+                row.update(chunk_one_same_bits=True, wide_slots_same_bits=True)
+            if timed.get(mode) == xdt:
                 bound, by = affine_bound_ms(
                     aff, mode, xd.element_size(),
-                    mode in ("a", "ma") and ca != 0.0)
+                    mode in ("a", "ma", "res") and ca != 0.0)
                 row.update(ms=graph_ms(run), eager_ms=time_ms(run, 200),
-                           plain_ms=time_ms(plain, 50),
-                           library_ms=time_ms(lambda: csr @ xl, 200),
-                           library="cuSPARSE CSR matvec (torch sparse CSR @) "
-                                   "with the assembled matrix",
-                           bound_ms=bound, bound_by=by)
+                           floor_ms=graph_ms(lambda: _affine_launch(
+                               mode, xd, qd if mode == "res" else None, aff,
+                               cm, ca, empty=True)),
+                           plain_ms=time_ms(plain, 50), bound_ms=bound,
+                           bound_by=by)
+                if mode == "res":
+                    row.update(library_ms=None, library=None,
+                               composition_ms=graph_ms(lambda: torch.cat([
+                                   affine_mv("ma", xd, aff, cm, ca)
+                                   + affine_mv("jt", qd, aff),
+                                   affine_mv("j", xd, aff)])))
+                else:
+                    B = dict(m=M, a=A, j=J, jt=JT,
+                             ma=sps.csr_matrix(cm * M + ca * A))[mode]
+                    csr = torch.sparse_csr_tensor(
+                        torch.as_tensor(B.indptr, dtype=torch.int64),
+                        torch.as_tensor(B.indices, dtype=torch.int64),
+                        torch.as_tensor(B.data), size=B.shape).to(
+                            device=dev, dtype=aff.wdet.dtype)
+                    xl = xd.to(aff.wdet.dtype)[:, None]
+                    row.update(library_ms=time_ms(lambda: csr @ xl, 200),
+                               library="cuSPARSE CSR matvec (torch sparse "
+                                       "CSR @) with the assembled matrix")
                 row["roofline_share"] = bound / row["ms"]
             out.append(row)
     return out
@@ -1131,8 +1256,10 @@ def affine_rows(checks, suffix, launches):
     for c in checks:
         if "ms" not in c or c["mode"] not in launches:
             continue
+        name = ("affine_residual" if c["mode"] == "res"
+                else f"affine_mv_{c['mode']}")
         rows.append(dict(
-            name=f"affine_mv_{c['mode']}{suffix}", route="cuda",
+            name=name + suffix, route="cuda",
             source="dolfin_navier_scipy_tpu_torch/csrc/affine.cu",
             replaces=AFFINE_REPLACES, launches=launches[c["mode"]],
             mode=c["mode"], operand=c["operand"],
@@ -1142,9 +1269,10 @@ def affine_rows(checks, suffix, launches):
             max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"],
             bound_ms=c["bound_ms"], bound_by=c["bound_by"],
             library_ms=c["library_ms"], library=c["library"],
-            eager_ms=c["eager_ms"],
+            eager_ms=c["eager_ms"], floor_ms=c["floor_ms"],
+            composition_ms=c.get("composition_ms"),
             device_kernels_per_call=c.get("device_kernels_per_call"),
-            design=AFFINE_DESIGN))
+            chunk=c["chunk"], design=AFFINE_DESIGN))
     return rows
 
 
@@ -1160,7 +1288,7 @@ def schur_inner_counts(nsteps, refine, affine_per_step, smw_cols=0):
                 banded_mv=solves * refine,
                 rect_mv=solves * (1 + 3 * refine),
                 rect_mv_levels=3 * solves * (1 + refine),
-                affine_mv=affine_per_step * nsteps)
+                affine_mv=affine_per_step * nsteps, affine_residual=0)
 
 
 def rot_control(prob, dev):
@@ -1294,7 +1422,7 @@ def control_path(dev, gen, nsteps):
                                     device=dev).fac_elem.shape[0],
             "the Robin arcs add facet blocks")
     rob_checks = check_affine(aff_rob, rob, False,
-                              "level 1, Robin-penalized", gen, timed=False)
+                              "level 1, Robin-penalized", gen)
     say(phase="control_path", problem="cylinderwake level 1, Re 100: (a) "
         "movingwallcntrl, DirichletControl sin(20 t); (b) bccontrol, "
         "apply_robin_penalty(1e-3), f_tdp = fv + sin(10 t)(Brob0 - Brob1); "
@@ -1336,7 +1464,8 @@ def control_level2(dev, gen, nsteps):
     (c) static feedback through ``feedbackthroughdict``.  Refine 0 against
     refine 1 within 1e-4, divergence, a bitwise rerun, exact launches.
     Printed: ms and launches a step, the device-busy share of a traced
-    run.  Returns the ``kernels`` rows of the affine kernel at level 2."""
+    run.  Returns the affine kernel's checks at level 2 (f32 tables timed)
+    and its launches by mode in (a)."""
     t0 = time.time()
     prob = cylinderwake_problem(level=LEVEL2, Re=RE, charvel=CHARVEL,
                                 movingwallcntrl=True)
@@ -1436,7 +1565,10 @@ def control_level2(dev, gen, nsteps):
     loop_a = rows["a"]["warm_refine_0"]["loop_seconds"]
     # the affine kernel on the level-2 tables (A v under the f64 carry)
     aff = prob.affine_ops(torch.float32, device=dev)
-    checks = check_affine(aff, prob, False, "level 2", gen, timed=True)
+    checks = check_affine(aff, prob, False, "level 2", gen,
+                          timed=AFFINE_STATE)
+    checks += check_affine(prob.affine_ops(torch.float64, device=dev), prob,
+                           False, "level 2", gen)
     say(phase="control_level2", problem=f"cylinderwake level {LEVEL2}, "
         "Re 100, movingwallcntrl: (a) DirichletControl sin(20 t); (b) "
         "closed_loop dynamic_feedback AB2, hN 4 (hA, hB, hC seeded), C = "
@@ -1455,7 +1587,7 @@ def control_level2(dev, gen, nsteps):
             device_busy_share_of_untraced_loop=(
                 None if busy is None else 1e-3 * busy / loop_a)),
         affine=checks)
-    return affine_rows(checks, "_level2", dict(a=modes["a"]))
+    return checks, modes
 
 
 def main():
@@ -1541,12 +1673,14 @@ def main():
     # the affine kernel on the level-1 tables: f32 under the vectors the
     # paths give it (timed), over the full dof set, and f64
     aff_checks = check_affine(prob.affine_ops(torch.float32, device=dev),
-                              prob, False, "level 1", gen, timed=True,
-                              counted=True)
+                              prob, False, "level 1", gen,
+                              timed=AFFINE_STATE, counted=True, chunks=True)
     aff_checks += check_affine(affs[torch.float32], prob, True,
-                               "level 1, full dofs", gen, timed=False)
+                               "level 1, full dofs", gen)
+    # J v of the continuity rhs: f64 tables under the f64 carry
     aff_checks += check_affine(prob.affine_ops(torch.float64, device=dev),
-                               prob, False, "level 1", gen, timed=False)
+                               prob, False, "level 1, f64 tables", gen,
+                               timed=dict(j=torch.float64))
     say(phase="kernel_checks", vecmat=checks, convection=conv_checks,
         banded=band_checks, banded_edges=band_edges,
         level_stack_forms=stack_checks, stack_plan_picks=picked1,
@@ -1555,7 +1689,7 @@ def main():
     device_setup_path(prob, dev, dt_main)
     # the control slice at level 2 (traced here: before any CPU run)
     nsteps = NTS - 1          # the Heun bootstrap takes the first interval
-    control2_rows = control_level2(dev, gen, nsteps)
+    aff_checks2, control2_modes = control_level2(dev, gen, nsteps)
 
     # -- 3. the main path, through the user's entry points -----------------
     kw = dict(t0=T0, tE=TE, Nts=NTS, start_ssstokes=True,
@@ -1589,7 +1723,7 @@ def main():
     # AB2 start value (the Stokes start brings its own pressure)
     require(main_counts == dict(vecmat=nsteps, conv_vector=4,
                                 conv_vector_amatvec=nsteps, affine_mv=0,
-                                **NONE_BANDED),
+                                affine_residual=0, **NONE_BANDED),
             f"launches on the main path: {main_counts}")
     div_rel = divergence_rel(prob, v)
     # each f32 increment solve leaves a divergence residual of f32 size
@@ -1663,13 +1797,15 @@ def main():
     sb = solve_nse(prob=prob, **skw)
     sb_counts = counts()
     sb_modes = dict(affine_mv.mode_launches)
+    require(sb_modes == dict(m=nsteps, a=nsteps, ma=0, j=nsteps, jt=0),
+            f"affine launches of the sbdf2 run by mode: {sb_modes}")
     # inner layout with f32 work: the dense apply and one refinement round
     # a step; one convection vector a step and three in the Heun bootstrap;
-    # the affine kernel for M dv, A v, the round's residual (K, J^T, J) and
-    # the continuity rhs (J v, f64)
+    # the affine kernel for M dv, A v and the continuity rhs (J v, f64),
+    # its fused form for the round's residual (K v + J^T q, J v)
     require(sb_counts == dict(vecmat=2 * nsteps, conv_vector=nsteps + 3,
-                              conv_vector_amatvec=0, affine_mv=6 * nsteps,
-                              **NONE_BANDED),
+                              conv_vector_amatvec=0, affine_mv=3 * nsteps,
+                              affine_residual=nsteps, **NONE_BANDED),
             f"launches of the sbdf2 run: {sb_counts}")
     require(sb["ffflag"] is False and sb["v"].is_cuda, "sbdf2 run")
     # the inner layout gives the dense kernel another operand: the unpadded
@@ -1787,7 +1923,8 @@ def main():
         want = dict(vecmat=0, conv_vector=nsteps + 4, conv_vector_amatvec=0,
                     banded_mv=nsteps * (1 + wr),
                     rect_mv=nsteps * (1 + 3 * wr),
-                    rect_mv_levels=nsteps * 3 * (1 + wr), affine_mv=0)
+                    rect_mv_levels=nsteps * 3 * (1 + wr), affine_mv=0,
+                    affine_residual=0)
         require(c == want, f"launches of the Schur run, warm_refine={wr}: "
                 f"{c} != {want}")
         # each level stack on the kernel form its plan picks
@@ -1836,7 +1973,7 @@ def main():
     sbs_counts = counts()
     want = dict(vecmat=0, conv_vector=nsteps + 3, conv_vector_amatvec=0,
                 banded_mv=0, rect_mv=nsteps, rect_mv_levels=3 * nsteps,
-                affine_mv=3 * nsteps)
+                affine_mv=3 * nsteps, affine_residual=0)
     require(sbs_counts == want, f"launches of the Schur sbdf2 run: "
             f"{sbs_counts} != {want}")
     require(isinstance(sbs["ops"].solver, SchurSaddleSolver)
@@ -1865,7 +2002,7 @@ def main():
     control_modes = control_path(dev, gen, nsteps)
 
     # -- 8. the default call at level 2: the factors built on the card -------
-    level2_rows = level2_path(dev, gen, nsteps)
+    res_launches2, level2_rows = level2_path(dev, gen, nsteps)
 
     # -- the kernels table and the verdict ----------------------------------
     main_chk = checks[0]
@@ -1950,12 +2087,15 @@ def main():
         # the same kernels on the level-2 operands, launches of that path
         *level2_rows,
         # the affine kernel: A v of the controlled step (control_path (a)),
-        # M dv of its sbdf2 (d), the dense solver's residual (K, J^T, J) of
-        # the sbdf2 run of the DFG path; and A v at level 2
-        *affine_rows(aff_checks, "", dict(
-            a=control_modes["a"]["a"], m=control_modes["d"]["m"],
-            ma=sb_modes["ma"], j=sb_modes["j"], jt=sb_modes["jt"])),
-        *control2_rows])
+        # M dv of its sbdf2 (d), J v of the continuity rhs (f64 tables) and
+        # the fused residual of the dense sbdf2 run of the DFG path; A v and
+        # the residual at level 2 (control_level2 (a), the dense route)
+        *affine_rows([c for c in aff_checks if not (
+            c["mode"] == "j" and c["tables"] == "torch.float32")], "", dict(
+                a=control_modes["a"]["a"], m=control_modes["d"]["m"],
+                j=sb_modes["j"], res=sb_counts["affine_residual"])),
+        *affine_rows(aff_checks2, "_level2", dict(
+            a=control2_modes["a"], res=res_launches2))])
     say(ok=True, device=dict(platform="gpu",
                              kind=torch.cuda.get_device_name(0),
                              count=torch.cuda.device_count()))

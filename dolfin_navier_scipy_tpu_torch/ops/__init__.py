@@ -12,6 +12,8 @@ from .kernels import (  # noqa: F401
     DofTable,
     affine_mv,
     affine_mv_ref,
+    affine_residual,
+    affine_residual_ref,
     as_vecmat_operand,
     conv_vector,
     conv_vector_amatvec,

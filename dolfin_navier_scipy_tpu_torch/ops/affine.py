@@ -5,7 +5,9 @@ On affine elements every FEM operator factorizes as
 ``sum_r geo_r[e] * (constant reference matrix)``: applying M/A/J/J^T
 reduces to per-element geometry contractions against constant reference
 tables around one gather and one fixed-order reduction.  Each matvec is
-one call of :func:`..ops.kernels.affine_mv`: the hand-written kernel of
+one call of :func:`..ops.kernels.affine_mv` (the saddle residual ``[K v +
+J^T q ; J v]`` one of :func:`..ops.kernels.affine_residual`): the
+hand-written kernel of
 ``csrc/affine.cu`` on the card, its plain PyTorch version (constant-weight
 matmuls, einsums, segment sums over the tables built here) on the CPU.
 
@@ -18,7 +20,7 @@ import torch
 
 from ..device import resolve_device
 from .convection import reference_weight_matrices
-from .kernels import DofTable, affine_mv, dof_slot_table
+from .kernels import DofTable, affine_mv, affine_residual, dof_slot_table
 
 
 def _volume_a_elements(ctx, nu, gradvsymmtrc=True):
@@ -152,6 +154,12 @@ class AffineVectorOps:
     def jt_matvec(self, q):
         """``J^T @ q``."""
         return affine_mv("jt", q, self)
+
+    def saddle_residual(self, v, q, cm, ca):
+        """``[cm M v + ca A v + J^T q ; J v]``: the three matvecs of the
+        dense solver's refinement round in one call (:func:`..ops.kernels.
+        affine_residual`)."""
+        return affine_residual(v, q, self, cm, ca)
 
     def view(self, kind, cm=1.0, ca=0.0):
         """A matvec-interface view: kind in {'m','a','ma','j'}; 'ma' is

@@ -21,9 +21,12 @@ Four sources:
   einsums ``_banded_mv``, ``_rect_mv``, ``_rect_mv_pair`` and
   ``SchurSaddleSolver._sapply``.
 * the affine element matvecs ``M x``, ``A x``, ``cm M x + ca A x``, ``J x``
-  and ``J^T q`` (``csrc/affine.cu``) behind :func:`affine_mv`: the JAX
-  package's ``ops/affine.py: AffineVectorOps`` pipelines (left to XLA),
-  one launch with the mode as an argument.
+  and ``J^T q`` (``csrc/affine.cu``) behind :func:`affine_mv`, and the
+  dense solver's residual ``[K v + J^T q ; J v]`` behind
+  :func:`affine_residual`: the JAX package's ``ops/affine.py:
+  AffineVectorOps`` pipelines (left to XLA), one launch with the mode as
+  an argument and no grid-wide wait (elements of a chunk and its halo in
+  a block's shared memory, chunks sized by :func:`affine_plan`).
 
 Build and binding: each ``csrc/*.cu`` is compiled at first use by ``nvcc``
 for ``sm_90a`` into a shared library with a plain C interface (under
@@ -260,13 +263,15 @@ def _on_device(index):
     return torch.cuda.device(index)
 
 
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def _raw_stream(index):
     """The current CUDA stream of device ``index`` as an integer handle
     (without building a ``torch.cuda.Stream``: a few microseconds a call)."""
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if raw is None:
+    if _RAW_STREAM is None:
         return torch.cuda.current_stream(index).cuda_stream
-    return raw(index)
+    return _RAW_STREAM(index)
 
 
 def _stream_scratch(key, make):
@@ -280,6 +285,8 @@ def _stream_scratch(key, make):
     runs on whatever stream is current: such a graph must not run
     concurrently with them, or the ticket hand-out and the barrier counts
     break silently.  The port runs everything on one stream, in order.
+    (The affine kernel, ``csrc/affine.cu``, keeps no scratch and no
+    counter: its graphs carry no such caveat.)
     Entries are never released: a captured graph keeps raw pointers into
     them.  They number one per stream and operand shape."""
     got = _SCRATCH.get(key)
@@ -1273,12 +1280,181 @@ conv_vector_amatvec.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# the affine element matvecs (M, A, cm M + ca A, J, J^T)
+# the affine element matvecs (M, A, cm M + ca A, J, J^T) and the saddle
+# residual
 # ---------------------------------------------------------------------------
 
 # the kernel's mode argument per matvec kind ('m' and 'a' are the fused
-# form with cm, ca = 1, 0 and 0, 1)
+# form with cm, ca = 1, 0 and 0, 1; 'res' the saddle residual)
 _AFFINE_MODES = {"m": 0, "a": 0, "ma": 0, "j": 1, "jt": 2}
+_AFFINE_RES = 3
+# How affine_plan cuts the elements, in their locality order, into chunks:
+# sized so that the grid has about BLOCKS_PER_SM blocks an SM (the fastest
+# chunk in the measured sweep at levels 1 and 2), at least MIN_CHUNK
+# elements.  A partition whose largest block would take more shared memory
+# than _AFFINE_SMEM (what a launch takes without opting in) is made anew
+# on chunks half as large, until it fits.
+_AFFINE_PLAN = {"BLOCKS_PER_SM": 2, "MIN_CHUNK": 4}
+_AFFINE_SMEM = 48 * 1024
+
+
+def affine_plan(mode, nc, sm_count):
+    """The chunk (elements a block's chunk takes in the locality order) of
+    ``mode`` (a key of ``_AFFINE_MODES`` or ``'res'``) on ``nc`` elements
+    on a card with ``sm_count`` SMs."""
+    if mode not in _AFFINE_MODES and mode != "res":
+        raise ValueError(f"affine_mv mode {mode!r}")
+    cfg = _AFFINE_PLAN
+    return int(max(cfg["MIN_CHUNK"],
+                   -(-nc // (cfg["BLOCKS_PER_SM"] * sm_count))))
+
+
+def element_locality_order(ids, nseg):
+    """The elements of ``ids (nc, ns)`` in a locality order: reverse
+    Cuthill-McKee over the graph of elements that share an output id in
+    ``[0, nseg)``."""
+    import scipy.sparse as sps
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    ids = np.asarray(ids)
+    nc, ns = ids.shape
+    el = np.repeat(np.arange(nc), ns)
+    flat = ids.ravel()
+    keep = (flat >= 0) & (flat < nseg)
+    e2d = sps.csr_matrix((np.ones(int(keep.sum())), (el[keep], flat[keep])),
+                         shape=(nc, nseg))
+    return reverse_cuthill_mckee((e2d @ e2d.T).tocsr(),
+                                 symmetric_mode=True).astype(np.int64)
+
+
+def affine_partition(ids, nseg, chunk, fac_ids=None, pids=None, npseg=0,
+                     max_own=256):
+    """The kernel's partition of the output ids ``ids (nc, ns)`` over
+    ``nseg`` dofs (numpy): elements in their :func:`element_locality_order`
+    are cut into chunks of ``chunk``; a dof belongs to the block of its
+    first element in that order (a dof of no element to block 0), and the
+    block computes every element its dofs touch and, with ``fac_ids
+    (nfac, ns)`` (facet blocks whose row ``r = f * ns + a`` adds into dof
+    ``fac_ids[f, a]``), its dofs' facet rows.  With ``pids (nc, ps)`` over
+    ``npseg`` pressure dofs (the residual's joint partition) the pressure
+    dofs are owned alike, numbered ``nseg + p``, and a block's elements
+    are those of both kinds of its dofs.  A block that would own more than
+    ``max_own`` dofs (the kernel's threads: one a dof) is split, its dofs
+    in ascending order.
+
+    Returns a dict: ``eptr (nblk+1)`` into ``elem``, each block's elements
+    ascending; ``fptr (nblk+1)`` into ``frow``, its facet rows ascending;
+    ``optr (nblk+1)`` into ``own``, its dofs ascending (every dof once);
+    ``lell (width, nseg + npseg)``: column ``k`` the slots of ``own[k]`` as
+    positions in its block's values — facet row ``frow[fptr[b] + f]`` at
+    ``f``, element slot ``(elem[eptr[b] + l], j)`` at ``nf + l * ns + j``
+    (``nf``, ``ne`` the block's facet rows and elements), a pressure slot
+    at ``nf + 2 * ne * ns + l * ps + j`` (past the two velocity value sets
+    of the residual) — its element slots in the ascending order of
+    :func:`dof_slot_table`, then its facet rows ascending, ``-1`` past its
+    count; ``cnt (nblk, 4)``: elements, facet rows, ``optr[b]``, dofs;
+    ``emax``, ``fmax``, the most elements and facet rows of a block;
+    ``nblk``."""
+    ids = np.asarray(ids)
+    nc, ns = ids.shape
+    kinds = [(ids, nseg, ns, 0)]
+    if pids is not None:
+        pids = np.asarray(pids)
+        kinds.append((pids, npseg, pids.shape[1], nseg))
+    ntot = nseg + (npseg if pids is not None else 0)
+    # every (dof, slot) pair of both kinds, dofs numbered into [0, ntot)
+    dof, el, jj, rank, kind = [], [], [], [], []
+    for k, (kid, n, width, base) in enumerate(kinds):
+        rowptr, slots = dof_slot_table(kid, n)
+        d = np.repeat(np.arange(n), np.diff(rowptr))
+        dof.append(d + base)
+        el.append(slots.astype(np.int64) // width)
+        jj.append(slots.astype(np.int64) % width)
+        rank.append(np.arange(len(slots)) - rowptr[:-1][d])
+        kind.append(np.full(len(slots), k))
+    dof, el, jj, rank, kind = map(np.concatenate, (dof, el, jj, rank, kind))
+    cnt = np.bincount(dof, minlength=ntot)
+    pos = np.empty(nc, np.int64)
+    pos[element_locality_order(ids, nseg)] = np.arange(nc)
+    first = np.full(ntot, nc, np.int64)
+    np.minimum.at(first, dof, pos[el])
+    block = np.where(cnt > 0, first // chunk, 0)
+    # each block's dofs ascending, max_own a block (split where more)
+    by = np.lexsort((np.arange(ntot), block))
+    start = np.searchsorted(block[by], block[by])
+    sub = np.empty(ntot, np.int64)
+    sub[by] = (np.arange(ntot) - start) // max_own
+    _, block = np.unique(block * ntot + sub, return_inverse=True)
+    block = block.ravel()                               # no empty block
+    nblk = int(block.max()) + 1
+
+    def ptr(of):
+        return np.concatenate([[0], np.cumsum(np.bincount(
+            of, minlength=nblk))]).astype(np.int64)
+
+    own = np.lexsort((np.arange(ntot), block))
+    optr = ptr(block)
+    key = block[dof] * nc + el
+    ukey = np.unique(key)
+    eptr = ptr(ukey // nc)
+    ne = np.diff(eptr)
+    # the facet rows, by the block of their dof
+    if fac_ids is None:
+        fac_ids = np.zeros((0, ns), np.int64)
+    frp, fsl = dof_slot_table(fac_ids, nseg)
+    fcnt = np.diff(frp)
+    fdof = np.repeat(np.arange(nseg), fcnt)
+    fkey = block[fdof] * max(1, fac_ids.size) + fsl
+    order = np.argsort(fkey, kind="stable")
+    fptr = ptr(block[fdof])
+    frow = fsl[order]
+    flocal = np.empty(len(fsl), np.int64)
+    flocal[order] = np.arange(len(fsl)) - fptr[block[fdof[order]]]
+    nf = np.diff(fptr)
+    b = block[dof]
+    l = np.searchsorted(ukey, key) - eptr[b]
+    width = np.array([k[2] for k in kinds])[kind]
+    local = nf[b] + np.where(kind == 0, 0, 2 * ne[b] * ns) + l * width + jj
+    kpos = np.empty(ntot, np.int64)
+    kpos[own] = np.arange(ntot)
+    fall = np.zeros(ntot, np.int64)
+    fall[:nseg] = fcnt
+    lell = np.full((max(1, int((cnt + fall).max(initial=0))), ntot), -1,
+                   np.int32)
+    lell[rank, kpos[dof]] = local
+    lell[cnt[fdof] + np.arange(len(fsl)) - frp[:-1][fdof],
+         kpos[fdof]] = flocal
+    i32 = functools.partial(np.ascontiguousarray, dtype=np.int32)
+    return dict(eptr=i32(eptr), elem=i32(ukey % nc), fptr=i32(fptr),
+                frow=i32(frow), optr=i32(optr), own=i32(own), lell=lell,
+                cnt=i32(np.stack([ne, nf, optr[:-1], np.diff(optr)], 1)),
+                emax=int(ne.max()), fmax=int(nf.max()), nblk=nblk)
+
+
+def affine_fit(t, kind, chunk, smem_max=None):
+    """``(part, chunk, smem)``: :func:`affine_partition` of the tables
+    ``t`` for ``kind`` ``'v'`` (velocity dofs and facet rows), ``'p'``
+    (pressure dofs) or ``'res'`` (both), over chunks of ``chunk`` elements,
+    halved until its largest block's values (in the tables' type) take at
+    most ``smem_max`` bytes (``_AFFINE_SMEM``) or the chunk is one
+    element; the chunk it was made on and those bytes."""
+    smem_max = _AFFINE_SMEM if smem_max is None else smem_max
+    nd = t.nvpc * t.dim
+    vids, pids = t.vtab.vd.cpu().numpy(), t.ptab.vd.cpu().numpy()
+    fac = t.fac_vdofs.cpu().numpy() if t.fac_elem.shape[0] else None
+    while True:
+        if kind == "p":
+            part = affine_partition(pids, t.npc, chunk)
+            per_elem = t.pnpc
+        else:
+            joint = kind == "res"
+            part = affine_partition(vids, t.nin, chunk, fac,
+                                    pids if joint else None, t.npc)
+            per_elem = 2 * nd + t.pnpc if joint else nd
+        smem = (part["fmax"] + part["emax"] * per_elem) * t.wdet.element_size()
+        if smem <= smem_max or chunk == 1:
+            return part, chunk, smem
+        chunk = max(1, chunk // 2)
 
 
 def _aff_pad(t, x):
@@ -1315,28 +1491,26 @@ def _aff_facet(t, x, scale):
     return _aff_segsum(ffe, t.fseg, ffe.dtype)
 
 
-def affine_mv_ref(mode, x, t, cm=1.0, ca=0.0):
-    """Plain PyTorch version of :func:`affine_mv`: one gather, constant
-    Kronecker-expanded weight matrices (``W2``, ``W2T``, ``MrefI2``),
-    small per-element geometry einsums, fixed-order segment sums through
-    the ``(pos, mask)`` tables ``vseg``/``pseg``/``fseg`` of the tables
-    ``t`` (an :class:`..ops.affine.AffineVectorOps`)."""
+def affine_element_terms(mode, x, t, cm=1.0, ca=0.0):
+    """Each element's terms of an affine matvec before the sum into the
+    dofs: ``fe (nc, ns)`` in the tables' type (``ns`` the element's
+    velocity dofs, or its pressure nodes in mode 'j'); slot ``e * ns + j``
+    of ``fe.ravel()`` is what :func:`dof_slot_table` numbers.  ``cm, ca``
+    as in :func:`affine_mv_ref` ('m' and 'a' set their own)."""
     if mode == "jt":
         dtp = t.wdet.dtype
         qe = _aff_pad(t, x)[t.pdofs]                          # (nc,pnpc)
         qq = torch.einsum("qp,ep->eq", t.N1q, qe)             # (nc,Q)
         eye = torch.eye(t.dim, dtype=dtp, device=qq.device)
         F = qq[:, :, None, None] * eye[None, None]            # (nc,Q,c,d)
-        return _aff_segsum(_aff_pullback(t, F), t.vseg, x.dtype)
+        return _aff_pullback(t, F)
     xe = _aff_pad(t, x)[t.vdofs]                              # (nc,2nvpc)
     if mode == "m":
-        fe = t.detJ[:, None] * (xe @ t.MrefI2)
-        return _aff_segsum(fe, t.vseg, x.dtype)
+        return t.detJ[:, None] * (xe @ t.MrefI2)
     D = _aff_grad(t, xe)
     if mode == "j":
         div = torch.diagonal(D, dim1=2, dim2=3).sum(-1)       # (nc,Q)
-        fe = (t.wdet * div) @ t.N1q                           # (nc,pnpc)
-        return _aff_segsum(fe, t.pseg, x.dtype)
+        return (t.wdet * div) @ t.N1q                         # (nc,pnpc)
     if mode == "a":
         cm, ca = 0.0, 1.0
     elif mode != "ma":
@@ -1348,111 +1522,272 @@ def affine_mv_ref(mode, x, t, cm=1.0, ca=0.0):
     fe = _aff_pullback(t, F)
     if cm != 0.0:
         fe = fe + (cm * t.detJ)[:, None] * (xe @ t.MrefI2)
-    out = _aff_segsum(fe, t.vseg, x.dtype)
-    corr = _aff_facet(t, x, ca)
-    if corr is not None:
-        out = out + corr.to(x.dtype)
+    return fe
+
+
+def affine_mv_ref(mode, x, t, cm=1.0, ca=0.0):
+    """Plain PyTorch version of :func:`affine_mv`: one gather, constant
+    Kronecker-expanded weight matrices (``W2``, ``W2T``, ``MrefI2``),
+    small per-element geometry einsums (:func:`affine_element_terms`),
+    fixed-order segment sums through the ``(pos, mask)`` tables
+    ``vseg``/``pseg``/``fseg`` of the tables ``t`` (an
+    :class:`..ops.affine.AffineVectorOps`)."""
+    fe = affine_element_terms(mode, x, t, cm, ca)
+    out = _aff_segsum(fe, t.pseg if mode == "j" else t.vseg, x.dtype)
+    if mode in ("a", "ma"):
+        corr = _aff_facet(t, x, 1.0 if mode == "a" else ca)
+        if corr is not None:
+            out = out + corr.to(x.dtype)
     return out
+
+
+def affine_residual_ref(v, q, t, cm=1.0, ca=0.0):
+    """Plain PyTorch version of :func:`affine_residual`: the dense
+    solver's three-call composition ``[cm M v + ca A v + J^T q ; J v]``."""
+    rv = affine_mv_ref("ma", v, t, cm, ca) + affine_mv_ref("jt", q, t)
+    return torch.cat([rv, affine_mv_ref("j", v, t)])
+
+
+class _AffinePartC(ctypes.Structure):
+    # csrc/affine.cu: AffinePart, field for field
+    _fields_ = ([(f, ctypes.c_void_p) for f in (
+        "cnt", "ids", "geo", "fids", "fco", "own", "lell")]
+        + [(f, ctypes.c_int) for f in ("nblk", "emax", "fmax", "lwidth",
+                                       "nown", "maxown")])
 
 
 class _AffinePlanC(ctypes.Structure):
     # csrc/affine.cu: AffinePlan, field for field
-    _fields_ = ([(f, ctypes.c_void_p) for f in (
-        "vd", "pd", "JinvT", "wdet", "detJ", "qw", "N2", "dN2", "N1",
-        "fac_elem", "fac_vd", "vell", "pell", "fell", "scratch", "bar")]
-        + [(f, ctypes.c_int) for f in (
-            "nc", "nin", "npc", "nfac", "vwidth", "pwidth", "fwidth",
-            "work_f64")])
+    _fields_ = ([(f, ctypes.c_void_p) for f in ("qw", "N2", "dN2", "N1")]
+                + [(f, ctypes.c_int) for f in (
+                    "nc", "nin", "npc", "nfac", "work_f64")])
+
+
+class _AffineCallC(ctypes.Structure):
+    # csrc/affine.cu: AffineCall, field for field
+    _fields_ = ([(f, ctypes.c_double) for f in ("cm", "ca", "nu")]
+                + [(f, ctypes.c_int) for f in (
+                    "mode", "sym", "facets", "x_f64")]
+                + [("vb", _AffinePartC), ("pb", _AffinePartC)])
+
+
+class AffineCall(collections.namedtuple("AffineCall", "c addr nout chunk")):
+    """One call's constants in C (``c`` at ``addr``), the output's length
+    and the chunk its partition was made on."""
 
 
 class AffinePlan:
-    """Launch plan of ``csrc/affine.cu`` for one table set and one stream:
-    every constant pointer and size in one C structure (``c``), the tensors
-    behind them, and the kernel's scratch and barrier counter (the
-    stream's, see :class:`ConvPlan`)."""
+    """Launch plan of ``csrc/affine.cu`` for one table set on one card,
+    made at the first call there (never inside a CUDA-graph capture): the
+    reference tables' pointers and the sizes in one C structure (``c``, at
+    ``addr``), the partitions (made per chunk as :func:`affine_plan` asks,
+    packed on the card), the bound C entry points, and one
+    :class:`AffineCall` per (mode, cm, ca, vector type), each made at its
+    first call, outside a capture too.  The kernel keeps no state between
+    launches (no scratch, no counter), so one plan serves every stream,
+    and graphs captured with it may replay on any stream, concurrently
+    too."""
 
-    def __init__(self, t, stream):
-        dev = t.wdet.device
-        vd32, vell = t.vtab.kernel_tables()
-        pd32, pell = t.ptab.kernel_tables()
+    def __init__(self, t):
+        vd32, pd32 = (tab.vd.to(torch.int32) for tab in (t.vtab, t.ptab))
         nfac = int(t.fac_elem.shape[0])
-        fe = fv = fell = None
+        self.t, self.nfac = t, nfac
+        self.sm = _sm_count(t.wdet.device.index)
+        # each element's packed rows: its ids (12 velocity, 3 pressure) and
+        # geometry (JinvT, wdet, detJ), 16 entries each
+        self._ids16 = torch.cat([vd32, pd32,
+                                 torch.full_like(pd32[:, :1], -1)], 1)
+        self._geo16 = torch.cat([t.JinvT.reshape(t.nc, -1), t.wdet,
+                                 t.detJ[:, None],
+                                 t.wdet.new_zeros(t.nc, 16 - 4 - t.Q - 1)],
+                                1)
+        self._fac = None
         if nfac:
-            fe = t.fac_elem.contiguous()
-            fv, fell = t.fac_dofs.kernel_tables()
-        self.keep = [vd32, vell, pd32, pell, fe, fv, fell]
+            fv = t.fac_dofs.vd.to(torch.int32)
+            self._fac = (fv, t.fac_elem.reshape(-1, fv.shape[1]))
+        self.keep, self.parts, self.calls = [], {}, {}
+        self.c = _AffinePlanC(_ptr(t.qw), _ptr(t.N2), _ptr(t.dN2),
+                              _ptr(t.N1q), t.nc, t.nin, t.npc, nfac,
+                              int(t.wdet.dtype == torch.float64))
+        self.addr = ctypes.addressof(self.c)
+        lib = _affine_lib()
+        self.fn, self.empty_fn = lib.affine_th2d, lib.affine_th2d_empty
+        self.nu, self.sym = float(t.nu), int(bool(t.sym))
+        self.nin, self.npc = t.nin, t.npc
+
+    def partition(self, kind, chunk):
+        """``(part, chunk)``: the :class:`_AffinePartC` over chunks of
+        ``chunk`` elements, or fewer where its blocks would not fit
+        (:func:`affine_fit`), for ``kind`` ``'v'`` (velocity dofs, facet
+        rows), ``'p'`` (pressure dofs) or ``'res'`` (both: the residual's
+        joint partition), packed on the card at its first use."""
+        got = self.parts.get((kind, chunk))
+        if got is not None:
+            return got
+        t, dev = self.t, self.t.wdet.device
         nd = t.nvpc * t.dim
-        self.scratch = torch.empty((t.nc + nfac) * nd, dtype=t.wdet.dtype,
-                                   device=dev)
-        self.bar = torch.zeros(1, dtype=torch.int64, device=dev)
-        self.stream = stream
-        self.nfac = nfac
+        part, used, smem = affine_fit(t, kind, chunk)
+        if smem > _AFFINE_SMEM:
+            raise ValueError(
+                f"affine kernel: a block of {part['emax']} elements and "
+                f"{part['fmax']} facet rows takes {smem} bytes of shared "
+                f"memory, at most {_AFFINE_SMEM}, even on chunks of one "
+                f"element")
+        emax, fmax, nblk = part["emax"], part["fmax"], part["nblk"]
+        # block b's element l at row b * emax + l, padding rows -1 / 0
+        rows = torch.as_tensor(_packed_rows(part["eptr"], emax), device=dev)
+        elem = torch.as_tensor(part["elem"], device=dev).long()
+        pid = torch.full((nblk * emax, 16), -1, dtype=torch.int32,
+                         device=dev)
+        pid[rows] = self._ids16[elem]
+        pgeo = t.wdet.new_zeros(nblk * emax, 16)
+        pgeo[rows] = self._geo16[elem]
+        pfid = pfco = None
+        if fmax:
+            fac = self._fac
+            frows = torch.as_tensor(_packed_rows(part["fptr"], fmax),
+                                    device=dev)
+            frow = torch.as_tensor(part["frow"], device=dev).long()
+            pfid = torch.full((nblk * fmax, nd), -1, dtype=torch.int32,
+                              device=dev)
+            pfid[frows] = fac[0][frow // nd]
+            pfco = fac[1].new_zeros(nblk * fmax, nd)
+            pfco[frows] = fac[1][frow]
+        cnt, own, lell = (
+            torch.as_tensor(np.ascontiguousarray(part[k], dtype=np.int32),
+                            device=dev) for k in ("cnt", "own", "lell"))
+        self.keep += [pid, pgeo, pfid, pfco, cnt, own, lell]
+        got = self.parts[kind, chunk] = (_AffinePartC(
+            _ptr(cnt), _ptr(pid), _ptr(pgeo), _ptr(pfid), _ptr(pfco),
+            _ptr(own), _ptr(lell), nblk, emax, fmax, part["lell"].shape[0],
+            int(own.shape[0]), int(part["cnt"][:, 3].max())), used)
+        return got
 
-        def ptr(x):
-            return None if x is None else x.data_ptr()
+    def call(self, mode, cm, ca, dtype):
+        """The :class:`AffineCall` of ``mode`` ('res' the residual) with
+        these constants on vectors of ``dtype``, made at its first use
+        (never inside a CUDA-graph capture) and kept."""
+        key = (mode, cm, ca, dtype)
+        got = self.calls.get(key)
+        if got is not None:
+            return got
+        if dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"affine kernel takes f32 or f64 vectors, not "
+                            f"{dtype}")
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"the affine kernel's launch constants of mode {mode!r} "
+                f"(cm {cm}, ca {ca}, {dtype}) are made at their first "
+                f"call: make that call once before capturing")
+        kmode = _AFFINE_RES if mode == "res" else _AFFINE_MODES[mode]
+        facets = int(kmode in (0, _AFFINE_RES) and ca != 0.0
+                     and self.nfac > 0)
+        chunk = affine_plan(mode, self.t.nc, self.sm)
+        vb = pb = _AffinePartC()
+        if mode == "j":
+            pb, chunk = self.partition("p", chunk)
+        else:
+            vb, chunk = self.partition("res" if mode == "res" else "v",
+                                       chunk)
+        c = _AffineCallC(float(cm), float(ca), self.nu, kmode, self.sym,
+                         facets, int(dtype == torch.float64), vb, pb)
+        nout = dict(j=self.npc, res=self.nin + self.npc).get(mode, self.nin)
+        got = self.calls[key] = AffineCall(c, ctypes.addressof(c), nout,
+                                           chunk)
+        return got
 
-        self.c = _AffinePlanC(
-            ptr(vd32), ptr(pd32), ptr(t.JinvT), ptr(t.wdet), ptr(t.detJ),
-            ptr(t.qw), ptr(t.N2), ptr(t.dN2), ptr(t.N1q), ptr(fe), ptr(fv),
-            ptr(vell), ptr(pell), ptr(fell), ptr(self.scratch),
-            ptr(self.bar), t.nc, t.nin, t.npc, nfac, vell.shape[0],
-            pell.shape[0], 0 if fell is None else fell.shape[0],
-            int(t.wdet.dtype == torch.float64))
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _packed_rows(ptr, width):
+    """Row ``b * width + l`` of each entry ``l`` of segment ``b`` of the
+    CSR pointer ``ptr``: where a block's entries go in a padded table."""
+    ptr = np.asarray(ptr, np.int64)
+    cnt = np.diff(ptr)
+    seg = np.repeat(np.arange(len(cnt)), cnt)
+    return seg * width + np.arange(ptr[-1]) - ptr[:-1][seg]
 
 
 def _affine_lib():
     lib = _load("affine")
     if not getattr(lib, "_dns_typed", False):
-        ptr, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.affine_th2d.argtypes = (
-            [ctypes.POINTER(_AffinePlanC), i, ptr, ptr, i, d, d, d, i, i,
-             ptr])
+        ptr, i = ctypes.c_void_p, ctypes.c_int
+        lib.affine_th2d.argtypes = [ptr] * 6
         lib.affine_th2d.restype = i
+        lib.affine_th2d_empty.argtypes = [ptr] * 3
+        lib.affine_th2d_empty.restype = i
         lib.affine_error_string.argtypes = [i]
         lib.affine_error_string.restype = ctypes.c_char_p
         lib._dns_typed = True
     return lib
 
 
-def _affine_launch(mode, x, t, cm, ca):
-    """Launch ``csrc/affine.cu`` on the current stream through the tables'
-    plan for it; returns ``y`` in ``x``'s type."""
+def _affine_plan_for(t, dev):
+    """The tables' plan on card ``dev``, made (and its checks run) at the
+    first call there."""
+    plan = t._plans.get(dev)
+    if plan is not None:
+        return plan
     ok = (torch.float32, torch.float64)
-    if t.wdet.dtype not in ok or x.dtype not in ok:
-        raise TypeError(f"affine_mv kernel takes f32 or f64, not tables "
-                        f"{t.wdet.dtype} / vector {x.dtype}")
+    if t.wdet.dtype not in ok:
+        raise TypeError(f"affine kernel takes f32 or f64 tables, not "
+                        f"{t.wdet.dtype}")
     if (t.nvpc, t.Q, t.dim, t.pnpc) != (6, 7, 2, 3):
         raise NotImplementedError(
-            f"affine_mv kernel: only the 2D Taylor-Hood instantiation (nvpc "
+            f"affine kernel: only the 2D Taylor-Hood instantiation (nvpc "
             f"6, Q 7, dim 2, pnpc 3) is built, not "
             f"{(t.nvpc, t.Q, t.dim, t.pnpc)}")
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "the affine kernel's plan is made at its first call: call it "
+            "once before capturing")
+    plan = t._plans[dev] = AffinePlan(t)
+    return plan
+
+
+def _affine_launch(mode, x, xq, t, cm, ca, empty=False):
+    """Launch ``csrc/affine.cu`` on the current stream through the tables'
+    plan for it; returns ``y`` in ``x``'s type.  ``empty``: launch an
+    empty kernel on the same grid instead (the latency floor; returns
+    None)."""
     dev = x.get_device()
     stream = _raw_stream(dev)
-    plan = t._plans.get(stream)
-    if plan is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(
-                "the affine kernel's plan for this stream is made at its "
-                "first call: call it once on the capture stream before "
-                "capturing")
-        plan = t._plans[stream] = AffinePlan(t, stream)
-    kmode = _AFFINE_MODES[mode]
-    facets = int(kmode == 0 and ca != 0.0 and plan.nfac > 0)
-    x = x.contiguous()
-    y = torch.empty(t.npc if mode == "j" else t.nin, dtype=x.dtype,
-                    device=x.device)
-    lib = _affine_lib()
+    plan = t._plans.get(dev) or _affine_plan_for(t, dev)
+    call = plan.call(mode, cm, ca, x.dtype)
     with _on_device(dev):
-        err = lib.affine_th2d(
-            plan.c, kmode, x.data_ptr(), y.data_ptr(),
-            int(x.dtype == torch.float64), float(cm), float(ca),
-            float(t.nu), int(bool(t.sym)), facets, stream)
+        if empty:
+            err, y = plan.empty_fn(plan.addr, call.addr, stream), None
+        else:
+            y = x.new_empty(call.nout)
+            err = plan.fn(plan.addr, call.addr, x.data_ptr(),
+                          None if xq is None else xq.data_ptr(),
+                          y.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(
-            f"affine_mv kernel launch failed (mode {mode!r}, nc {t.nc}, nin "
-            f"{t.nin}, {plan.nfac} facet blocks): "
-            f"{lib.affine_error_string(err).decode()}")
+            f"affine kernel launch failed (mode {mode!r}, chunk "
+            f"{call.chunk}, nc {t.nc}, nin {t.nin}, {plan.nfac} facet "
+            f"blocks): "
+            f"{_affine_lib().affine_error_string(err).decode()}")
     return y
+
+
+def _affine_ok(x, n, t):
+    """``x`` a 1-D tensor of ``n`` entries on the tables' device (the
+    per-call check; :func:`_affine_check` says what is wrong)."""
+    return (torch.is_tensor(x) and x.dim() == 1 and x.shape[0] == n
+            and x.get_device() == t.wdet.get_device())
+
+
+def _affine_check(name, x, n, t, what="x"):
+    if not torch.is_tensor(x) or x.dim() != 1 or x.shape[0] != n:
+        raise ValueError(
+            f"{name}: {what} must be a 1-D tensor of {n} dofs, got "
+            f"{tuple(getattr(x, 'shape', ()))}")
+    if x.get_device() != t.wdet.get_device():
+        raise ValueError(f"{name}: {what} is on {x.device}, the tables on "
+                         f"{t.wdet.device}")
 
 
 def affine_mv(mode, x, tables, cm=1.0, ca=0.0):
@@ -1463,29 +1798,23 @@ def affine_mv(mode, x, tables, cm=1.0, ca=0.0):
     ``x``).  Arithmetic in the tables' type, result in ``x``'s.
 
     On a CUDA tensor this launches the hand-written kernel of
-    ``csrc/affine.cu`` (element phase, grid barrier, fixed-order reduction:
-    one device kernel, with the mode as an argument) on the current
-    stream, through the tables' :class:`AffinePlan` for that stream, and
-    counts it in ``affine_mv.launches`` (and by mode in
-    ``affine_mv.mode_launches``); on a CPU tensor it is
-    :func:`affine_mv_ref`."""
+    ``csrc/affine.cu`` (one device kernel with no grid-wide wait, the mode
+    an argument, the chunks :func:`affine_plan`'s) on the current stream,
+    through the tables' :class:`AffinePlan` on that card, and counts it
+    in ``affine_mv.launches`` (and by mode in ``affine_mv.mode_launches``);
+    on a CPU tensor it is :func:`affine_mv_ref`."""
     if mode not in _AFFINE_MODES:
         raise ValueError(f"affine_mv mode {mode!r}")
     n = tables.npc if mode == "jt" else tables.nin
-    if not torch.is_tensor(x) or x.dim() != 1 or x.shape[0] != n:
-        raise ValueError(
-            f"affine_mv {mode!r}: x must be a 1-D tensor of {n} dofs, got "
-            f"{tuple(getattr(x, 'shape', ()))}")
-    if x.get_device() != tables.wdet.get_device():
-        raise ValueError(f"affine_mv: x is on {x.device}, the tables on "
-                         f"{tables.wdet.device}")
+    if not _affine_ok(x, n, tables):
+        _affine_check(f"affine_mv {mode!r}", x, n, tables)
     if mode == "m":
         cm, ca = 1.0, 0.0
     elif mode == "a":
         cm, ca = 0.0, 1.0
     if not x.is_cuda:
         return affine_mv_ref(mode, x, tables, cm, ca)
-    y = _affine_launch(mode, x, tables, cm, ca)
+    y = _affine_launch(mode, x.contiguous(), None, tables, cm, ca)
     affine_mv.launches += 1
     affine_mv.mode_launches[mode] += 1
     return y
@@ -1493,3 +1822,31 @@ def affine_mv(mode, x, tables, cm=1.0, ca=0.0):
 
 affine_mv.launches = 0
 affine_mv.mode_launches = dict.fromkeys(_AFFINE_MODES, 0)
+
+
+def affine_residual(v, q, tables, cm=1.0, ca=0.0):
+    """The residual of the dense solver's refinement round in one call:
+    ``[cm M v + ca A v (+ its facet rows) + J^T q ; J v]`` (``nin + npc``)
+    in ``v``'s type, ``v`` and ``q`` of one type; the function of
+    ``affine_mv('ma', v) + affine_mv('jt', q)`` and ``affine_mv('j', v)``.
+
+    On a CUDA tensor this launches the kernel of ``csrc/affine.cu`` in its
+    residual mode (one launch for the three matvecs: each velocity dof
+    sums its ``K`` terms and its ``J^T`` terms in their slot order and adds
+    the two in ``v``'s type, as the composition does) and counts it in
+    ``affine_residual.launches``; on a CPU tensor it is
+    :func:`affine_residual_ref`."""
+    if not (_affine_ok(v, tables.nin, tables)
+            and _affine_ok(q, tables.npc, tables)):
+        _affine_check("affine_residual", v, tables.nin, tables, "v")
+        _affine_check("affine_residual", q, tables.npc, tables, "q")
+    if q.dtype != v.dtype:
+        raise TypeError(f"affine_residual: v is {v.dtype}, q {q.dtype}")
+    if not v.is_cuda:
+        return affine_residual_ref(v, q, tables, cm, ca)
+    y = _affine_launch("res", v.contiguous(), q.contiguous(), tables, cm, ca)
+    affine_residual.launches += 1
+    return y
+
+
+affine_residual.launches = 0

@@ -52,6 +52,20 @@ def _to_dense(mat):
     return np.asarray(mat)
 
 
+def _fused_residual(res_ops):
+    """The 'ma' view of ``res_ops = (Kop, Jop)`` when the two are the
+    'ma' and 'j' views of one :class:`..ops.affine.AffineVectorOps` (the
+    residual then takes one call), else None."""
+    if res_ops is None:
+        return None
+    Kop, Jop = res_ops
+    if (getattr(Kop, "kind", None) == "ma" and getattr(Jop, "kind", None)
+            == "j" and getattr(Kop, "aff", None) is not None
+            and Kop.aff is getattr(Jop, "aff", None)):
+        return Kop
+    return None
+
+
 class InverseSaddleSolver:
     """Reusable saddle solver: explicit dense inverse plus iterative
     refinement with *sparse* residuals.
@@ -66,7 +80,10 @@ class InverseSaddleSolver:
     * per solve: ``x0 = Kinv @ rhs`` — one :func:`vecmat` launch — then
       ``refine`` rounds of ``x += Kinv @ (rhs - K x)`` with the residual
       computed from the sparse/element operators, recovering accuracy
-      beyond ``inv_dtype``.
+      beyond ``inv_dtype``.  When ``res_ops`` are the 'ma' and 'j' views
+      of one :class:`..ops.affine.AffineVectorOps`, ``K x`` is one call of
+      its :meth:`saddle_residual` (one kernel launch for ``K v``, ``J^T
+      q`` and ``J v``; the same function).
     """
 
     def __init__(self, amat=None, jmat=None, jmatT=None, refine=None,
@@ -76,6 +93,7 @@ class InverseSaddleSolver:
         self.device = device
         # optional element-level (Kop, Jop) pair for the refinement residual
         self.res_ops = res_ops
+        self._res_fused = _fused_residual(res_ops)
         dtype = dtype or torch.float64
         nv, npp = amat.shape[0], jmat.shape[0]
         self.nv, self.np = nv, npp
@@ -131,6 +149,9 @@ class InverseSaddleSolver:
 
     def _K_matvec(self, x):
         v, q = x[: self.nv], x[self.nv:]
+        if self._res_fused is not None:
+            Kop = self._res_fused
+            return Kop.aff.saddle_residual(v, q, Kop.cm, Kop.ca)
         if self.res_ops is not None:
             Kop, Jop = self.res_ops
             rv = Kop.matvec(v) + Jop.rmatvec(q)

@@ -15,8 +15,10 @@ import torch
 from dolfin_navier_scipy_tpu_torch.models import (
     cylinderwake_problem, drivencavity_problem)
 from dolfin_navier_scipy_tpu_torch.ops.affine import AffineVectorOps
+from dolfin_navier_scipy_tpu_torch.ops import kernels
 from dolfin_navier_scipy_tpu_torch.ops.kernels import (
-    affine_mv, affine_mv_ref, as_band_operand, as_vecmat_operand,
+    affine_mv, affine_mv_ref, affine_residual, affine_residual_ref,
+    as_band_operand, as_vecmat_operand,
     band_operand, banded_mv, banded_mv_ref, conv_vector, conv_vector_amatvec,
     conv_vector_amatvec_ref, conv_vector_ref, rect_mv, rect_mv_levels,
     rect_mv_levels_ref, rect_mv_ref, vecmat)
@@ -108,6 +110,7 @@ def _card_calls():
     xe = torch.from_numpy(rng.normal(size=2058)).float().cuda()
     ain = prob.affine_ops(torch.float32, device="cuda")
     xa = torch.from_numpy(rng.normal(size=ain.nin)).float().cuda()
+    qa = torch.from_numpy(rng.normal(size=ain.npc)).float().cuda()
     return {
         "vecmat": lambda: (vecmat(x, KT),),
         "conv_vector": lambda: (conv_vector(u, None, t),),
@@ -117,6 +120,8 @@ def _card_calls():
         "rect_mv": lambda: (rect_mv(single, bases, xe, 2058),),
         "rect_mv_levels": lambda: (rect_mv_levels(stack, bases, xe, 2058),),
         "affine_mv": lambda: (affine_mv("ma", xa, ain, 1.0, 5e-3),),
+        "affine_residual": lambda: (affine_residual(xa, qa, ain, 1.0,
+                                                    5e-3),),
     }
 
 
@@ -146,7 +151,7 @@ _BAND_CASES = {
 
 
 _WRAPPERS = ["vecmat", "conv_vector", "conv_vector_amatvec", "banded_mv",
-             "rect_mv", "rect_mv_levels", "affine_mv"]
+             "rect_mv", "rect_mv_levels", "affine_mv", "affine_residual"]
 
 
 @pytest.mark.cuda
@@ -600,14 +605,44 @@ def test_device_setup_on_the_card_matches_host_and_cpu(monkeypatch):
     assert float(err) <= 1e-6
 
 
+_AFFINE_PLAN_SHIPPED = dict(kernels._AFFINE_PLAN)
+_AFFINE_FIT = kernels.affine_fit
+# plan settings that give chunks of one element and of 64 (blocks past
+# the kernel's threads, split); "slots16": the plan's chunk with every
+# dof's slot table padded to 16 rows (-1), past the 12 the kernel holds in
+# registers, so that it reads them from the table
+_AFFINE_CHUNKS = {"plan": {}, "one": dict(MIN_CHUNK=1, BLOCKS_PER_SM=10**6),
+                  "wide": dict(MIN_CHUNK=64), "slots16": {}}
+
+
+def _padded_fit(t, kind, chunk, smem_max=None):
+    part, chunk, smem = _AFFINE_FIT(t, kind, chunk, smem_max)
+    lell = part["lell"]
+    pad = np.full((16 - lell.shape[0], lell.shape[1]), -1, lell.dtype)
+    return dict(part, lell=np.concatenate([lell, pad])), chunk, smem
+
+
+@pytest.fixture(params=list(_AFFINE_CHUNKS))
+def affine_chunk(request, monkeypatch):
+    """The affine kernel on the chunk its plan picks, on chunks of one
+    element and of 64, and with slot tables wider than the kernel's
+    registers (plans made on the tables' first call)."""
+    for k, v in _AFFINE_CHUNKS[request.param].items():
+        monkeypatch.setitem(kernels._AFFINE_PLAN, k, v)
+    if request.param == "slots16":
+        monkeypatch.setattr(kernels, "affine_fit", _padded_fit)
+    return request.param
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("full_dofs", [False, True])
 @pytest.mark.parametrize("wdtype", [torch.float32, torch.float64])
-def test_affine_kernel_on_the_card(wdtype, full_dofs):
-    """The affine kernel in every mode against its plain version on a
-    Robin-penalized wake (outflow and arc facet rows), f32 and f64 vectors:
-    within 1e-5 of each row's sum of absolute products, the same bits
-    twice, one launch counted a call."""
+def test_affine_kernel_on_the_card(wdtype, full_dofs, affine_chunk):
+    """The affine kernel in every mode and its fused residual against their
+    plain versions on a Robin-penalized wake (outflow and arc facet rows),
+    f32 and f64 vectors: within 1e-5 of each row's sum of absolute
+    products, the same bits twice, one launch counted a call; every chunk
+    gives the plan's bits."""
     if not torch.cuda.is_available():
         pytest.skip(NEEDS_CARD)
     from dolfin_navier_scipy_tpu_torch.control import apply_robin_penalty
@@ -625,22 +660,90 @@ def test_affine_kernel_on_the_card(wdtype, full_dofs):
         setattr(absaff, k, getattr(aff, k).abs())
     rng = np.random.default_rng(19)
     for mode, cm, ca in (("m", 1.0, 0.0), ("a", 0.0, 1.0), ("ma", 1.0, 5e-3),
-                         ("j", 1, 0), ("jt", 1, 0)):
+                         ("j", 1, 0), ("jt", 1, 0), ("res", 1.0, 5e-3)):
         n = aff.npc if mode == "jt" else aff.nin
         for xdt in (torch.float32, torch.float64):
             x = torch.from_numpy(rng.normal(size=n)).to(xdt).cuda()
-            before = affine_mv.launches
-            y = affine_mv(mode, x, aff, cm, ca)
+            q = torch.from_numpy(rng.normal(size=aff.npc)).to(xdt).cuda()
+            if mode == "res":
+                wrapper = affine_residual
+
+                def call(t=aff):
+                    return affine_residual(x, q, t, cm, ca)
+                ref = affine_residual_ref(x, q, aff, cm, ca)
+                bar = 1e-5 * affine_residual_ref(
+                    x.double().abs(), q.double().abs(), absaff, cm, ca)
+            else:
+                wrapper = affine_mv
+
+                def call(t=aff):
+                    return affine_mv(mode, x, t, cm, ca)
+                ref = affine_mv_ref(mode, x, aff, cm, ca)
+                bar = 1e-5 * affine_mv_ref(mode, x.double().abs(), absaff,
+                                           cm, ca)
+            before = wrapper.launches
+            y = call()
             torch.cuda.synchronize()
-            assert affine_mv.launches == before + 1
-            ref = affine_mv_ref(mode, x, aff, cm, ca)
-            bar = 1e-5 * affine_mv_ref(mode, x.double().abs(), absaff,
-                                       cm, ca) + 1e-30
+            assert wrapper.launches == before + 1
             err = (y.double() - ref.double()).abs()
-            assert bool((err <= bar).all()), (mode, xdt,
-                                              float((err / bar).max()))
+            assert bool((err <= bar + 1e-30).all()), (
+                mode, xdt, float((err / (bar + 1e-30)).max()))
             assert y.dtype == xdt
-            assert torch.equal(y, affine_mv(mode, x, aff, cm, ca)), mode
+            assert torch.equal(y, call()), mode
+            if affine_chunk != "plan":
+                # the bits of the plan's own chunk
+                with pytest.MonkeyPatch.context() as mp:
+                    for k in _AFFINE_CHUNKS[affine_chunk]:
+                        mp.setitem(kernels._AFFINE_PLAN, k,
+                                   _AFFINE_PLAN_SHIPPED[k])
+                    mp.setattr(kernels, "affine_fit", _AFFINE_FIT)
+                    fresh = copy.copy(aff)
+                    fresh._plans = {}
+                    assert torch.equal(y, call(fresh)), (mode, xdt)
+
+
+@pytest.mark.cuda
+def test_affine_kernel_refuses_what_it_cannot_take():
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    prob = cylinderwake_problem(level=0, Re=100)
+    aff = prob.affine_ops(torch.float32, device="cuda")
+    v = torch.zeros(aff.nin, device="cuda")
+    q = torch.zeros(aff.npc, device="cuda")
+    with pytest.raises(ValueError, match="is on"):
+        affine_residual(v, q.cpu(), aff)
+    with pytest.raises(ValueError, match="is on"):
+        affine_mv("m", v.cpu(), aff)
+    with pytest.raises(TypeError):
+        affine_residual(v.half(), q.half(), aff)
+    with pytest.raises(TypeError):
+        affine_mv("m", v.half(), aff)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme, per_step", [("cnab", 3), ("sbdf2", 4)])
+def test_dense_inner_step_affine_launches(scheme, per_step):
+    """The dense solver on the inner layout: a CNAB step makes 3 affine
+    launches (A v, the continuity rhs's J v, and the refinement round's
+    fused residual), an sbdf2 step 4 (M dv too); within 1e-6 of the CPU
+    f64 run."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    prob = drivencavity_problem(N=8, Re=100)
+    kw = dict(prob=prob, t0=0.0, tE=0.2, Nts=20, start_ssstokes=True,
+              linsolver="dense", save_every=5, state_layout="inner",
+              time_int_scheme=scheme)
+    solve_nse(**kw)                             # the plans, the inverse
+    a0, r0 = affine_mv.launches, affine_residual.launches
+    out = solve_nse(**kw)
+    nsteps = 19
+    assert affine_residual.launches - r0 == nsteps
+    assert (affine_mv.launches - a0) + (affine_residual.launches - r0) == \
+        per_step * nsteps
+    ref = solve_nse(device="cpu", **kw)
+    err = (torch.linalg.vector_norm(out["v"].cpu() - ref["v"])
+           / torch.linalg.vector_norm(ref["v"]))
+    assert float(err) <= 1e-6
 
 
 @pytest.mark.cuda

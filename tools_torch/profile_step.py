@@ -194,7 +194,7 @@ def main():
               state_layout=args.layout, **extra)
     wrappers = [getattr(kernels, name) for name in
                 ("vecmat", "conv_vector", "conv_vector_amatvec", "banded_mv",
-                 "rect_mv", "rect_mv_levels", "affine_mv")
+                 "rect_mv", "rect_mv_levels", "affine_mv", "affine_residual")
                 if hasattr(kernels, name)]
     for wr in (args.warm_refine if args.scheme == "cnab" else [None]):
         if wr is not None:
