@@ -64,6 +64,23 @@ and times beside an empty kernel on the same grid.  The dense inner-layout
 runs (``sbdf2`` at level 1, the dense route at level 2) take the residual
 of their refinement round in one launch.
 
+The steady slice (right after the level-2 controls, before the main
+path): ``elemmv_checks`` holds the element-matrix matvec (``csrc/
+elemmv.cu``, ``elem_mv``) against its plain version on every operand it
+takes (the matrix-free steady route's f32 linearized convection at levels
+1 and 2, ``ElementOp`` M and A and ``DivElementOp`` J and J^T in f32 and
+f64), each one kernel node a call, the same bits twice and on a replay,
+timed beside its bound and a cuSPARSE CSR matvec; ``steady_krylov_level2``
+solves the DFG 2D-1 steady benchmark (Re 20) at level 2 through
+``solve_steadystate_nse`` (``auto``: the matrix-free route) against the
+card's dense f64 LU route, with ``elem_mv`` launches equal to the
+solver's F-matvecs and one FGMRES cycle traced; ``steady_dense_path`` the
+same call at level 1 (``auto``: the dense route) against the host-sparse
+route in f64, the published coefficients and a bitwise rerun;
+``pseudotime_path`` the pseudo-time march at level 1 against that Newton
+solution; after the CPU reference run, ``krylov_cnab`` runs the main
+path's CNAB call on the Krylov saddle solver against it.
+
 Every phase prints one JSON line; any failed phase raises, so the exit
 code is non-zero and the final line is missing.  The last line is
 ``{"ok": true, "device": {...}}``, the one before it the ``kernels`` table.
@@ -81,6 +98,7 @@ import time
 
 import numpy as np
 import scipy.sparse as sps
+import scipy.sparse.linalg as spla
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -91,17 +109,22 @@ if not torch.cuda.is_available():
 from dolfin_navier_scipy_tpu_torch.control import (
     apply_robin_penalty, get_heunab_lti)
 from dolfin_navier_scipy_tpu_torch.models import (
-    cylinderwake_problem, make_inscan_liftdrag, observation_operator)
+    LiftDragSurfForce, cylinderwake_problem, make_inscan_liftdrag,
+    observation_operator, pressure_drop)
 from dolfin_navier_scipy_tpu_torch.ops import kernels
 from dolfin_navier_scipy_tpu_torch.ops.affine import AffineVectorOps
+from dolfin_navier_scipy_tpu_torch.ops.elementop import build_element_ops
 from dolfin_navier_scipy_tpu_torch.ops.kernels import (
     _affine_launch, _windows, affine_mv, affine_mv_ref, affine_residual,
     affine_residual_ref, as_band_operand, as_vecmat_operand,
     banded_mv, banded_mv_ref, conv_vector, conv_vector_amatvec,
-    conv_vector_amatvec_ref, conv_vector_ref, rect_mv, rect_mv_levels,
-    rect_mv_levels_ref, rect_mv_ref, vecmat, vecmat_ref)
+    conv_vector_amatvec_ref, conv_vector_ref, elem_mv, elem_mv_ref, rect_mv,
+    rect_mv_levels, rect_mv_levels_ref, rect_mv_ref, vecmat, vecmat_ref)
 from dolfin_navier_scipy_tpu_torch.solve import (
-    DirichletControl, SchurSaddleSolver, sbdf2, solve_nse)
+    DirichletControl, KrylovSaddleSolver, SchurSaddleSolver, sbdf2,
+    solve_nse, solve_steadystate_nse, solve_steadystate_pseudotime, steady)
+from dolfin_navier_scipy_tpu_torch.solve.steady import (
+    SteadyKrylovKernel, _sk_elem32)
 from dolfin_navier_scipy_tpu_torch.solve.timeint import _build_ops
 
 # published peaks of one H100 SXM (NVIDIA data sheet): device memory rate
@@ -110,7 +133,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 F64_FLOP_PER_S = 34e12
 WRAPPERS = (vecmat, conv_vector, conv_vector_amatvec, banded_mv, rect_mv,
-            rect_mv_levels, affine_mv, affine_residual)
+            rect_mv_levels, affine_mv, affine_residual, elem_mv)
 NONE_BANDED = dict(banded_mv=0, rect_mv=0, rect_mv_levels=0)
 
 SEED = 0
@@ -881,7 +904,8 @@ def level2_path(dev, gen, nsteps):
     # J^T q, J v) through its fused form, one launch
     require(ref_counts == dict(vecmat=2 * nsteps, conv_vector=nsteps + 3,
                                conv_vector_amatvec=0, affine_mv=2 * nsteps,
-                               affine_residual=nsteps, **NONE_BANDED),
+                               affine_residual=nsteps, elem_mv=0,
+                              **NONE_BANDED),
             f"launches of the level-2 dense run: {ref_counts}")
     require(ref["ffflag"] is False, "level-2 dense run")
     ref_div = divergence_rel(prob, ref["v"])
@@ -891,7 +915,8 @@ def level2_path(dev, gen, nsteps):
                     banded_mv=nsteps * (1 + wr),
                     rect_mv=nsteps * (1 + 3 * wr),
                     rect_mv_levels=nsteps * 3 * (1 + wr), affine_mv=0,
-                    affine_residual=0)
+                    affine_residual=0,
+                elem_mv=0)
         require(c == want, f"launches of the level-2 run, warm_refine={wr}:"
                 f" {c} != {want}")
         by_form, by_shape = stack_runs[wr]
@@ -1288,7 +1313,8 @@ def schur_inner_counts(nsteps, refine, affine_per_step, smw_cols=0):
                 banded_mv=solves * refine,
                 rect_mv=solves * (1 + 3 * refine),
                 rect_mv_levels=3 * solves * (1 + refine),
-                affine_mv=affine_per_step * nsteps, affine_residual=0)
+                affine_mv=affine_per_step * nsteps, affine_residual=0,
+                elem_mv=0)
 
 
 def rot_control(prob, dev):
@@ -1590,6 +1616,416 @@ def control_level2(dev, gen, nsteps):
     return checks, modes
 
 
+# ---------------------------------------------------------------------------
+# the steady slice: the element-matrix matvec (B10) and the steady routes
+# ---------------------------------------------------------------------------
+
+ELEM_REPLACES = dict(
+    sk="dolfin_navier_scipy_tpu/solve/steady.py:369",
+    op="dolfin_navier_scipy_tpu/ops/elementop.py:48",
+    div="dolfin_navier_scipy_tpu/ops/elementop.py:87")
+ELEM_DESIGN = ("a thread an output dof: its slots in the table's order, a "
+               "12-wide dot each; no scratch, no atomics, no grid barrier")
+DFG_REF = dict(cd=5.57953523384, cl=0.010618948146, dp=0.11752016697)
+STEADY_KW = dict(return_vp=True, vel_pcrd_stps=2, vel_nwtn_stps=8,
+                 vel_nwtn_tol=1e-12, return_nwtnupd_norms=True,
+                 verbose=False)
+
+
+def dfg_problem(level):
+    """The DFG 2D-1 steady benchmark (Re 20) at a mesh level."""
+    return cylinderwake_problem(level=level, nu=1e-3, charvel=0.2)
+
+
+def elem_bound_ms(E, x, in_tab, out_tab, transpose):
+    """Bytes (E, the input ids, the output ids, x, y; each once, and the
+    ids once where input and output share a table: the kernel's own slot
+    tables are its design, not the function's) over the memory rate
+    against 2 nc R C operations over the peak rate of x's type;
+    ``(ms, by)``."""
+    R, C = (E.shape[2], E.shape[1]) if transpose else E.shape[1:]
+    ids = in_tab.vd.numel() + (0 if out_tab is in_tab
+                               else out_tab.vd.numel())
+    nbytes = (E.numel() * E.element_size() + 4 * ids
+              + x.element_size() * (x.numel() + out_tab.nseg))
+    ops = 2.0 * E.shape[0] * R * C
+    peak = F64_FLOP_PER_S if x.dtype == torch.float64 else F32_FLOP_PER_S
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / peak
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def elem_csr(E, in_tab, out_tab, transpose, dtype, dev):
+    """The assembled matrix of the element blocks as a CUDA CSR tensor
+    (the library's one-call equivalent: a cuSPARSE matvec)."""
+    Ed = E.double().cpu().numpy()
+    if transpose:
+        Ed = Ed.transpose(0, 2, 1)
+    ri = out_tab.vd.cpu().numpy()[:, :, None]
+    ci = in_tab.vd.cpu().numpy()[:, None, :]
+    rows = np.broadcast_to(ri, Ed.shape).ravel()
+    cols = np.broadcast_to(ci, Ed.shape).ravel()
+    keep = (rows < out_tab.nseg) & (cols < in_tab.nseg)
+    B = sps.csr_matrix((Ed.ravel()[keep], (rows[keep], cols[keep])),
+                       shape=(out_tab.nseg, in_tab.nseg))
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(B.indptr, dtype=torch.int64),
+        torch.as_tensor(B.indices, dtype=torch.int64),
+        torch.as_tensor(B.data), size=B.shape).to(device=dev, dtype=dtype)
+
+
+def check_elem(E, in_tab, out_tab, transpose, what, gen, replaces):
+    """B10 against its plain version on the same inputs: 1e-6 relative in
+    f32, 1e-12 in f64; one kernel node a call, the same bits on a rerun and
+    a graph replay; timed by graph replay beside its plain version, a
+    cuSPARSE CSR matvec of the assembled matrix and the bound."""
+    dev = E.device
+    x = torch.randn(in_tab.nseg, generator=gen, dtype=torch.float64).to(
+        device=dev, dtype=E.dtype)
+
+    def run():
+        return elem_mv(E, x, in_tab, out_tab, transpose)
+
+    def plain():
+        return elem_mv_ref(E, x, in_tab, out_tab, transpose)
+
+    before = elem_mv.launches
+    y, again = run(), run()
+    ref = plain()
+    torch.cuda.synchronize()
+    require(elem_mv.launches == before + 2, "elem_mv counts its launches")
+    require(y.dtype == x.dtype and y.shape == ref.shape, "elem_mv: output")
+    require(bool(torch.isfinite(y).all()), f"elem_mv ({what}) not finite")
+    err = rel(y, ref)
+    bar = 1e-6 if x.dtype == torch.float32 else 1e-12
+    require(err <= bar, f"elem_mv ({what}) disagrees with its plain version: "
+            f"{err:.3e} > {bar}")
+    require(torch.equal(y, again), f"elem_mv ({what}) is not reproducible")
+    types, replayed = captured(run)
+    require(types.count(0) == 1, f"elem_mv ({what}) ran {types.count(0)} "
+            f"device kernels (graph node types {types})")
+    require(torch.equal(replayed, y), f"elem_mv ({what}): a graph replay "
+            "differs from the eager call")
+    csr = elem_csr(E, in_tab, out_tab, transpose, x.dtype, dev)
+    xl = x[:, None]
+    bound, by = elem_bound_ms(E, x, in_tab, out_tab, transpose)
+    ms = graph_ms(run)
+    return dict(name="elem_mv", operand=what, transpose=transpose,
+                shape=list(E.shape), tables=str(E.dtype), state=str(x.dtype),
+                n_in=in_tab.nseg, n_out=out_tab.nseg,
+                slots_per_dof_max=int(out_tab.kernel_tables()[1].shape[0]),
+                rel_err=err, bar=bar,
+                max_abs_err=float((y.double() - ref.double()).abs().max()),
+                device_kernels_per_call=1, graph_replay_equal=True,
+                ms=ms, eager_ms=time_ms(run, 200),
+                plain_ms=time_ms(plain, 50),
+                library_ms=time_ms(lambda: csr @ xl, 200),
+                library="cuSPARSE CSR matvec (torch sparse CSR @) with the "
+                        "assembled matrix",
+                bound_ms=bound, bound_by=by, roofline_share=bound / ms,
+                replaces=replaces)
+
+
+def elemmv_checks(dev, gen):
+    """B10 on every operand it takes: the steady Krylov route's f32
+    linearized convection (``_sk_elem32``) at levels 1 and 2 at a seeded
+    velocity, ``ElementOp`` M and A with f32 and f64 tables, and
+    ``DivElementOp`` J and J^T (level 1)."""
+    out = []
+    for level in (1, 2):
+        prob = dfg_problem(level)
+        sk = SteadyKrylovKernel(prob, device=dev)
+        v = torch.randn(prob.nv_full, generator=gen,
+                        dtype=torch.float64).to(dev)
+        el = _sk_elem32(sk, v, False)
+        out.append(check_elem(el, sk.ell_dofs, sk.ell_dofs, False,
+                              f"_sk_elem32, level {level}", gen,
+                              ELEM_REPLACES["sk"]))
+        del sk, el
+    prob = dfg_problem(1)
+    for dt in (torch.float32, torch.float64):
+        M, A, J = build_element_ops(prob, dtype=dt, device=dev)
+        for name, op in (("M", M), ("A", A)):
+            out.append(check_elem(op.elem, op.tab, op.tab, False,
+                                  f"ElementOp {name}, level 1", gen,
+                                  ELEM_REPLACES["op"]))
+        out.append(check_elem(J.elem, J.vtab, J.ptab, False,
+                              "DivElementOp J, level 1", gen,
+                              ELEM_REPLACES["div"]))
+        out.append(check_elem(J.elem, J.ptab, J.vtab, True,
+                              "DivElementOp J^T, level 1", gen,
+                              ELEM_REPLACES["div"]))
+    say(phase="elemmv_checks", checks=out)
+    return out
+
+
+def elem_row(c, launches):
+    """The ``kernels`` line's row of B10."""
+    return dict(
+        name="elem_mv", route="cuda",
+        source="dolfin_navier_scipy_tpu_torch/csrc/elemmv.cu",
+        replaces=c["replaces"], launches=launches, operand=c["operand"],
+        shape=dict(E=c["shape"], n_in=c["n_in"], n_out=c["n_out"],
+                   tables=c["tables"], state=c["state"]),
+        max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"],
+        bound_ms=c["bound_ms"], bound_by=c["bound_by"],
+        library_ms=c["library_ms"], library=c["library"],
+        eager_ms=c["eager_ms"],
+        device_kernels_per_call=c["device_kernels_per_call"],
+        design=ELEM_DESIGN)
+
+
+def dfg_checked(prob, v, p, what):
+    """Cd, Cl, dp and the divergence of a steady solution, held to the
+    bars of ``tests/test_dfg_benchmark.py`` (Cd 0.5 %, Cl 2e-3 absolute,
+    dp 1 % of the published values) and divergence <= 1e-9."""
+    cl, cd = LiftDragSurfForce(prob).coefficients(v, p, charvel=0.2,
+                                                   charlen=0.1)
+    coef = dict(cd=float(cd), cl=float(cl), dp=pressure_drop(prob, p))
+    require(abs(coef["cd"] - DFG_REF["cd"]) / DFG_REF["cd"] < 0.005
+            and abs(coef["cl"] - DFG_REF["cl"]) < 2e-3
+            and abs(coef["dp"] - DFG_REF["dp"]) / DFG_REF["dp"] < 0.01,
+            f"DFG 2D-1 coefficients ({what}) {coef} vs {DFG_REF}")
+    div = float(np.abs(prob.Jc @ v.ravel()[prob.invinds]
+                       - prob.fp.ravel()).max())
+    require(div <= 1e-9, f"divergence ({what}) {div:.3e}")
+    return coef, div
+
+
+def dense_step_ms(prob, dev, v):
+    """Device ms of one dense Newton iteration's parts at ``v`` (full
+    dofs): assembly of K, its f64 LU, the solve (CUDA events)."""
+    sk = prob.steady_kernel(dev)
+    vf = torch.as_tensor(np.asarray(v).ravel(), device=dev)
+    K = sk.assemble(vf, False)
+    lu = torch.linalg.lu_factor(K)
+    rhs = torch.cat(sk.rhs(vf, False))[:, None]
+    return dict(assembly_ms=time_ms(lambda: sk.assemble(vf, False), 3),
+                lu_ms=time_ms(lambda: torch.linalg.lu_factor(K), 3),
+                solve_ms=time_ms(lambda: torch.linalg.lu_solve(*lu, rhs), 5),
+                n=int(K.shape[0]))
+
+
+def steady_dense_path(dev):
+    """Level-1 DFG 2D-1 through ``solve_steadystate_nse`` on the card
+    (``auto``: the dense f64 LU route) against the host-sparse route in
+    f64, the published coefficients and a bitwise rerun."""
+    prob = dfg_problem(1)
+    zero_counts()
+    t0 = time.time()
+    (v, p), norms = solve_steadystate_nse(prob, **STEADY_KW)
+    wall = time.time() - t0
+    c = counts()
+    npic = 2
+    nnwt = len(norms)
+    # the right-hand side: one convection vector a Picard iteration, three
+    # a Newton iteration; the M-norm of the update one affine M matvec an
+    # iteration; the assembly is plain torch, the LU cuSOLVER
+    want = dict(vecmat=0, conv_vector=npic + 3 * nnwt,
+                conv_vector_amatvec=0, affine_mv=npic + nnwt,
+                affine_residual=0,
+                elem_mv=0, **NONE_BANDED)
+    require(c == want, f"launches of the dense steady run: {c} != {want}")
+    require(norms[-1] < 1e-12, f"Newton not converged: {norms}")
+    t0 = time.time()
+    (vh, ph), nh = solve_steadystate_nse(prob, linsolver="host-sparse",
+                                         **STEADY_KW)
+    host_s = time.time() - t0
+    ev = rel(torch.as_tensor(v), torch.as_tensor(vh))
+    ep = rel(torch.as_tensor(p), torch.as_tensor(ph))
+    require(ev <= 1e-10 and ep <= 1e-8, f"dense steady vs host-sparse: v "
+            f"{ev:.3e}, p {ep:.3e}")
+    coef, div = dfg_checked(prob, v, p, "level 1")
+    (v2, p2), _ = solve_steadystate_nse(prob, **STEADY_KW)
+    require(np.array_equal(v2, v) and np.array_equal(p2, p),
+            "two dense steady runs on the card differ")
+    parts = dense_step_ms(prob, dev, v)
+    say(phase="steady_dense_path",
+        problem="DFG 2D-1, cylinderwake level 1, Re 20",
+        call="solve_steadystate_nse(prob, return_vp=True, vel_pcrd_stps=2, "
+             "vel_nwtn_stps=8, vel_nwtn_tol=1e-12, "
+             "return_nwtnupd_norms=True)",
+        route="dense (auto)", ncond=len(prob.invinds) + prob.np_cond,
+        launches=c, newton_norms=norms, wall_seconds=wall,
+        host_sparse_seconds=host_s, rel_err_vs_host_sparse=dict(v=ev, p=ep),
+        divergence_max=div, coefficients=coef, published=DFG_REF,
+        bitwise_rerun=True, per_iteration=parts)
+    return prob, v, p
+
+
+def fgmres_cycle(prob, dev, v):
+    """One restart cycle of the matrix-free route's f32 FGMRES (20 outer
+    iterations with the LSC preconditioner) on the Newton system at ``v``
+    (full dofs), warmed once; returns the call and its kernel state."""
+    sk = SteadyKrylovKernel(prob, device=dev)
+    vf = torch.as_tensor(np.asarray(v).ravel(), device=dev)
+    elem = _sk_elem32(sk, vf, False)
+    r = torch.cat(steady._sk_rhs64(sk, vf, False))
+    r = r / torch.linalg.norm(r)
+
+    def run():
+        return steady._sk_gmres(sk, elem, r, restart=20, maxiter=1)
+
+    run()
+    return run, sk
+
+
+def check_linv_pair(prob, sk, x):
+    """B1 on the matrix-free route's stacked ``(npp, 2 npp)`` operand of
+    the (hi, lo) f32 pair of ``L^-1`` (``check_vecmat``), and the summed
+    halves of the kernel's output against an f64 sparse solve of
+    ``L y = x`` within the same bar (``L = J D_M^-1 J^T``)."""
+    require(sk.linv_pair, "level 2 holds L^-1 as the (hi, lo) pair")
+    out = check_vecmat(x, sk.LinvT, "L^-1 (hi, lo) pair, the run's "
+                       "pressure", 50)
+    npp = sk.npp
+    y = vecmat(x, sk.LinvT)
+    y = (y[:npp] + y[npp:]).double().cpu().numpy()
+    Jc = sps.csr_matrix(prob.Jc)
+    dM = np.asarray(sps.csr_matrix(prob.Mc).diagonal()).ravel()
+    L = (Jc @ sps.diags(1.0 / dM) @ sps.csr_matrix(prob.JTc)).tocsc()[
+        :npp, :npp] + 1e-14 * sps.identity(npp, format="csc")
+    ref = spla.spsolve(L, x.double().cpu().numpy())
+    atol = out["atol"]
+    err = np.abs(y - ref)
+    require(bool((err <= atol + out["rtol"] * np.abs(ref)).all()),
+            f"L^-1 pair: hi + lo off the f64 solve by {err.max():.3e} "
+            f"(atol {atol:.3e})")
+    out["sum_vs_f64_solve_max_abs_err"] = float(err.max())
+    return out
+
+
+def steady_krylov_level2(dev):
+    """Level-2 DFG 2D-1 through the same call (``auto``: the matrix-free
+    route) against the host-sparse route in f64 and the card's dense f64
+    LU route, the published coefficients and the divergence; B10
+    launches equal to the F-matvecs the solver reports; B1 on the route's
+    ``L^-1`` pair and B5 on its f64 tables, under the run's state."""
+    prob = dfg_problem(2)
+    ncond = len(prob.invinds) + prob.np_cond
+    require(ncond > 25000, "level 2 is past the dense ceiling")
+    stats = {}
+    zero_counts()
+    t0 = time.time()
+    (v, p), norms = solve_steadystate_nse(prob, stats=stats, **STEADY_KW)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    c = counts()
+    require(c["elem_mv"] == stats["n_fmv"] > 0,
+            f"elem_mv launches {c['elem_mv']} != the solver's F-matvecs "
+            f"{stats['n_fmv']}")
+    require(c["vecmat"] > 0 and c["affine_mv"] > 0 and c["conv_vector"] > 0,
+            f"the matrix-free route's kernels: {c}")
+    require(norms[-1] < 1e-12, f"Newton not converged: {norms}")
+    coef, div = dfg_checked(prob, v, p, "level 2")
+    # one FGMRES restart cycle (20 outer iterations, the unit a solve
+    # repeats: 3 a refinement round) under the profiler, at the solution
+    cycle, sk = fgmres_cycle(prob, dev, v)
+    busy, nkern, cycle_wall = busy_share(cycle)
+    # the route's own operands: L^-1 under the run's pressure, the f64
+    # convection tables under the run's velocity and the boundary data
+    linv = check_linv_pair(prob, sk, torch.as_tensor(
+        p.ravel(), device=dev, dtype=torch.float32))
+    aff = AffineVectorOps.build(prob, torch.float64, full_dofs=True,
+                                device=dev)
+    conv = check_conv(prob.conv_kernel_on(torch.float64), aff,
+                      aff.fac_dofs, torch.as_tensor(v.ravel(), device=dev),
+                      sk.v_bc64, "level 2, the run's velocity",
+                      bool(prob.gradvsymmtrc), False)
+    del sk, aff, cycle
+    # the host-sparse route in f64: the oracle that shares no kernel
+    t0 = time.time()
+    (vh, ph), nh = solve_steadystate_nse(prob, linsolver="host-sparse",
+                                         **STEADY_KW)
+    host_s = time.time() - t0
+    eh = dict(v=rel(torch.as_tensor(v), torch.as_tensor(vh)),
+              p=rel(torch.as_tensor(p), torch.as_tensor(ph)))
+    require(eh["v"] <= 1e-8 and eh["p"] <= 1e-6, f"matrix-free vs "
+            f"host-sparse at level 2: {eh}")
+    # the card's dense route at level 2: the F13 reading, and a second
+    # oracle
+    t0 = time.time()
+    (vd, pd), nd = solve_steadystate_nse(prob, linsolver="dense",
+                                         **STEADY_KW)
+    dense_s = time.time() - t0
+    ev = rel(torch.as_tensor(v), torch.as_tensor(vd))
+    ep = rel(torch.as_tensor(p), torch.as_tensor(pd))
+    require(ev <= 1e-8 and ep <= 1e-6, f"matrix-free vs dense at level 2: "
+            f"v {ev:.3e}, p {ep:.3e}")
+    parts = dense_step_ms(prob, dev, vd)
+    solves = stats["solves"]
+    outer = [s["rounds"] * 3 * 20 for s in solves]
+    say(phase="steady_krylov_level2",
+        problem="DFG 2D-1, cylinderwake level 2, Re 20", ncond=ncond,
+        route="krylov (auto)", launches=c, newton_norms=norms,
+        wall_seconds=wall, coefficients=coef, published=DFG_REF,
+        divergence_max=div, f_iters=stats["f_iters"],
+        f_cycles=stats["f_cycles"], f_matvecs=stats["n_fmv"],
+        solves=solves, fgmres_outer_iterations_per_solve=outer,
+        one_fgmres_cycle=dict(wall_seconds=cycle_wall, device_busy_ms=busy,
+                              device_kernels=nkern,
+                              busy_share=(None if busy is None
+                                          else 1e-3 * busy / cycle_wall)),
+        vecmat_linv_pair=linv, convection_f64_level2=conv,
+        host_sparse_route=dict(seconds=host_s, newton_norms=nh),
+        rel_err_vs_host_sparse=eh,
+        dense_route=dict(seconds=dense_s, newton_norms=nd,
+                         per_iteration=parts),
+        rel_err_vs_dense=dict(v=ev, p=ep))
+    return c["elem_mv"]
+
+
+def krylov_cnab(prob, kw, ref, nsteps):
+    """``cnab`` on the Krylov saddle solver at level 1 (Re 100, 300 steps)
+    against the CPU f64 dense run; the solver's true-residual telemetry
+    over repeated increment-sized solves."""
+    zero_counts()
+    t0 = time.time()
+    o = solve_nse(prob=prob, **dict(kw, linsolver="krylov"))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    c = counts()
+    require(isinstance(o["ops"].solver, KrylovSaddleSolver)
+            and o["ffflag"] is False, "Krylov cnab run")
+    require(c["vecmat"] > 0 and c["affine_mv"] > 0
+            and c["elem_mv"] == 0, f"launches of the Krylov run: {c}")
+    e = rel(o["v"], ref["v"])
+    require(e <= 1e-4, f"Krylov cnab vs CPU f64: {e:.3e}")
+    slv = o["ops"].solver
+    # B1 on the solver's S^-1 under the run's pressure
+    sinv = check_vecmat(o["p"].to(slv.dtype).contiguous(), slv.SinvT,
+                        "S^-1 of the Krylov solver, the run's pressure", 50)
+    rhs0 = o["ops"].dt * torch.as_tensor(
+        np.asarray(prob.fv).ravel(), device=slv.device, dtype=slv.dtype)
+    zp = torch.zeros(slv.np, device=slv.device, dtype=slv.dtype)
+    res = torch.stack([slv.solve_res(rhs0 * (1.0 + 1e-3 * k), zp)[1]
+                       for k in range(8)]).cpu().tolist()
+    say(phase="krylov_cnab", problem="cylinderwake level 1, Re 100",
+        steps=nsteps, launches=c, wall_seconds=wall,
+        loop_seconds=o["timing"]["loop_s"],
+        ms_per_step=1e3 * o["timing"]["loop_s"] / nsteps,
+        vecmat_per_step=c["vecmat"] / nsteps, vecmat_sinv=sinv,
+        tol=slv.tol,
+        rel_err_v_vs_cpu_f64=e, bar=1e-4, solve_res_telemetry=res)
+
+
+def pseudotime_path(prob, v_newton):
+    """``solve_steadystate_pseudotime`` at level 1, Re 20, on the card
+    against the dense route's Newton solution (the JAX test's bar)."""
+    zero_counts()
+    t0 = time.time()
+    vpt, info = solve_steadystate_pseudotime(
+        prob, tol=2e-7, chunk=400, max_rounds=40, verbose=False,
+        return_info=True)
+    wall = time.time() - t0
+    c = counts()
+    e = rel(torch.as_tensor(vpt), torch.as_tensor(v_newton))
+    require(info["converged"] and e <= 5e-5,
+            f"pseudo-time vs Newton: {e:.3e}, {info['rounds']} rounds")
+    say(phase="pseudotime_path", problem="DFG 2D-1, level 1, Re 20",
+        rounds=info["rounds"], dt=info["dt"], rates=info["rates"],
+        wall_seconds=wall, launches=c, rel_err_vs_newton=e, bar=5e-5)
+
+
 def main():
     t_start = time.time()
     dev = torch.device("cuda")
@@ -1686,10 +2122,19 @@ def main():
         level_stack_forms=stack_checks, stack_plan_picks=picked1,
         affine=aff_checks, schur_solver_build_seconds=schur_build_s)
     del sops, slv
+    elem_checks = elemmv_checks(dev, gen)
     device_setup_path(prob, dev, dt_main)
     # the control slice at level 2 (traced here: before any CPU run)
     nsteps = NTS - 1          # the Heun bootstrap takes the first interval
     aff_checks2, control2_modes = control_level2(dev, gen, nsteps)
+    # the steady slice: the matrix-free route at level 2 (its FGMRES
+    # cycle traced here, before the CPU runs), the dense route and the
+    # pseudo-time march at level 1
+    elem_launches2 = steady_krylov_level2(dev)
+    torch.cuda.empty_cache()
+    dfg1, v_newton, _ = steady_dense_path(dev)
+    pseudotime_path(dfg1, v_newton)
+    del dfg1
 
     # -- 3. the main path, through the user's entry points -----------------
     kw = dict(t0=T0, tE=TE, Nts=NTS, start_ssstokes=True,
@@ -1723,7 +2168,8 @@ def main():
     # AB2 start value (the Stokes start brings its own pressure)
     require(main_counts == dict(vecmat=nsteps, conv_vector=4,
                                 conv_vector_amatvec=nsteps, affine_mv=0,
-                                affine_residual=0, **NONE_BANDED),
+                                affine_residual=0, elem_mv=0,
+                                **NONE_BANDED),
             f"launches on the main path: {main_counts}")
     div_rel = divergence_rel(prob, v)
     # each f32 increment solve leaves a divergence residual of f32 size
@@ -1788,6 +2234,7 @@ def main():
             f"card vs CPU f64: {errs}")
     say(phase="reference", device="cpu f64", seconds=cpu_s,
         cpu_steps_per_s=nsteps / ref["timing"]["loop_s"], rel_err=errs)
+    krylov_cnab(prob, kw, ref, nsteps)
 
     # -- 5. the rest of the DFG benchmark run, on the same problem ----------
     trange = np.linspace(T0, TE, NTS + 1)
@@ -1805,7 +2252,8 @@ def main():
     # its fused form for the round's residual (K v + J^T q, J v)
     require(sb_counts == dict(vecmat=2 * nsteps, conv_vector=nsteps + 3,
                               conv_vector_amatvec=0, affine_mv=3 * nsteps,
-                              affine_residual=nsteps, **NONE_BANDED),
+                              affine_residual=nsteps, elem_mv=0,
+                              **NONE_BANDED),
             f"launches of the sbdf2 run: {sb_counts}")
     require(sb["ffflag"] is False and sb["v"].is_cuda, "sbdf2 run")
     # the inner layout gives the dense kernel another operand: the unpadded
@@ -1924,7 +2372,8 @@ def main():
                     banded_mv=nsteps * (1 + wr),
                     rect_mv=nsteps * (1 + 3 * wr),
                     rect_mv_levels=nsteps * 3 * (1 + wr), affine_mv=0,
-                    affine_residual=0)
+                    affine_residual=0,
+                elem_mv=0)
         require(c == want, f"launches of the Schur run, warm_refine={wr}: "
                 f"{c} != {want}")
         # each level stack on the kernel form its plan picks
@@ -1973,7 +2422,8 @@ def main():
     sbs_counts = counts()
     want = dict(vecmat=0, conv_vector=nsteps + 3, conv_vector_amatvec=0,
                 banded_mv=0, rect_mv=nsteps, rect_mv_levels=3 * nsteps,
-                affine_mv=3 * nsteps, affine_residual=0)
+                affine_mv=3 * nsteps, affine_residual=0,
+                elem_mv=0)
     require(sbs_counts == want, f"launches of the Schur sbdf2 run: "
             f"{sbs_counts} != {want}")
     require(isinstance(sbs["ops"].solver, SchurSaddleSolver)
@@ -2095,7 +2545,12 @@ def main():
                 a=control_modes["a"]["a"], m=control_modes["d"]["m"],
                 j=sb_modes["j"], res=sb_counts["affine_residual"])),
         *affine_rows(aff_checks2, "_level2", dict(
-            a=control2_modes["a"], res=res_launches2))])
+            a=control2_modes["a"], res=res_launches2)),
+        # the element-matrix matvec on the steady route's level-2 operand,
+        # with the launches of the matrix-free steady solve there
+        elem_row(next(c for c in elem_checks
+                      if c["operand"] == "_sk_elem32, level 2"),
+                 elem_launches2)])
     say(ok=True, device=dict(platform="gpu",
                              kind=torch.cuda.get_device_name(0),
                              count=torch.cuda.device_count()))

@@ -86,6 +86,8 @@ class NSEProblem:
     def __post_init__(self):
         self._conv_kernels = {}
         self._affine_ops = {}
+        self._element_ops = {}
+        self._steady_kernels = {}
 
     # -- sizes ---------------------------------------------------------------
     @property
@@ -132,6 +134,30 @@ class NSEProblem:
             self._affine_ops[key] = AffineVectorOps.build(
                 self, dtype=dtype, device=device)
         return self._affine_ops[key]
+
+    def element_ops(self, device=None):
+        """Element-level (M, A, J) operators on the inner dofs (f64, on
+        ``device``; cached)."""
+        if self.elem_tensors is None:
+            return None
+        device = self._dev(device)
+        key = str(device)
+        if key not in self._element_ops:
+            from ..ops.elementop import build_element_ops
+
+            self._element_ops[key] = build_element_ops(self, device=device)
+        return self._element_ops[key]
+
+    def steady_kernel(self, device=None):
+        """The dense steady solver's state on ``device`` (cached)."""
+        device = self._dev(device)
+        key = str(device)
+        if key not in self._steady_kernels:
+            from ..solve.steady import SteadySolverKernel
+
+            self._steady_kernels[key] = SteadySolverKernel(self,
+                                                           device=device)
+        return self._steady_kernels[key]
 
     # -- helpers ----------------------------------------------------------------
     def bc_full_vec(self) -> np.ndarray:

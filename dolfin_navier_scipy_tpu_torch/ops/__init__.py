@@ -19,8 +19,11 @@ from .kernels import (  # noqa: F401
     conv_vector_amatvec,
     conv_vector_amatvec_ref,
     conv_vector_ref,
+    elem_mv,
+    elem_mv_ref,
     vecmat,
     vecmat_operand,
     vecmat_ref,
 )
+from .elementop import DivElementOp, ElementOp, build_element_ops  # noqa: F401
 from . import condense  # noqa: F401

@@ -19,8 +19,8 @@ import torch
 
 from ..device import resolve_device
 from .assemble import AssemblyContext
-from .kernels import (ConvTables, conv_vector, conv_vector_amatvec,
-                      weight_matrices)
+from .kernels import (ConvTables, _fields_at_quad, conv_vector,
+                      conv_vector_amatvec, weight_matrices)
 
 
 # ---------------------------------------------------------------------------
@@ -170,6 +170,18 @@ class ConvectionKernel:
                                    fac_elem=fac_elem, fac_vdofs=fac_vdofs)
 
     def element_matrices(self, u0_full, picard_only=False):
-        raise NotImplementedError(
-            "ConvectionKernel.element_matrices belongs to the steady/Newton "
-            "slice of the port and is not ported yet")
+        """Per-element linearized convection blocks ``(nc, nvpc, dim, nvpc,
+        dim)`` in ``u0_full``'s type: ``N1 + N2`` by default (Newton),
+        ``N1`` only for Picard (stokes_navier_utils.py:114-118).  Plain
+        torch einsums on every device (they run once per linearization)."""
+        t = self.tables
+        uq, guq = _fields_at_quad(t, u0_full)
+        gphi = torch.einsum("edk,qak->eqad", t.JinvT, t.dN2)
+        u0gradb = torch.einsum("eqd,eqbd->eqb", uq, gphi)
+        n1e = torch.einsum("eq,qa,eqb->eab", t.wdet, t.N2, u0gradb)
+        eye = torch.eye(self.dim, dtype=n1e.dtype, device=n1e.device)
+        out = torch.einsum("eab,ij->eaibj", n1e, eye)
+        if not picard_only:
+            out = out + torch.einsum("eq,qa,qb,eqij->eaibj", t.wdet, t.N2,
+                                     t.N2, guq)
+        return out.to(u0_full.dtype)

@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch versions.
 
-Four sources:
+Five sources:
 
 * the dense inverse apply ``y = x @ KT`` (``csrc/vecmat.cu``), the
   counterpart of the JAX package's Pallas kernel
@@ -27,6 +27,10 @@ Four sources:
   AffineVectorOps`` pipelines (left to XLA), one launch with the mode as
   an argument and no grid-wide wait (elements of a chunk and its halo in
   a block's shared memory, chunks sized by :func:`affine_plan`).
+* the element-matrix matvec ``y = scatter(E @ gather(x))`` of per-element
+  dense blocks (``csrc/elemmv.cu``) behind :func:`elem_mv`: the JAX
+  package's ``ops/elementop.py`` operators and the steady solver's
+  linearized convection (``_sk_nmv``), left to XLA there.
 
 Build and binding: each ``csrc/*.cu`` is compiled at first use by ``nvcc``
 for ``sm_90a`` into a shared library with a plain C interface (under
@@ -1850,3 +1854,108 @@ def affine_residual(v, q, tables, cm=1.0, ca=0.0):
 
 
 affine_residual.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the element-matrix matvec
+# ---------------------------------------------------------------------------
+
+def _elem_layout(E, transpose):
+    """``(R, C, SE, SR, SC)``: rows, columns and strides of the element
+    rows the matvec reads from ``E (nc, r, c)`` (its transpose's rows when
+    ``transpose``)."""
+    se, sr, sc = E.stride()
+    if transpose:
+        return E.shape[2], E.shape[1], se, sc, sr
+    return E.shape[1], E.shape[2], se, sr, sc
+
+
+def elem_mv_ref(E, x, in_tab, out_tab, transpose=False):
+    """Plain PyTorch version of :func:`elem_mv`: a gather, one einsum over
+    the blocks (``E`` rounded to ``x``'s type first) and one scatter-add
+    (``index_add_``: each output dof's slots in ascending order on the
+    CPU, the kernel's order)."""
+    xpad = torch.cat([x, x.new_zeros(1)])
+    xe = xpad[in_tab.vd.clamp(min=0, max=in_tab.nseg)]
+    eq = "epb,ep->eb" if transpose else "eab,eb->ea"
+    fe = torch.einsum(eq, E.to(x.dtype), xe).reshape(-1)
+    ids = out_tab.vd.reshape(-1).clamp(min=0, max=out_tab.nseg)
+    out = x.new_zeros(out_tab.nseg + 1)
+    return out.index_add_(0, ids, fe)[: out_tab.nseg]
+
+
+def _elemmv_lib():
+    lib = _load("elemmv")
+    if not getattr(lib, "_dns_typed", False):
+        ptr, i = ctypes.c_void_p, ctypes.c_int
+        lib.elemmv.argtypes = ([ptr, i, ptr, ptr, i, ptr, i, ptr, i, i,
+                                ctypes.c_longlong, i, i, i, i, ptr])
+        lib.elemmv.restype = i
+        lib.elemmv_error_string.argtypes = [i]
+        lib.elemmv_error_string.restype = ctypes.c_char_p
+        lib._dns_typed = True
+    return lib
+
+
+def _elem_mv_check(E, x, in_tab, out_tab, transpose):
+    R, C = ((E.shape[2], E.shape[1]) if transpose else E.shape[1:3]) \
+        if E.dim() == 3 else (None, None)
+    if (R is None or in_tab.vd.shape != (E.shape[0], C)
+            or out_tab.vd.shape != (E.shape[0], R)):
+        raise ValueError(
+            f"elem_mv: E {tuple(E.shape)} (transpose {transpose}) with "
+            f"input ids {tuple(in_tab.vd.shape)} and output ids "
+            f"{tuple(out_tab.vd.shape)}")
+    if x.dim() != 1 or x.shape[0] != in_tab.nseg:
+        raise ValueError(f"elem_mv: x {tuple(x.shape)}, the input table "
+                         f"has {in_tab.nseg} dofs")
+    if E.device != x.device or in_tab.vd.device != x.device:
+        raise ValueError(f"elem_mv: E on {E.device}, ids on "
+                         f"{in_tab.vd.device}, x on {x.device}")
+
+
+def elem_mv(E, x, in_tab, out_tab, transpose=False):
+    """The element-matrix matvec ``y[o] = sum over the element rows (e, a)
+    with out[e, a] == o of sum_b E[e, a, b] x[in[e, b]]``: ``E (nc, R, C)``
+    element blocks, ``in_tab``/``out_tab`` the :class:`DofTable` of the
+    input ids ``(nc, C)`` and the output ids ``(nc, R)``; an input id equal
+    to ``in_tab.nseg`` reads 0, an output id equal to ``out_tab.nseg`` is
+    dropped.  ``transpose``: apply the blocks' transpose (``E (nc, C, R)``
+    read column-wise, ``J^T``).  Arithmetic and result in ``x``'s type;
+    ``E`` f32 or f64.
+
+    On a CUDA tensor this launches the hand-written kernel of
+    ``csrc/elemmv.cu`` on the current stream (one launch, a thread an
+    output dof, its slots in the table's order: the same bits on every
+    run) and counts it in ``elem_mv.launches``; on a CPU tensor it is
+    :func:`elem_mv_ref`."""
+    _elem_mv_check(E, x, in_tab, out_tab, transpose)
+    if not x.is_cuda:
+        return elem_mv_ref(E, x, in_tab, out_tab, transpose)
+    if E.dtype not in (torch.float32, torch.float64) or x.dtype not in (
+            torch.float32, torch.float64):
+        raise TypeError(f"elem_mv kernel takes f32 or f64, not E "
+                        f"{E.dtype}, x {x.dtype}")
+    R, C, se, sr, sc = _elem_layout(E, transpose)
+    in32, _ = in_tab.kernel_tables()
+    _, ell = out_tab.kernel_tables()
+    x = x.contiguous()
+    dev = x.get_device()
+    y = x.new_empty(out_tab.nseg)
+    lib = _elemmv_lib()
+    with _on_device(dev):
+        err = lib.elemmv(E.data_ptr(), int(E.dtype == torch.float64),
+                         in32.data_ptr(), x.data_ptr(),
+                         int(x.dtype == torch.float64), ell.data_ptr(),
+                         ell.shape[0], y.data_ptr(), R, C, se, sr, sc,
+                         in_tab.nseg, out_tab.nseg, _raw_stream(dev))
+    if err != 0:
+        raise RuntimeError(
+            f"elem_mv kernel launch failed (E {tuple(E.shape)}, transpose "
+            f"{transpose}, {out_tab.nseg} outputs): "
+            f"{lib.elemmv_error_string(err).decode()}")
+    elem_mv.launches += 1
+    return y
+
+
+elem_mv.launches = 0

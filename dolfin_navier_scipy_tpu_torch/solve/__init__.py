@@ -11,7 +11,12 @@ from .sadpnt import (  # noqa: F401
     solve_sadpnt,
     solve_sadpnt_host,
 )
-from .steady import solve_steadystate_nse  # noqa: F401
+from .steady import (  # noqa: F401
+    solve_steadystate_nse, solve_steadystate_pseudotime)
+from .convconts import expand_vp, get_bcinds, get_v_conv_conts  # noqa: F401
+from .krylov import (  # noqa: F401
+    KrylovCounter, device_fgmres, device_pgmres, solve_sadpnt_krylov)
+from .krylov_saddle import KrylovSaddleSolver, build_krylov_ops  # noqa: F401
 from .pfromv import get_pfromv  # noqa: F401
 from .timeint import (  # noqa: F401
     DirichletControl, cnab, sbdf2, semi_implicit_euler)

@@ -10,12 +10,13 @@ kwargs-driven entry point (stokes_navier_utils.py:548-1599):
 * trajectories returned in device memory instead of the reference's
   per-step ``.npy`` files (``dictofvelstrs``, :1057-1070).
 
-Ported so far: both integrators on the dense and the banded block-Schur
-solver, with time-dependent right-hand sides, Dirichlet controls, static
-feedback (``umat``/``vmat``), closed-loop feedback (dynamic LTI observers
-and ``feedbackthroughdict``), in-loop observables (``outfunc``/
+Ported so far: both integrators on the dense, the banded block-Schur
+and the Krylov solver (``krylov`` / ``linsolver='krylov'``), with
+time-dependent right-hand sides, Dirichlet controls, static feedback
+(``umat``/``vmat``), closed-loop feedback (dynamic LTI observers and
+``feedbackthroughdict``), in-loop observables (``outfunc``/
 ``out_bundle``, CNAB) and ``resume_carry`` passed through to them.
-Checkpoints, Newton-in-time, Krylov solves and Paraview output raise
+Checkpoints, Newton-in-time and Paraview output raise
 ``NotImplementedError``.
 """
 
@@ -84,9 +85,11 @@ def solve_nse(
       ``b_mat``/``cv_mat``; ``umat``/``vmat`` for direct static feedback;
       ``controls`` (:class:`.timeint.DirichletControl`) for Dirichlet
       boundary control,
-    * ``linsolver`` ('auto' | 'dense' | 'schur') — per-step saddle solver:
-      the dense inverse, or the banded block-Schur solver ('auto': dense
-      up to 6000 condensed rows, Schur above; 'krylov' is not ported yet),
+    * ``linsolver`` ('auto' | 'dense' | 'schur' | 'krylov') — per-step
+      saddle solver: the dense inverse, the banded block-Schur solver
+      ('auto': dense up to 6000 condensed rows, Schur above) or the
+      matrix-free Krylov solver; ``krylov`` (reference kwarg, any true
+      value) selects the latter,
     * ``state_layout`` ('auto' | 'full' | 'inner') — the full-dof fast
       layout for plain runs (see timeint.build_full_layout),
     * ``precision`` ('accurate' | 'fast') — f64 vs f32 element kernels on
@@ -103,7 +106,7 @@ def solve_nse(
     device tensors), the blow-up flag, and the decimated trajectory.
     """
     unported = dict(
-        lin_vel_point=lin_vel_point, krylov=krylov,
+        lin_vel_point=lin_vel_point,
         save_data=save_data, useolddata=useolddata,
         clearprvdata=clearprvdata, checkpoint_every=checkpoint_every,
         return_dictofvelstrs=return_dictofvelstrs,
@@ -113,8 +116,13 @@ def solve_nse(
     if given:
         raise NotImplementedError(
             f"solve_nse: {', '.join(given)} not ported yet (checkpoints, "
-            "Newton-in-time, Krylov and Paraview output follow in later "
-            "slices of the port)")
+            "Newton-in-time and Paraview output follow in later slices of "
+            "the port)")
+    if krylov:
+        # reference kwarg parity (solve_nse docstring
+        # stokes_navier_utils.py:651-664): the per-step saddle solves go
+        # through the matrix-free Krylov path
+        linsolver = "krylov"
     schemes = {"cnab": timeint.cnab, "sbdf2": timeint.sbdf2}
     if time_int_scheme not in schemes:
         raise ValueError(f"time_int_scheme={time_int_scheme!r}: one of "
@@ -127,8 +135,10 @@ def solve_nse(
 
     if iniv is None:
         if start_ssstokes:
+            # the host SuperLU Stokes solve on every device
             vss, pss = solve_steadystate_nse(
-                prob, only_stokes=True, return_vp=True, verbose=verbose)
+                prob, only_stokes=True, return_vp=True, verbose=verbose,
+                linsolver="host-sparse", device=device)
             iniv = vss.ravel()[prob.invinds]
             inip = pss.ravel()
         else:

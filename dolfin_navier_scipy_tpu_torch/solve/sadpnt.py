@@ -26,7 +26,8 @@ reference's CNAB loop fast, time_int_utils.py:89-91):
   correctness oracle and the one-off setup solver.
 
 Not ported yet (raise ``NotImplementedError``): the non-banded
-(element-operator) Schur path and the Krylov solver.
+(element-operator) Schur path.  The Krylov solvers are in
+:mod:`.krylov` and :mod:`.krylov_saddle`.
 
 Sign convention: the raw saddle solution ``q`` relates to the physical
 pressure as ``p = -q`` (the reference flips it too:
@@ -1058,13 +1059,18 @@ def solve_sadpnt(amat=None, jmat=None, jmatT=None, rhsv=None, rhsp=None,
 
     Returns the stacked raw solution ``(nv+np, 1)`` (numpy); with
     ``return_solver=True`` also the reusable :class:`SaddleSolver` (on
-    ``device``, ``None`` = the card).  ``krylov`` (the Krylov path) is not
-    ported yet.
+    ``device``, ``None`` = the card).  ``krylov='gmres'`` routes to the
+    host Krylov path (:func:`..solve.krylov.solve_sadpnt_krylov`) with the
+    reference's ``krpslvprms`` kwargs bag (tol/maxiter/x0/convstatsl).
     """
     if krylov:
-        raise NotImplementedError(
-            "solve_sadpnt(krylov=...): the Krylov saddle solver is not "
-            "ported yet (ROADMAP A8)")
+        from .krylov import solve_sadpnt_krylov
+
+        x, _ = solve_sadpnt_krylov(amat=amat, jmat=jmat, jmatT=jmatT,
+                                   rhsv=rhsv, rhsp=rhsp, umat=umat,
+                                   vmat=vmat, krpslvprms=krpslvprms,
+                                   krplsprms=krplsprms)
+        return x
     solver = SaddleSolver(amat, jmat, jmatT, device=device)
     if rhsp is None:
         rhsp = np.zeros((solver.np,))

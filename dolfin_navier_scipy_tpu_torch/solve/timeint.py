@@ -33,8 +33,8 @@ block-Schur solver, with time-dependent right-hand sides (``f_tdp``,
 ``g_tdp``, ``dynamic_rhs`` with memory), Dirichlet controls
 (:class:`DirichletControl`), static low-rank feedback (``umat``/``vmat``,
 through :class:`SMWSolver`), in-loop observables (``outfunc``/``out_bundle``)
-and exact resume (``resume_carry``).  The Krylov solver raises
-``NotImplementedError``.
+and exact resume (``resume_carry``); ``linsolver='krylov'`` steps on the
+matrix-free Krylov saddle solver (inner layout).
 """
 
 from dataclasses import dataclass
@@ -97,12 +97,7 @@ def _resolve_linsolver(prob, linsolver):
         # this size the banded block-Schur solver streams O(n bs)
         n_all = len(prob.invinds) + prob.np_cond
         linsolver = "dense" if n_all <= 6000 else "schur"
-    if linsolver == "krylov":
-        raise NotImplementedError(
-            "linsolver='krylov': the Krylov saddle solver (matrix-free "
-            "GMRES with a SIMPLE-type block-Schur preconditioner) is not "
-            "ported yet (ROADMAP A8); use 'dense' or 'schur'")
-    if linsolver not in ("dense", "schur"):
+    if linsolver not in ("dense", "schur", "krylov"):
         raise ValueError(f"linsolver {linsolver!r}")
     return linsolver
 
@@ -124,8 +119,10 @@ def _build_ops(prob, dt, theta, inv_dtype=None, refine=None,
 
     ``linsolver``: 'dense' (precomputed saddle inverse; O(n^2) memory),
     'schur' (the banded block-Schur solver, :class:`SchurSaddleSolver`;
-    ``winv`` goes to it) or 'auto' (dense up to 6000 condensed rows);
-    'krylov' is not ported yet.  ``layout='full'`` builds the Schur solver
+    ``winv`` goes to it), 'krylov' (matrix-free GMRES with a SIMPLE-type
+    Schur preconditioner, :class:`..solve.krylov_saddle.
+    KrylovSaddleSolver`; tolerance 1e-7 in f32 work, 1e-11 in f64) or
+    'auto' (dense up to 6000 condensed rows).  ``layout='full'`` builds the Schur solver
     over the full velocity dof set for :func:`cnab`'s w-space step (with
     ``A`` as its banded explicit operator); the bundle then carries the
     full-dof matvecs as ``ops.full_schur``.
@@ -137,6 +134,12 @@ def _build_ops(prob, dt, theta, inv_dtype=None, refine=None,
         work_dtype = (torch.float64
                       if (precision != "fast" and not on_acc)
                       else torch.float32)
+    if linsolver == "krylov":
+        from .krylov_saddle import build_krylov_ops
+
+        return build_krylov_ops(
+            prob, dt, theta=theta, dtype=work_dtype, device=device,
+            tol=1e-7 if work_dtype == torch.float32 else 1e-11)
     coeff = sps.csr_matrix(prob.Mc + theta * dt * prob.Ac)
     if linsolver == "schur":
         # the element values of the index pipeline, for the banded gate's

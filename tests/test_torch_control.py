@@ -231,9 +231,10 @@ def test_lu_solver_and_one_shot_helpers():
                                          rhsp=bp)) <= RTOL
     x = apply_massinv(tp.Mc, bv)
     assert np.abs(tp.Mc @ x - bv).max() <= 1e-10 * np.abs(bv).max()
-    with pytest.raises(NotImplementedError, match="Krylov"):
-        solve_sadpnt(amat=coeff, jmat=tp.Jc, rhsv=bv, krylov="gmres",
-                     device="cpu")
+    kry = solve_sadpnt(amat=coeff, jmat=tp.Jc, rhsv=bv, krylov="gmres",
+                       krpslvprms=dict(tol=1e-12), device="cpu")
+    assert np.abs(kry - solve_sadpnt_host(amat=coeff, jmat=tp.Jc,
+                                          rhsv=bv)).max() <= 1e-7
 
 
 def _rot_controls(stateful):

@@ -216,6 +216,16 @@ def test_a_dof_map_may_send_dofs_to_the_dropped_slot():
 
 
 def test_element_matrices_wait_for_the_steady_slice():
+    """Ported with the steady slice: the element blocks assemble into the
+    host oracle's N1 (Picard) and N1 + N2 (Newton)."""
     _, tp = _pair("cavity")
-    with pytest.raises(NotImplementedError, match="steady"):
-        tp.conv_kernel.element_matrices(torch.zeros(tp.nv_full))
+    u = np.random.default_rng(1).normal(size=tp.nv_full)
+    N1, N2, _ = convection_matrices_host(tp.ctx, u)
+    vd = tp.space.vdofs_of_cells().reshape(-1, 12)
+    for picard, ref in ((True, N1), (False, N1 + N2)):
+        el = tp.conv_kernel.element_matrices(
+            _t(u), picard_only=picard).reshape(-1, 12, 12).numpy()
+        D = np.zeros((tp.nv_full, tp.nv_full))
+        for e in range(el.shape[0]):
+            D[np.ix_(vd[e], vd[e])] += el[e]
+        assert np.abs(D - ref.toarray()).max() <= 1e-12 * np.abs(D).max()

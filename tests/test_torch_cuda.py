@@ -773,3 +773,66 @@ def test_controlled_run_on_the_card_matches_the_cpu():
     assert float(err) <= 1e-6
     assert torch.equal(out["carry"]["cvals"].cpu(), math.sin(20.0 * 0.02)
                        * torch.from_numpy(np.asarray(stencil).ravel()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edtype, xdtype", [
+    (torch.float32, torch.float32), (torch.float64, torch.float64),
+    (torch.float64, torch.float32)])
+def test_elem_mv_kernel_on_the_card(edtype, xdtype):
+    """B10 (csrc/elemmv.cu) against its plain version on the element
+    operators of the wake (level 0): M, J and J^T with the Dirichlet trash
+    slot, one launch a call, the same bits twice."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    from dolfin_navier_scipy_tpu_torch.ops.elementop import (
+        build_element_ops)
+    from dolfin_navier_scipy_tpu_torch.ops.kernels import (
+        elem_mv, elem_mv_ref)
+    prob = cylinderwake_problem(level=0, Re=40, charvel=0.2)
+    M, _, J = build_element_ops(prob, dtype=edtype, device="cuda")
+    gen = torch.Generator().manual_seed(3)
+    cases = ((M.elem, M.tab, M.tab, False), (J.elem, J.vtab, J.ptab, False),
+             (J.elem, J.ptab, J.vtab, True))
+    for E, tin, tout, tr in cases:
+        x = torch.randn(tin.nseg, generator=gen, dtype=torch.float64).to(
+            device="cuda", dtype=xdtype)
+        before = elem_mv.launches
+        y = elem_mv(E, x, tin, tout, transpose=tr)
+        assert elem_mv.launches == before + 1
+        ref = elem_mv_ref(E, x, tin, tout, transpose=tr)
+        assert y.dtype == xdtype and y.shape == ref.shape
+        tol = 1e-6 if xdtype == torch.float32 else 1e-12
+        err = (y.double() - ref.double()).norm() / ref.double().norm()
+        assert float(err) <= tol, (tr, float(err))
+        assert torch.equal(y, elem_mv(E, x, tin, tout, transpose=tr))
+    with pytest.raises(ValueError):
+        elem_mv(M.elem, torch.zeros(3, device="cuda"), M.tab, M.tab)
+
+
+@pytest.mark.cuda
+def test_steady_routes_on_the_card_match_the_cpu():
+    """Wake level 0, Re 40: the dense route and the matrix-free route on
+    the card against the CPU's dense route (the fixed points agree to the
+    Newton tolerance)."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    from dolfin_navier_scipy_tpu_torch.ops.kernels import elem_mv
+    from dolfin_navier_scipy_tpu_torch.solve import solve_steadystate_nse
+    prob = cylinderwake_problem(level=0, Re=40, charvel=0.2)
+    kw = dict(return_vp=True, return_nwtnupd_norms=True, verbose=False,
+              vel_pcrd_stps=2, vel_nwtn_stps=8, vel_nwtn_tol=1e-12)
+    (vc, pc), _ = solve_steadystate_nse(prob, linsolver="dense",
+                                        device="cpu", **kw)
+
+    def rel(a, b):
+        return np.linalg.norm(a - b) / np.linalg.norm(b)
+
+    (vd, pd), nd = solve_steadystate_nse(prob, linsolver="dense", **kw)
+    assert nd[-1] < 1e-12 and rel(vd, vc) <= 1e-10 and rel(pd, pc) <= 1e-8
+    stats = {}
+    before = elem_mv.launches
+    (vk, pk), nk = solve_steadystate_nse(prob, linsolver="krylov",
+                                         stats=stats, **kw)
+    assert elem_mv.launches - before == stats["n_fmv"] > 0
+    assert nk[-1] < 1e-12 and rel(vk, vc) <= 1e-10 and rel(pk, pc) <= 1e-8

@@ -26,10 +26,15 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
             "import dolfin_navier_scipy_tpu_torch.utils.convert; "
             "import dolfin_navier_scipy_tpu_torch.models.functionals; "
             "import dolfin_navier_scipy_tpu_torch.solve.timeint; "
+            "import dolfin_navier_scipy_tpu_torch.solve.steady; "
+            "import dolfin_navier_scipy_tpu_torch.solve.krylov; "
+            "import dolfin_navier_scipy_tpu_torch.solve.krylov_saddle; "
+            "import dolfin_navier_scipy_tpu_torch.solve.convconts; "
+            "import dolfin_navier_scipy_tpu_torch.ops.elementop; "
             "from dolfin_navier_scipy_tpu_torch.solve import sbdf2, "
             "semi_implicit_euler; "
             "from dolfin_navier_scipy_tpu_torch.ops.kernels import "
-            "conv_vector, conv_vector_amatvec; "
+            "conv_vector, conv_vector_amatvec, elem_mv; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'dolfin_navier_scipy_tpu' or "
             "m.startswith('dolfin_navier_scipy_tpu.')]; "

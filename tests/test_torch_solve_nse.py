@@ -179,24 +179,22 @@ def test_blowup_freezes_the_state_and_sets_the_flag():
 
 def test_stokes_start_matches_the_host_solve():
     jp, tp = _probs("cavity")
-    v, p = solve_steadystate_nse(tp, only_stokes=True, return_vp=True)
+    v, p = solve_steadystate_nse(tp, only_stokes=True, return_vp=True,
+                                 linsolver="host-sparse")
     assert v.shape == (tp.nv_full, 1) and p.shape == (tp.np_cond, 1)
     assert np.abs(tp.Jc @ v[tp.invinds, 0] - tp.fp.ravel()).max() <= 1e-12
     assert np.array_equal(v[tp.bcinds, 0], tp.bcvals)
-    v_only = solve_steadystate_nse(tp, only_stokes=True)
+    v_only = solve_steadystate_nse(tp, only_stokes=True,
+                                   linsolver="host-sparse")
     assert np.array_equal(v_only, v)
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    # the Krylov solver's SIMPLE-type block-Schur preconditioner, on sbdf2
-    (dict(linsolver="krylov", time_int_scheme="sbdf2"), "block-Schur"),
-    (dict(linsolver="krylov"), "Krylov"),
     (dict(save_data=True), "save_data"),
     (dict(checkpoint_every=5), "checkpoint_every"),
     (dict(treat_nonl_explicit=False), "newton_in_time"),
     (dict(lin_vel_point={0.0: None}), "lin_vel_point"),
     (dict(paraviewoutput=True), "paraviewoutput"),
-    (dict(krylov="gmres"), "krylov"),
     (dict(useolddata=True), "useolddata"),
 ])
 def test_unported_paths_raise(kwargs, match):
@@ -208,8 +206,8 @@ def test_unported_paths_raise(kwargs, match):
 
 def test_auto_linsolver_raises_above_the_dense_window():
     """'auto' takes the banded block-Schur solver above 6000 condensed rows
-    (it raised there until that solver was ported); 'krylov' still
-    raises."""
+    (it raised there until that solver was ported); 'krylov' is taken when
+    named; the steady solver's velocity cache still raises."""
     from types import SimpleNamespace
 
     from dolfin_navier_scipy_tpu_torch.solve.timeint import _resolve_linsolver
@@ -219,12 +217,11 @@ def test_auto_linsolver_raises_above_the_dense_window():
     assert _resolve_linsolver(small, "auto") == "dense"
     assert _resolve_linsolver(big, "auto") == "schur"
     assert _resolve_linsolver(small, "schur") == "schur"
-    with pytest.raises(NotImplementedError, match="Krylov"):
-        _resolve_linsolver(big, "krylov")
+    assert _resolve_linsolver(big, "krylov") == "krylov"
     with pytest.raises(ValueError):
         _resolve_linsolver(small, "lu")
     with pytest.raises(ValueError, match="time_int_scheme"):
         solve_nse(prob=_probs("cavity")[1], device="cpu",
                   **dict(KW, time_int_scheme="rk4"))
-    with pytest.raises(NotImplementedError, match="only_stokes"):
-        solve_steadystate_nse(_probs("cavity")[1])
+    with pytest.raises(NotImplementedError, match="A10"):
+        solve_steadystate_nse(_probs("cavity")[1], useolddata=True)
