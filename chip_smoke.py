@@ -67,16 +67,20 @@ of their refinement round in one launch.
 The steady slice (right after the level-2 controls, before the main
 path): ``elemmv_checks`` holds the element-matrix matvec (``csrc/
 elemmv.cu``, ``elem_mv``) against its plain version on every operand it
-takes (the matrix-free steady route's f32 linearized convection at levels
-1 and 2, ``ElementOp`` M and A and ``DivElementOp`` J and J^T in f32 and
-f64), each one kernel node a call, the same bits twice and on a replay,
-timed beside its bound and a cuSPARSE CSR matvec; ``steady_krylov_level2``
+takes (the matrix-free steady route's f32 F blocks, stiffness plus
+linearized convection, at levels 1 and 2, ``ElementOp`` M and A and
+``DivElementOp`` J and J^T in f32 and f64), each one kernel node a call,
+the same bits twice and on a replay, timed beside its bound and a
+cuSPARSE CSR matvec, and the bits of the earlier kernel (a thread an
+output dof) on seeded operands (``ELEM_BITS``); ``steady_krylov_level2``
 solves the DFG 2D-1 steady benchmark (Re 20) at level 2 through
 ``solve_steadystate_nse`` (``auto``: the matrix-free route) against the
 card's dense f64 LU route, with ``elem_mv`` launches equal to the
-solver's F-matvecs and one FGMRES cycle traced; ``steady_dense_path`` the
-same call at level 1 (``auto``: the dense route) against the host-sparse
-route in f64, the published coefficients and a bitwise rerun;
+solver's F-matvecs (one launch an F-matvec: the affine stiffness runs in
+the f64 residuals alone) and one FGMRES cycle traced;
+``steady_dense_path`` the same call at level 1 (``auto``: the dense
+route) against the host-sparse route in f64, the published coefficients
+and a bitwise rerun;
 ``pseudotime_path`` the pseudo-time march at level 1 against that Newton
 solution; after the CPU reference run, ``krylov_cnab`` runs the main
 path's CNAB call on the Krylov saddle solver against it.
@@ -89,6 +93,7 @@ code is non-zero and the final line is missing.  The last line is
 import contextlib
 import copy
 import ctypes
+import hashlib
 import itertools
 import json
 import math
@@ -1624,8 +1629,26 @@ ELEM_REPLACES = dict(
     sk="dolfin_navier_scipy_tpu/solve/steady.py:369",
     op="dolfin_navier_scipy_tpu/ops/elementop.py:48",
     div="dolfin_navier_scipy_tpu/ops/elementop.py:87")
-ELEM_DESIGN = ("a thread an output dof: its slots in the table's order, a "
-               "12-wide dot each; no scratch, no atomics, no grid barrier")
+ELEM_DESIGN = ("blocks own the output dofs of chunks of elements in RCM "
+               "order: the block's tables by one bulk copy and its distinct "
+               "inputs into shared memory, a thread an element row read "
+               "from E by 16-byte loads, a thread a dof summing its rows in "
+               "slot order; no scratch, no atomics, no grid barrier")
+# sha256 (first 16 hex digits) of y from the earlier kernel of
+# csrc/elemmv.cu (a thread an output dof, commit 18d2655) on the seeded
+# operands of elem_bits_cases: the redesigned kernel sums in its order, so
+# it must give these bits (tools_torch/elemmv_variants.py prints them for
+# any checkout)
+ELEM_BITS = {
+    "velocity 12x12, E float32, x float32": "f70656f1c0d254f6",
+    "velocity 12x12, E float64, x float64": "b92352d9dccfbca0",
+    "velocity 12x12, E float64, x float32": "358eb944e91cc517",
+    "J 3x12, E float32, x float32": "f3ef5b10e49eb50f",
+    "J 3x12, E float64, x float64": "f2f5bf8dd4edfc14",
+    "J 3x12, E float64, x float32": "f156d982ca37baa1",
+    "J^T, E float32, x float32": "1abf71fb737d76ba",
+    "J^T, E float64, x float64": "60710fd96b27ec34",
+    "J^T, E float64, x float32": "d07f05317b3a27f4"}
 DFG_REF = dict(cd=5.57953523384, cl=0.010618948146, dp=0.11752016697)
 STEADY_KW = dict(return_vp=True, vel_pcrd_stps=2, vel_nwtn_stps=8,
                  vel_nwtn_tol=1e-12, return_nwtnupd_norms=True,
@@ -1709,7 +1732,9 @@ def check_elem(E, in_tab, out_tab, transpose, what, gen, replaces):
     xl = x[:, None]
     bound, by = elem_bound_ms(E, x, in_tab, out_tab, transpose)
     ms = graph_ms(run)
+    plan = kernels.elem_plan_for(E, x, in_tab, out_tab, transpose)
     return dict(name="elem_mv", operand=what, transpose=transpose,
+                plan=plan.describe(),
                 shape=list(E.shape), tables=str(E.dtype), state=str(x.dtype),
                 n_in=in_tab.nseg, n_out=out_tab.nseg,
                 slots_per_dof_max=int(out_tab.kernel_tables()[1].shape[0]),
@@ -1725,11 +1750,45 @@ def check_elem(E, in_tab, out_tab, transpose, what, gen, replaces):
                 replaces=replaces)
 
 
+def elem_bits_cases(dev):
+    """``[(name, E, x, in_tab, out_tab, transpose)]``: seeded numpy blocks
+    and vectors on the level-1 DFG 2D-1 tables (the 12x12 velocity blocks,
+    J and J^T), f32 blocks and vector, f64 and f64, f64 blocks under an
+    f32 vector: bits that depend on the kernel's arithmetic alone."""
+    _, A, J = build_element_ops(dfg_problem(1), dtype=torch.float64,
+                                device=dev)
+    rng = np.random.default_rng(20)
+    out = []
+    for name, shape, tin, tout, tr in (
+            ("velocity 12x12", A.elem.shape, A.tab, A.tab, False),
+            ("J 3x12", J.elem.shape, J.vtab, J.ptab, False),
+            ("J^T", J.elem.shape, J.ptab, J.vtab, True)):
+        for edt, xdt in ((torch.float32, torch.float32),
+                         (torch.float64, torch.float64),
+                         (torch.float64, torch.float32)):
+            E = torch.as_tensor(rng.normal(size=tuple(shape))).to(dev, edt)
+            x = torch.as_tensor(rng.normal(size=tin.nseg)).to(dev, xdt)
+            out.append((f"{name}, E {str(edt)[6:]}, x {str(xdt)[6:]}", E, x,
+                        tin, tout, tr))
+    return out
+
+
+def elem_bits(mv, cases):
+    """``{name: the first 16 hex digits of sha256(y)}`` of ``mv`` (an
+    ``elem_mv``) on ``cases``."""
+    out = {}
+    for name, E, x, tin, tout, tr in cases:
+        y = mv(E, x, tin, tout, tr)
+        out[name] = hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()[:16]
+    return out
+
+
 def elemmv_checks(dev, gen):
-    """B10 on every operand it takes: the steady Krylov route's f32
-    linearized convection (``_sk_elem32``) at levels 1 and 2 at a seeded
-    velocity, ``ElementOp`` M and A with f32 and f64 tables, and
-    ``DivElementOp`` J and J^T (level 1)."""
+    """B10 on every operand it takes: the steady Krylov route's f32 F
+    blocks (``_sk_elem32``: stiffness plus linearized convection) at
+    levels 1 and 2 at a seeded velocity, ``ElementOp`` M and A with f32
+    and f64 tables, and ``DivElementOp`` J and J^T (level 1); and the
+    earlier kernel's bits on the seeded operands of ``elem_bits_cases``."""
     out = []
     for level in (1, 2):
         prob = dfg_problem(level)
@@ -1754,7 +1813,10 @@ def elemmv_checks(dev, gen):
         out.append(check_elem(J.elem, J.ptab, J.vtab, True,
                               "DivElementOp J^T, level 1", gen,
                               ELEM_REPLACES["div"]))
-    say(phase="elemmv_checks", checks=out)
+    bits = elem_bits(elem_mv, elem_bits_cases(dev))
+    require(bits == ELEM_BITS, f"elem_mv: other bits than the earlier "
+            f"kernel's on the seeded operands: {bits} != {ELEM_BITS}")
+    say(phase="elemmv_checks", checks=out, same_bits_as_earlier_kernel=bits)
     return out
 
 
@@ -1771,7 +1833,7 @@ def elem_row(c, launches):
         library_ms=c["library_ms"], library=c["library"],
         eager_ms=c["eager_ms"],
         device_kernels_per_call=c["device_kernels_per_call"],
-        design=ELEM_DESIGN)
+        plan=c["plan"], design=ELEM_DESIGN)
 
 
 def dfg_checked(prob, v, p, what):
@@ -1915,6 +1977,13 @@ def steady_krylov_level2(dev):
             f"{stats['n_fmv']}")
     require(c["vecmat"] > 0 and c["affine_mv"] > 0 and c["conv_vector"] > 0,
             f"the matrix-free route's kernels: {c}")
+    # an F-matvec is one elem_mv launch: the affine stiffness ('a') runs
+    # only in the f64 residuals, one a refinement round and one to stop
+    residuals = sum(s["rounds"] + 1 for s in stats["solves"]
+                    if s["rounds"] or s["rel_res"] > 0.0)
+    modes = dict(affine_mv.mode_launches)
+    require(modes["a"] == residuals, f"affine 'a' launches {modes['a']} != "
+            f"the {residuals} f64 residuals (an F-matvec launched A v)")
     require(norms[-1] < 1e-12, f"Newton not converged: {norms}")
     coef, div = dfg_checked(prob, v, p, "level 2")
     # one FGMRES restart cycle (20 outer iterations, the unit a solve
@@ -1956,7 +2025,8 @@ def steady_krylov_level2(dev):
     outer = [s["rounds"] * 3 * 20 for s in solves]
     say(phase="steady_krylov_level2",
         problem="DFG 2D-1, cylinderwake level 2, Re 20", ncond=ncond,
-        route="krylov (auto)", launches=c, newton_norms=norms,
+        route="krylov (auto)", launches=c, affine_modes=modes,
+        f64_residuals=residuals, newton_norms=norms,
         wall_seconds=wall, coefficients=coef, published=DFG_REF,
         divergence_max=div, f_iters=stats["f_iters"],
         f_cycles=stats["f_cycles"], f_matvecs=stats["n_fmv"],

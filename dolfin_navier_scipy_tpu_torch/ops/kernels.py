@@ -30,7 +30,10 @@ Five sources:
 * the element-matrix matvec ``y = scatter(E @ gather(x))`` of per-element
   dense blocks (``csrc/elemmv.cu``) behind :func:`elem_mv`: the JAX
   package's ``ops/elementop.py`` operators and the steady solver's
-  linearized convection (``_sk_nmv``), left to XLA there.
+  F-matvec (its ``_sk_fmv``: stiffness plus linearized convection), left
+  to XLA there; a block computes the element rows of the output dofs of
+  a chunk of elements (the partition of :func:`affine_partition`, tables
+  made once per operand by :func:`elem_partition`).
 
 Build and binding: each ``csrc/*.cu`` is compiled at first use by ``nvcc``
 for ``sm_90a`` into a shared library with a plain C interface (under
@@ -920,6 +923,7 @@ class DofTable:
         self.vd = vd
         self.nseg = nseg
         self._kernel_tables = None
+        self._elem_plans = {}       # ElemPlan of elem_mv, by its key
 
     def with_dof_map(self, dofmap):
         """The table of a permuted state layout: ``dofmap (nseg+1,)`` old
@@ -1294,23 +1298,26 @@ _AFFINE_MODES = {"m": 0, "a": 0, "ma": 0, "j": 1, "jt": 2}
 _AFFINE_RES = 3
 # How affine_plan cuts the elements, in their locality order, into chunks:
 # sized so that the grid has about BLOCKS_PER_SM blocks an SM (the fastest
-# chunk in the measured sweep at levels 1 and 2), at least MIN_CHUNK
-# elements.  A partition whose largest block would take more shared memory
-# than _AFFINE_SMEM (what a launch takes without opting in) is made anew
-# on chunks half as large, until it fits.
-_AFFINE_PLAN = {"BLOCKS_PER_SM": 2, "MIN_CHUNK": 4}
+# chunk in the measured sweep at levels 1 and 2), ELEM_BLOCKS_PER_SM for
+# the element-matrix matvec (csrc/elemmv.cu; its sweep at levels 1-3), at
+# least MIN_CHUNK elements.  A partition whose largest block would take
+# more shared memory than _AFFINE_SMEM (what a launch takes without opting
+# in; csrc/elemmv.cu opts in: _SMEM_PER_BLOCK) is made anew on chunks half
+# as large, until it fits.
+_AFFINE_PLAN = {"BLOCKS_PER_SM": 2, "ELEM_BLOCKS_PER_SM": 4, "MIN_CHUNK": 4}
 _AFFINE_SMEM = 48 * 1024
 
 
 def affine_plan(mode, nc, sm_count):
     """The chunk (elements a block's chunk takes in the locality order) of
-    ``mode`` (a key of ``_AFFINE_MODES`` or ``'res'``) on ``nc`` elements
-    on a card with ``sm_count`` SMs."""
-    if mode not in _AFFINE_MODES and mode != "res":
+    ``mode`` (a key of ``_AFFINE_MODES``, ``'res'``, or ``'elem'``: the
+    element-matrix matvec of ``csrc/elemmv.cu``) on ``nc`` elements on a
+    card with ``sm_count`` SMs."""
+    if mode not in _AFFINE_MODES and mode not in ("res", "elem"):
         raise ValueError(f"affine_mv mode {mode!r}")
     cfg = _AFFINE_PLAN
-    return int(max(cfg["MIN_CHUNK"],
-                   -(-nc // (cfg["BLOCKS_PER_SM"] * sm_count))))
+    bps = cfg["ELEM_BLOCKS_PER_SM" if mode == "elem" else "BLOCKS_PER_SM"]
+    return int(max(cfg["MIN_CHUNK"], -(-nc // (bps * sm_count))))
 
 
 def element_locality_order(ids, nseg):
@@ -1435,30 +1442,45 @@ def affine_partition(ids, nseg, chunk, fac_ids=None, pids=None, npseg=0,
                 emax=int(ne.max()), fmax=int(nf.max()), nblk=nblk)
 
 
+def fit_chunk(build, smem_of, chunk, smem_max):
+    """``(part, chunk, smem)``: the partition ``build(chunk)`` over chunks
+    of ``chunk`` elements, made anew on chunks half as large until its
+    blocks' shared memory ``smem_of(part)`` is at most ``smem_max`` bytes
+    or the chunk is one element; the chunk it was made on and those
+    bytes."""
+    while True:
+        part = build(chunk)
+        smem = smem_of(part)
+        if smem <= smem_max or chunk == 1:
+            return part, chunk, smem
+        chunk = max(1, chunk // 2)
+
+
 def affine_fit(t, kind, chunk, smem_max=None):
-    """``(part, chunk, smem)``: :func:`affine_partition` of the tables
-    ``t`` for ``kind`` ``'v'`` (velocity dofs and facet rows), ``'p'``
-    (pressure dofs) or ``'res'`` (both), over chunks of ``chunk`` elements,
-    halved until its largest block's values (in the tables' type) take at
-    most ``smem_max`` bytes (``_AFFINE_SMEM``) or the chunk is one
-    element; the chunk it was made on and those bytes."""
+    """:func:`fit_chunk` of :func:`affine_partition` of the tables ``t``
+    for ``kind`` ``'v'`` (velocity dofs and facet rows), ``'p'`` (pressure
+    dofs) or ``'res'`` (both), the shared memory its largest block's
+    values take (in the tables' type), at most ``smem_max`` bytes
+    (``_AFFINE_SMEM``)."""
     smem_max = _AFFINE_SMEM if smem_max is None else smem_max
     nd = t.nvpc * t.dim
     vids, pids = t.vtab.vd.cpu().numpy(), t.ptab.vd.cpu().numpy()
     fac = t.fac_vdofs.cpu().numpy() if t.fac_elem.shape[0] else None
-    while True:
-        if kind == "p":
-            part = affine_partition(pids, t.npc, chunk)
-            per_elem = t.pnpc
-        else:
-            joint = kind == "res"
-            part = affine_partition(vids, t.nin, chunk, fac,
+    if kind == "p":
+        per_elem = t.pnpc
+
+        def build(c):
+            return affine_partition(pids, t.npc, c)
+    else:
+        joint = kind == "res"
+        per_elem = 2 * nd + t.pnpc if joint else nd
+
+        def build(c):
+            return affine_partition(vids, t.nin, c, fac,
                                     pids if joint else None, t.npc)
-            per_elem = 2 * nd + t.pnpc if joint else nd
-        smem = (part["fmax"] + part["emax"] * per_elem) * t.wdet.element_size()
-        if smem <= smem_max or chunk == 1:
-            return part, chunk, smem
-        chunk = max(1, chunk // 2)
+    return fit_chunk(
+        build, lambda part: (part["fmax"] + part["emax"] * per_elem)
+        * t.wdet.element_size(), chunk, smem_max)
 
 
 def _aff_pad(t, x):
@@ -1884,17 +1906,196 @@ def elem_mv_ref(E, x, in_tab, out_tab, transpose=False):
     return out.index_add_(0, ids, fe)[: out_tab.nseg]
 
 
+class _ElemPlanC(ctypes.Structure):
+    # csrc/elemmv.cu: ElemPlan, field for field
+    _fields_ = ([(f, ctypes.c_void_p) for f in ("hdr", "dids", "blob")]
+                + [(f, ctypes.c_int) for f in (
+                    "nblk", "dmax", "blob_bytes", "smem", "C", "SC", "e_f64",
+                    "x_f64", "n_in")])
+
+
+def _pad16(n):
+    return -(-int(n) // 16) * 16
+
+
+def elem_partition(in_ids, n_in, out_ids, n_out, layout, x_itemsize,
+                   chunk):
+    """The tables of ``csrc/elemmv.cu`` for one operand (numpy): the
+    output dofs of ``out_ids (nc, R)`` over ``n_out`` partitioned by
+    :func:`affine_partition` over chunks of ``chunk`` elements (no cap on
+    a block's dofs: its threads loop), each block computing exactly the
+    element rows ``(e, a)`` of its dofs, whose inputs are ``in_ids (nc,
+    C)`` over ``n_in``; ``layout`` ``(R, C, SR, SC)``: E's rows and their
+    strides, its element blocks whole and in order; ``x_itemsize`` x's
+    bytes an entry.  A block's rows go in the order of its elements (and
+    of the rows in an element), each with its entry in E and its place
+    among the block's values, which run dof by dof and for each dof slot
+    by slot.
+
+    Returns a dict: ``hdr (nblk, 4)``, ``dids (nblk, dmax)``, ``blob``
+    (uint8) as the kernel reads them (``csrc/elemmv.cu: ElemPlan``);
+    ``nblk``, ``dmax``, ``blob_bytes``, ``smem`` (a block's shared memory);
+    ``rows`` (element rows computed, each once), ``touched`` (the elements
+    the blocks touch, summed: nc where no element is split; their inputs
+    are gathered once a block) and ``part`` (the partition)."""
+    R, C, SR, SC = layout
+    in_ids, out_ids = np.asarray(in_ids), np.asarray(out_ids)
+    part = affine_partition(out_ids, n_out, chunk,
+                            max_own=np.iinfo(np.int32).max)
+    nblk = part["nblk"]
+    eptr, elem = part["eptr"].astype(np.int64), part["elem"].astype(np.int64)
+    optr = part["optr"].astype(np.int64)
+    ne = np.diff(eptr)
+    # the rows, block after block, each block's dofs in order and each
+    # dof's slots in their order (lell's columns are the dofs in own order)
+    L = part["lell"].T
+    cntk = (L >= 0).sum(1)
+    loc = L[L >= 0].astype(np.int64)
+    kblk = np.repeat(np.arange(nblk), np.diff(optr))
+    rblk = np.repeat(kblk, cntk)
+    nrows = np.bincount(rblk, minlength=nblk)
+    rptr = np.concatenate([[0], np.cumsum(nrows)])
+    kstart = np.concatenate([[0], np.cumsum(cntk)])[:-1] - rptr[kblk]
+    # the rows in element order: the entry in E, the place in the values
+    order = np.lexsort((loc % R, loc // R, rblk))
+    sb, sl, sa = rblk[order], loc[order] // R, loc[order] % R
+    entry = elem[eptr[sb] + sl] * (R * C) + sa * SR
+    dst = order - rptr[sb]
+    # the distinct inputs of each block's elements (-1: the trash id)
+    eb = np.repeat(np.arange(nblk), ne)
+    v = in_ids[elem]
+    v = np.where((v >= 0) & (v < n_in), v, -1)
+    key = eb[:, None] * (n_in + 1) + v + 1
+    uniq, inv = np.unique(key.ravel(), return_inverse=True)
+    dblk = uniq // (n_in + 1)
+    dstart = np.searchsorted(dblk, np.arange(nblk))
+    lin = inv.ravel() - np.repeat(dstart[eb], C)
+    ndist = np.bincount(dblk, minlength=nblk)
+    lbase = sl * C
+    if (lbase.max(initial=0) >= 1 << 16 or nrows.max(initial=0) > 1 << 16
+            or entry.max(initial=0) >= 1 << 31):
+        raise ValueError("elem_mv kernel: a block past 65 536 rows or "
+                         "input positions, or E past 2^31 entries")
+    word = np.stack([entry, lbase << 16 | dst], 1).astype(np.uint32)
+    own, ekeep = part["own"], np.concatenate([[0], np.cumsum(ne * C)])
+    dmax = max(1, int(ndist.max()))
+    dids = np.full((nblk, dmax), -1, np.int32)
+    dids[dblk, np.arange(len(uniq)) - dstart[dblk]] = uniq % (n_in + 1) - 1
+    blobs, hdr, off = [], np.zeros((nblk, 4), np.int32), 0
+    for b in range(nblk):
+        rp = np.concatenate([kstart[optr[b]:optr[b + 1]], [nrows[b]]])
+        head = b"".join([word[rptr[b]:rptr[b + 1]].tobytes(),
+                         rp.astype(np.int32).tobytes(),
+                         own[optr[b]:optr[b + 1]].astype(np.int32)
+                         .tobytes()])
+        raw = b"".join([head, bytes(len(head) % 8),   # 8-byte aligned lin
+                        lin[ekeep[b]:ekeep[b + 1]].astype(np.uint16)
+                        .tobytes()])
+        nb = _pad16(len(raw))
+        blobs.append(raw + bytes(nb - len(raw)))
+        hdr[b] = (off // 16, nb, nrows[b], optr[b + 1] - optr[b])
+        off += nb
+    blob_bytes = int(hdr[:, 1].max())
+    smem = 16 + blob_bytes + x_itemsize * (dmax + int(nrows.max()))
+    return dict(hdr=hdr, dids=dids,
+                blob=np.frombuffer(b"".join(blobs), np.uint8), nblk=nblk,
+                dmax=dmax, blob_bytes=blob_bytes, smem=smem, rows=len(loc),
+                touched=int(ne.sum()), part=part)
+
+
+def elem_fit(in_ids, n_in, out_ids, n_out, layout, x_itemsize, chunk,
+             smem_max=_SMEM_PER_BLOCK):
+    """:func:`fit_chunk` of :func:`elem_partition` (its blocks' shared
+    memory at most ``smem_max``, the most a block may take)."""
+    return fit_chunk(
+        lambda c: elem_partition(in_ids, n_in, out_ids, n_out, layout,
+                                 x_itemsize, c),
+        lambda part: part["smem"], chunk, smem_max)
+
+
+class ElemPlan:
+    """Launch plan of ``csrc/elemmv.cu`` for one operand on one card: the
+    tables of :func:`elem_partition` on the chunk :func:`affine_plan`
+    gives (``'elem'``, halved by :func:`elem_fit` until a block fits), on
+    the card, and their pointers and sizes in one C structure (``c``, at
+    ``addr``).  Made at the first call of an (input table, output table,
+    E layout, E type, x type, card), never inside a CUDA-graph capture,
+    and kept on the output table.  The kernel keeps no state between
+    launches, so a plan serves every stream and graphs captured with it
+    replay anywhere.  ``chunk``, ``nblk``, ``smem``, ``rows`` and
+    ``touched`` / ``nc`` say what a launch does."""
+
+    def __init__(self, in_tab, out_tab, layout, e_dtype, x_dtype, dev):
+        R, C, SR, SC = layout
+        nc = int(out_tab.vd.shape[0])
+        xitem = torch.empty((), dtype=x_dtype).element_size()
+        chunk = affine_plan("elem", nc, _sm_count(dev))
+        part, self.chunk, self.smem = elem_fit(
+            in_tab.vd.cpu().numpy(), in_tab.nseg, out_tab.vd.cpu().numpy(),
+            out_tab.nseg, layout, xitem, chunk)
+        if self.smem > _SMEM_PER_BLOCK:
+            raise ValueError(
+                f"elem_mv kernel: a block takes {self.smem} bytes of shared "
+                f"memory, at most {_SMEM_PER_BLOCK}, even on chunks of one "
+                f"element")
+        device = torch.device("cuda", dev)
+        self.keep = [torch.as_tensor(np.array(part[k]), device=device)
+                     for k in ("hdr", "dids", "blob")]
+        self.nblk, self.rows = part["nblk"], part["rows"]
+        self.touched, self.nc = part["touched"], nc
+        self.c = _ElemPlanC(*(t.data_ptr() for t in self.keep), self.nblk,
+                            part["dmax"], part["blob_bytes"], self.smem, C,
+                            SC, int(e_dtype == torch.float64),
+                            int(x_dtype == torch.float64), in_tab.nseg)
+        self.addr = ctypes.addressof(self.c)
+
+    def empty(self):
+        """Launch an empty kernel on this plan's grid, block and shared
+        memory on the current stream (the latency floor a call meets)."""
+        dev = self.keep[0].get_device()
+        with _on_device(dev):
+            err = _elemmv_lib().elemmv_empty(self.addr, _raw_stream(dev))
+        if err != 0:
+            raise RuntimeError(f"elemmv_empty: "
+                               f"{_elemmv_lib().elemmv_error_string(err)}")
+
+    def describe(self):
+        """What a launch does, for a printout."""
+        return dict(chunk=self.chunk, blocks=self.nblk, smem=self.smem,
+                    rows=self.rows,
+                    touched_per_element=self.touched / self.nc)
+
+
 def _elemmv_lib():
     lib = _load("elemmv")
     if not getattr(lib, "_dns_typed", False):
         ptr, i = ctypes.c_void_p, ctypes.c_int
-        lib.elemmv.argtypes = ([ptr, i, ptr, ptr, i, ptr, i, ptr, i, i,
-                                ctypes.c_longlong, i, i, i, i, ptr])
+        lib.elemmv.argtypes = [ptr] * 5
         lib.elemmv.restype = i
+        lib.elemmv_empty.argtypes = [ptr] * 2
+        lib.elemmv_empty.restype = i
         lib.elemmv_error_string.argtypes = [i]
         lib.elemmv_error_string.restype = ctypes.c_char_p
         lib._dns_typed = True
     return lib
+
+
+def elem_plan_for(E, x, in_tab, out_tab, transpose=False):
+    """The :class:`ElemPlan` of these operands on ``x``'s card, made (and
+    kept on ``out_tab``) at its first call; ``E`` as :func:`elem_mv` takes
+    it (its element blocks whole and in order)."""
+    R, C, se, sr, sc = _elem_layout(E, transpose)
+    dev = x.get_device()
+    key = (in_tab, R, C, sr, sc, E.dtype, x.dtype, dev)
+    plan = out_tab._elem_plans.get(key)
+    if plan is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "the elem_mv kernel's plan is made at its first call: call "
+                "it once before capturing")
+        plan = out_tab._elem_plans[key] = ElemPlan(
+            in_tab, out_tab, (R, C, sr, sc), E.dtype, x.dtype, dev)
+    return plan
 
 
 def _elem_mv_check(E, x, in_tab, out_tab, transpose):
@@ -1925,9 +2126,12 @@ def elem_mv(E, x, in_tab, out_tab, transpose=False):
     ``E`` f32 or f64.
 
     On a CUDA tensor this launches the hand-written kernel of
-    ``csrc/elemmv.cu`` on the current stream (one launch, a thread an
-    output dof, its slots in the table's order: the same bits on every
-    run) and counts it in ``elem_mv.launches``; on a CPU tensor it is
+    ``csrc/elemmv.cu`` on the current stream through the operands'
+    :class:`ElemPlan` (one launch: a block the element rows of its output
+    dofs, copied into shared memory, each dof summed in its slots' order:
+    the same bits on every run and every plan) and counts it in
+    ``elem_mv.launches``; ``E`` is copied first where its blocks are not
+    contiguous and 16-byte aligned.  On a CPU tensor it is
     :func:`elem_mv_ref`."""
     _elem_mv_check(E, x, in_tab, out_tab, transpose)
     if not x.is_cuda:
@@ -1936,23 +2140,21 @@ def elem_mv(E, x, in_tab, out_tab, transpose=False):
             torch.float32, torch.float64):
         raise TypeError(f"elem_mv kernel takes f32 or f64, not E "
                         f"{E.dtype}, x {x.dtype}")
-    R, C, se, sr, sc = _elem_layout(E, transpose)
-    in32, _ = in_tab.kernel_tables()
-    _, ell = out_tab.kernel_tables()
+    if not E.is_contiguous() or E.data_ptr() % 16:
+        E = E.clone(memory_format=torch.contiguous_format)
     x = x.contiguous()
+    plan = elem_plan_for(E, x, in_tab, out_tab, transpose)
     dev = x.get_device()
     y = x.new_empty(out_tab.nseg)
     lib = _elemmv_lib()
     with _on_device(dev):
-        err = lib.elemmv(E.data_ptr(), int(E.dtype == torch.float64),
-                         in32.data_ptr(), x.data_ptr(),
-                         int(x.dtype == torch.float64), ell.data_ptr(),
-                         ell.shape[0], y.data_ptr(), R, C, se, sr, sc,
-                         in_tab.nseg, out_tab.nseg, _raw_stream(dev))
+        err = lib.elemmv(plan.addr, E.data_ptr(), x.data_ptr(), y.data_ptr(),
+                         _raw_stream(dev))
     if err != 0:
         raise RuntimeError(
             f"elem_mv kernel launch failed (E {tuple(E.shape)}, transpose "
-            f"{transpose}, {out_tab.nseg} outputs): "
+            f"{transpose}, {out_tab.nseg} outputs, {plan.nblk} blocks, "
+            f"{plan.smem} bytes of shared memory): "
             f"{lib.elemmv_error_string(err).decode()}")
     elem_mv.launches += 1
     return y

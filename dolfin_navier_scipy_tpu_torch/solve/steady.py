@@ -256,8 +256,8 @@ def _host_route(prob):
 # includes the CONVECTION (a Stokes-only preconditioner stalls: N ~ Re*h*A
 # dominates A at benchmark Reynolds numbers):
 #
-# * velocity block: fixed-count Jacobi-FGMRES on F = A + N itself (the
-#   affine stiffness matvec + the element-matrix matvec of N),
+# * velocity block: fixed-count Jacobi-FGMRES on F = A + N itself (one
+#   element-matrix matvec of F's blocks, the stiffness's plus N's),
 # * pressure block: the LSC (least-squares commutator) Schur approximation
 #   S^-1 ~ L^-1 (J D_M^-1 F D_M^-1 J^T) L^-1 with L = J D_M^-1 J^T applied
 #   by a dense inverse (vecmat) where it fits, Jacobi-PCG beyond,
@@ -284,8 +284,14 @@ class SteadyKrylovKernel:
     transposed operand ``(npp, 2 npp)`` — the L-solve stays near f64,
     which keeps the outer iteration mesh-robust.
 
-    ``n_fmv`` counts the F-matvecs (each one :func:`..ops.kernels.elem_mv`
-    and one affine stiffness matvec); ``solves`` records each linear
+    ``elem_a32``: the stiffness's f32 element blocks on ``ell_dofs``'s
+    table (``prob.elem_tensors["A"]``, as :func:`..ops.elementop.
+    build_element_ops` reads them; the outflow and Robin facet terms are
+    in them, and the affine stiffness takes its facet rows from them), so
+    that ``F = A + N(v_lin)`` is one table (:func:`_sk_elem32`) and an
+    F-matvec one :func:`..ops.kernels.elem_mv` launch, where the JAX
+    package adds the affine stiffness matvec and the convection's.
+    ``n_fmv`` counts the F-matvecs; ``solves`` records each linear
     solve's refinement rounds, relative residual and F-matvecs."""
 
     def __init__(self, prob, f_iters=None, l_iters=25, f_cycles=None,
@@ -305,6 +311,9 @@ class SteadyKrylovKernel:
         vd = prob.space.vdofs_of_cells().reshape(-1, nd)
         self.ell_dofs = DofTable(torch.as_tensor(full2in[vd], device=device),
                                  nin)
+        self.elem_a32 = torch.as_tensor(
+            np.ascontiguousarray(prob.elem_tensors["A"])).to(
+                device=device, dtype=torch.float32)
 
         def dev(a, dt=torch.float64):
             return torch.as_tensor(np.asarray(a, np.float64)).to(
@@ -363,23 +372,20 @@ class SteadyKrylovKernel:
 
 
 def _sk_elem32(sk, v_lin_full, picard):
-    """f32 linearized-convection element matrices ``(nc, nd, nd)``."""
+    """f32 element blocks ``(nc, nd, nd)`` of ``F = A + N(v_lin)``: the
+    linearized convection's plus the stiffness's (``sk.elem_a32``)."""
     elem = sk.kern32.element_matrices(v_lin_full.to(torch.float32),
                                       picard_only=picard)
     nd = elem.shape[1] * elem.shape[2]
-    return elem.reshape(-1, nd, nd)
-
-
-def _sk_nmv(sk, elem, x_inner):
-    """``N(v_lin) @ x`` on inner dofs from element matrices (one
-    :func:`..ops.kernels.elem_mv`)."""
-    return elem_mv(elem, x_inner, sk.ell_dofs, sk.ell_dofs)
+    return elem.reshape(-1, nd, nd) + sk.elem_a32
 
 
 def _sk_fmv(sk, elem, v):
-    """f32 ``F @ v = (A + N(v_lin)) @ v`` on inner dofs."""
+    """``F @ v = (A + N(v_lin)) @ v`` on inner dofs from F's element
+    blocks (one :func:`..ops.kernels.elem_mv`; the JAX package's
+    ``_sk_fmv`` adds the affine ``A @ v`` and ``_sk_nmv``'s ``N @ v``)."""
     sk.n_fmv += 1
-    return sk.aff32.a_matvec(v) + _sk_nmv(sk, elem, v)
+    return elem_mv(elem, v, sk.ell_dofs, sk.ell_dofs)
 
 
 def _sk_lsolve(sk, rp):

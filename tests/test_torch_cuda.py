@@ -24,6 +24,8 @@ from dolfin_navier_scipy_tpu_torch.ops.kernels import (
     rect_mv_levels_ref, rect_mv_ref, vecmat)
 from dolfin_navier_scipy_tpu_torch.solve import sbdf2, solve_nse
 
+torch.set_num_threads(1)
+
 NEEDS_CARD = ("needs a CUDA card: a CUDA kernel has no interpret mode; "
               "chip_smoke.py holds it against its plain version on the card")
 
@@ -775,25 +777,45 @@ def test_controlled_run_on_the_card_matches_the_cpu():
                        * torch.from_numpy(np.asarray(stencil).ravel()))
 
 
+# plan settings that give the element-matrix matvec chunks of one element
+# and of 64 (its plan shares _AFFINE_PLAN with the affine kernel's)
+_ELEM_CHUNKS = {"plan": {},
+                "one": dict(MIN_CHUNK=1, ELEM_BLOCKS_PER_SM=10**6),
+                "wide": dict(MIN_CHUNK=64)}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("chunk", list(_ELEM_CHUNKS))
 @pytest.mark.parametrize("edtype, xdtype", [
     (torch.float32, torch.float32), (torch.float64, torch.float64),
     (torch.float64, torch.float32)])
-def test_elem_mv_kernel_on_the_card(edtype, xdtype):
+def test_elem_mv_kernel_on_the_card(edtype, xdtype, chunk, monkeypatch):
     """B10 (csrc/elemmv.cu) against its plain version on the element
     operators of the wake (level 0): M, J and J^T with the Dirichlet trash
-    slot, one launch a call, the same bits twice."""
+    slot, and with f32 tables the steady route's F blocks
+    (``_sk_elem32``), on the plan's chunk and on chunks of one element and
+    of 64: one kernel node a call, the same bits twice, on a graph replay
+    and on the plan's chunk."""
     if not torch.cuda.is_available():
         pytest.skip(NEEDS_CARD)
     from dolfin_navier_scipy_tpu_torch.ops.elementop import (
         build_element_ops)
     from dolfin_navier_scipy_tpu_torch.ops.kernels import (
-        elem_mv, elem_mv_ref)
+        DofTable, elem_mv, elem_mv_ref)
+    from dolfin_navier_scipy_tpu_torch.solve.steady import (
+        SteadyKrylovKernel, _sk_elem32)
     prob = cylinderwake_problem(level=0, Re=40, charvel=0.2)
     M, _, J = build_element_ops(prob, dtype=edtype, device="cuda")
     gen = torch.Generator().manual_seed(3)
-    cases = ((M.elem, M.tab, M.tab, False), (J.elem, J.vtab, J.ptab, False),
-             (J.elem, J.ptab, J.vtab, True))
+    cases = [(M.elem, M.tab, M.tab, False), (J.elem, J.vtab, J.ptab, False),
+             (J.elem, J.ptab, J.vtab, True)]
+    if edtype == xdtype == torch.float32:
+        sk = SteadyKrylovKernel(prob, device="cuda")
+        v = torch.randn(prob.nv_full, generator=gen, dtype=torch.float64)
+        cases.append((_sk_elem32(sk, v.cuda(), False), sk.ell_dofs,
+                      sk.ell_dofs, False))
+    for k, val in _ELEM_CHUNKS[chunk].items():
+        monkeypatch.setitem(kernels._AFFINE_PLAN, k, val)
     for E, tin, tout, tr in cases:
         x = torch.randn(tin.nseg, generator=gen, dtype=torch.float64).to(
             device="cuda", dtype=xdtype)
@@ -806,6 +828,17 @@ def test_elem_mv_kernel_on_the_card(edtype, xdtype):
         err = (y.double() - ref.double()).norm() / ref.double().norm()
         assert float(err) <= tol, (tr, float(err))
         assert torch.equal(y, elem_mv(E, x, tin, tout, transpose=tr))
+        types, replayed = _captured(
+            lambda: elem_mv(E, x, tin, tout, transpose=tr))
+        assert types.count(0) == 1, types
+        assert torch.equal(replayed, y)
+        # the shipped plan's chunk, on tables of its own: the same bits
+        fout = DofTable(tout.vd, tout.nseg)
+        fin = fout if tin is tout else DofTable(tin.vd, tin.nseg)
+        with monkeypatch.context() as m:
+            for k, val in _AFFINE_PLAN_SHIPPED.items():
+                m.setitem(kernels._AFFINE_PLAN, k, val)
+            assert torch.equal(elem_mv(E, x, fin, fout, transpose=tr), y)
     with pytest.raises(ValueError):
         elem_mv(M.elem, torch.zeros(3, device="cuda"), M.tab, M.tab)
 

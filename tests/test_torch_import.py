@@ -9,6 +9,8 @@ import sys
 import pytest
 import torch
 
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "dolfin_navier_scipy_tpu_torch")
 

@@ -2,7 +2,9 @@
 mode) and numpy; the CPU route of the wrapper; the launch plan.  The
 banded matvecs' ring kernel: its launch plan and its schedule, replayed in
 numpy.  The convection wrappers: the fixed-order reduction table, the
-kernel's index tables, the argument checks and the CPU route."""
+kernel's index tables, the argument checks and the CPU route.  The
+element-matrix matvec: its launch plan (``elem_partition``) and its
+schedule, replayed in numpy."""
 
 import numpy as np
 import pytest
@@ -12,13 +14,16 @@ import jax.numpy as jnp
 
 from dolfin_navier_scipy_tpu.ops.pallas_kernels import vecmat_pallas
 from dolfin_navier_scipy_tpu_torch.ops import kernels
-from dolfin_navier_scipy_tpu_torch.models import cylinderwake_problem
+from dolfin_navier_scipy_tpu_torch.models import (
+    cylinderwake_problem, drivencavity_problem)
 from dolfin_navier_scipy_tpu_torch.ops.affine import AffineVectorOps
+from dolfin_navier_scipy_tpu_torch.ops.elementop import build_element_ops
 from dolfin_navier_scipy_tpu_torch.ops.kernels import (
-    band_operand, banded_mv_ref, bandmv_plan, conv_vector,
-    conv_vector_amatvec, conv_vector_amatvec_ref, conv_vector_ref,
-    dof_slot_table, rect_mv_ref, reduce_slots_ref, vecmat, vecmat_plan,
-    vecmat_ref)
+    _SMEM_PER_BLOCK, _elem_layout, affine_plan, band_operand,
+    banded_mv_ref, bandmv_plan, conv_vector, conv_vector_amatvec,
+    conv_vector_amatvec_ref, conv_vector_ref, dof_slot_table, elem_fit,
+    elem_mv_ref, ell_slot_table, rect_mv_ref, reduce_slots_ref, vecmat,
+    vecmat_plan, vecmat_ref)
 
 torch.set_num_threads(1)
 
@@ -725,3 +730,138 @@ def test_conv_amatvec_wants_the_facet_dofs_as_a_table():
     with pytest.raises(ValueError):        # a table over the inner dofs
         conv_vector_amatvec(u, prob.nu, True, t, inner.fac_elem,
                             inner.fac_dofs)
+
+
+# ---------------------------------------------------------------------------
+# the element-matrix matvec's launch plan: what each block of
+# csrc/elemmv.cu gathers, computes and sums
+# ---------------------------------------------------------------------------
+
+H100_SMS = 132
+_ELEM_OPS = {}
+
+
+def _operand(name, kind, dtype=torch.float64):
+    """``(E, in_tab, out_tab, transpose)`` of one kind of elem_mv operand
+    on a problem (the cavity, N 4; the wake, level 0): 'sk' the steady
+    route's f32 F blocks (12x12 on the inner velocity table), 'MA'
+    ElementOp's, 'J' DivElementOp's, 'JT' its transpose."""
+    if name not in _ELEM_OPS:
+        prob = (drivencavity_problem(N=4, nu=1e-2, device="cpu")
+                if name == "cavity" else
+                cylinderwake_problem(level=0, Re=40, charvel=0.2,
+                                     device="cpu"))
+        _ELEM_OPS[name] = build_element_ops(prob, device="cpu")
+    M, A, J = _ELEM_OPS[name]
+    return {"sk": (A.elem.float(), A.tab, A.tab, False),
+            "MA": (A.elem.to(dtype), A.tab, A.tab, False),
+            "J": (J.elem.to(dtype), J.vtab, J.ptab, False),
+            "JT": (J.elem.to(dtype), J.ptab, J.vtab, True)}[kind]
+
+
+def _plan(E, tin, tout, transpose, chunk, x_itemsize=8):
+    R, C, _, sr, sc = _elem_layout(E, transpose)
+    if chunk == "plan":
+        chunk = affine_plan("elem", E.shape[0], H100_SMS)
+    part, _, smem = elem_fit(tin.vd.numpy(), tin.nseg, tout.vd.numpy(),
+                             tout.nseg, (R, C, sr, sc), x_itemsize, chunk)
+    return part, smem, (R, C, sr, sc)
+
+
+def _blocks(part, layout):
+    """Each block's tables decoded as the kernel reads them: ``(dids, rows
+    (e, a, entry in E) in the order of the block's values, input
+    positions, dof row pointers, dofs)``; its rows in element order."""
+    R, C, SR, _ = layout
+    for b in range(part["nblk"]):
+        off, nb, nrows, nown = (int(v) for v in part["hdr"][b])
+        tab = part["blob"][16 * off: 16 * off + nb]
+        word = tab[: 8 * nrows].view(np.uint32).astype(np.int64)
+        at, lb, dst = word[0::2], word[1::2] >> 16, word[1::2] & 0xffff
+        assert np.array_equal(np.sort(dst), np.arange(nrows))
+        assert (np.diff(at // (R * C)) >= 0).all()
+        rp = tab[8 * nrows: 8 * nrows + 4 * (nown + 1)].view(np.int32)
+        own = tab[8 * nrows + 4 * (nown + 1): 8 * (nrows + nown) + 4].view(
+            np.int32)
+        lin = tab[8 * (nrows + nown + 1):].view(np.uint16)
+        e, a = at // (R * C), (at % (R * C)) // SR
+        k = np.argsort(dst)
+        yield part["dids"][b], (e[k], a[k], at[k]), lb[k], rp, own, lin
+
+
+@pytest.mark.parametrize("chunk", ["plan", 1, 64])
+@pytest.mark.parametrize("kind", ["sk", "MA", "J", "JT"])
+@pytest.mark.parametrize("name", ["cavity", "wake0"])
+def test_elem_plan_computes_each_row_once_in_slot_order(name, kind, chunk):
+    """The plan on the chunk a 132-SM card gets and on forced chunks of
+    one element and of 64: every output dof owned by one block, every
+    element row of a kept output id computed by exactly one block, a
+    dof's rows in the ascending order of ``dof_slot_table`` (the earlier
+    kernel's sum order), each row's inputs the element's input ids (the
+    trash id -1), the largest block within the shared memory a block may
+    take."""
+    E, tin, tout, tr = _operand(name, kind)
+    part, smem, layout = _plan(E, tin, tout, tr, chunk)
+    R, C, SR, SC = layout
+    assert smem <= _SMEM_PER_BLOCK and smem == part["smem"]
+    ell = ell_slot_table(*dof_slot_table(tout.vd.numpy(), tout.nseg))
+    in_ids = tin.vd.numpy()
+    owned, rows = [], []
+    for dids, (e, a, at), lb, rp, own, lin in _blocks(part, layout):
+        assert (np.diff(own) > 0).all() and rp[0] == 0
+        owned.append(own)
+        glob = e * R + a
+        rows.append(glob)
+        for k, o in enumerate(own):
+            slots = glob[rp[k]:rp[k + 1]]
+            want = ell[:, o]
+            assert np.array_equal(slots, want[want >= 0])
+        # the row's C inputs: the element's ids through the distinct list
+        pos = lb[:, None] + np.arange(C)
+        got = dids[lin[pos]]
+        ids = in_ids[e]
+        assert np.array_equal(got, np.where(ids < tin.nseg, ids, -1))
+        # the row's entries lie in its own element's block
+        assert (at + (C - 1) * SC < (e + 1) * R * C).all()
+    owned, rows = np.concatenate(owned), np.concatenate(rows)
+    assert np.array_equal(np.sort(owned), np.arange(tout.nseg))
+    kept = np.flatnonzero(tout.vd.numpy().ravel() < tout.nseg)
+    assert np.array_equal(np.sort(rows), kept)
+    assert part["rows"] == len(kept)
+
+
+def _replayed(E, x, tin, tout, tr, chunk):
+    """The kernel's schedule in numpy (f64): per block the gathered
+    distinct inputs, a dot a row over its entries of E and its inputs in
+    order, a sum a dof over its rows in order, stored to the dof."""
+    part, _, layout = _plan(E, tin, tout, tr, chunk)
+    R, C, SR, SC = layout
+    flat, xv = E.contiguous().numpy().ravel(), x.numpy()
+    y = np.full(tout.nseg, np.nan)
+    for dids, (_, _, at), lb, rp, own, lin in _blocks(part, layout):
+        xs = np.where(dids >= 0, xv[np.maximum(dids, 0)], 0.0)
+        sv = np.zeros(len(at))
+        for c in range(C):
+            sv = sv + flat[at + c * SC] * xs[lin[lb + c]]
+        acc, cnt = np.zeros(len(own)), np.diff(rp)
+        for s in range(int(cnt.max(initial=0))):
+            m = cnt > s
+            acc[m] = acc[m] + sv[rp[:-1][m] + s]
+        assert np.isnan(y[own]).all()
+        y[own] = acc
+    return y
+
+
+@pytest.mark.parametrize("chunk", ["plan", 1])
+@pytest.mark.parametrize("kind", ["MA", "J", "JT"])
+@pytest.mark.parametrize("name", ["cavity", "wake0"])
+def test_elem_kernel_schedule_replayed_matches_the_plain_version(name, kind,
+                                                                 chunk):
+    """The block order of ``csrc/elemmv.cu`` (chunks -> rows -> owned
+    sums) replayed in numpy on the plan's tables gives the plain
+    version's product to 1e-15 in f64, every dof stored once."""
+    E, tin, tout, tr = _operand(name, kind)
+    x = torch.as_tensor(np.random.default_rng(9).normal(size=tin.nseg))
+    y = _replayed(E, x, tin, tout, tr, chunk)
+    ref = elem_mv_ref(E, x, tin, tout, tr).numpy()
+    assert np.abs(y - ref).max() <= 1e-15 * np.abs(ref).max()

@@ -20,11 +20,14 @@ from dolfin_navier_scipy_tpu.solve.convconts import (
     get_v_conv_conts as jax_conv_conts)
 from dolfin_navier_scipy_tpu_torch.models import (
     cylinderwake_problem as torch_wake, drivencavity_problem as torch_cavity)
+from dolfin_navier_scipy_tpu_torch.control import apply_robin_penalty
+from dolfin_navier_scipy_tpu_torch.ops.kernels import elem_mv
 from dolfin_navier_scipy_tpu_torch.solve import (
     expand_vp, get_bcinds, get_v_conv_conts, solve_steadystate_nse,
-    solve_steadystate_pseudotime, steady)
+    solve_steadystate_pseudotime)
 from dolfin_navier_scipy_tpu_torch.solve.steady import (
-    SteadyKrylovKernel, _resolve_steady_linsolver, _sk_elem32, _sk_precond)
+    SteadyKrylovKernel, _resolve_steady_linsolver, _sk_elem32, _sk_fmv,
+    _sk_precond)
 
 from torch_parity import align_native
 
@@ -57,6 +60,12 @@ def cavity8():
             torch_cavity(N=8, nu=1e-2, device="cpu"))
 
 
+@pytest.fixture(scope="module")
+def cavity8_dense(cavity8):
+    """The port's dense-route Newton solution on the cavity (``KW``)."""
+    return solve_steadystate_nse(cavity8[1], linsolver="dense", **KW)
+
+
 @pytest.mark.parametrize("mode", ["picard", "newton", "parts",
                                   "semi_explicit"])
 def test_get_v_conv_conts_matches_jax(cavity8, mode):
@@ -81,11 +90,11 @@ def test_get_v_conv_conts_matches_jax(cavity8, mode):
             assert _rel(o, r) <= 1e-12
 
 
-def test_dense_route_matches_jax(cavity8):
+def test_dense_route_matches_jax(cavity8, cavity8_dense):
     jp, tp = cavity8
     (vj, pj), nj = jax_steady.solve_steadystate_nse(jp, linsolver="dense",
                                                      **KW)
-    (v, p), n = solve_steadystate_nse(tp, linsolver="dense", **KW)
+    (v, p), n = cavity8_dense
     assert v.shape == (tp.nv_full, 1) and p.shape == (tp.np_cond, 1)
     assert _rel(v, vj) <= 1e-10
     assert _rel(p, pj) <= 1e-8
@@ -139,13 +148,46 @@ def test_krylov_preconditioner_matches_jax(wake0):
     jel = jax_steady._sk_elem32(jsk, jnp.asarray(vlin), False)
     ref = jax_steady._sk_precond(jsk, jel, jnp.asarray(r, jnp.float32))
     el = _sk_elem32(sk, torch.as_tensor(vlin), False)
-    assert _rel(el.double(), np.asarray(jel, np.float64)) <= 1e-6
+    # the port's F blocks: the JAX package's convection blocks plus the
+    # stiffness's (the F-matvec is one element-block product)
+    assert _rel(el.double(), np.asarray(jel, np.float64)
+                + tp.elem_tensors["A"]) <= 1e-6
     out = _sk_precond(sk, el, torch.as_tensor(r, dtype=torch.float32))
     assert out.dtype == torch.float32
     assert _rel(out.double(), np.asarray(ref, np.float64)) <= 1e-5
     # one F-matvec a velocity-block iteration, one before it, one in the
     # pressure block
     assert sk.n_fmv == sk.f_cycles * (sk.f_iters + 1) + 1
+
+
+@pytest.mark.parametrize("robin", [False, True])
+def test_f_matvec_is_one_product_of_the_stiffness_and_convection_blocks(
+        wake0, robin):
+    """The port's F-matvec: one element-block product of ``E_N + E_A``
+    (the stiffness's stored blocks, which carry the outflow facet terms,
+    and with ``bccontrol=True`` the Robin penalty, as the affine
+    stiffness's facet rows do) equals the JAX package's two terms, the
+    affine ``A v`` plus the convection blocks' product, to 1e-13 in f64
+    at the fixed point; ``_sk_elem32`` is that table in f32."""
+    _, tp, (vj, _, _) = wake0
+    if robin:
+        tp = torch_wake(level=0, Re=40, charvel=0.2, bccontrol=True,
+                        device="cpu")
+        apply_robin_penalty(tp, palpha=1e-3)
+    sk = SteadyKrylovKernel(tp, device="cpu")
+    aff = tp.affine_ops(torch.float64, device="cpu")
+    assert aff.fac_elem.shape[0] > 0
+    vlin = torch.as_tensor(vj.ravel())
+    en = sk.kern64.element_matrices(vlin, picard_only=False).reshape(
+        -1, 12, 12)
+    fe = en + torch.as_tensor(tp.elem_tensors["A"])
+    x = torch.as_tensor(np.random.default_rng(7).normal(size=sk.nin))
+    n0 = sk.n_fmv
+    y = _sk_fmv(sk, fe, x)
+    assert sk.n_fmv == n0 + 1
+    ref = aff.a_matvec(x) + elem_mv(en, x, sk.ell_dofs, sk.ell_dofs)
+    assert _rel(y, ref) <= 1e-13
+    assert _rel(_sk_elem32(sk, vlin, False).double(), fe) <= 1e-6
 
 
 def test_auto_picks_the_route_by_size_and_device():
@@ -167,7 +209,7 @@ def test_auto_picks_the_route_by_size_and_device():
         solve_steadystate_nse(prob(10), save_data=True)
 
 
-def test_pseudotime_matches_jax(cavity8):
+def test_pseudotime_matches_jax(cavity8, cavity8_dense):
     """The pseudo-time march (CNAB on the dense route, short rounds) gives
     the JAX package's iterate after the same rounds, and approaches the
     Newton solution."""
@@ -181,5 +223,5 @@ def test_pseudotime_matches_jax(cavity8):
     assert np.allclose(info["rates"], ij["rates"], rtol=1e-8)
     assert _rel(v, vj) <= 1e-10
     assert _rel(p, pj) <= 1e-8
-    vn = steady.solve_steadystate_nse(tp, verbose=False, vel_nwtn_tol=1e-12)
+    (vn, _), _ = cavity8_dense
     assert _rel(v, vn) < 0.2

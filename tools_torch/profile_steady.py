@@ -15,11 +15,19 @@ matrix-free route past ``--pt-min`` inner dofs), the Newton update norms,
 each linear solve's refinement rounds, relative residual and F-matvecs,
 the hand-written kernels' launches, the peak device memory; the
 coefficients Cd, Cl and the pressure drop against the published values;
-B10 (``elem_mv``) on the level's f32 linearized convection, by graph
-replay, beside its bound.  First (unless ``--skip-busy``) it prints the
-device-busy share of one restart cycle of the route's f32 FGMRES (20
-outer iterations, the unit a linear solve repeats: three a refinement
-round) under ``torch.profiler``.  Needs a CUDA card.
+B10 (``elem_mv``) on the level's f32 F blocks (stiffness plus linearized
+convection), by graph replay, beside its bound.  First (unless
+``--skip-busy``) it prints the device-busy share of one restart cycle of
+the route's f32 FGMRES (20 outer iterations, the unit a linear solve
+repeats: three a refinement round) under ``torch.profiler``.
+
+On the matrix-free route it also prints, for every linear solve, each
+refinement round's f64 residual beside that residual's rounding floor
+(phase ``f64_floor``): ``eps64 ||(|A + N| |v| + |J^T| |q|, |J| |v|)||``
+with the host's assembled f64 matrices at the solve's linearization point
+and the round's iterate ``x = (v, q)``, all over ``||b||``: a round that
+stalls at that floor has met what an f64 residual can resolve.  Needs a
+CUDA card.
 """
 
 import argparse
@@ -100,6 +108,7 @@ def main():
         busy_cycle(prob, dev)
     for w in WRAPPERS:
         w.launches = 0
+    rounds = record_rounds()
     stats = {}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
@@ -123,6 +132,8 @@ def main():
         coefficients=dict(cd=float(cd), cl=float(cl),
                           dp=pressure_drop(prob, p)),
         published=DFG_REF, divergence_max=div)
+    if rounds:
+        say(phase="f64_floor", solves=f64_floors(prob, rounds))
 
     sk = steady.SteadyKrylovKernel(prob, device=dev)
     vf = torch.as_tensor(v.ravel(), device=dev)
@@ -135,6 +146,59 @@ def main():
         shape=list(el.shape),
         ms=graph_ms(lambda: kernels.elem_mv(el, x, tab, tab)),
         bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes")
+
+
+def record_rounds():
+    """Wrap the matrix-free route's linear solve and f64 residual so that
+    each solve keeps its linearization point and, for every residual its
+    rounds take, the iterate, ``||r||`` and ``||b||`` (host copies);
+    returns that list, one dict a solve."""
+    solves = []
+    linsolve, residual = steady._sk_linsolve, steady._sk_residual64
+
+    def rec_linsolve(sk, v_lin_full, picard, **kw):
+        solves.append(dict(v_lin=v_lin_full.cpu().numpy(), picard=picard,
+                           rounds=[]))
+        return linsolve(sk, v_lin_full, picard, **kw)
+
+    def rec_residual(sk, v_lin_full, x, rhsv, rhsp, picard):
+        r = residual(sk, v_lin_full, x, rhsv, rhsp, picard)
+        solves[-1]["rounds"].append(
+            (x.cpu().numpy(), float(torch.linalg.norm(r)),
+             float(torch.linalg.norm(torch.cat([rhsv, rhsp])))))
+        return r
+
+    steady._sk_linsolve = rec_linsolve
+    steady._sk_residual64 = rec_residual
+    return solves
+
+
+def f64_floors(prob, solves):
+    """Each round's relative residual beside its f64 rounding floor (see
+    the module's note), solve by solve."""
+    from dolfin_navier_scipy_tpu_torch.solve.convconts import (
+        get_v_conv_conts)
+    import scipy.sparse as sps
+
+    eps = np.finfo(np.float64).eps
+    nin = len(prob.invinds)
+    absA = abs(sps.csr_matrix(prob.Ac))
+    absJ, absJT = abs(sps.csr_matrix(prob.Jc)), abs(sps.csr_matrix(prob.JTc))
+    out = []
+    for s in solves:
+        convc, _, _ = get_v_conv_conts(vvec=s["v_lin"], prob=prob,
+                                       Picard=s["picard"])
+        absN = abs(sps.csr_matrix(convc))
+        rows = []
+        for x, rn, bn in s["rounds"]:
+            v, q = np.abs(x[:nin]), np.abs(x[nin:])
+            floor = eps * np.linalg.norm(np.concatenate(
+                [absA @ v + absN @ v + absJT @ q, absJ @ v]))
+            rows.append(dict(rel_res=rn / bn, floor_rel=floor / bn,
+                             res_over_floor=rn / floor if floor else None))
+        out.append(dict(picard=s["picard"], b_norm=s["rounds"][0][2]
+                        if s["rounds"] else None, rounds=rows))
+    return out
 
 
 def busy_cycle(prob, dev):
