@@ -116,18 +116,24 @@ from dolfin_navier_scipy_tpu_torch.control import (
 from dolfin_navier_scipy_tpu_torch.models import (
     LiftDragSurfForce, cylinderwake_problem, make_inscan_liftdrag,
     observation_operator, pressure_drop)
-from dolfin_navier_scipy_tpu_torch.ops import kernels
+from dolfin_navier_scipy_tpu_torch.ops import banded_conv, kernels
 from dolfin_navier_scipy_tpu_torch.ops.affine import AffineVectorOps
+from dolfin_navier_scipy_tpu_torch.ops.banded_conv import (
+    banded_stream_us, banded_wins, build_banded_conv_tail, gate_constants,
+    index_pipeline_us, tail_patterns)
 from dolfin_navier_scipy_tpu_torch.ops.elementop import build_element_ops
 from dolfin_navier_scipy_tpu_torch.ops.kernels import (
     _affine_launch, _windows, affine_mv, affine_mv_ref, affine_residual,
     affine_residual_ref, as_band_operand, as_vecmat_operand,
-    banded_mv, banded_mv_ref, conv_vector, conv_vector_amatvec,
-    conv_vector_amatvec_ref, conv_vector_ref, elem_mv, elem_mv_ref, rect_mv,
+    banded_mv, banded_mv_ref, conv_quad, conv_quad_ref, conv_vector,
+    conv_vector_amatvec, conv_vector_amatvec_ref, conv_vector_ref, elem_mv,
+    elem_mv_ref, rect_mv,
     rect_mv_levels, rect_mv_levels_ref, rect_mv_ref, vecmat, vecmat_ref)
 from dolfin_navier_scipy_tpu_torch.solve import (
     DirichletControl, KrylovSaddleSolver, SchurSaddleSolver, sbdf2,
-    solve_nse, solve_steadystate_nse, solve_steadystate_pseudotime, steady)
+    solve_nse, solve_nse_newton_ti, solve_sadpnt_host, solve_steadystate_nse,
+    solve_steadystate_pseudotime, steady)
+from dolfin_navier_scipy_tpu_torch.solve.newton_ti import _make_bundle, _sweep
 from dolfin_navier_scipy_tpu_torch.solve.steady import (
     SteadyKrylovKernel, _sk_elem32)
 from dolfin_navier_scipy_tpu_torch.solve.timeint import _build_ops
@@ -225,6 +231,8 @@ def device_kernels(fn):
 def zero_counts():
     for w in WRAPPERS:
         w.launches = 0
+    conv_quad.launches = 0
+    rect_mv.storage_launches = dict.fromkeys(rect_mv.storage_launches, 0)
     affine_mv.mode_launches = dict.fromkeys(affine_mv.mode_launches, 0)
     for w in BAND_WRAPPERS:
         w.kernel_launches = dict.fromkeys(w.kernel_launches, 0)
@@ -377,13 +385,14 @@ def check_conv(kern, aff, facv, u, u2, what, sym_main, timed,
     return out
 
 
-def band_bound_ms(item, nblk, levels, bs, w, nx, nrows, bases):
+def band_bound_ms(item, nblk, levels, bs, w, nx, nrows, bases, x_item=4):
     """Least time for one banded product: the stored levels (``item``
-    bytes an entry), ``x`` and the window starts read once, ``y`` written
-    once, over the memory rate; one multiply-add an entry over the f32
-    rate."""
+    bytes an entry), ``x`` (``x_item`` bytes an entry) and the window
+    starts read once, ``y`` written once, over the memory rate; one
+    multiply-add an entry over the f32 rate."""
     entries = nblk * levels * bs * w
-    nbytes = item * entries + 4 * (nx + nrows) + (4 * nblk if bases else 0)
+    nbytes = (item * entries + x_item * nx + 4 * nrows
+              + (4 * nblk if bases else 0))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2.0 * entries / F32_FLOP_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -487,10 +496,8 @@ def band_kernel(name, B, levels=None):
             nblk, levels or B.shape[1], bs, w, B.stride(-2),
             B.element_size(), B.get_device(),
             kernels._STACK_PLAN["FORM"]).kernel
-    if B.dtype != torch.float32:
-        return "rows"
     return kernels._bandmv_plan_on(nblk, bs, w, B.stride(-2),
-                                   B.get_device()).kernel
+                                   B.get_device(), B.element_size()).kernel
 
 
 @contextlib.contextmanager
@@ -764,8 +771,10 @@ def check_band(forms, counted=True):
         row.update(ms=graph_ms(run, calls=max(20, len(copies))),
                    eager_ms=time_ms(run, 200),
                    plain_ms=time_ms(cycling(plain, copies), 50),
-                   library_ms=time_ms(cycling(library, copies), 200),
-                   library="torch.bmm over windows gathered beforehand",
+                   library_ms=(None if library is None else
+                               time_ms(cycling(library, copies), 200)),
+                   library=(None if library is None else
+                            "torch.bmm over windows gathered beforehand"),
                    timed_over_copies=len(copies),
                    ms_warm_l2=graph_ms(lambda: call(B)),
                    bound_ms=bound, bound_by=by)
@@ -2096,6 +2105,406 @@ def pseudotime_path(prob, v_newton):
         wall_seconds=wall, launches=c, rel_err_vs_newton=e, bar=5e-5)
 
 
+# ---------------------------------------------------------------------------
+# the banded convection tail (B6) and Newton-in-time
+# ---------------------------------------------------------------------------
+
+TAIL_REPLACES = "dolfin_navier_scipy_tpu/ops/banded_conv.py:154"
+
+
+def wspace_kernel(prob, dt, dev):
+    """The default call's w-space convection kernel (f32 tables) and bc
+    values, in the order of its block-Schur solver (``_cnab_wspace``)."""
+    ops = _build_ops(prob, dt, theta=0.5, linsolver="schur", layout="full",
+                     device=dev)
+    slv = ops.solver
+    nf, nin = prob.nv_full, slv._nin
+    wsrc = np.concatenate([slv.permf.cpu().numpy(), np.setdiff1d(
+        np.arange(nf), np.asarray(prob.invinds))]).astype(np.int64)
+    iposx = np.full(nf + 1, nf, np.int64)
+    iposx[wsrc] = np.arange(nf)
+    kern = prob.conv_kernel_on(torch.float32).with_dof_map(
+        torch.as_tensor(iposx, device=dev))
+    return kern, nin, np.asarray(prob.bc_full_vec()).ravel()[wsrc]
+
+
+def quad_bound_ms(t):
+    """Least time for one ``conv_quad``: ``ue``, ``ue_bc`` and the element
+    tables read once, ``fe`` written once; the element chain's
+    multiply-adds (``conv_bound_ms``'s, without gather or reduction) over
+    the f32 rate."""
+    nc, nd, Q, dim, nvpc = t.nc, t.nd, t.Q, t.dim, t.nvpc
+    nbytes = 4 * (3 * nc * nd + nc * (dim * dim + Q) + Q * nvpc * (1 + dim))
+    per_q = (2 * nvpc * dim + 2 * nvpc * dim * dim + 2 * dim ** 3
+             + 2 * dim * dim + dim + 2 * nvpc * dim)
+    flops = nc * Q * per_q + nc * nd
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def abs_chain(t):
+    """The tables with every factor of the quadrature chain made positive:
+    ``conv_quad_ref`` on them (and on |ue|, |ue_bc|) is each row's sum of
+    absolute products."""
+    ta = copy.copy(t)
+    ta.JinvT, ta.wdet = t.JinvT.abs(), t.wdet.abs()
+    ta._plain = tuple(w.abs() for w in t.plain_weights())
+    return ta
+
+
+def tail_forms(tail, gen):
+    """``check_band``'s forms of the tail's two int8 products, G under the
+    f64 state and S under f32 element loads (no one PyTorch call takes
+    int8 blocks under a float vector: no library time)."""
+    dev = tail.Sb.device
+    xg = torch.randn(tail.nin, generator=gen, dtype=torch.float64).to(dev)
+    xs = torch.randn(tail.nvals, generator=gen,
+                     dtype=torch.float32).to(dev)
+    forms = []
+    for operand, B, bases, x, nrows in (
+            ("G (gather), int8", tail.Gb, tail.Gbases, xg, tail.nvals),
+            ("S (scatter), int8", tail.Sb, tail.Sbases, xs, tail.nin)):
+        forms.append((
+            "rect_mv", operand, B,
+            lambda B, b=bases, x=x, n=nrows: rect_mv(B, b, x, n),
+            lambda B, b=bases, x=x, n=nrows: rect_mv_ref(B, b, x.float(), n),
+            lambda B, b=bases, x=x, n=nrows: rect_mv_ref(
+                B.abs(), b, x.float().abs(), n),
+            None,
+            (1, B.shape[0], 1, B.shape[1], B.shape[2], x.shape[0], nrows,
+             True, x.element_size())))
+    return forms
+
+
+def check_quad(tail, gen):
+    """``conv_quad`` against its plain version within 1e-5 of each row's
+    sum of absolute products, one kernel node a call, the same bits twice;
+    timed (graph replay) beside its bound and the plain version."""
+    t = tail.kern.tables
+    dev = tail.ue_bc.device
+    ue = torch.randn(tail.nvals, generator=gen, dtype=torch.float32).to(dev)
+    y, again = conv_quad(ue, tail.ue_bc, t), conv_quad(ue, tail.ue_bc, t)
+    ref = conv_quad_ref(ue, tail.ue_bc, t)
+    bar = 1e-5 * conv_quad_ref(ue.abs(), tail.ue_bc.abs(), abs_chain(t)) \
+        + 1e-30
+    err = (y - ref).abs()
+    require(bool((err <= bar).all()), "conv_quad disagrees with its plain "
+            f"version: worst ratio to the row bar "
+            f"{float((err / bar).max()):.3e}")
+    require(torch.equal(y, again), "conv_quad is not reproducible")
+    ran, types = device_kernels(lambda: conv_quad(ue, tail.ue_bc, t))
+    require(ran == 1, f"conv_quad ran {ran} device kernels ({types})")
+    bound, by = quad_bound_ms(t)
+    ms = graph_ms(lambda: conv_quad(ue, tail.ue_bc, t))
+    return dict(name="conv_quad", nc=t.nc, nvals=tail.nvals,
+                max_abs_err=float(err.max()),
+                max_err_over_row_bar=float((err / bar).max()),
+                device_kernels_per_call=ran, ms=ms,
+                eager_ms=time_ms(lambda: conv_quad(ue, tail.ue_bc, t), 200),
+                plain_ms=time_ms(lambda: conv_quad_ref(ue, tail.ue_bc, t),
+                                 50),
+                library_ms=None, bound_ms=bound, bound_by=by,
+                roofline_share=bound / ms)
+
+
+def banded_conv_path(dev, gen, nsteps, ref):
+    """The banded convection tail (B6) at levels 1 and 2 on the default
+    call's own w-space kernel and bc tail, built with ``force``: S and G
+    bytes beside the ``_window_bytes`` prediction; the int8 ``rect_mv`` on
+    S and G and ``conv_quad`` against their plain versions; the tail's
+    vector against B5's on the same state (1e-5 of max|B5|, bc rows zero);
+    B6's three launches and B5's one timed (graph replay) beside their
+    bounds; the measured stream rate and B5 cost, and the gate's decision
+    under the card's constants.  Then, at level 1, the default call with
+    ``banded_conv=True`` (``warm_refine`` 0 and 1) against the CPU f64 run
+    ``ref`` at the default call's bars, with its exact launches.  Returns
+    ``(kernel rows' checks, launches of the forced run)``."""
+    levels = {}
+    quad_rows, band_rows = {}, {}
+    dt = (TE - T0) / NTS
+    for level in (LEVEL, LEVEL2):
+        prob = cylinderwake_problem(level=level, Re=RE, charvel=CHARVEL)
+        kern, nin, vbc = wspace_kernel(prob, dt, dev)
+        t0 = time.time()
+        tail = build_banded_conv_tail(kern, nin, vbc[nin:], force=True)
+        build_s = time.time() - t0
+        require(tail.store == "int8" and tail.Sb.dtype == torch.int8,
+                "the card's tail stores int8 blocks")
+        _, rows, cols, keep = tail_patterns(kern.vd.cpu().numpy(), nin)
+        bs = 256
+        pred = [banded_conv._window_bytes(r, c, -(-n // bs), bs) // 4
+                for r, c, n in ((rows[keep], cols[keep], nin),
+                                (cols[keep], rows[keep], tail.nvals))]
+        stored = [B.numel() for B in (tail.Sb, tail.Gb)]
+        require(stored == pred, f"S, G bytes {stored} != predicted {pred}")
+        band = check_band(tail_forms(tail, gen))
+        quad = check_quad(tail, gen)
+        # the tail against B5 on one w-space state: a seeded interior, the
+        # real constant bc tail
+        v = vbc.copy()
+        v[:nin] = torch.randn(nin, generator=gen,
+                              dtype=torch.float64).numpy()
+        vw = torch.from_numpy(v).to(dev)
+        b5 = kern.vector(vw)
+        zero_counts()
+        y = tail.vector(vw).clone()
+        torch.cuda.synchronize()
+        require(conv_quad.launches == 1 and rect_mv.launches == 2
+                and rect_mv.storage_launches["int8"] == 2
+                and conv_vector.launches == 0,
+                "one tail vector: two int8 rect_mv and one conv_quad")
+        err = float((y[:nin] - b5[:nin].float()).abs().max())
+        scale = float(b5.abs().max())
+        require(err <= 1e-5 * scale, f"level {level}: tail vs B5 "
+                f"{err:.3e} > 1e-5 of {scale:.3e}")
+        require(not bool(y[nin:].any()), "the tail's bc rows are not zero")
+        ran, types = device_kernels(lambda: tail.vector(vw))
+        require(ran == 3, f"one tail vector ran {ran} device kernels")
+        t_tail = graph_ms(lambda: tail.vector(vw))
+        t_b5 = graph_ms(lambda: kern.vector(vw))
+        b5_bound, b5_by = conv_bound_ms(kern.tables, 8, False, False, 0)
+        g, sc = band
+        t_gs = g["ms"] + sc["ms"]
+        consts = gate_constants(dev)
+        by = sum(pred)
+        measured = dict(
+            stream_gbps=by / (t_gs * 1e-3) / 1e9,
+            b5_us_per_1k_vals=1e3 * t_b5 / (tail.nvals / 1000.0))
+        wins = banded_wins(by, nvals=tail.nvals, consts=consts)
+        gated = build_banded_conv_tail(kern, nin, vbc[nin:])
+        require((gated is not None) == (wins and by <= consts["max_gb"]
+                                         * 1e9), "the gate's decision")
+        levels[level] = dict(
+            nin=nin, nvals=tail.nvals, nc=kern.tables.nc,
+            windows=dict(wS=tail.windows[1], wG=tail.windows[4]),
+            S_bytes=stored[0], G_bytes=stored[1], predicted_bytes=pred,
+            build_seconds=build_s, tail_vs_b5_max_abs_err=err,
+            b5_max_abs=scale, device_kernels_per_vector=ran,
+            ms=dict(G=g["ms"], conv_quad=quad["ms"], S=sc["ms"],
+                    tail_vector=t_tail, b5_vector=t_b5),
+            bound_ms=dict(G=g["bound_ms"], conv_quad=quad["bound_ms"],
+                          S=sc["bound_ms"], b5_vector=b5_bound),
+            b5_bound_by=b5_by, measured=measured,
+            gate=dict(constants=consts, predicted_bytes=by,
+                      banded_stream_us=banded_stream_us(
+                          by, consts["stream_floor_gbps"]),
+                      index_pipeline_us=index_pipeline_us(
+                          consts["index_us_per_1k_vals"], nvals=tail.nvals),
+                      banded_wins=wins, builds=gated is not None))
+        quad_rows[level], band_rows[level] = quad, band
+        say(phase="banded_conv_level", level=level, int8_rect_mv=band,
+            conv_quad=quad, **levels[level])
+        del tail, gated, kern
+        torch.cuda.empty_cache()
+
+    # the default call at level 1 with the tail forced
+    prob = cylinderwake_problem(level=LEVEL, Re=RE, charvel=CHARVEL)
+    dkw = dict(t0=T0, tE=TE, Nts=NTS, start_ssstokes=True,
+               save_every=SAVE_EVERY)
+    runs = {}
+    for wr in (0, 1):
+        zero_counts()
+        o = solve_nse(prob=prob, warm_refine=wr, banded_conv=True, **dkw)
+        torch.cuda.synchronize()
+        c = dict(counts(), conv_quad=conv_quad.launches,
+                 rect_mv_int8=rect_mv.storage_launches["int8"])
+        # a loop step: the tail (G, quadrature, S), the banded A, the solve
+        # (W, J, S^-1, X) and per refine round the residual (F, J^T, J) and
+        # a second solve; the start: 3 Heun bootstrap vectors and the AB2
+        # start value through B5
+        want = dict(vecmat=0, conv_vector=4, conv_vector_amatvec=0,
+                    banded_mv=nsteps * (1 + wr),
+                    rect_mv=nsteps * (1 + 3 * wr) + 2 * nsteps,
+                    rect_mv_levels=nsteps * 3 * (1 + wr), affine_mv=0,
+                    affine_residual=0, elem_mv=0, conv_quad=nsteps,
+                    rect_mv_int8=2 * nsteps)
+        require(c == want, f"launches of the forced-tail run, warm_refine="
+                f"{wr}: {c} != {want}")
+        require(o["bct"] is not None and o["ffflag"] is False, "tail run")
+        e = {k: rel(o[k], ref[k]) for k in ("v", "p", "vs", "ps")}
+        bar = 1e-6 if wr else 1e-4
+        require(e["v"] <= bar and e["vs"] <= bar,
+                f"forced-tail run, warm_refine={wr}, card vs CPU f64: {e}")
+        div = divergence_rel(prob, o["v"])
+        require(div <= 1e-6, f"forced-tail run: divergence {div:.3e}")
+        t = o["timing"]
+        runs[wr] = dict(launches=c,
+                        launches_per_step={k: v / nsteps
+                                           for k, v in c.items()},
+                        loop_seconds=t["loop_s"],
+                        ms_per_step=1e3 * t["loop_s"] / nsteps,
+                        rel_err_vs_cpu_f64=e, bar=bar,
+                        divergence_residual_rel=div)
+        if wr == 0:
+            forced = c
+        del o
+    say(phase="banded_conv_path", call="solve_nse(prob, t0, tE, Nts=300, "
+        "start_ssstokes=True, save_every=60, warm_refine=0|1, "
+        "banded_conv=True)", problem="cylinderwake level 1, Re 100",
+        steps=nsteps, runs=runs, oracle="the main path's CPU f64 run")
+    return quad_rows, band_rows, forced
+
+
+def newton_counts(st, nts, npic, per_precond=None, pfromv=1):
+    """The launches of a Newton-in-time run from its sweep counts: per
+    sweep the convection data at every time point (one B5 vector a point
+    in a Picard sweep, three in a Newton sweep), an element-matrix matvec
+    (B10) and a fused residual (B9) a system matvec, one more B10 a step
+    (the rhs) and B9's ``ma`` a step (E v) and ``m`` a time point (the
+    M-norm); a preconditioner application is one ``vecmat`` (B1, the
+    dense inverse) or ``per_precond`` (the Schur solver's launches a
+    solve).  ``pfromv``: B5 vectors of ``solve_nse``'s initial pressure
+    (``get_pfromv``, one where ``inip`` is not given)."""
+    sw, mv, pc = st["sweeps"], st["matvecs"], st["preconds"]
+    nn = sw - npic
+    want = dict(vecmat=pc if per_precond is None else 0,
+                conv_vector=(nts + 1) * (npic + 3 * nn) + pfromv,
+                conv_vector_amatvec=0, affine_mv=sw * (2 * nts + 1),
+                affine_residual=mv, elem_mv=mv + nts * sw, **NONE_BANDED)
+    for k, n in (per_precond or {}).items():
+        want[k] += n * pc
+    return want
+
+
+def newton_ti_path(dev, dfg1, v_newton):
+    """Newton-in-time through ``solve_nse(treat_nonl_explicit=False)`` (and
+    ``solve_nse_newton_ti`` for a control), at full width:
+
+    * level 2, Re 100 (the JAX package's heavy configuration): dt 2.5e-4,
+      16 steps from the host Stokes solve of ``[[M + dt/2 A, J^T],[J,
+      0]]``, 2 Picard + 5 Newton sweeps, tol 1e-11, ``linsolver='auto'``:
+      the block-Schur solver preconditions (no ``vecmat`` launch); against
+      the card's default CNAB run (rel < 1e-2); the norms fall strictly and
+      the last is < 1e-6;
+    * level 1, DFG 2D-1 (Re 20), ``linsolver='dense'`` (B1 on the 8016^2
+      inverse), from the card's steady solution: drift < 1e-8 relative,
+      last norm < 1e-8, a bitwise rerun, one sweep's wall and busy share;
+    * level 1, the rotating cylinder (``sin(20 t)``), dense, from the
+      steady state at Re 40: against the card's controlled CNAB (< 2e-4);
+
+    each with its exact launches from the sweep counts."""
+    rows = {}
+    # (a) level 2, the Schur solver as the preconditioner
+    prob = cylinderwake_problem(level=LEVEL2, nu=1e-3, charvel=1.0)
+    dt = 2.5e-4
+    vp = solve_sadpnt_host(amat=prob.Mc + 0.5 * dt * prob.Ac, jmat=prob.Jc,
+                           jmatT=prob.JTc, rhsv=np.asarray(prob.fv).ravel(),
+                           rhsp=np.asarray(prob.fp).ravel())
+    v0 = vp[: len(prob.invinds), 0]
+    trange = np.linspace(0.0, 16 * dt, 17)
+    se = solve_nse(prob=prob, trange=trange, iniv=v0, save_every=None)
+    ops = _build_ops(prob, dt, theta=0.5, device=dev)
+    require(isinstance(ops.solver, SchurSaddleSolver), "level 2: 'auto' is "
+            "the block-Schur solver")
+    zero_counts()
+    ops.solver.solve(torch.zeros(len(v0), dtype=torch.float32, device=dev),
+                     torch.ones(prob.np_cond, dtype=torch.float32,
+                                device=dev))
+    per_solve = {k: n for k, n in counts().items() if n}
+    del ops
+    zero_counts()
+    t0 = time.time()
+    ti = solve_nse(prob=prob, trange=trange, iniv=v0,
+                   treat_nonl_explicit=False, vel_nwtn_stps=5,
+                   vel_nwtn_tol=1e-11, save_every=None)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    c = counts()
+    st = ti["stats"]
+    want = newton_counts(st, 16, 2, per_solve)
+    nrm = ti["nwtn_norms"]
+    e = rel(ti["v"], se["v"])
+    rows["level2_schur"] = dict(
+        problem="cylinderwake level 2, Re 100 (nu 1e-3, charvel 1)",
+        nin=len(prob.invinds), np=prob.np_cond, steps=16, dt=dt,
+        nwtn_norms=nrm, stats=st, launches=c, schur_solve_launches=per_solve,
+        wall_seconds=wall, rel_vs_cnab=e, bar=1e-2)
+    say(phase="newton_ti_run", **rows["level2_schur"])
+    require(c == want, f"level 2 Newton-in-time launches: {c} != {want}")
+    require(e < 1e-2, f"level 2 Newton-in-time vs CNAB: {e:.3e}")
+    require(all(b < a for a, b in zip(nrm, nrm[1:])) and nrm[-1] < 1e-6,
+            f"level 2 Newton norms: {nrm}")
+    del prob, se, ti
+    torch.cuda.empty_cache()
+
+    # (b) level 1, DFG 2D-1 from the card's steady solution, dense
+    nin = len(dfg1.invinds)
+    vss = np.asarray(v_newton).ravel()[dfg1.invinds]
+    kw = dict(trange=np.linspace(0.0, 0.01, 11), iniv=vss,
+              treat_nonl_explicit=False, vel_pcrd_stps=0, vel_nwtn_stps=3,
+              vel_nwtn_tol=1e-12, save_every=None, linsolver="dense")
+    zero_counts()
+    t0 = time.time()
+    d1 = solve_nse(prob=dfg1, **kw)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    c = counts()
+    want = newton_counts(d1["stats"], 10, 0)
+    drift = float(np.linalg.norm(d1["v"].cpu().numpy() - vss)
+                  / np.linalg.norm(vss))
+    say(phase="newton_ti_run", problem="DFG 2D-1 level 1", launches=c,
+        stats=d1["stats"], nwtn_norms=d1["nwtn_norms"], drift_rel=drift,
+        wall_seconds=wall)
+    require(c == want, f"DFG Newton-in-time launches: {c} != {want}")
+    require(drift < 1e-8 and d1["nwtn_norms"][-1] < 1e-8,
+            f"DFG steady state drifted {drift:.3e}: {d1['nwtn_norms']}")
+    again = solve_nse(prob=dfg1, **kw)
+    require(torch.equal(again["v_traj"], d1["v_traj"]),
+            "two Newton-in-time runs on the card differ")
+    # one sweep on a bundle built beforehand: its wall and device-busy share
+    b = _make_bundle(dfg1, 1e-3, linsolver="dense", device=dev)
+    lin, ini = d1["v_traj"], d1["v_traj"][0]
+    _sweep(b, lin, ini, None, None)
+    busy, kerns, sweep_wall = busy_share(
+        lambda: _sweep(b, lin, ini, None, None))
+    del b
+    rows["level1_dfg_dense"] = dict(
+        problem="DFG 2D-1, cylinderwake level 1, Re 20", nin=nin,
+        ncond=nin + dfg1.np_cond, steps=10, nwtn_norms=d1["nwtn_norms"],
+        stats=d1["stats"], launches=c, wall_seconds=wall, drift_rel=drift,
+        bitwise_rerun=True, one_sweep=dict(
+            wall_seconds=sweep_wall, device_busy_ms=busy,
+            device_kernels=kerns,
+            busy_share=None if busy is None else busy / (1e3 * sweep_wall)))
+    del d1, again, lin, ini
+
+    # (c) level 1, the rotating cylinder, dense, from the steady state
+    rot = cylinderwake_problem(level=LEVEL, Re=40, charvel=CHARVEL,
+                               movingwallcntrl=True)
+    vr = solve_steadystate_nse(rot, vel_pcrd_stps=2, vel_nwtn_stps=5,
+                               vel_nwtn_tol=1e-10)
+    v0 = np.asarray(vr).ravel()[rot.invinds]
+    trange = np.linspace(0.0, 0.02, 41)
+    se = solve_nse(prob=rot, trange=trange, iniv=v0, save_every=None,
+                   controls=rot_control(rot, dev))
+    zero_counts()
+    t0 = time.time()
+    ti = solve_nse_newton_ti(prob=rot, trange=trange, iniv=v0,
+                             inip=np.zeros(rot.np_cond),
+                             controls=rot_control(rot, dev),
+                             vel_nwtn_stps=4, vel_nwtn_tol=1e-12,
+                             save_every=None, linsolver="dense")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    c = counts()
+    want = newton_counts(ti["stats"], 40, 0, pfromv=0)
+    e = rel(ti["v"], se["v"])
+    say(phase="newton_ti_run", problem="rotating cylinder level 1",
+        launches=c, stats=ti["stats"], nwtn_norms=ti["nwtn_norms"],
+        rel_vs_cnab=e, wall_seconds=wall)
+    require(c == want, f"controlled Newton-in-time launches: {c} != {want}")
+    require(e < 2e-4, f"controlled Newton-in-time vs CNAB: {e:.3e}")
+    moved = rel(ti["v"], torch.as_tensor(v0))
+    rows["level1_rotcyl_dense"] = dict(
+        problem="cylinderwake level 1, Re 40, movingwallcntrl, sin(20 t)",
+        steps=40, nwtn_norms=ti["nwtn_norms"], stats=ti["stats"],
+        launches=c, wall_seconds=wall, rel_vs_cnab=e, bar=2e-4,
+        rel_moved_from_start=moved)
+    say(phase="newton_ti_path", **rows)
+    return rows
+
+
 def main():
     t_start = time.time()
     dev = torch.device("cuda")
@@ -2204,7 +2613,9 @@ def main():
     torch.cuda.empty_cache()
     dfg1, v_newton, _ = steady_dense_path(dev)
     pseudotime_path(dfg1, v_newton)
+    newton_ti_path(dev, dfg1, v_newton)
     del dfg1
+    torch.cuda.empty_cache()
 
     # -- 3. the main path, through the user's entry points -----------------
     kw = dict(t0=T0, tE=TE, Nts=NTS, start_ssstokes=True,
@@ -2518,6 +2929,10 @@ def main():
                    rel_err_vs_cpu_f64=sbs_errs))
     del sbs, schur, o0, slv
 
+    # -- the banded convection tail (B6), forced, against B5 and CPU f64 ----
+    quad_rows, tail_rows, tail_counts = banded_conv_path(dev, gen, nsteps,
+                                                         ref)
+
     # -- 7. the control slice at level 1, against CPU f64 ------------------
     control_modes = control_path(dev, gen, nsteps)
 
@@ -2563,6 +2978,18 @@ def main():
             library_ms=None, eager_ms=chk["eager_ms"],
             device_kernels_per_call=chk["device_kernels_per_call"],
             design=DESIGN)
+
+    def tail_row(name, source, chk, launches):
+        return dict(
+            name=name, route="cuda", source=source, replaces=TAIL_REPLACES,
+            launches=launches, operand=chk.get("operand", "conv_quad"),
+            shape=chk.get("shape", dict(nc=chk.get("nc"),
+                                        nvals=chk.get("nvals"))),
+            max_abs_err=chk["max_abs_err"], ms=chk["ms"],
+            plain_ms=chk["plain_ms"], bound_ms=chk["bound_ms"],
+            bound_by=chk["bound_by"], library_ms=chk["library_ms"],
+            eager_ms=chk["eager_ms"],
+            device_kernels_per_call=chk["device_kernels_per_call"])
 
     say(phase="done", total_seconds=time.time() - t_start)
     print(smi, flush=True)
@@ -2620,7 +3047,14 @@ def main():
         # with the launches of the matrix-free steady solve there
         elem_row(next(c for c in elem_checks
                       if c["operand"] == "_sk_elem32, level 2"),
-                 elem_launches2)])
+                 elem_launches2),
+        # the banded convection tail: its int8 products (S at level 1) and
+        # its quadrature, with the launches of the forced default call
+        tail_row("rect_mv_int8", "dolfin_navier_scipy_tpu_torch/csrc/"
+                 "bandmv.cu", tail_rows[LEVEL][1],
+                 tail_counts["rect_mv_int8"]),
+        tail_row("conv_quad", "dolfin_navier_scipy_tpu_torch/csrc/"
+                 "convection.cu", quad_rows[LEVEL], tail_counts["conv_quad"])])
     say(ok=True, device=dict(platform="gpu",
                              kind=torch.cuda.get_device_name(0),
                              count=torch.cuda.device_count()))

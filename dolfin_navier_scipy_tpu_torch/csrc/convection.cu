@@ -66,6 +66,15 @@
 // Written over NVPC, Q, DIM as compile-time parameters (Q <= 8); only the 2D
 // Taylor-Hood instantiation (6, 7, 2) is built.
 //
+// quad_kernel (conv_quad_th2d) is phase 1 alone, for the banded convection
+// tail (the quadrature chain of BandedConvTail.vector,
+// dolfin_navier_scipy_tpu/ops/banded_conv.py:154-171, XLA there): its
+// element field arrives gathered by a banded product and its loads leave
+// for another, so there is no gather, scatter or barrier; the same
+// per-point arithmetic (point_conv) and butterfly as conv_kernel.  f32.
+// Bound: its ~1 MB at level 1 is under a microsecond at the memory rate;
+// like conv_kernel it is bound by the launch and one dependent chain.
+//
 // Plain C interface, loaded with ctypes; the caller allocates the scratch,
 // the barrier words and the outputs, and checks the returned cudaError_t.
 
@@ -146,6 +155,71 @@ __device__ __forceinline__ T gather(const TU* u, int id, int nv_full) {
     return in_range(id, nv_full) ? static_cast<T>(u[id]) : T(0);
 }
 
+// One quadrature point's share of an element's convection load (the lane's
+// point q; N, dN its rows of N2 and dN2, w its weight, zero for an idle
+// lane): u2q = N u2e, rg[k][c] = dN[.][k] ue[.][c], guq[c][d] = dU_c/dx_d =
+// Ji[d][.] rg[.][c], and fc[a*DIM + c] = N[a] w (u2q . grad) U_c.
+template <typename T, int NVPC, int DIM>
+__device__ __forceinline__ void point_conv(const T (&N)[NVPC],
+                                           const T (&dN)[NVPC][DIM],
+                                           const T* ue, const T* u2e,
+                                           const T (&Ji)[DIM][DIM], T w,
+                                           T (&guq)[DIM][DIM], T* fc) {
+    T uq[DIM], rg[DIM][DIM];                      // rg[k][c]
+#pragma unroll
+    for (int c = 0; c < DIM; ++c) {
+        uq[c] = T(0);
+#pragma unroll
+        for (int k = 0; k < DIM; ++k) rg[k][c] = T(0);
+    }
+#pragma unroll
+    for (int a = 0; a < NVPC; ++a) {
+#pragma unroll
+        for (int c = 0; c < DIM; ++c) uq[c] += N[a] * u2e[a * DIM + c];
+#pragma unroll
+        for (int k = 0; k < DIM; ++k)
+#pragma unroll
+            for (int c = 0; c < DIM; ++c)
+                rg[k][c] += dN[a][k] * ue[a * DIM + c];
+    }
+#pragma unroll
+    for (int c = 0; c < DIM; ++c)
+#pragma unroll
+        for (int d = 0; d < DIM; ++d) {
+            T s = T(0);
+#pragma unroll
+            for (int k = 0; k < DIM; ++k) s += Ji[d][k] * rg[k][c];
+            guq[c][d] = s;
+        }
+    T wc[DIM];
+#pragma unroll
+    for (int c = 0; c < DIM; ++c) {
+        T s = T(0);
+#pragma unroll
+        for (int d = 0; d < DIM; ++d) s += uq[d] * guq[c][d];
+        wc[c] = w * s;
+    }
+#pragma unroll
+    for (int a = 0; a < NVPC; ++a)
+#pragma unroll
+        for (int c = 0; c < DIM; ++c) fc[a * DIM + c] = N[a] * wc[c];
+}
+
+// this lane's point's rows of N2 and dN2 (zeros for an idle lane)
+template <typename T, int NVPC, int DIM>
+__device__ __forceinline__ void point_tables(const T* N2, const T* dN2,
+                                             int q, bool point,
+                                             T (&N)[NVPC],
+                                             T (&dN)[NVPC][DIM]) {
+#pragma unroll
+    for (int a = 0; a < NVPC; ++a) {
+        N[a] = point ? N2[q * NVPC + a] : T(0);
+#pragma unroll
+        for (int k = 0; k < DIM; ++k)
+            dN[a][k] = point ? dN2[(q * NVPC + a) * DIM + k] : T(0);
+    }
+}
+
 template <typename T, typename TU, int NVPC, int Q, int DIM, bool FUSED>
 __global__ void __launch_bounds__(THREADS)
 conv_kernel(const ConvPlan p, const TU* __restrict__ u1,
@@ -168,17 +242,9 @@ conv_kernel(const ConvPlan p, const TU* __restrict__ u1,
     const int q = lane & (LANES - 1);
     const bool point = q < Q;
     T N[NVPC], dN[NVPC][DIM];
-    {
-        const T* N2 = static_cast<const T*>(p.N2);
-        const T* dN2 = static_cast<const T*>(p.dN2);
-#pragma unroll
-        for (int a = 0; a < NVPC; ++a) {
-            N[a] = point ? N2[q * NVPC + a] : T(0);
-#pragma unroll
-            for (int k = 0; k < DIM; ++k)
-                dN[a][k] = point ? dN2[(q * NVPC + a) * DIM + k] : T(0);
-        }
-    }
+    point_tables<T, NVPC, DIM>(static_cast<const T*>(p.N2),
+                               static_cast<const T*>(p.dN2), q, point, N,
+                               dN);
     constexpr int PER_WARP = 32 / LANES;
     for (long long e0 = (tid >> 5) * PER_WARP; e0 < nc;
          e0 += (nthreads >> 5) * PER_WARP) {
@@ -209,46 +275,8 @@ conv_kernel(const ConvPlan p, const TU* __restrict__ u1,
         const T w = (valid && point) ? wdet[e * Q + q] : T(0);
 
         // this lane's point
-        T uq[DIM], rg[DIM][DIM];                  // rg[k][c]
-#pragma unroll
-        for (int c = 0; c < DIM; ++c) {
-            uq[c] = T(0);
-#pragma unroll
-            for (int k = 0; k < DIM; ++k) rg[k][c] = T(0);
-        }
-#pragma unroll
-        for (int a = 0; a < NVPC; ++a) {
-#pragma unroll
-            for (int c = 0; c < DIM; ++c) uq[c] += N[a] * u2e[a * DIM + c];
-#pragma unroll
-            for (int k = 0; k < DIM; ++k)
-#pragma unroll
-                for (int c = 0; c < DIM; ++c)
-                    rg[k][c] += dN[a][k] * ue[a * DIM + c];
-        }
-        T guq[DIM][DIM];                          // guq[c][d] = dU_c/dx_d
-#pragma unroll
-        for (int c = 0; c < DIM; ++c)
-#pragma unroll
-            for (int d = 0; d < DIM; ++d) {
-                T s = T(0);
-#pragma unroll
-                for (int k = 0; k < DIM; ++k) s += Ji[d][k] * rg[k][c];
-                guq[c][d] = s;
-            }
-        T wc[DIM];
-#pragma unroll
-        for (int c = 0; c < DIM; ++c) {
-            T s = T(0);
-#pragma unroll
-            for (int d = 0; d < DIM; ++d) s += uq[d] * guq[c][d];
-            wc[c] = w * s;
-        }
-        T fc[ND];
-#pragma unroll
-        for (int a = 0; a < NVPC; ++a)
-#pragma unroll
-            for (int c = 0; c < DIM; ++c) fc[a * DIM + c] = N[a] * wc[c];
+        T guq[DIM][DIM], fc[ND];
+        point_conv<T, NVPC, DIM>(N, dN, ue, u2e, Ji, w, guq, fc);
         T fa[FUSED ? ND : 1];
         if constexpr (FUSED) {
             const T nuw = nu * w;
@@ -450,6 +478,65 @@ cudaError_t launch_form(const ConvPlan& p, const void* u1, const void* u2,
                                                sym, st);
 }
 
+// The quadrature of the banded convection tail (ops/banded_conv.py): the
+// element field comes in, already gathered, as ueg (nc, ND) — G's banded
+// product, in the tail's sorted element order — plus the constant field of
+// the bc tail uebc (nc, ND); out go the element loads fe (nc, ND), which S's
+// banded product sums.  No gather and no scatter: phase 1 of conv_kernel
+// alone, 8 lanes an element, lane q the point q, the same per-point
+// arithmetic (point_conv) and the same fixed butterfly over the points.
+template <typename T, int NVPC, int Q, int DIM>
+__global__ void __launch_bounds__(THREADS)
+quad_kernel(const T* __restrict__ ueg, const T* __restrict__ uebc,
+            const T* __restrict__ JinvT, const T* __restrict__ wdet,
+            const T* __restrict__ N2, const T* __restrict__ dN2,
+            T* __restrict__ fe, int nc) {
+    constexpr int ND = NVPC * DIM;
+    static_assert(Q <= LANES && ND <= 2 * LANES, "one lane per point");
+    const int lane = threadIdx.x & 31;
+    const int q = lane & (LANES - 1);
+    const bool point = q < Q;
+    T N[NVPC], dN[NVPC][DIM];
+    point_tables<T, NVPC, DIM>(N2, dN2, q, point, N, dN);
+    // every lane of the grid's warps stays to the end (the shuffles take
+    // whole warps); lanes past the last element carry zeros
+    const long long e =
+        (static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x) / LANES;
+    const bool valid = e < nc;
+    const T* ep = ueg + e * ND;
+    const T* bp = uebc + e * ND;
+    const T a0 = valid ? ep[q] + bp[q] : T(0);
+    const T a1 = (valid && q + LANES < ND) ? ep[q + LANES] + bp[q + LANES]
+                                           : T(0);
+    T ue[ND];
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+        ue[j] = __shfl_sync(FULL, j < LANES ? a0 : a1, j % LANES, LANES);
+    T Ji[DIM][DIM];
+#pragma unroll
+    for (int d = 0; d < DIM; ++d)
+#pragma unroll
+        for (int k = 0; k < DIM; ++k)
+            Ji[d][k] = valid ? JinvT[(e * DIM + d) * DIM + k] : T(0);
+    const T w = (valid && point) ? wdet[e * Q + q] : T(0);
+    T guq[DIM][DIM], fc[ND];
+    point_conv<T, NVPC, DIM>(N, dN, ue, ue, Ji, w, guq, fc);
+#pragma unroll
+    for (int off = LANES / 2; off > 0; off /= 2)
+#pragma unroll
+        for (int j = 0; j < ND; ++j)
+            fc[j] += __shfl_xor_sync(FULL, fc[j], off, LANES);
+    if (!valid) return;
+    T c0 = T(0), c1 = T(0);
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+        if (j == q) c0 = fc[j];
+        if (j == q + LANES) c1 = fc[j];
+    }
+    fe[e * ND + q] = c0;
+    if (q + LANES < ND) fe[e * ND + q + LANES] = c1;
+}
+
 }  // namespace
 
 extern "C" {
@@ -485,6 +572,25 @@ int convection_th2d(const ConvPlan* plan, const void* u1, const void* u2,
                       : launch_form<float, float>(p, u1, u2, out_c, out_a,
                                                   nu, sym, st);
     return static_cast<int>(err);
+}
+
+// The banded tail's quadrature, 2D Taylor-Hood (NVPC 6, Q 7, DIM 2), f32:
+// ueg, uebc, fe (nc, 12); JinvT (nc, 2, 2), wdet (nc, 7), N2 (7, 6), dN2
+// (7, 6, 2), all contiguous.  Returns the cudaError_t of the launch.
+int conv_quad_th2d(const void* ueg, const void* uebc, const void* JinvT,
+                   const void* wdet, const void* N2, const void* dN2,
+                   void* fe, int nc, void* stream) {
+    if (nc <= 0 || static_cast<long long>(nc) * 12 >= (1LL << 31))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const long long blocks =
+        (static_cast<long long>(nc) * LANES + THREADS - 1) / THREADS;
+    quad_kernel<float, 6, 7, 2><<<static_cast<unsigned>(blocks), THREADS, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(ueg), static_cast<const float*>(uebc),
+        static_cast<const float*>(JinvT), static_cast<const float*>(wdet),
+        static_cast<const float*>(N2), static_cast<const float*>(dN2),
+        static_cast<float*>(fe), nc);
+    return static_cast<int>(cudaGetLastError());
 }
 
 const char* convection_error_string(int err) {

@@ -151,6 +151,19 @@ class ConvectionKernel:
             dofmap[self.vd.clamp(max=self.nv_full)])
         return new
 
+    def with_element_order(self, eorder):
+        """Clone with the elements permuted (``eorder (nc,)``: new row k
+        is old row ``eorder[k]``).  Dof ids are unchanged — only the
+        per-element tables (geometry, weights, dof lists) move, and the
+        tables the kernel keeps for them (the ELL slot table, the launch
+        plans) are rebuilt for the new order.  Used by the banded
+        convection tail, which needs elements sorted along the RCM state
+        order so that its gather/scatter matrices are banded
+        (:mod:`.banded_conv`)."""
+        new = copy.copy(self)
+        new.tables = self.tables.with_element_order(eorder)
+        return new
+
     def vector(self, u1_full, u2_full=None):
         """Device ``N(u1)u2``-style vector: ``int ((u2.grad)u1).phi dx``."""
         return conv_vector(u1_full, u2_full, self.tables)

@@ -420,13 +420,29 @@ def _windows(x, base, w):
                        x.new_zeros(()))
 
 
+def _cast_kept(t, dt):
+    """``t.to(dt)``, kept on the tensor that owns ``t``'s storage and made
+    anew only after that storage is written (its version counter moves):
+    the plain block products under f64 work would otherwise cast their f32
+    blocks, megabytes, at every call."""
+    if t.dtype == dt:
+        return t
+    owner = t if t._base is None else t._base
+    casts = owner.__dict__.setdefault("_dns_casts", {})
+    key = (dt, tuple(t.shape), t.stride(), t.storage_offset())
+    kept = casts.get(key)
+    if kept is None or kept[0] != owner._version:
+        kept = casts[key] = (owner._version, t.to(dt))
+    return kept[1]
+
+
 def _levels_ref(stack, base, x, nrows):
     """The plain product of the three forms: ``stack (nblk, L, bs, w)``;
     window gather, one einsum in the promoted type, level dots added in
     order, rows folded and cut at ``nrows``."""
     dt = torch.promote_types(stack.dtype, x.dtype)
     xw = _windows(x, base, stack.shape[-1]).to(dt)
-    y2 = torch.einsum("klij,kj->lki", stack.to(dt), xw)
+    y2 = torch.einsum("klij,kj->lki", _cast_kept(stack, dt), xw)
     y = y2[0]
     for lev in y2[1:]:
         y = y + lev
@@ -486,13 +502,16 @@ def _bandmv_lib():
         lib.bandmv_stack.argtypes = ([ptr, i, i, ll, ll, ll, ptr, ptr, ptr]
                                      + [i] * 4 + [ll] + [i] * 4 + [ll, ptr])
         lib.bandmv_stack.restype = i
+        lib.bandmv_i8.argtypes = ([ptr, ll, ll, ptr, ptr, i, ptr]
+                                  + [i] * 4 + [ll, ptr])
+        lib.bandmv_i8.restype = i
         lib.bandmv_error_string.argtypes = [i]
         lib.bandmv_error_string.restype = ctypes.c_char_p
         lib._dns_typed = True
     return lib
 
 
-_BAND_STORAGE = {torch.float32: 0, torch.bfloat16: 1}
+_BAND_STORAGE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 class BandmvPlan(collections.namedtuple(
@@ -565,13 +584,22 @@ def bandmv_plan(nblk, bs, w, ld, itemsize, sm_count):
     with copies in flight; as many slots as ``RING_BYTES`` holds and a
     block can use.  The warp-per-row kernel also where the ring cannot
     hold one row beside its window in a block's 227 KB; ``ValueError``
-    where neither kernel can place the rows."""
+    where neither kernel can place the rows.  Blocks of 1- or 2-byte
+    entries (the int8 0/1 blocks of the banded convection tail, bf16) take
+    the warp-per-row kernel whatever their shape: the ring's consumers
+    read f32 rows."""
     _check_plan_args(nblk, bs, w, ld, itemsize, sm_count)
     row_grid = nblk * -(-bs // _BANDMV_GEOMETRY["ROWS"])
     rows_plan = BandmvPlan("rows", row_grid, 0, 0, 0, 0)
     # the warp-per-row kernel's block holds its x window (w rounded up to
-    # 8) in shared memory
-    rows_fit = _window_bytes(w) <= _SMEM_PER_BLOCK
+    # a whole 16-byte vector of entries, 8 at least) in shared memory
+    rows_fit = _window_bytes(w, 16 // itemsize) <= _SMEM_PER_BLOCK
+    if itemsize != 4:
+        if rows_fit:
+            return rows_plan
+        raise ValueError(
+            f"bandmv_plan: a window of {w} columns does not fit "
+            f"{_SMEM_PER_BLOCK} bytes of shared memory a block")
     if row_grid >= _BANDMV_PLAN["RING_GRID_BELOW"] * sm_count and rows_fit:
         return rows_plan
     ring = _ring_launch(nblk, bs, w, ld, itemsize, sm_count)
@@ -584,9 +612,11 @@ def bandmv_plan(nblk, bs, w, ld, itemsize, sm_count):
         f"kernel in {_SMEM_PER_BLOCK} bytes of shared memory a block")
 
 
-def _window_bytes(w):
-    """Shared memory of the warp-per-row and share kernels' f32 window."""
-    return 4 * (-(-w // 8) * 8)
+def _window_bytes(w, vec=8):
+    """Shared memory of the warp-per-row and share kernels' f32 window:
+    ``w`` rounded up to whole vectors of ``vec`` entries (8 at least)."""
+    vec = max(vec, 8)
+    return 4 * (-(-w // vec) * vec)
 
 
 def stack_plan(nblk, levels, bs, w, ld, itemsize, sm_count, form=None):
@@ -644,14 +674,15 @@ def _stack_plan_on(nblk, levels, bs, w, ld, itemsize, device, form):
 
 
 @functools.lru_cache(maxsize=None)
-def _bandmv_plan_on(nblk, bs, w, ld, device):
-    return bandmv_plan(nblk, bs, w, ld, 4, _sm_count(device))
+def _bandmv_plan_on(nblk, bs, w, ld, device, itemsize=4):
+    return bandmv_plan(nblk, bs, w, ld, itemsize, _sm_count(device))
 
 
-def _bandmv_launch(name, stack, bases, x, nrows):
+def _bandmv_launch(name, stack, bases, x, nrows, out=None):
     """Launch ``csrc/bandmv.cu`` on ``stack (nblk, L, bs, w)`` (``bases``:
     int32 window starts on the device, or None for the banded form) on the
-    current stream; returns ``(y (nrows,) f32, the kernel form)``.
+    current stream; returns ``(y (nrows,) f32, the kernel form)``, ``y``
+    written into ``out`` where that is given (contiguous f32).
 
     The kernels are bound by bytes: each stored entry is read once for one
     multiply-add.  :func:`banded_mv` and :func:`rect_mv` on f32 blocks run
@@ -663,11 +694,19 @@ def _bandmv_launch(name, stack, bases, x, nrows):
     restaging all of x; two blocks an SM stage it once each) and for W's
     three levels under a window of 16 KB or more; the ring for W's three
     levels where the warp-per-row grid runs a wave and a bit (level 1); the
-    warp-per-row kernel elsewhere."""
-    if stack.dtype not in _BAND_STORAGE or x.dtype != torch.float32:
+    warp-per-row kernel elsewhere.  int8 blocks (single-level
+    :func:`rect_mv`: the 0/1 gather and scatter of the banded convection
+    tail) run on the warp-per-row kernel under an f32 or an f64 ``x``
+    (the f64 state is rounded to f32 as the window is staged)."""
+    i8 = stack.dtype == torch.int8 and name == "rect_mv"
+    if (stack.dtype not in _BAND_STORAGE
+            or (stack.dtype == torch.int8 and not i8)
+            or x.dtype not in ((torch.float32, torch.float64) if i8
+                               else (torch.float32,))):
         raise TypeError(
-            f"{name} kernel takes f32 or bf16 blocks under an f32 vector, "
-            f"not {stack.dtype} blocks under {x.dtype}")
+            f"{name} kernel takes f32 or bf16 blocks under an f32 vector "
+            f"(rect_mv also int8 blocks under an f32 or f64 vector), not "
+            f"{stack.dtype} blocks under {x.dtype}")
     if x.device != stack.device:
         raise ValueError(f"{name}: x is on {x.device}, the blocks on "
                          f"{stack.device}")
@@ -689,10 +728,8 @@ def _bandmv_launch(name, stack, bases, x, nrows):
     if name == "rect_mv_levels":
         plan = _stack_plan_on(nblk, levels, bs, w, ld, item, dev,
                               _STACK_PLAN["FORM"])
-    elif stack.dtype == torch.float32:
-        plan = _bandmv_plan_on(nblk, bs, w, ld, dev)
     else:
-        plan = BandmvPlan("rows", 0, 0, 0, 0, 0)
+        plan = _bandmv_plan_on(nblk, bs, w, ld, dev, item)
     if bases is not None and (
             bases.dtype != torch.int32 or bases.device != stack.device
             or bases.shape != (nblk,) or not bases.is_contiguous()):
@@ -701,11 +738,24 @@ def _bandmv_launch(name, stack, bases, x, nrows):
                          f"{tuple(bases.shape)} on {bases.device}")
     x = x.contiguous()
     lib = _bandmv_lib()
-    y = torch.empty(nrows, dtype=torch.float32, device=stack.device)
+    if out is None:
+        y = torch.empty(nrows, dtype=torch.float32, device=stack.device)
+    elif (out.dtype != torch.float32 or out.shape != (nrows,)
+          or not out.is_contiguous() or out.device != stack.device):
+        raise ValueError(f"{name}: out must be {nrows} contiguous f32 on "
+                         f"{stack.device}, got {out.dtype} "
+                         f"{tuple(out.shape)} on {out.device}")
+    else:
+        y = out
     bp = None if bases is None else bases.data_ptr()
     slev = slev if levels > 1 else 0
     with _on_device(dev):
-        if name == "rect_mv_levels" and plan.kernel != "rows":
+        if i8:
+            err = lib.bandmv_i8(
+                stack.data_ptr(), sblk, ld, bp, x.data_ptr(),
+                int(x.dtype == torch.float64), y.data_ptr(), nblk, bs, w,
+                x.shape[0], nrows, _raw_stream(dev))
+        elif name == "rect_mv_levels" and plan.kernel != "rows":
             err = lib.bandmv_stack(
                 stack.data_ptr(), _BAND_STORAGE[stack.dtype], levels, sblk,
                 slev, ld, bp, x.data_ptr(), y.data_ptr(), nblk, bs, w,
@@ -768,29 +818,36 @@ banded_mv.launches = 0
 banded_mv.kernel_launches = dict(rows=0, ring=0)
 
 
-def rect_mv(blocks, bases, x, nrows):
+def rect_mv(blocks, bases, x, nrows, out=None):
     """Static-window rectangular matvec ``y (nrows,)`` with ``y[k bs + i] =
     sum_j B[k, i, j] x[bases[k] + j]``, ``blocks (nblk, bs, w)``, ``x``
     read as zero past its length (the JAX package's ``_rect_mv``, whose
     callers zero-pad ``x``).  ``bases``: one window start per block — an
-    int32 tensor on the blocks' device for the kernel.
+    int32 tensor on the blocks' device for the kernel.  ``out``: where
+    ``y`` goes (a fresh tensor by default).
 
-    On a CUDA tensor this launches ``csrc/bandmv.cu`` (f32 blocks, f32
-    ``x``, :func:`band_operand` storage) and counts it in
-    ``rect_mv.launches`` (and by kernel form in ``kernel_launches``); on a
-    CPU tensor it is :func:`rect_mv_ref`."""
+    On a CUDA tensor this launches ``csrc/bandmv.cu`` (f32 blocks under an
+    f32 ``x``, or int8 blocks under an f32 or f64 ``x``; f32 ``y``;
+    :func:`band_operand` storage) and counts it in ``rect_mv.launches``
+    (and by kernel form in ``kernel_launches``, by the blocks' type in
+    ``storage_launches``); on a CPU tensor it is :func:`rect_mv_ref` (in
+    the promoted type: int8 0/1 blocks under an f64 ``x`` sum in f64)."""
     if blocks.dim() != 3 or x.dim() != 1:
         raise ValueError(f"rect_mv: blocks {tuple(blocks.shape)} @ x "
                          f"{tuple(x.shape)}")
     if not x.is_cuda:
-        return rect_mv_ref(blocks, bases, x, nrows)
-    y, kernel = _bandmv_launch("rect_mv", blocks[:, None], bases, x, nrows)
+        y = rect_mv_ref(blocks, bases, x, nrows)
+        return y if out is None else out.copy_(y)
+    y, kernel = _bandmv_launch("rect_mv", blocks[:, None], bases, x, nrows,
+                               out)
     _count(rect_mv, kernel)
+    rect_mv.storage_launches[str(blocks.dtype).split(".")[-1]] += 1
     return y
 
 
 rect_mv.launches = 0
 rect_mv.kernel_launches = dict(rows=0, ring=0)
+rect_mv.storage_launches = dict(float32=0, bfloat16=0, int8=0)
 
 
 def rect_mv_levels(stack, bases, x, nrows, hi_only=False):
@@ -1042,6 +1099,21 @@ class ConvTables:
         new._plain = self._plain
         return new
 
+    def with_element_order(self, eorder):
+        """Clone with the elements permuted (new row ``k`` is old row
+        ``eorder[k]``): the per-element tables move, the reference tables
+        and the plain version's weights stay.  The clone's dof table, its
+        ELL slot table and its launch plans are made anew at first use (a
+        plan of the old order would sum the wrong slots)."""
+        eo = torch.as_tensor(np.asarray(eorder), dtype=torch.int64,
+                             device=self.device)
+        moved = {k: getattr(self, k)[eo] for k in ("JinvT", "wdet", "vd")}
+        new = ConvTables(**{**{k: v for k, v in self.__dict__.items()
+                               if k not in ("dofs", "_plain", "_plans")},
+                            **moved})
+        new._plain = self._plain
+        return new
+
     def kernel_tables(self):
         """The element table's :meth:`DofTable.kernel_tables`."""
         return self.dofs.kernel_tables()
@@ -1153,6 +1225,8 @@ def _conv_lib():
             [ctypes.POINTER(_ConvPlanC)] + [ptr] * 4
             + [ctypes.c_double, i, ptr])
         lib.convection_th2d.restype = i
+        lib.conv_quad_th2d.argtypes = [ptr] * 7 + [i, ptr]
+        lib.conv_quad_th2d.restype = i
         lib.convection_error_string.argtypes = [i]
         lib.convection_error_string.restype = ctypes.c_char_p
         lib._dns_typed = True
@@ -1285,6 +1359,73 @@ def conv_vector_amatvec(u, nu, sym, tables, fac_elem=None, fac_vdofs=None):
 
 
 conv_vector_amatvec.launches = 0
+
+
+def conv_quad_ref(ue, ue_bc, tables):
+    """Plain PyTorch version of :func:`conv_quad`: the JAX package's einsum
+    chain of ``BandedConvTail.vector`` (``ops/banded_conv.py``) between its
+    two banded products."""
+    t = tables
+    Q, dim = t.Q, t.dim
+    W1, W2, _, W3 = t.plain_weights()
+    u = ue.reshape(t.nc, t.nd).to(t.dtype) + ue_bc
+    uq = (u @ W1).reshape(t.nc, Q, dim)
+    rg = (u @ W2).reshape(t.nc, Q, dim, dim)
+    guq = torch.einsum("edk,eqkc->eqcd", t.JinvT, rg)
+    conv = torch.einsum("eqd,eqcd->eqc", uq, guq)
+    wconv = (t.wdet[:, :, None] * conv).reshape(t.nc, dim * Q)
+    return (wconv @ W3).reshape(-1)
+
+
+def conv_quad(ue, ue_bc, tables):
+    """The quadrature of the banded convection tail: from the gathered
+    element field ``ue (nc*nd,)`` (G's banded product) plus the constant bc
+    field ``ue_bc (nc, nd)``, the element loads ``fe (nc*nd,)`` of ``int
+    ((u.grad)u).phi`` in the tables' element order (which S's banded
+    product sums).  Arithmetic in ``tables.dtype``.
+
+    On a CUDA tensor this launches ``quad_kernel`` of
+    ``csrc/convection.cu`` (2D Taylor-Hood, f32 tables and fields; one
+    device kernel, no gather, no scatter) on the current stream and counts
+    it in ``conv_quad.launches``; on a CPU tensor it is
+    :func:`conv_quad_ref`."""
+    t = tables
+    if ue.dim() != 1 or ue.shape[0] != t.nc * t.nd or tuple(
+            ue_bc.shape) != (t.nc, t.nd):
+        raise ValueError(f"conv_quad: ue {tuple(ue.shape)}, ue_bc "
+                         f"{tuple(ue_bc.shape)} for {t.nc} elements of "
+                         f"{t.nd} values")
+    if not ue.is_cuda:
+        return conv_quad_ref(ue, ue_bc, t)
+    if (ue.get_device() != t.device_index
+            or ue_bc.get_device() != t.device_index):
+        raise ValueError(f"conv_quad: ue on {ue.device}, ue_bc on "
+                         f"{ue_bc.device}, the tables on {t.device}")
+    if t.dtype != torch.float32 or ue.dtype != torch.float32 or \
+            ue_bc.dtype != torch.float32:
+        raise TypeError(f"conv_quad kernel takes f32 tables and fields, not "
+                        f"{t.dtype} / {ue.dtype} / {ue_bc.dtype}")
+    if (t.nvpc, t.Q, t.dim) != (6, 7, 2):
+        raise NotImplementedError(
+            f"conv_quad kernel: only the 2D Taylor-Hood instantiation (nvpc "
+            f"6, Q 7, dim 2) is built, not {(t.nvpc, t.Q, t.dim)}")
+    dev = ue.get_device()
+    ue, ue_bc = ue.contiguous(), ue_bc.contiguous()
+    tabs = [x.contiguous() for x in (t.JinvT, t.wdet, t.N2, t.dN2)]
+    fe = torch.empty_like(ue)
+    lib = _conv_lib()
+    with _on_device(dev):
+        err = lib.conv_quad_th2d(ue.data_ptr(), ue_bc.data_ptr(),
+                                 *[x.data_ptr() for x in tabs],
+                                 fe.data_ptr(), t.nc, _raw_stream(dev))
+    if err != 0:
+        raise RuntimeError(f"conv_quad kernel launch failed (nc {t.nc}): "
+                           f"{lib.convection_error_string(err).decode()}")
+    conv_quad.launches += 1
+    return fe
+
+
+conv_quad.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -21,3 +21,4 @@ from .pfromv import get_pfromv  # noqa: F401
 from .timeint import (  # noqa: F401
     DirichletControl, cnab, sbdf2, semi_implicit_euler)
 from .nse import solve_nse  # noqa: F401
+from .newton_ti import solve_nse_newton_ti  # noqa: F401

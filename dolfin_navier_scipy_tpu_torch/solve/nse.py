@@ -15,8 +15,10 @@ and the Krylov solver (``krylov`` / ``linsolver='krylov'``), with
 time-dependent right-hand sides, Dirichlet controls, static feedback
 (``umat``/``vmat``), closed-loop feedback (dynamic LTI observers and
 ``feedbackthroughdict``), in-loop observables (``outfunc``/
-``out_bundle``, CNAB) and ``resume_carry`` passed through to them.
-Checkpoints, Newton-in-time and Paraview output raise
+``out_bundle``, CNAB) and ``resume_carry`` passed through to them; and
+the fully implicit Newton-in-time scheme (``treat_nonl_explicit=False``
+or ``lin_vel_point``, :func:`.newton_ti.solve_nse_newton_ti`, reference
+:1304-1587).  Checkpoints and Paraview output raise
 ``NotImplementedError``.
 """
 
@@ -106,18 +108,16 @@ def solve_nse(
     device tensors), the blow-up flag, and the decimated trajectory.
     """
     unported = dict(
-        lin_vel_point=lin_vel_point,
         save_data=save_data, useolddata=useolddata,
         clearprvdata=clearprvdata, checkpoint_every=checkpoint_every,
         return_dictofvelstrs=return_dictofvelstrs,
-        paraviewoutput=paraviewoutput,
-        newton_in_time=not treat_nonl_explicit)
+        paraviewoutput=paraviewoutput)
     given = sorted(k for k, v in unported.items() if v)
     if given:
         raise NotImplementedError(
-            f"solve_nse: {', '.join(given)} not ported yet (checkpoints, "
-            "Newton-in-time and Paraview output follow in later slices of "
-            "the port)")
+            f"solve_nse: {', '.join(given)} not ported yet (checkpoints "
+            "and Paraview output follow in a later slice of the port: "
+            "ROADMAP A10)")
     if krylov:
         # reference kwarg parity (solve_nse docstring
         # stokes_navier_utils.py:651-664): the per-step saddle solves go
@@ -153,6 +153,7 @@ def solve_nse(
                        device=device)
         ).ravel()
 
+    fv_extra = None
     if closed_loop:
         # closed-loop feedback wiring (reference
         # stokes_navier_utils.py:1224-1263 dynamic, :1367-1384 static)
@@ -217,8 +218,8 @@ def solve_nse(
             b_ = _dense(b_mat)
             umat = b_
             vmat = _dense(mtxtb).T
-            fv_fb = torch.as_tensor((b_ @ (b_.T @ np.asarray(w))).ravel(),
-                                    device=device)
+            fv_extra = (b_ @ (b_.T @ np.asarray(w))).ravel()
+            fv_fb = torch.as_tensor(fv_extra, device=device)
             prev_f_tdp = f_tdp
             if prev_f_tdp is None:
                 fv0 = torch.as_tensor(np.asarray(prob.fv).ravel(),
@@ -228,6 +229,18 @@ def solve_nse(
                 f_tdp = lambda t: (                           # noqa: E731
                     torch.as_tensor(prev_f_tdp(t), device=device)
                     .reshape(-1) + fv_fb)
+
+    if not treat_nonl_explicit or lin_vel_point is not None:
+        from .newton_ti import solve_nse_newton_ti
+
+        return solve_nse_newton_ti(
+            prob=prob, trange=trange, iniv=iniv, inip=inip,
+            lin_vel_point=lin_vel_point, stokes_flow=stokes_flow,
+            vel_nwtn_stps=vel_nwtn_stps, vel_nwtn_tol=vel_nwtn_tol,
+            vel_pcrd_stps=vel_pcrd_stps, umat=umat, vmat=vmat,
+            fv_extra=fv_extra, linsolver=linsolver,
+            controls=controls, save_every=save_every, verbose=verbose,
+            device=device, **kw)
 
     out = schemes[time_int_scheme](
         trange=trange, prob=prob, inivel=iniv, inip=inip,

@@ -600,7 +600,7 @@ def _host_vec(x, device):
 
 def _cnab_wspace(prob, ops, bs, v0, cn, dt, trange, save_every,
                  check_ff_maxv, warm_refine, outfunc, out_bundle, device,
-                 lap):
+                 lap, banded_conv=None):
     """The CNAB loop of the banded Schur solver in its PERMUTED state
     layout (w-space): ``v = [v_inner in RCM order; bc dofs]``, the pressure
     in the solver's ``pp`` order.  The solver's rhs is then the slice
@@ -610,7 +610,14 @@ def _cnab_wspace(prob, ops, bs, v0, cn, dt, trange, save_every,
     ``A_ib v_bc`` coupling cancels against the bc fold of ``fv``).  The
     warm start ``y`` of the solver is extrapolated from the last two.
     Natural order comes back at exit, in the saved rows and for
-    ``outfunc``."""
+    ``outfunc``.
+
+    The convection vector is the element kernel's (B5) or, where
+    ``banded_conv`` asks for it, the banded convection tail's
+    (:mod:`..ops.banded_conv`; valid exactly here: the solver reads
+    ``rhs[:nin]`` and the bc tail of the state is constant through the
+    loop): ``None`` lets its gate decide, ``True`` forces it, ``False``
+    keeps the element kernel."""
     slv = ops.solver
     if slv.Eblk is None:
         raise ValueError("the w-space step needs the solver's banded "
@@ -636,12 +643,19 @@ def _cnab_wspace(prob, ops, bs, v0, cn, dt, trange, save_every,
     # the AB2 "previous convection" entering the first step is the one at
     # the ORIGINAL v0 (time_int_utils.py:78+:112)
     nfc0 = (-kern_w.vector(_embed(cn, v0)[wsrc_t])).to(w)
+    bct = None
+    if banded_conv is not False:
+        from ..ops.banded_conv import build_banded_conv_tail
+
+        bct = build_banded_conv_tail(kern_w, nin_p, vf0[nin_p:],
+                                     force=banded_conv is True)
+    conv = kern_w.vector if bct is None else bct.vector
 
     def fstep(b, c, t):
         vf, nfc_o = c["v"], c["nfc"]
-        # the element kernel carries the convection alone; the diffusion
-        # is one banded matvec in permuted inner space
-        nfc_c = (-b["kern"].vector(vf)).to(w)
+        # the element kernel (or the banded tail) carries the convection
+        # alone; the diffusion is one banded matvec in permuted inner space
+        nfc_c = (-conv(vf)).to(w)
         av_i = slv.band_extra_mv(vf[:nin_p])
         rhs = (0.5 * dt) * (3.0 * nfc_c - nfc_o) + dt * b["fv"]
         rhs[:nin_p] += (-dt) * av_i.to(w)
@@ -686,7 +700,7 @@ def _cnab_wspace(prob, ops, bs, v0, cn, dt, trange, save_every,
         vs=None if ys is None else ys[0][:, vnat],
         ps=None if ys is None else ys[1][:, qpos],
         outs=outs, out_times=np.asarray(trange[2:]),
-        bootstrap=bs, ops=ops, carry=carry)
+        bootstrap=bs, ops=ops, carry=carry, bct=bct)
 
 
 def cnab(trange=None, prob=None, inivel=None, inip=None,
@@ -698,7 +712,7 @@ def cnab(trange=None, prob=None, inivel=None, inip=None,
          inv_dtype=None, refine=None, ops=None, precision="accurate",
          linsolver="auto", state_layout="auto", warm_refine=0,
          resume_carry=None, umat=None, vmat=None,
-         outfunc=None, out_bundle=None, winv=None,
+         outfunc=None, out_bundle=None, winv=None, banded_conv=None,
          verbose=False, device=None, **kw):
     """Crank-Nicolson / Adams-Bashforth-2 (reference time_int_utils.py:23).
 
@@ -729,7 +743,10 @@ def cnab(trange=None, prob=None, inivel=None, inip=None,
     natural order is restored at exit and in the saved rows.
     ``warm_refine`` residual rounds follow each of its solves; on the inner
     layout ``warm_refine`` > 0 sets the residual rounds of each solve (the
-    JAX package reads it on the w-space step only).
+    JAX package reads it on the w-space step only).  ``banded_conv``: the
+    w-space step's convection through the banded tail (``None``: its gate
+    decides, ``True``: forced, ``False``: the element kernel; the result
+    then carries the tail, or None, as ``bct``).
 
     Returns a dict with the final ``(v, p)`` (inner dofs / physical
     pressure), the blow-up flag, the decimated trajectory
@@ -796,7 +813,7 @@ def cnab(trange=None, prob=None, inivel=None, inip=None,
     if use_full and schur_full:
         out = _cnab_wspace(prob, ops, bs, v0, cn, dt, trange, save_every,
                            check_ff_maxv, warm_refine, outfunc, out_bundle,
-                           device, lap)
+                           device, lap, banded_conv)
         out["timing"] = timing
         return out
     if use_full:

@@ -20,8 +20,8 @@ from dolfin_navier_scipy_tpu_torch.ops.kernels import (
     affine_mv, affine_mv_ref, affine_residual, affine_residual_ref,
     as_band_operand, as_vecmat_operand,
     band_operand, banded_mv, banded_mv_ref, conv_vector, conv_vector_amatvec,
-    conv_vector_amatvec_ref, conv_vector_ref, rect_mv, rect_mv_levels,
-    rect_mv_levels_ref, rect_mv_ref, vecmat)
+    conv_quad, conv_quad_ref, conv_vector_amatvec_ref, conv_vector_ref,
+    rect_mv, rect_mv_levels, rect_mv_levels_ref, rect_mv_ref, vecmat)
 from dolfin_navier_scipy_tpu_torch.solve import sbdf2, solve_nse
 
 torch.set_num_threads(1)
@@ -113,7 +113,13 @@ def _card_calls():
     ain = prob.affine_ops(torch.float32, device="cuda")
     xa = torch.from_numpy(rng.normal(size=ain.nin)).float().cuda()
     qa = torch.from_numpy(rng.normal(size=ain.npc)).float().cuda()
+    i8 = _int8_blocks(rng, 9, 256, 1021)
+    x64 = torch.from_numpy(rng.normal(size=2058)).cuda()
+    ue = torch.from_numpy(rng.normal(size=(t.nc * t.nd))).float().cuda()
+    ue_bc = torch.from_numpy(rng.normal(size=(t.nc, t.nd))).float().cuda()
     return {
+        "rect_mv_int8": lambda: (rect_mv(i8, bases, x64, 2058),),
+        "conv_quad": lambda: (conv_quad(ue, ue_bc, t),),
         "vecmat": lambda: (vecmat(x, KT),),
         "conv_vector": lambda: (conv_vector(u, None, t),),
         "conv_vector_amatvec": lambda: conv_vector_amatvec(
@@ -153,7 +159,18 @@ _BAND_CASES = {
 
 
 _WRAPPERS = ["vecmat", "conv_vector", "conv_vector_amatvec", "banded_mv",
-             "rect_mv", "rect_mv_levels", "affine_mv", "affine_residual"]
+             "rect_mv", "rect_mv_levels", "affine_mv", "affine_residual",
+             "rect_mv_int8", "conv_quad"]
+
+
+def _int8_blocks(rng, nblk, bs, w):
+    """Seeded 0/1 int8 ``(nblk, bs, w)`` blocks in band-operand storage on
+    the card, their padding columns filled with ones (never to be used)."""
+    B = band_operand((nblk, bs, w), torch.int8, "cuda")
+    B.copy_(torch.from_numpy(rng.integers(0, 2, size=(nblk, bs, w))))
+    full = B.as_strided((nblk, bs, B.stride(1)), B.stride())
+    full[..., w:] = 1
+    return B
 
 
 @pytest.mark.cuda
@@ -869,3 +886,169 @@ def test_steady_routes_on_the_card_match_the_cpu():
                                          stats=stats, **kw)
     assert elem_mv.launches - before == stats["n_fmv"] > 0
     assert nk[-1] < 1e-12 and rel(vk, vc) <= 1e-10 and rel(pk, pc) <= 1e-8
+
+
+@pytest.mark.cuda
+def test_int8_rect_mv_on_the_card():
+    """The banded tail's 0/1 products: int8 blocks under an f32 or an f64
+    x against the plain version (exact products, f32 sums), at the tail's
+    shapes at wake level 0 and at ragged ones (w not a multiple of 16,
+    windows past x's end, a short last row block); the plan picks the
+    warp-per-row kernel for every int8 shape; ``out`` is written in place;
+    the same bits twice."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    rng = np.random.default_rng(21)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for nblk, bs, w, nrows, nx in [(9, 256, 384, 2058, 12072),
+                                   (48, 256, 256, 12072, 2058),
+                                   (5, 48, 77, 230, 150), (2, 256, 16, 300,
+                                                           40)]:
+        assert kernels.bandmv_plan(nblk, bs, w, kernels.vecmat_ld(w, 1), 1,
+                                   sms).kernel == "rows"
+        B = _int8_blocks(rng, nblk, bs, w)
+        bases = _windows_bases(nblk, w, nx, rng)
+        for xdt in (torch.float32, torch.float64):
+            x = torch.from_numpy(rng.normal(size=nx)).to(xdt).cuda()
+            before = rect_mv.launches, rect_mv.storage_launches["int8"]
+            got = rect_mv(B, bases, x, nrows)
+            torch.cuda.synchronize()
+            assert (rect_mv.launches, rect_mv.storage_launches["int8"]) == (
+                before[0] + 1, before[1] + 1)
+            ref = rect_mv_ref(B, bases, x.float(), nrows)
+            assert got.dtype == torch.float32 and got.shape == ref.shape
+            tol = 1e-6 * w ** 0.5 * float(ref.abs().max()) + 1e-6
+            assert float((got - ref).abs().max()) <= tol, (nblk, bs, w)
+            out = torch.full((nrows,), float("nan"), device="cuda")
+            assert rect_mv(B, bases, x, nrows, out=out) is out
+            assert torch.equal(out, got)
+    with pytest.raises(TypeError):
+        rect_mv(B, bases, x.half(), nrows)
+
+
+@pytest.mark.cuda
+def test_conv_quad_on_the_card():
+    """The tail's quadrature against its plain version (the JAX package's
+    einsum chain) within 1e-5 of each row's sum of absolute products."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    prob = cylinderwake_problem(level=0, Re=100)
+    t = prob.conv_kernel_on(torch.float32).tables
+    rng = np.random.default_rng(22)
+    ue = torch.from_numpy(rng.normal(size=t.nc * t.nd)).float().cuda()
+    ue_bc = torch.from_numpy(rng.normal(size=(t.nc, t.nd))).float().cuda()
+    before = conv_quad.launches
+    got = conv_quad(ue, ue_bc, t)
+    torch.cuda.synchronize()
+    assert conv_quad.launches == before + 1
+    ref = conv_quad_ref(ue.double(), ue_bc.double(),
+                        prob.conv_kernel_on(torch.float64).tables)
+    # the same chain with every factor made positive bounds each row's
+    # sum of absolute products
+    t64 = prob.conv_kernel_on(torch.float64).tables
+    scale = _abs_chain(ue.double().abs(), ue_bc.double().abs(), t64)
+    assert float(((got.double() - ref).abs() / (scale + 1e-30)).max()) \
+        <= 1e-5
+    assert torch.equal(got, conv_quad(ue, ue_bc, t))
+    with pytest.raises(TypeError):
+        conv_quad(ue.double(), ue_bc.double(),
+                  prob.conv_kernel_on(torch.float64).tables)
+
+
+def _abs_chain(ue, ue_bc, t):
+    """:func:`conv_quad_ref` with the absolute values of every factor: a
+    bound on each row's sum of absolute products."""
+    import copy
+    ta = copy.copy(t)
+    ta.JinvT, ta.wdet = t.JinvT.abs(), t.wdet.abs()
+    W1, W2, W2T, W3 = t.plain_weights()
+    ta._plain = tuple(w.abs() for w in (W1, W2, W2T, W3))
+    return conv_quad_ref(ue, ue_bc, ta)
+
+
+def _wspace_kernel(prob, dt=1e-3):
+    """The w-space kernel and bc tail of a Schur solver's order."""
+    from dolfin_navier_scipy_tpu_torch.solve.timeint import _build_ops
+    ops = _build_ops(prob, dt, theta=0.5, linsolver="schur", layout="full",
+                     device="cuda")
+    slv = ops.solver
+    nf, nin = prob.nv_full, slv._nin
+    wsrc = np.concatenate([slv.permf.cpu().numpy(), np.setdiff1d(
+        np.arange(nf), np.asarray(prob.invinds))]).astype(np.int64)
+    iposx = np.full(nf + 1, nf, np.int64)
+    iposx[wsrc] = np.arange(nf)
+    kern = prob.conv_kernel_on(torch.float32).with_dof_map(
+        torch.as_tensor(iposx, device="cuda"))
+    vbc = np.asarray(prob.bc_full_vec()).ravel()[wsrc]
+    return kern, nin, vbc
+
+
+@pytest.mark.cuda
+def test_banded_tail_on_the_card_matches_b5():
+    """Wake level 0: the forced tail (int8 blocks) against the element
+    kernel on the same w-space state within 1e-5 of max|B5|, zero bc rows;
+    three launches a vector (G, the quadrature, S), one kernel node each in
+    a captured graph, and a replay equal to the eager call."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    from dolfin_navier_scipy_tpu_torch.ops.banded_conv import (
+        build_banded_conv_tail)
+    prob = cylinderwake_problem(level=0, Re=100)
+    kern, nin, vbc = _wspace_kernel(prob)
+    bct = build_banded_conv_tail(kern, nin, vbc[nin:], force=True)
+    assert bct.store == "int8" and bct.Sb.dtype == torch.int8
+    v = vbc.copy()
+    v[:nin] = np.random.default_rng(23).normal(size=nin)
+    vt = torch.from_numpy(v).cuda()
+    ref = kern.vector(vt)
+    before = rect_mv.launches, conv_quad.launches
+    got = bct.vector(vt).clone()
+    torch.cuda.synchronize()
+    assert (rect_mv.launches, conv_quad.launches) == (before[0] + 2,
+                                                      before[1] + 1)
+    assert float((got[:nin] - ref[:nin].float()).abs().max()) <= \
+        1e-5 * float(ref.abs().max())
+    assert not got[nin:].any()
+    types, replayed = _captured(lambda: bct.vector(vt))
+    assert types.count(0) == 3, types
+    assert torch.equal(replayed, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linsolver", ["dense", "schur"])
+def test_newton_in_time_on_the_card_matches_the_cpu(linsolver):
+    """Wake level 0, Re 40, a perturbed steady start: Newton-in-time on the
+    card (f64 Krylov vectors and tables, the preconditioner in f32) against
+    the port's CPU f64 run within 1e-8; launches from the sweep counts."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    from dolfin_navier_scipy_tpu_torch.ops.kernels import (
+        affine_residual, elem_mv)
+    from dolfin_navier_scipy_tpu_torch.solve import (
+        solve_nse_newton_ti, solve_steadystate_nse)
+    prob = cylinderwake_problem(level=0, Re=40, charvel=0.2)
+    vss = solve_steadystate_nse(prob, linsolver="host-sparse",
+                                vel_nwtn_tol=1e-10, device="cpu")
+    v0 = vss.ravel()[prob.invinds]
+    v0 = v0 + 0.01 * np.random.default_rng(2).normal(size=len(v0))
+    kw = dict(trange=np.linspace(0.0, 0.004, 5), iniv=v0,
+              inip=np.zeros(prob.np_cond), vel_nwtn_stps=3,
+              vel_nwtn_tol=1e-11, save_every=None, linsolver=linsolver)
+    cpu = solve_nse_newton_ti(prob=prob, device="cpu", **kw)
+    before = (conv_vector.launches, elem_mv.launches,
+              affine_residual.launches, vecmat.launches)
+    out = solve_nse_newton_ti(prob=prob, **kw)
+    st = out["stats"]
+    nts = 4
+    assert out["v"].is_cuda and out["v"].dtype == torch.float64
+    assert (conv_vector.launches - before[0]
+            == 3 * (nts + 1) * st["sweeps"])
+    assert elem_mv.launches - before[1] == st["matvecs"] + nts * st[
+        "sweeps"]
+    assert affine_residual.launches - before[2] == st["matvecs"]
+    if linsolver == "dense":
+        assert vecmat.launches - before[3] == st["preconds"]
+    for k in ("v", "v_traj"):
+        a, b = out[k].cpu().numpy(), cpu[k].numpy()
+        assert np.linalg.norm(a - b) <= 1e-8 * np.linalg.norm(b), k
+    assert out["nwtn_norms"][-1] < 1e-8

@@ -33,10 +33,16 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
             "import dolfin_navier_scipy_tpu_torch.solve.krylov_saddle; "
             "import dolfin_navier_scipy_tpu_torch.solve.convconts; "
             "import dolfin_navier_scipy_tpu_torch.ops.elementop; "
+            "import dolfin_navier_scipy_tpu_torch.ops.banded_conv; "
+            "import dolfin_navier_scipy_tpu_torch.ops.quadform; "
+            "import dolfin_navier_scipy_tpu_torch.solve.newton_ti; "
+            "import dolfin_navier_scipy_tpu_torch.residual_checks; "
             "from dolfin_navier_scipy_tpu_torch.solve import sbdf2, "
             "semi_implicit_euler; "
             "from dolfin_navier_scipy_tpu_torch.ops.kernels import "
-            "conv_vector, conv_vector_amatvec, elem_mv; "
+            "conv_vector, conv_vector_amatvec, elem_mv, conv_quad; "
+            "from dolfin_navier_scipy_tpu_torch.solve import "
+            "solve_nse_newton_ti; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'dolfin_navier_scipy_tpu' or "
             "m.startswith('dolfin_navier_scipy_tpu.')]; "

@@ -296,6 +296,22 @@ def test_bandmv_plan_refuses_rows_past_shared_memory():
         bandmv_plan(2, 8, 30, 31, 4, sm_count=132)   # rows not 16-byte apart
 
 
+def test_bandmv_plan_takes_int8_blocks_on_the_row_kernel():
+    """The banded tail's int8 0/1 blocks (rows 16-byte padded) take the
+    warp-per-row kernel whatever the grid (the ring's consumers read f32
+    rows): G and S at wake levels 1-2, and a grid far below the SM count;
+    their window is staged in whole 16-entry vectors; a window past 227 KB
+    raises."""
+    for nblk, bs, w in [(87, 256, 512), (28, 256, 1792), (314, 256, 768),
+                        (102, 256, 2688), (1, 8, 20000)]:
+        plan = bandmv_plan(nblk, bs, w, -(-w // 16) * 16, 1, sm_count=132)
+        assert plan.kernel == "rows" and plan.blocks == nblk * -(-bs // 16)
+    assert kernels._window_bytes(17, 16) == 4 * 32
+    assert kernels._window_bytes(17) == 4 * 24
+    with pytest.raises(ValueError, match="shared memory"):
+        bandmv_plan(1, 8, 60000, 60000, 1, sm_count=132)
+
+
 @pytest.mark.parametrize("name,shape,kernel", [
     ("J_L1", _RING_SHAPES["J_L1"], "ring"),
     ("E_L1", _RING_SHAPES["E_L1"], "rows"),

@@ -1,5 +1,6 @@
 """The slice as a whole: ``solve_nse`` of the port vs the JAX package on
-the CPU in f64 (20 CNAB steps, both state layouts)."""
+the CPU in f64 (20 CNAB steps, both state layouts), and its dispatch to
+Newton-in-time."""
 
 import numpy as np
 import pytest
@@ -7,12 +8,13 @@ import torch
 
 from dolfin_navier_scipy_tpu.models import (
     cylinderwake_problem as jax_wake, drivencavity_problem as jax_cavity)
+from dolfin_navier_scipy_tpu.solve import get_pfromv as jax_get_pfromv
 from dolfin_navier_scipy_tpu.solve import solve_nse as jax_solve_nse
 from dolfin_navier_scipy_tpu_torch.models import (
     cylinderwake_problem as torch_wake, drivencavity_problem as torch_cavity)
 from dolfin_navier_scipy_tpu_torch.ops.kernels import vecmat
 from dolfin_navier_scipy_tpu_torch.solve import (
-    cnab, solve_nse, solve_steadystate_nse)
+    cnab, get_pfromv, solve_nse, solve_nse_newton_ti, solve_steadystate_nse)
 from dolfin_navier_scipy_tpu_torch.solve.timeint import (
     _build_ops, build_full_layout)
 from dolfin_navier_scipy_tpu_torch.utils.convert import (
@@ -47,6 +49,16 @@ def _jax_run(name, layout):
     return _CACHE[key]
 
 
+def _port_run(name, layout):
+    """The port's run of the same call (shared by the tests that read
+    it)."""
+    key = ("portrun", name, layout)
+    if key not in _CACHE:
+        _CACHE[key] = solve_nse(prob=_probs(name)[1], state_layout=layout,
+                                device="cpu", **KW)
+    return _CACHE[key]
+
+
 def _rel(a, b):
     a = a.numpy() if torch.is_tensor(a) else np.asarray(a)
     b = np.asarray(b)
@@ -70,8 +82,7 @@ def _assert_same_run(out, ref):
 @pytest.mark.parametrize("layout", ["auto", "inner"])
 def test_solve_nse_matches_jax(name, layout):
     ref = _jax_run(name, layout)
-    out = solve_nse(prob=_probs(name)[1], state_layout=layout, device="cpu",
-                    **KW)
+    out = _port_run(name, layout)
     _assert_same_run(out, ref)
     assert out["v"].dtype == torch.float64 and out["v"].device.type == "cpu"
     # the full layout carries all velocity dofs, the inner one only its own
@@ -99,8 +110,12 @@ def test_trange_iniv_inip_and_vp_dict():
     # from get_pfromv
     out = solve_nse(prob=tp, trange=trange, iniv=v_full, linsolver="dense",
                     save_every=5, return_vp_dict=True, device="cpu")
-    refj = jax_solve_nse(prob=jp, trange=trange, iniv=v_full,
-                         linsolver="dense", save_every=5)
+    # the JAX package's run of this call: the shared run's trajectory (the
+    # same trange and initial velocity; a plain run does not read inip,
+    # so the same bits) and get_pfromv's initial pressure
+    refj = dict(v=ref["v"], p=ref["p"],
+                inip=np.asarray(jax_get_pfromv(v=ref["iniv"],
+                                               prob=jp)).ravel())
     for k in ("v", "p", "inip"):
         assert _rel(out[k], refj[k]) <= RTOL, k
     assert sorted(out["vp_dict"]) == [float(t) for t in out["times"]]
@@ -127,7 +142,7 @@ def test_fast_precision_keeps_an_f64_carry_within_1e6():
     """f32 element kernels and an f32-stored inverse under the f64 carry —
     the arithmetic the card runs — stay within 1e-6 of the f64 run."""
     _, tp = _probs("wake0")
-    acc = solve_nse(prob=tp, device="cpu", **KW)
+    acc = _port_run("wake0", "auto")
     for layout in ("auto", "inner"):
         fast = solve_nse(prob=tp, device="cpu", precision="fast",
                          state_layout=layout, **KW)
@@ -192,8 +207,6 @@ def test_stokes_start_matches_the_host_solve():
 @pytest.mark.parametrize("kwargs,match", [
     (dict(save_data=True), "save_data"),
     (dict(checkpoint_every=5), "checkpoint_every"),
-    (dict(treat_nonl_explicit=False), "newton_in_time"),
-    (dict(lin_vel_point={0.0: None}), "lin_vel_point"),
     (dict(paraviewoutput=True), "paraviewoutput"),
     (dict(useolddata=True), "useolddata"),
 ])
@@ -225,3 +238,74 @@ def test_auto_linsolver_raises_above_the_dense_window():
                   **dict(KW, time_int_scheme="rk4"))
     with pytest.raises(NotImplementedError, match="A10"):
         solve_steadystate_nse(_probs("cavity")[1], useolddata=True)
+
+
+def _tiny():
+    """A 4x4 cavity, its Stokes start and a short horizon: the Newton-in-time
+    dispatch is checked against the direct call (the twins of the JAX
+    package's tests run in ``test_torch_newton_ti.py``)."""
+    if "tiny" not in _CACHE:
+        tp = torch_cavity(N=4, Re=50, device="cpu")
+        v = solve_steadystate_nse(tp, only_stokes=True,
+                                  linsolver="host-sparse")
+        _CACHE["tiny"] = (tp, v.ravel()[tp.invinds],
+                          np.linspace(0.0, 0.03, 4))
+    return _CACHE["tiny"]
+
+
+def _newton_direct(**kw):
+    tp, v0, trange = _tiny()
+    return solve_nse_newton_ti(prob=tp, trange=trange, iniv=v0,
+                               vel_nwtn_stps=1, vel_pcrd_stps=1,
+                               device="cpu", **kw)
+
+
+def _newton_ref():
+    """The direct call the dispatch cases equal: each linearizes about the
+    initial state (a ``lin_vel_point`` equal to it, full length or not),
+    with ``get_pfromv``'s pressure."""
+    if "newton_ref" not in _CACHE:
+        tp, v0, _ = _tiny()
+        _CACHE["newton_ref"] = _newton_direct(inip=np.asarray(
+            get_pfromv(v=v0, prob=tp, device="cpu")).ravel())
+    return _CACHE["newton_ref"]
+
+
+@pytest.mark.parametrize("how", ["treat_nonl_explicit", "lin_vel_point",
+                                 "lin_vel_point_full"])
+def test_newton_in_time_is_dispatched(how):
+    """``treat_nonl_explicit=False`` or a ``lin_vel_point`` takes
+    Newton-in-time (formerly ``NotImplementedError``), with the facade's
+    own Picard default and the initial pressure from ``get_pfromv``."""
+    tp, v0, trange = _tiny()
+    kw = dict(treat_nonl_explicit=False)
+    lvp = None
+    if how != "treat_nonl_explicit":
+        lvp = v0 if how == "lin_vel_point" else tp.embed(
+            torch.from_numpy(v0)).numpy()
+        kw = dict(lin_vel_point=lvp)
+    out = solve_nse(prob=tp, trange=trange, iniv=v0, vel_nwtn_stps=1,
+                    vel_pcrd_stps=1, save_every=1, device="cpu", **kw)
+    ref = _newton_ref()
+    assert torch.equal(out["v_traj"], ref["v_traj"])
+    assert torch.equal(out["ps"], ref["ps"])
+    assert out["nwtn_norms"] == ref["nwtn_norms"]
+    assert out["stats"]["sweeps"] == len(out["nwtn_norms"]) == 2
+
+
+def test_newton_in_time_static_feedback_reaches_the_system():
+    """``closed_loop`` static feedback hands ``umat``, ``vmat`` and the
+    throughput ``b (b^T w)`` to Newton-in-time."""
+    tp, v0, trange = _tiny()
+    nin = len(v0)
+    rng = np.random.default_rng(3)
+    B, mtxtb = 1e-2 * rng.normal(size=(nin, 2)), rng.normal(size=(nin, 2))
+    w = np.linspace(0.0, 1.0, nin)
+    out = solve_nse(prob=tp, trange=trange, iniv=v0, vel_nwtn_stps=1,
+                    vel_pcrd_stps=1, treat_nonl_explicit=False,
+                    closed_loop=True, static_feedback=True, b_mat=B,
+                    feedbackthroughdict={None: dict(mtxtb=mtxtb, w=w)},
+                    device="cpu")
+    ref = _newton_direct(umat=B, vmat=mtxtb.T, fv_extra=B @ (B.T @ w),
+                         inip=out["ps"][0].numpy())
+    assert torch.equal(out["v_traj"], ref["v_traj"])

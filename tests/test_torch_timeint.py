@@ -145,6 +145,20 @@ def _torch_forcing(prob):
 _ALL_RHS = ("f_tdp", "g_tdp", "dynamic_rhs", "dynamic_rhs_memory")
 
 
+def _plain_run(scheme, predictor):
+    """The port's cavity run without forcing (shared by the cases of one
+    scheme and predictor)."""
+    key = ("plain", scheme, predictor)
+    if key not in _CACHE:
+        kw = dict(trange=TRANGE, inivel=_v0("cavity"), linsolver="dense",
+                  save_every=4)
+        if predictor:
+            kw["predictor"] = predictor
+        _CACHE[key] = dict(cnab=cnab, sbdf2=sbdf2)[scheme](
+            prob=_probs("cavity")[1], device="cpu", **kw)
+    return _CACHE[key]
+
+
 @pytest.mark.parametrize("scheme,predictor,only", [
     ("cnab", "IMEX-Euler", _ALL_RHS), ("cnab", "IMEX-trpz", _ALL_RHS),
     ("sbdf2", None, _ALL_RHS), ("sbdf2", None, ("g_tdp",)),
@@ -165,7 +179,7 @@ def test_time_dependent_rhs_and_dynamic_rhs_match_jax(scheme, predictor,
     _same(out, ref)
     # a time-dependent rhs takes the inner layout, and it did matter
     assert out["carry"]["v"].shape == (len(tp.invinds),)
-    plain = dict(cnab=cnab, sbdf2=sbdf2)[scheme](prob=tp, device="cpu", **kw)
+    plain = _plain_run(scheme, predictor)
     assert _rel(out["v"], plain["v"].numpy()) > 1e-6
     if "dynamic_rhs" in only:
         assert _rel(out["carry"]["drm"]["acc"],
@@ -184,6 +198,17 @@ def test_rhs_callables_may_return_numpy():
     assert torch.equal(out["v"], ref["v"]) and torch.equal(out["p"], ref["p"])
 
 
+def _first_half(scheme, name, kw):
+    """The port's run over the first half of ``TRANGE`` on the inner
+    layout (shared by the resume tests and the JAX-carry tests: a wake run
+    without forcing is the same call)."""
+    key = ("first", scheme, name)
+    if key not in _CACHE:
+        fn = dict(cnab=cnab, sbdf2=sbdf2)[scheme]
+        _CACHE[key] = fn(trange=TRANGE[:11], inivel=_v0(name), **kw)
+    return _CACHE[key]
+
+
 @pytest.mark.parametrize("scheme", ["cnab", "sbdf2"])
 @pytest.mark.parametrize("name", ["cavity", "wake0"])
 def test_resume_carry_continues_exactly(scheme, name):
@@ -196,8 +221,9 @@ def test_resume_carry_continues_exactly(scheme, name):
         tf = _torch_forcing(tp)
         kw.update(f_tdp=tf["f_tdp"], dynamic_rhs=tf["dynamic_rhs"],
                   dynamic_rhs_memory=tf["dynamic_rhs_memory"])
-    whole = fn(trange=TRANGE, inivel=v0, **kw)
-    first = fn(trange=TRANGE[:11], inivel=v0, **kw)
+    # the unsplit run, saving every state
+    every = fn(trange=TRANGE, inivel=v0, **dict(kw, save_every=1))
+    first = _first_half(scheme, name, kw)
     # the carry may be stored as numpy (a checkpoint) in between
     stored = {k: (v.numpy() if torch.is_tensor(v) else v)
               for k, v in first["carry"].items()}
@@ -205,12 +231,11 @@ def test_resume_carry_continues_exactly(scheme, name):
                 ops=first["ops"], **kw)
     assert second["bootstrap"] is None
     for k in ("v", "p"):
-        assert _rel(second[k], whole[k].numpy()) <= 1e-13, k
+        assert _rel(second[k], every[k].numpy()) <= 1e-13, k
     assert len(second["times"]) == 10 // 3
     both = torch.cat([first["vs"], second["vs"]])
     assert both.shape[0] == 9 // 3 + 10 // 3
     # saved states of the second half are states of the unsplit run
-    every = fn(trange=TRANGE, inivel=v0, **dict(kw, save_every=1))
     assert _rel(second["vs"][0], every["vs"][10 + 3 - 2].numpy()) <= 1e-13
 
 
@@ -231,8 +256,11 @@ def test_a_jax_carry_resumes_in_the_port(scheme):
     out = tfn(trange=TRANGE[10:], prob=tp, inivel=None, resume_carry=carry,
               device="cpu", **kw)
     _same(out, jsecond)
-    # and the port's own first half leads to the same end
-    tfirst = tfn(trange=TRANGE[:11], prob=tp, inivel=v0, device="cpu", **kw)
+    # and the port's own first half leads to the same end (its save rows
+    # apart, the call of the resume test)
+    tfirst = _first_half(scheme, "wake0", dict(
+        prob=tp, linsolver="dense", save_every=3, device="cpu",
+        state_layout="inner"))
     for k in ("v", "p", "gp", "fv", "nfc" if scheme == "cnab" else "dv"):
         assert _rel(tfirst["carry"][k], carry[k].numpy()) <= RTOL, k
     assert not carry["dfv"].any() and not tfirst["carry"]["dfv"].any()
