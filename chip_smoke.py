@@ -768,13 +768,17 @@ def check_band(forms, counted=True):
         copies = cold_copies(B)
         run = cycling(call, copies)
         bound, by = band_bound_ms(*bargs)
+        # a library form is a callable (one torch.bmm over windows gathered
+        # beforehand) or a (callable, what it calls) pair
+        library, lib_label = (
+            library if isinstance(library, tuple) else
+            (library, "torch.bmm over windows gathered beforehand"))
         row.update(ms=graph_ms(run, calls=max(20, len(copies))),
                    eager_ms=time_ms(run, 200),
                    plain_ms=time_ms(cycling(plain, copies), 50),
                    library_ms=(None if library is None else
                                time_ms(cycling(library, copies), 200)),
-                   library=(None if library is None else
-                            "torch.bmm over windows gathered beforehand"),
+                   library=None if library is None else lib_label,
                    timed_over_copies=len(copies),
                    ms_warm_l2=graph_ms(lambda: call(B)),
                    bound_ms=bound, bound_by=by)
@@ -2155,23 +2159,46 @@ def abs_chain(t):
 
 def tail_forms(tail, gen):
     """``check_band``'s forms of the tail's two int8 products, G under the
-    f64 state and S under f32 element loads (no one PyTorch call takes
-    int8 blocks under a float vector: no library time)."""
+    f64 state and S under f32 element loads.  Their library forms compute
+    the same 0/1 products in one PyTorch call each on inputs made
+    beforehand: G as one ``index_select`` of the state (cast to f32, a zero
+    appended for the bc entries), S as one cuSPARSE CSR matvec; each is
+    held to the plain version first."""
     dev = tail.Sb.device
-    xg = torch.randn(tail.nin, generator=gen, dtype=torch.float64).to(dev)
-    xs = torch.randn(tail.nvals, generator=gen,
-                     dtype=torch.float32).to(dev)
+    nin, nvals = tail.nin, tail.nvals
+    xg = torch.randn(nin, generator=gen, dtype=torch.float64).to(dev)
+    xs = torch.randn(nvals, generator=gen, dtype=torch.float32).to(dev)
+    # the 0/1 pattern: element value j reads state row rows[j] (bc rows,
+    # at nin and above, read zero and are not scattered)
+    rows = tail.kern.vd.reshape(-1).to(torch.int64)
+    keep = rows < nin
+    gidx = torch.where(keep, rows, torch.full_like(rows, nin))
+    xg_pad = torch.cat([xg.float(), xg.new_zeros(1, dtype=torch.float32)])
+    cols = torch.arange(nvals, device=dev)
+    S_csr = torch.sparse_coo_tensor(
+        torch.stack([rows[keep], cols[keep]]),
+        torch.ones(int(keep.sum()), device=dev), (nin, nvals)
+    ).coalesce().to_sparse_csr()
+    libs = ((lambda B: torch.index_select(xg_pad, 0, gidx),
+             "torch.index_select of the f32 state, a zero appended for the "
+             "bc entries (made beforehand)"),
+            (lambda B: S_csr @ xs,
+             "cuSPARSE CSR matvec (torch sparse CSR @) of the f32 0/1 S"))
     forms = []
-    for operand, B, bases, x, nrows in (
-            ("G (gather), int8", tail.Gb, tail.Gbases, xg, tail.nvals),
-            ("S (scatter), int8", tail.Sb, tail.Sbases, xs, tail.nin)):
+    for (operand, B, bases, x, nrows), lib in zip((
+            ("G (gather), int8", tail.Gb, tail.Gbases, xg, nvals),
+            ("S (scatter), int8", tail.Sb, tail.Sbases, xs, nin)), libs):
+        ref = rect_mv_ref(B, bases, x.float(), nrows)
+        err = float((lib[0](B) - ref).abs().max())
+        require(err <= 1e-6 * float(ref.abs().max()),
+                f"the library form of {operand} is not its product: {err}")
         forms.append((
             "rect_mv", operand, B,
             lambda B, b=bases, x=x, n=nrows: rect_mv(B, b, x, n),
             lambda B, b=bases, x=x, n=nrows: rect_mv_ref(B, b, x.float(), n),
             lambda B, b=bases, x=x, n=nrows: rect_mv_ref(
                 B.abs(), b, x.float().abs(), n),
-            None,
+            lib,
             (1, B.shape[0], 1, B.shape[1], B.shape[2], x.shape[0], nrows,
              True, x.element_size())))
     return forms
@@ -2988,7 +3015,7 @@ def main():
             max_abs_err=chk["max_abs_err"], ms=chk["ms"],
             plain_ms=chk["plain_ms"], bound_ms=chk["bound_ms"],
             bound_by=chk["bound_by"], library_ms=chk["library_ms"],
-            eager_ms=chk["eager_ms"],
+            library=chk.get("library"), eager_ms=chk["eager_ms"],
             device_kernels_per_call=chk["device_kernels_per_call"])
 
     say(phase="done", total_seconds=time.time() - t_start)

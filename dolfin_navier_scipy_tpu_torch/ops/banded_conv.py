@@ -28,8 +28,10 @@ bytes before it allocates and returns ``None`` (the caller keeps the
 index pipeline, :func:`..ops.kernels.conv_vector`) unless the banded
 stream is predicted to win.
 
-The JAX package's ``DNS_TPU_BANDED_CONV*`` environment variables are the
-keywords of :func:`build_banded_conv_tail` here.
+The JAX package's ``DNS_TPU_BANDED_CONV*`` environment variables are
+constants here: the store and the cost model follow the device
+(:data:`GATE`), ``force`` and ``max_gb`` are keywords of
+:func:`build_banded_conv_tail`.
 """
 
 import numpy as np
@@ -39,6 +41,7 @@ from ..device import resolve_device
 from .kernels import as_band_operand, conv_quad, rect_mv
 
 _LANE = 128
+_BS = 256
 
 # The banded-vs-index cost model: the banded tail streams ``nbytes`` at
 # ``stream_floor_gbps``; the index pipeline costs ``index_us_per_1k_vals``
@@ -61,18 +64,13 @@ GATE = {
     "cuda": dict(stream_floor_gbps=1248.0, index_us_per_1k_vals=0.199,
                  win_margin=0.8, store="int8", max_gb=1.0),
 }
-_STORE = {"int8": torch.int8, "bf16": torch.bfloat16, "f32": torch.float32}
-_STORE_BYTES = {"int8": 1, "bf16": 2, "f32": 4}
+_STORE = {"int8": torch.int8, "f32": torch.float32}
 
 
-def gate_constants(device=None, **override):
-    """The cost model's constants for ``device`` (``None``: the card), with
-    any of ``stream_floor_gbps``, ``index_us_per_1k_vals``, ``win_margin``,
-    ``store``, ``max_gb`` given as keywords taking their place."""
-    dev = resolve_device(device)
-    consts = dict(GATE["cuda" if dev.type == "cuda" else "cpu"])
-    consts.update({k: v for k, v in override.items() if v is not None})
-    return consts
+def gate_constants(device=None):
+    """The cost model's constants for ``device`` (``None``: the card)."""
+    return dict(GATE["cuda" if resolve_device(device).type == "cuda"
+                     else "cpu"])
 
 
 def banded_stream_us(nbytes, stream_floor_gbps):
@@ -177,10 +175,7 @@ class BandedConvTail:
         return self._y
 
 
-def build_banded_conv_tail(kern, nin, bc_tail, bs=256, max_gb=None,
-                           force=False, enabled=True, store=None,
-                           stream_floor_gbps=None, index_us_per_1k_vals=None,
-                           win_margin=None):
+def build_banded_conv_tail(kern, nin, bc_tail, max_gb=None, force=False):
     """Build the banded convection tail of a w-space kernel.
 
     ``kern``: the :class:`..ops.convection.ConvectionKernel` re-indexed
@@ -188,28 +183,26 @@ def build_banded_conv_tail(kern, nin, bc_tail, bs=256, max_gb=None,
     nv_full)`` the bc tail); ``nin``: the interior rows; ``bc_tail
     (nv_full - nin,)``: the constant bc values of the w-space state.
 
-    Returns ``None`` — the caller keeps the index pipeline — when
-    ``enabled`` is false, for f64 tables (the JAX package's gate refuses
-    its f64 kernels), or when the predicted bytes exceed ``max_gb`` or lose
-    to the index pipeline under :func:`gate_constants` of the kernel's
-    device (the keywords override them); ``force`` builds it regardless of
-    all but ``enabled``.  ``store``: the 0/1 blocks' type, ``'int8'``
-    (the card's default), ``'bf16'`` or ``'f32'`` (the CPU's).
+    The blocks are stored as :data:`GATE` says for the kernel's device
+    (int8 on the card, f32 on the CPU).  Returns ``None`` — the caller
+    keeps the index pipeline — for f64 tables (the JAX package's gate
+    refuses its f64 kernels), or when the predicted bytes exceed
+    ``max_gb`` (default :data:`GATE`'s) or lose to the index pipeline
+    under :func:`gate_constants` of the kernel's device; ``force`` builds
+    it regardless.
     """
-    if not enabled:
-        return None
     t = kern.tables
-    consts = gate_constants(
-        kern.device, store=store, max_gb=max_gb,
-        stream_floor_gbps=stream_floor_gbps,
-        index_us_per_1k_vals=index_us_per_1k_vals, win_margin=win_margin)
     if t.dtype == torch.float64 and not force:
         return None
+    consts = gate_constants(kern.device)
+    if max_gb is not None:
+        consts["max_gb"] = max_gb
     nv_full, (nc, nd) = kern.nv_full, tuple(t.vd.shape)
     vd = t.vd.cpu().numpy()
     eorder, rows, cols, keep = tail_patterns(vd, nin)
     nvals = nc * nd
-    bfac = _STORE_BYTES[consts["store"]] / 4.0
+    sdt = _STORE[consts["store"]]
+    bfac, bs = sdt.itemsize / 4.0, _BS
     nblk_s = max(1, (nin + bs - 1) // bs)
     nblk_g = max(1, (nvals + bs - 1) // bs)
     by = bfac * (_window_bytes(rows[keep], cols[keep], nblk_s, bs)
@@ -224,7 +217,6 @@ def build_banded_conv_tail(kern, nin, bc_tail, bs=256, max_gb=None,
 
     ones = np.ones(int(keep.sum()), np.float32)
     dev = kern.device
-    sdt = _STORE[consts["store"]]
     S = sps.coo_matrix((ones, (rows[keep], cols[keep])),
                        shape=(nin, nvals)).tocsr()
     Sb, Sbases, wS, Spad = _build_banded_rect(S, np.arange(nin),

@@ -420,29 +420,13 @@ def _windows(x, base, w):
                        x.new_zeros(()))
 
 
-def _cast_kept(t, dt):
-    """``t.to(dt)``, kept on the tensor that owns ``t``'s storage and made
-    anew only after that storage is written (its version counter moves):
-    the plain block products under f64 work would otherwise cast their f32
-    blocks, megabytes, at every call."""
-    if t.dtype == dt:
-        return t
-    owner = t if t._base is None else t._base
-    casts = owner.__dict__.setdefault("_dns_casts", {})
-    key = (dt, tuple(t.shape), t.stride(), t.storage_offset())
-    kept = casts.get(key)
-    if kept is None or kept[0] != owner._version:
-        kept = casts[key] = (owner._version, t.to(dt))
-    return kept[1]
-
-
 def _levels_ref(stack, base, x, nrows):
     """The plain product of the three forms: ``stack (nblk, L, bs, w)``;
     window gather, one einsum in the promoted type, level dots added in
     order, rows folded and cut at ``nrows``."""
     dt = torch.promote_types(stack.dtype, x.dtype)
     xw = _windows(x, base, stack.shape[-1]).to(dt)
-    y2 = torch.einsum("klij,kj->lki", _cast_kept(stack, dt), xw)
+    y2 = torch.einsum("klij,kj->lki", stack.to(dt), xw)
     y = y2[0]
     for lev in y2[1:]:
         y = y + lev

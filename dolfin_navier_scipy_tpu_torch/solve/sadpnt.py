@@ -779,6 +779,14 @@ class SchurSaddleSolver:
 
         # refine stays 0 here: the integrators pass warm_refine per call
         self.refine = int(refine or 0)
+        # the operands the solves apply: under f64 work on the CPU the
+        # plain products would cast the f32 blocks at every call, so they
+        # apply f64 copies made once (the same values, the same sums)
+        cast = device.type == "cpu" and dtype == torch.float64
+        self._op = {k: (b.double() if cast and b is not None else b)
+                    for k, b in (("B", self.Bblk), ("E", self.Eblk),
+                                 ("J", self.Jb), ("JT", self.JTb),
+                                 ("X", self.Xb), ("W", self.Wb))}
 
     # ---- permuted banded core: every application one kernel launch ----
 
@@ -795,31 +803,32 @@ class SchurSaddleSolver:
         return max(6, (2 * self.ncg) // 3)
 
     def _fmv_perm(self, xp):
-        return banded_mv(self.Bblk, xp)
+        return banded_mv(self._op["B"], xp)
 
     def band_extra_mv(self, xp):
         """``band_extra_perm @ xp`` (permuted inner space) — the explicit
         operator registered at construction (conv/A split)."""
-        return banded_mv(self.Eblk, xp.to(self.dtype))
+        return banded_mv(self._op["E"], xp.to(self.dtype))
 
     def _jmv_perm(self, xp):
-        return rect_mv(self.Jb, self._jbases_t, xp, self.np)
+        return rect_mv(self._op["J"], self._jbases_t, xp, self.np)
 
     def _jtmv_perm(self, qp):
-        return rect_mv(self.JTb, self._jtbases_t, qp, self._nin)
+        return rect_mv(self._op["JT"], self._jtbases_t, qp, self._nin)
 
     def _wapply(self, bp, hi_only=False):
         """``W @ bp``; over the bf16 levels ``hi_only`` streams level 0
         alone (the predictor of a refined solve)."""
-        if self.Wb.dim() == 4:
-            return rect_mv_levels(self.Wb, self._wbases_t, bp, self._nin,
-                                  hi_only)
-        return rect_mv(self.Wb, self._wbases_t, bp, self._nin)
+        W = self._op["W"]
+        if W.dim() == 4:
+            return rect_mv_levels(W, self._wbases_t, bp, self._nin, hi_only)
+        return rect_mv(W, self._wbases_t, bp, self._nin)
 
     def _xapply(self, q):
-        if self.Xb.dim() == 4:
-            return rect_mv_levels(self.Xb, self._xbases_t, q, self._nin)
-        return rect_mv(self.Xb, self._xbases_t, q, self._nin)
+        X = self._op["X"]
+        if X.dim() == 4:
+            return rect_mv_levels(X, self._xbases_t, q, self._nin)
+        return rect_mv(X, self._xbases_t, q, self._nin)
 
     def _sapply(self, g):
         """``S^{-1} g``: the stacked levels, row dots added in level

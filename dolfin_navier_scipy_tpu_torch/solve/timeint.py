@@ -616,8 +616,9 @@ def _cnab_wspace(prob, ops, bs, v0, cn, dt, trange, save_every,
     ``banded_conv`` asks for it, the banded convection tail's
     (:mod:`..ops.banded_conv`; valid exactly here: the solver reads
     ``rhs[:nin]`` and the bc tail of the state is constant through the
-    loop): ``None`` lets its gate decide, ``True`` forces it, ``False``
-    keeps the element kernel."""
+    loop): ``None`` lets its gate decide (on the CPU; on the card the
+    element kernel), ``True`` forces it, ``False`` keeps the element
+    kernel."""
     slv = ops.solver
     if slv.Eblk is None:
         raise ValueError("the w-space step needs the solver's banded "
@@ -644,7 +645,10 @@ def _cnab_wspace(prob, ops, bs, v0, cn, dt, trange, save_every,
     # the ORIGINAL v0 (time_int_utils.py:78+:112)
     nfc0 = (-kern_w.vector(_embed(cn, v0)[wsrc_t])).to(w)
     bct = None
-    if banded_conv is not False:
+    # on the card the gate's constants refuse the tail at every level
+    # (PERF.md, section 6): its host work runs there only when forced
+    if banded_conv is True or (banded_conv is None
+                               and device.type != "cuda"):
         from ..ops.banded_conv import build_banded_conv_tail
 
         bct = build_banded_conv_tail(kern_w, nin_p, vf0[nin_p:],
@@ -745,8 +749,9 @@ def cnab(trange=None, prob=None, inivel=None, inip=None,
     layout ``warm_refine`` > 0 sets the residual rounds of each solve (the
     JAX package reads it on the w-space step only).  ``banded_conv``: the
     w-space step's convection through the banded tail (``None``: its gate
-    decides, ``True``: forced, ``False``: the element kernel; the result
-    then carries the tail, or None, as ``bct``).
+    decides on the CPU, the element kernel on the card, where the gate
+    refuses it at every level; ``True``: forced, ``False``: the element
+    kernel; the result then carries the tail, or None, as ``bct``).
 
     Returns a dict with the final ``(v, p)`` (inner dofs / physical
     pressure), the blow-up flag, the decimated trajectory

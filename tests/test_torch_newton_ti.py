@@ -96,11 +96,11 @@ def _perturbed_kw():
                 save_every=None)
 
 
-def _perturbed_runs(krylovini="old", pcrd=0, affine=True):
+def _perturbed_runs(affine=True):
     """Both packages' runs from a perturbed state (shared by the tests that
     read them); ``affine=False``: on problems without element tensors,
     whose Newton system takes the sparse operators."""
-    key = ("perturbed", krylovini, pcrd, affine)
+    key = ("perturbed", affine)
     if key not in _CACHE:
         probs = None
         if not affine:
@@ -108,17 +108,15 @@ def _perturbed_runs(krylovini="old", pcrd=0, affine=True):
             for p in probs:
                 p.affine_ops = lambda *a, **k: None
         _CACHE[key] = _both(probs=probs, vel_nwtn_stps=6,
-                            vel_pcrd_stps=pcrd, krylovini=krylovini,
                             **_perturbed_kw())
     return _CACHE[key]
 
 
-@pytest.mark.parametrize("krylovini,pcrd,affine", [
-    ("old", 0, True), ("upd", 1, True), ("old", 0, False)],
-    ids=["old", "upd-picard", "no-affine-ops"])
-def test_perturbed_start_matches_jax(krylovini, pcrd, affine):
+@pytest.mark.parametrize("affine", [True, False],
+                         ids=["old", "no-affine-ops"])
+def test_perturbed_start_matches_jax(affine):
     """From a perturbed state; also without element tensors."""
-    out, ref = _perturbed_runs(krylovini, pcrd, affine)
+    out, ref = _perturbed_runs(affine=affine)
     _same(out, ref)
     assert out["vs"] is None and out["nwtn_norms"][-1] < 1e-12
 
@@ -141,9 +139,13 @@ def test_linearization_warm_start():
 
 
 def test_nsects_sectioning():
+    """Two temporal sections and a full sweep, each section starting with
+    a Picard sweep and the Krylov solves started from the updated
+    linearization (``krylovini="upd"``)."""
     out, ref = _both(trange=TRANGE, iniv=_perturbed(9, 0.03),
-                     vel_nwtn_stps=6, vel_nwtn_tol=1e-12, nsects=2,
-                     addfullsweep=True, save_every=None)
+                     vel_nwtn_stps=6, vel_pcrd_stps=1, krylovini="upd",
+                     vel_nwtn_tol=1e-12, nsects=2, addfullsweep=True,
+                     save_every=None)
     _same(out, ref)
     assert out["v_traj"].shape == (len(TRANGE), len(_cavity()[2]))
 
