@@ -93,10 +93,12 @@ code is non-zero and the final line is missing.  The last line is
 import contextlib
 import copy
 import ctypes
+import glob
 import hashlib
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -126,13 +128,15 @@ from dolfin_navier_scipy_tpu_torch.ops.kernels import (
     _affine_launch, _windows, affine_mv, affine_mv_ref, affine_residual,
     affine_residual_ref, as_band_operand, as_vecmat_operand,
     banded_mv, banded_mv_ref, conv_quad, conv_quad_ref, conv_vector,
-    conv_vector_amatvec, conv_vector_amatvec_ref, conv_vector_ref, elem_mv,
-    elem_mv_ref, rect_mv,
-    rect_mv_levels, rect_mv_levels_ref, rect_mv_ref, vecmat, vecmat_ref)
+    conv_vector_amatvec, conv_vector_amatvec_ref, conv_vector_ref, conv_vjp,
+    conv_vjp_ref, elem_mv, elem_mv_ref, rect_mv,
+    rect_mv_levels, rect_mv_levels_ref, rect_mv_ref, vecmat, vecmat_ref,
+    vecmat_t, vecmat_t_ref)
 from dolfin_navier_scipy_tpu_torch.solve import (
-    DirichletControl, KrylovSaddleSolver, SchurSaddleSolver, sbdf2,
-    solve_nse, solve_nse_newton_ti, solve_sadpnt_host, solve_steadystate_nse,
-    solve_steadystate_pseudotime, steady)
+    DirichletControl, KrylovSaddleSolver, SchurSaddleSolver, make_diff_cnab,
+    sbdf2, solve_nse, solve_nse_newton_ti, solve_sadpnt_host,
+    solve_steadystate_nse, solve_steadystate_pseudotime, steady)
+from dolfin_navier_scipy_tpu_torch.utils.io import Timer
 from dolfin_navier_scipy_tpu_torch.solve.newton_ti import _make_bundle, _sweep
 from dolfin_navier_scipy_tpu_torch.solve.steady import (
     SteadyKrylovKernel, _sk_elem32)
@@ -146,6 +150,9 @@ F64_FLOP_PER_S = 34e12
 WRAPPERS = (vecmat, conv_vector, conv_vector_amatvec, banded_mv, rect_mv,
             rect_mv_levels, affine_mv, affine_residual, elem_mv)
 NONE_BANDED = dict(banded_mv=0, rect_mv=0, rect_mv_levels=0)
+# the backward kernels (counted apart: the paths before the adjoint's never
+# launch them, and their launch tables name the forward wrappers alone)
+ADJ_WRAPPERS = (vecmat_t, conv_vjp)
 
 SEED = 0
 LEVEL, RE, CHARVEL = 1, 100.0, 0.2
@@ -229,7 +236,7 @@ def device_kernels(fn):
 
 
 def zero_counts():
-    for w in WRAPPERS:
+    for w in WRAPPERS + ADJ_WRAPPERS:
         w.launches = 0
     conv_quad.launches = 0
     rect_mv.storage_launches = dict.fromkeys(rect_mv.storage_launches, 0)
@@ -2532,6 +2539,403 @@ def newton_ti_path(dev, dfg1, v_newton):
     return rows
 
 
+# -- the discrete adjoint (make_diff_cnab) and its backward kernels --------
+
+# examples/adjoint_control_gradient.py: the DFG wake at Re 40 (charvel 0.2),
+# dt 2.5e-4, 40 CNAB steps from the steady state, forced by a body-force
+# blob behind the cylinder; the schedule recovered from the terminal field
+ADJ_RE, ADJ_DT, ADJ_STEPS = 40.0, 2.5e-4, 40
+ADJ_REPLACES = dict(
+    # jax.grad transposes the XLA dot of the inverse apply and the element
+    # pipeline of B5: no TPU kernel of their own; the forward kernels'
+    vecmat_t="dolfin_navier_scipy_tpu/ops/pallas_kernels.py:31",
+    conv_vjp="tools/probe_pallas_gather.py:14")
+
+
+def adjoint_counts(n, kind):
+    """Launches of one derivative of ``n`` steps of ``make_diff_cnab``
+    (remat on), derived in ``tests/test_torch_adjoint.py`` and the port's
+    CPU count: the forward loop (one B5 fused, one B1 a step, one B5 vector
+    for the AB2 start), remat's recomputation of each step, and one
+    backward of B1 and of B5 a step ('amps': B5's not at the first step,
+    whose state does not depend on the schedule; 'v0': also the start
+    value's); forward mode ('jvp') takes the forward kernels only: B1
+    once more a step, B5 vector twice a step and twice for the start."""
+    if kind == "jvp":
+        return dict(vecmat=2 * n, conv_vector=3 + 2 * n,
+                    conv_vector_amatvec=2 * n, vecmat_t=0, conv_vjp=0)
+    return dict(vecmat=2 * n, conv_vector=1, conv_vector_amatvec=2 * n,
+                vecmat_t=n, conv_vjp=n - 1 if kind == "amps" else n + 1)
+
+
+def adj_counts():
+    return dict(vecmat=vecmat.launches, conv_vector=conv_vector.launches,
+                conv_vector_amatvec=conv_vector_amatvec.launches,
+                vecmat_t=vecmat_t.launches, conv_vjp=conv_vjp.launches)
+
+
+def check_vecmat_t(g, KT, what, reps):
+    """``vecmat_t`` against its plain version on the same inputs (the bar
+    of :func:`check_vecmat`), one device kernel a call, then the timings
+    (the library call: ``torch.mv(KT, g)``)."""
+    m, n = KT.shape
+    y = vecmat_t(g, KT)
+    torch.cuda.synchronize()
+    ref = vecmat_t_ref(g, KT)
+    atol = 1e-5 * float(torch.linalg.vector_norm(g)) * float(KT.abs().max())
+    rtol = 1e-4
+    err = (y - ref).abs()
+    require(bool((err <= atol + rtol * ref.abs()).all()),
+            f"vecmat_t kernel disagrees with vecmat_t_ref at {what} "
+            f"{(m, n)}: max abs err {float(err.max()):.3e}")
+    require(torch.equal(y, vecmat_t(g, KT)),
+            "vecmat_t kernel is not reproducible run to run")
+    ran, types = device_kernels(lambda: vecmat_t(g, KT))
+    require(ran == 1, f"vecmat_t ran {ran} device kernels ({types})")
+    bound, by = vecmat_bound_ms(m, n, KT.element_size())
+    out = dict(shape=[m, n], operand=what, dtype=str(KT.dtype),
+               ld=KT.stride(0), max_abs_err=float(err.max()), atol=atol,
+               rtol=rtol, device_kernels_per_call=ran,
+               ms=graph_ms(lambda: vecmat_t(g, KT)),
+               eager_ms=time_ms(lambda: vecmat_t(g, KT), reps),
+               plain_ms=time_ms(lambda: vecmat_t_ref(g, KT), reps),
+               library_ms=time_ms(lambda: torch.mv(KT, g), reps),
+               library="torch.mv(KT, g)", bound_ms=bound, bound_by=by)
+    out["roofline_share"] = bound / out["ms"]
+    return out
+
+
+def conv_vjp_bound_ms(t, u_itemsize, nfac):
+    """Least time for one ``conv_vjp`` call: the state and both
+    cotangents read once, the result written once, the tables and facet
+    blocks read once, over the memory rate; the element chain's
+    multiply-adds (the state's fields, the cotangent at the point, the two
+    terms of each element dof, the stiffness chain on the second
+    cotangent), the facet blocks and the reduction over the work type's
+    rate."""
+    s = t.wdet.element_size()
+    nc, nd, Q, dim, nvpc = t.nc, t.nd, t.Q, t.dim, t.nvpc
+    nbytes = (u_itemsize * t.nv_full * 4 + 4 * nc * nd
+              + s * nc * (dim * dim + Q) + s * Q * nvpc * (1 + dim)
+              + nfac * nd * (s * nd + 4))
+    fields = 2 * nvpc * dim + 2 * nvpc * dim * dim + 2 * dim ** 3
+    per_q = (fields + 2 * nvpc * dim + dim + 2 * dim * dim
+             + nvpc * (2 * dim * dim + 2 * dim + 3 * dim)
+             + fields + 3 * dim ** 3 + dim * dim + 2 * nvpc * dim * dim + nd)
+    flops = nc * Q * per_q + 2 * nfac * nd * nd + nc * nd + nfac * nd
+    rate = F32_FLOP_PER_S if s == 4 else F64_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def check_conv_vjp(kern, aff, u, gen, what, timed):
+    """``conv_vjp`` against its plain version (``torch.func.vjp`` of the
+    plain forward) on the same inputs, with :func:`check_conv`'s bar: the
+    fused form with both cotangents and the facet blocks (``sym`` both
+    ways) and the vector form; two launches give the same bits, one device
+    kernel a call; ``timed``: the timings of the fused form (the plain
+    version eager: a functional transform is not captured)."""
+    t = kern.tables
+    most = t.kernel_tables()[1].shape[0]
+    eps = max(torch.finfo(t.dtype).eps, torch.finfo(u.dtype).eps)
+    nv = t.nv_full
+    gc, ga = (torch.randn(nv, generator=gen, dtype=torch.float64)
+              .to(device=u.device, dtype=u.dtype) for _ in range(2))
+    fe, fv, nfac = aff.fac_elem, aff.fac_dofs, int(aff.fac_elem.shape[0])
+    forms = [(f"fused_sym_{sym}",
+              lambda sym=sym: conv_vjp(u, gc, ga, aff.nu, sym, t, fe, fv),
+              lambda sym=sym: conv_vjp_ref(u, gc, ga, aff.nu, sym, t, fe,
+                                           fv))
+             for sym in (True, False)]
+    forms.append(("vector", lambda: conv_vjp(u, gc, None, 0.0, False, t),
+                  lambda: conv_vjp_ref(u, gc, None, 0.0, False, t)))
+    rows = []
+    for name, run, plain in forms:
+        got, ref, again = run(), plain(), run()
+        torch.cuda.synchronize()
+        atol = 50 * eps * float(ref.abs().max()) * most
+        err = float((got - ref).abs().max())
+        require(got.dtype == u.dtype and got.shape == ref.shape,
+                "conv_vjp output type")
+        require(err <= atol, f"conv_vjp kernel ({name}, {what}) disagrees "
+                f"with its plain version: {err:.3e} > {atol:.3e}")
+        require(torch.equal(got, again), f"conv_vjp kernel ({name}) is not "
+                "reproducible launch to launch")
+        bound, by = conv_vjp_bound_ms(t, u.element_size(),
+                                      nfac if name != "vector" else 0)
+        row = dict(form=name, operand=what, tables=str(t.dtype),
+                   state=str(u.dtype), nc=t.nc, nv_full=nv,
+                   facet_blocks=nfac if name != "vector" else 0,
+                   max_abs_err=err, atol=atol, bound_ms=bound, bound_by=by,
+                   library_ms=None)
+        if timed and name == "fused_sym_True":
+            ran, types = device_kernels(run)
+            require(ran == 1, f"conv_vjp ran {ran} device kernels "
+                    f"({types})")
+            row.update(device_kernels_per_call=ran, ms=graph_ms(run),
+                       eager_ms=time_ms(run, 200),
+                       plain_ms=time_ms(plain, 20))
+        rows.append(row)
+    return rows
+
+
+def steady_inner(prob, only_stokes=False):
+    """The steady state (or the Stokes solution) of ``prob`` on the host
+    (scipy splu), as inner dofs."""
+    return np.asarray(solve_steadystate_nse(
+        prob, linsolver="host-sparse", vel_nwtn_tol=1e-11, verbose=False,
+        only_stokes=only_stokes)).ravel()[prob.invinds]
+
+
+def wake_blob(prob):
+    """The example's actuation: a smooth vertical body-force pattern
+    behind the cylinder, zero on the boundary dofs."""
+    xy = prob.space.p2_coords
+    blob = np.exp(-(((xy[:, 0] - 0.3) / 0.08) ** 2
+                    + ((xy[:, 1] - 0.2) / 0.08) ** 2))
+    b = np.zeros(prob.nv_full)
+    b[1::2] = blob
+    b[prob.bcinds] = 0.0
+    return b
+
+
+def timed_sync(fn):
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0
+
+
+def adjoint_path(dev, gen):
+    """The discrete adjoint on the card: ``vecmat_t`` and ``conv_vjp``
+    against their plain versions at the shapes of the path (level 1 and
+    2); at level 1 the example's gradient in the schedule against the
+    CPU f64 port gradient (1e-4 of its largest entry), exact launch
+    counts, three Armijo descent steps that lower the misfit; at level 2
+    the adjoint identity ``<jvp(d), w> = <d, vjp(w)>`` (1e-5 relative)
+    with exact launch counts.  Returns the kernel rows' data."""
+    n = ADJ_STEPS
+    rows = {}
+    # -- level 1: the example's configuration ------------------------------
+    prob = cylinderwake_problem(level=LEVEL, Re=ADJ_RE, charvel=CHARVEL)
+    v0 = steady_inner(prob)
+    b = wake_blob(prob)
+    amps_true = torch.as_tensor(
+        1e-3 * np.sin(np.pi * np.linspace(0, 1, n)) ** 2, device=dev)
+    (sim,), setup_s = timed_sync(lambda: (make_diff_cnab(
+        prob, ADJ_DT, bvec=b),))
+    ZpT = next(iter(prob._full_layouts.values()))["ZpT"]
+    x = torch.randn(ZpT.shape[1], generator=gen).to(dev)
+    rows["vecmat_t"] = check_vecmat_t(x, ZpT, "ZpT, level 1", 50)
+    kern = prob.conv_kernel_on(torch.float32)
+    aff = next(iter(prob._full_layouts.values()))["aff"]
+    u = prob.embed(v0)
+    rows["conv_vjp"] = check_conv_vjp(kern, aff, u, gen,
+                                      "the steady state, level 1", True)
+    with torch.no_grad():
+        v_obs = sim(v0, amps_true)
+
+    def cost(amps):
+        return 0.5 * ((sim(v0, amps) - v_obs) ** 2).sum()
+
+    def value_and_grad(amps):
+        a = amps.detach().requires_grad_(True)
+        c = cost(a)
+        (g,) = torch.autograd.grad(c, a)
+        return float(c.detach()), g
+
+    zeros = torch.zeros(n, dtype=torch.float64, device=dev)
+    value_and_grad(zeros)                      # warm (one-off set-ups)
+    zero_counts()
+    (c0, g), grad_s = timed_sync(lambda: value_and_grad(zeros))
+    got = adj_counts()
+    want = adjoint_counts(n, "amps")
+    require(got == want, f"launches of a level-1 gradient: {got} != {want}")
+    busy_ms, nkern, busy_wall = busy_share(lambda: value_and_grad(zeros))
+    # the CPU f64 port gradient (the reference; f64 tables and work)
+    cprob = cylinderwake_problem(level=LEVEL, Re=ADJ_RE, charvel=CHARVEL,
+                                 device="cpu")
+    t0 = time.time()
+    csim = make_diff_cnab(cprob, ADJ_DT, bvec=b, device="cpu")
+    with torch.no_grad():
+        cobs = csim(v0, amps_true.cpu())
+    ca = torch.zeros(n, dtype=torch.float64, requires_grad=True)
+    (0.5 * ((csim(v0, ca) - cobs) ** 2).sum()).backward()
+    cpu_s = time.time() - t0
+    gc = ca.grad
+    grad_err = float((g.cpu() - gc).abs().max() / gc.abs().max())
+    require(bool(torch.isfinite(g).all()) and grad_err <= 1e-4,
+            f"level-1 gradient, card vs CPU f64: {grad_err:.3e} > 1e-4")
+    del csim, cprob
+    # three Armijo descent steps on the misfit
+    amps, c, gk = zeros, c0, g
+    lr = c0 / float(g @ g)
+    costs = [c0]
+    for _ in range(3):
+        for _ in range(30):
+            trial = amps - lr * gk
+            with torch.no_grad():
+                ct = float(cost(trial))
+            if ct <= c - 1e-4 * lr * float(gk @ gk):
+                break
+            lr *= 0.5
+        require(ct < c, f"Armijo step found no descent: {ct} >= {c}")
+        amps = trial
+        c, gk = value_and_grad(amps)
+        costs.append(c)
+    require(costs[-1] < costs[0], f"misfit not lowered: {costs}")
+    level1 = dict(problem="cylinderwake level 1, Re 40", steps=n, dt=ADJ_DT,
+                  nv_full=prob.nv_full, zpt=list(ZpT.shape),
+                  setup_seconds=setup_s, gradient_seconds=grad_s,
+                  launches=got, device_busy_ms=busy_ms,
+                  device_kernels=nkern, busy_share=(
+                      None if busy_ms is None
+                      else 1e-3 * busy_ms / busy_wall),
+                  grad_rel_err_vs_cpu_f64=grad_err, bar=1e-4,
+                  cpu_f64_seconds=cpu_s, misfit=costs)
+    rows["launches"] = got
+    del sim, ZpT
+    prob._full_layouts.clear()
+    torch.cuda.empty_cache()
+
+    # -- level 2: the adjoint identity -------------------------------------
+    prob2 = cylinderwake_problem(level=LEVEL2, Re=ADJ_RE, charvel=CHARVEL)
+    v02 = torch.as_tensor(steady_inner(prob2, only_stokes=True), device=dev)
+    (sim2,), setup2_s = timed_sync(lambda: (make_diff_cnab(prob2, ADJ_DT),))
+    lay2 = next(iter(prob2._full_layouts.values()))
+    x = torch.randn(lay2["ZpT"].shape[1], generator=gen).to(dev)
+    rows["vecmat_t_level2"] = check_vecmat_t(x, lay2["ZpT"], "ZpT, level 2",
+                                             20)
+    rows["conv_vjp_level2"] = check_conv_vjp(
+        prob2.conv_kernel_on(torch.float32), lay2["aff"], prob2.embed(v02),
+        gen, "the Stokes state, level 2", True)
+    nin2 = len(prob2.invinds)
+    d, w = (torch.randn(nin2, generator=gen, dtype=torch.float64).to(dev)
+            for _ in range(2))
+    zeros = torch.zeros(n, dtype=torch.float64, device=dev)
+    zero_counts()
+    (_, tang), jvp_s = timed_sync(lambda: torch.func.jvp(
+        lambda v: sim2(v, zeros), (v02,), (d,)))
+    jvp_counts = adj_counts()
+    want = adjoint_counts(n, "jvp")
+    require(jvp_counts == want,
+            f"launches of a level-2 JVP: {jvp_counts} != {want}")
+
+    def vjp():
+        v = v02.clone().requires_grad_(True)
+        return torch.autograd.grad(sim2(v, zeros), v, w)[0]
+
+    zero_counts()
+    gv, vjp_s = timed_sync(vjp)
+    vjp_counts = adj_counts()
+    want = adjoint_counts(n, "v0")
+    require(vjp_counts == want,
+            f"launches of a level-2 gradient: {vjp_counts} != {want}")
+    require(bool(torch.isfinite(tang).all() and torch.isfinite(gv).all()),
+            "level-2 derivatives not finite")
+    lhs, rhs = float(tang @ w), float(d @ gv)
+    ident = abs(lhs - rhs) / max(abs(lhs), abs(rhs))
+    require(ident <= 1e-5, f"adjoint identity at level 2: {lhs} vs {rhs}")
+    level2 = dict(problem="cylinderwake level 2, Re 40", steps=n,
+                  nv_full=prob2.nv_full, zpt=list(lay2["ZpT"].shape),
+                  setup_seconds=setup2_s, jvp_seconds=jvp_s,
+                  gradient_seconds=vjp_s, jvp_launches=jvp_counts,
+                  gradient_launches=vjp_counts, jvp_dot_w=lhs,
+                  d_dot_vjp=rhs, identity_rel_err=ident, bar=1e-5)
+    rows["launches_level2"] = vjp_counts
+    del sim2, lay2
+    prob2._full_layouts.clear()
+    torch.cuda.empty_cache()
+    say(phase="adjoint_path", level1=level1, level2=level2,
+        vecmat_t=[rows["vecmat_t"], rows["vecmat_t_level2"]],
+        conv_vjp=rows["conv_vjp"] + rows["conv_vjp_level2"])
+    return rows
+
+
+def adjoint_rows(rows):
+    """The kernels line's rows of the backward kernels: the launches of one
+    gradient of the example (level 1) and of one level-2 gradient."""
+    out = []
+    for sfx, launches in (("", rows["launches"]),
+                          ("_level2", rows["launches_level2"])):
+        vt = rows["vecmat_t" + sfx]
+        cv = next(r for r in rows["conv_vjp" + sfx] if "ms" in r)
+        out += [
+            dict(name="vecmat_t" + sfx, route="cuda",
+                 source="dolfin_navier_scipy_tpu_torch/csrc/vecmat.cu",
+                 replaces=ADJ_REPLACES["vecmat_t"],
+                 launches=launches["vecmat_t"], shape=vt["shape"],
+                 max_abs_err=vt["max_abs_err"], ms=vt["ms"],
+                 plain_ms=vt["plain_ms"], bound_ms=vt["bound_ms"],
+                 bound_by=vt["bound_by"], library_ms=vt["library_ms"],
+                 library=vt["library"], eager_ms=vt["eager_ms"],
+                 device_kernels_per_call=vt["device_kernels_per_call"]),
+            dict(name="conv_vjp" + sfx, route="cuda",
+                 source="dolfin_navier_scipy_tpu_torch/csrc/convection.cu",
+                 replaces=ADJ_REPLACES["conv_vjp"],
+                 launches=launches["conv_vjp"],
+                 shape=dict(nc=cv["nc"], nv_full=cv["nv_full"],
+                            facet_blocks=cv["facet_blocks"],
+                            tables=cv["tables"], state=cv["state"]),
+                 max_abs_err=cv["max_abs_err"], ms=cv["ms"],
+                 plain_ms=cv["plain_ms"], bound_ms=cv["bound_ms"],
+                 bound_by=cv["bound_by"], library_ms=None,
+                 eager_ms=cv["eager_ms"],
+                 device_kernels_per_call=cv["device_kernels_per_call"])]
+    return out
+
+
+def checkpoint_path(dev):
+    """The default call at level 1 split by ``save_data`` and
+    ``checkpoint_every`` into sections, then resumed by ``useolddata``
+    from the last checkpoint but one: the same bits as the uninterrupted
+    run; a PVD series and a ``Timer`` trace of the resumed run written.
+    Files go under ``build/`` of this checkout and are removed."""
+    import shutil
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "chip_smoke_checkpoint")
+    shutil.rmtree(root, ignore_errors=True)
+    prob = cylinderwake_problem(level=LEVEL, Re=RE, charvel=CHARVEL)
+    nts, every = 60, 20
+    kw = dict(t0=T0, tE=T0 + nts * (TE - T0) / NTS, Nts=nts,
+              start_ssstokes=True, save_every=every, checkpoint_every=every,
+              data_prfx=os.path.join(root, "data", "wake"))
+    (full,), full_s = timed_sync(lambda: (solve_nse(
+        prob=prob, save_data=True, paraviewoutput=True,
+        vfileprfx=os.path.join(root, "vtk", "vel"), **kw),))
+    carries = sorted(glob.glob(kw["data_prfx"] + "*__carry.npz"))
+    require(len(carries) == nts // every, f"checkpoints: {carries}")
+    require(isinstance(full["ops"].solver, SchurSaddleSolver),
+            "the default call at level 1 takes the Schur solver")
+    last = [f for f in carries if f"time{kw['tE']:.5e}" in f]
+    require(len(last) == 1, f"the final checkpoint: {carries}")
+    os.remove(last[0])
+    zero_counts()
+    with Timer("resumed", trace_dir=os.path.join(root, "trace"),
+               verbose=False, device=dev) as tm:
+        resumed = solve_nse(prob=prob, useolddata=True, **kw)
+    same = all(torch.equal(resumed[k], full[k]) for k in ("v", "p"))
+    require(same, "the resumed run differs from the uninterrupted one")
+    require(bool(torch.isfinite(full["v"]).all()), "not finite")
+    pvd = open(full["pvdfile"]).read()
+    nvtu = len(glob.glob(os.path.join(root, "vtk", "vel_*.vtu")))
+    require(pvd.count("<DataSet") == nvtu == len(full["times"]) > 0,
+            f"PVD series: {nvtu} files")
+    trace_events = len(json.load(open(tm.trace_file))["traceEvents"])
+    require(trace_events > 0, "empty Timer trace")
+    say(phase="checkpoint_path", problem="cylinderwake level 1, Re 100",
+        call=f"solve_nse(prob, t0, tE, Nts={nts}, start_ssstokes=True, "
+             f"save_data=True, checkpoint_every={every}) then useolddata",
+        sections=nts // every, checkpoints=len(carries),
+        uninterrupted_seconds=full_s, resumed_seconds=tm.elapsed,
+        resumed_launches=counts(), bitwise_equal=same, pvd_files=nvtu,
+        trace_events=trace_events)
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     t_start = time.time()
     dev = torch.device("cuda")
@@ -2628,6 +3032,8 @@ def main():
         level_stack_forms=stack_checks, stack_plan_picks=picked1,
         affine=aff_checks, schur_solver_build_seconds=schur_build_s)
     del sops, slv
+    # the discrete adjoint (traced here: before the long CPU runs)
+    adj_rows = adjoint_path(dev, gen)
     elem_checks = elemmv_checks(dev, gen)
     device_setup_path(prob, dev, dt_main)
     # the control slice at level 2 (traced here: before any CPU run)
@@ -2956,6 +3362,9 @@ def main():
                    rel_err_vs_cpu_f64=sbs_errs))
     del sbs, schur, o0, slv
 
+    # -- the checkpoint store: sections, resume, PVD series, Timer trace --
+    checkpoint_path(dev)
+
     # -- the banded convection tail (B6), forced, against B5 and CPU f64 ----
     quad_rows, tail_rows, tail_counts = banded_conv_path(dev, gen, nsteps,
                                                          ref)
@@ -3081,7 +3490,11 @@ def main():
                  "bandmv.cu", tail_rows[LEVEL][1],
                  tail_counts["rect_mv_int8"]),
         tail_row("conv_quad", "dolfin_navier_scipy_tpu_torch/csrc/"
-                 "convection.cu", quad_rows[LEVEL], tail_counts["conv_quad"])])
+                 "convection.cu", quad_rows[LEVEL], tail_counts["conv_quad"]),
+        # the backward kernels of the adjoint, with the launches of one
+        # gradient (level 1: the example's, in the schedule; level 2: in
+        # the initial state)
+        *adjoint_rows(adj_rows)])
     say(ok=True, device=dict(platform="gpu",
                              kind=torch.cuda.get_device_name(0),
                              count=torch.cuda.device_count()))

@@ -155,17 +155,17 @@ __device__ __forceinline__ T gather(const TU* u, int id, int nv_full) {
     return in_range(id, nv_full) ? static_cast<T>(u[id]) : T(0);
 }
 
-// One quadrature point's share of an element's convection load (the lane's
-// point q; N, dN its rows of N2 and dN2, w its weight, zero for an idle
-// lane): u2q = N u2e, rg[k][c] = dN[.][k] ue[.][c], guq[c][d] = dU_c/dx_d =
-// Ji[d][.] rg[.][c], and fc[a*DIM + c] = N[a] w (u2q . grad) U_c.
+// One quadrature point's fields (the lane's point q; N, dN its rows of N2
+// and dN2): uq = N u2e, rg[k][c] = dN[.][k] ue[.][c], guq[c][d] = dU_c/dx_d
+// = Ji[d][.] rg[.][c].
 template <typename T, int NVPC, int DIM>
-__device__ __forceinline__ void point_conv(const T (&N)[NVPC],
-                                           const T (&dN)[NVPC][DIM],
-                                           const T* ue, const T* u2e,
-                                           const T (&Ji)[DIM][DIM], T w,
-                                           T (&guq)[DIM][DIM], T* fc) {
-    T uq[DIM], rg[DIM][DIM];                      // rg[k][c]
+__device__ __forceinline__ void point_fields(const T (&N)[NVPC],
+                                             const T (&dN)[NVPC][DIM],
+                                             const T* ue, const T* u2e,
+                                             const T (&Ji)[DIM][DIM],
+                                             T (&uq)[DIM],
+                                             T (&guq)[DIM][DIM]) {
+    T rg[DIM][DIM];                               // rg[k][c]
 #pragma unroll
     for (int c = 0; c < DIM; ++c) {
         uq[c] = T(0);
@@ -191,6 +191,19 @@ __device__ __forceinline__ void point_conv(const T (&N)[NVPC],
             for (int k = 0; k < DIM; ++k) s += Ji[d][k] * rg[k][c];
             guq[c][d] = s;
         }
+}
+
+// One quadrature point's share of an element's convection load (w the
+// point's weight, zero for an idle lane): the fields of point_fields and
+// fc[a*DIM + c] = N[a] w (u2q . grad) U_c.
+template <typename T, int NVPC, int DIM>
+__device__ __forceinline__ void point_conv(const T (&N)[NVPC],
+                                           const T (&dN)[NVPC][DIM],
+                                           const T* ue, const T* u2e,
+                                           const T (&Ji)[DIM][DIM], T w,
+                                           T (&guq)[DIM][DIM], T* fc) {
+    T uq[DIM];
+    point_fields<T, NVPC, DIM>(N, dN, ue, u2e, Ji, uq, guq);
     T wc[DIM];
 #pragma unroll
     for (int c = 0; c < DIM; ++c) {
@@ -203,6 +216,40 @@ __device__ __forceinline__ void point_conv(const T (&N)[NVPC],
     for (int a = 0; a < NVPC; ++a)
 #pragma unroll
         for (int c = 0; c < DIM; ++c) fc[a * DIM + c] = N[a] * wc[c];
+}
+
+// One quadrature point's share of an element's stiffness load of the
+// gradient guq: F = guq (+ guq^T with sym), G[k][c] = nuw sum_d Ji[d][k]
+// F[c][d], fa[a*DIM + c] = sum_k dN[a][k] G[k][c].  The element matrix
+// this applies is symmetric in both forms, so the chain is also its
+// transpose.
+template <typename T, int NVPC, int DIM>
+__device__ __forceinline__ void point_stiff(const T (&dN)[NVPC][DIM],
+                                            const T (&Ji)[DIM][DIM],
+                                            const T (&guq)[DIM][DIM], T nuw,
+                                            int sym, T* fa) {
+    T G[DIM][DIM];                                // G[k][c]
+#pragma unroll
+    for (int k = 0; k < DIM; ++k)
+#pragma unroll
+        for (int c = 0; c < DIM; ++c) {
+            T s = T(0);
+#pragma unroll
+            for (int d = 0; d < DIM; ++d) {
+                const T F = sym ? guq[c][d] + guq[d][c] : guq[c][d];
+                s += Ji[d][k] * F;
+            }
+            G[k][c] = nuw * s;
+        }
+#pragma unroll
+    for (int a = 0; a < NVPC; ++a)
+#pragma unroll
+        for (int c = 0; c < DIM; ++c) {
+            T s = T(0);
+#pragma unroll
+            for (int k = 0; k < DIM; ++k) s += dN[a][k] * G[k][c];
+            fa[a * DIM + c] = s;
+        }
 }
 
 // this lane's point's rows of N2 and dN2 (zeros for an idle lane)
@@ -278,31 +325,8 @@ conv_kernel(const ConvPlan p, const TU* __restrict__ u1,
         T guq[DIM][DIM], fc[ND];
         point_conv<T, NVPC, DIM>(N, dN, ue, u2e, Ji, w, guq, fc);
         T fa[FUSED ? ND : 1];
-        if constexpr (FUSED) {
-            const T nuw = nu * w;
-            T G[DIM][DIM];                        // G[k][c]
-#pragma unroll
-            for (int k = 0; k < DIM; ++k)
-#pragma unroll
-                for (int c = 0; c < DIM; ++c) {
-                    T s = T(0);
-#pragma unroll
-                    for (int d = 0; d < DIM; ++d) {
-                        const T F = sym ? guq[c][d] + guq[d][c] : guq[c][d];
-                        s += Ji[d][k] * F;
-                    }
-                    G[k][c] = nuw * s;
-                }
-#pragma unroll
-            for (int a = 0; a < NVPC; ++a)
-#pragma unroll
-                for (int c = 0; c < DIM; ++c) {
-                    T s = T(0);
-#pragma unroll
-                    for (int k = 0; k < DIM; ++k) s += dN[a][k] * G[k][c];
-                    fa[a * DIM + c] = s;
-                }
-        }
+        if constexpr (FUSED)
+            point_stiff<T, NVPC, DIM>(dN, Ji, guq, nu * w, sym, fa);
         // the sum over the group's points: a fixed butterfly, the same
         // bits in every lane
 #pragma unroll
@@ -419,15 +443,203 @@ conv_kernel(const ConvPlan p, const TU* __restrict__ u1,
     stamp(p, 3);
 }
 
-template <typename T, typename TU, int NVPC, int Q, int DIM, bool FUSED>
-cudaError_t launch(const ConvPlan& p, const void* u1, const void* u2,
-                   void* out_c, void* out_a, double nu, int sym,
-                   cudaStream_t st) {
+// The VJP in u of conv_kernel's fused outputs (conv, A u) for the
+// cotangents gc (of conv) and ga (of A u; null: the VJP of conv_vector(u,
+// u) alone): per element, with g_q = w sum_a N[a] gce[a] the cotangent at
+// the point and grad phi_b = Ji dN[b],
+//
+//   out[b,d] = sum_q N[b] ((grad u_q)^T g_q)[d] + (u_q . grad phi_b) g_q[d]
+//            + (the stiffness chain point_stiff applied to gae: the element
+//               stiffness is symmetric, so that is its transpose)
+//
+// and per facet-block row (f, b): sum_a fac_elem[f,a,b] ga[fac_vd[f,a]],
+// the blocks applied transposed (nothing assumes them symmetric).  Then per
+// dof the sum of its element slots and then its facet slots, through the
+// forward's tables (ell, fell).  B5's layout and order throughout: a group
+// of 8 lanes an element, lane q the point q, the fixed xor butterfly over
+// the points, a grid barrier, the dof-major slot sums; the point's fields
+// come from the forward's point_fields.  No floating-point atomics.  The
+// plan is the forward's structure with fused = 2: scratch of nc*ND element
+// slots then nfac*ND facet slots.
+//
+// Bound: as the forward, launch latency and one point's dependent chain at
+// the dense path's mesh sizes (reads: u, two cotangents, the tables).
+template <typename T, typename TU, int NVPC, int Q, int DIM>
+__global__ void __launch_bounds__(THREADS)
+vjp_kernel(const ConvPlan p, const TU* __restrict__ u,
+           const TU* __restrict__ gc, const TU* __restrict__ ga,
+           TU* __restrict__ out, T nu, int sym) {
     constexpr int ND = NVPC * DIM;
-    auto kern = conv_kernel<T, TU, NVPC, Q, DIM, FUSED>;
-    // per instantiation: how many blocks an SM holds (a host query costs
-    // more than the launch)
-    static int occ = 0, sms = 0;
+    static_assert(Q <= LANES && ND <= 2 * LANES, "one lane per point");
+    const T* __restrict__ JinvT = static_cast<const T*>(p.JinvT);
+    const T* __restrict__ wdet = static_cast<const T*>(p.wdet);
+    T* scratch = static_cast<T*>(p.scratch);
+    const int nc = p.nc, nv_full = p.nv_full;
+    const size_t nslot = static_cast<size_t>(nc) * ND;
+    const bool stiff = ga != nullptr;
+    const long long nfrows =
+        stiff ? static_cast<long long>(p.nfac) * ND : 0;
+    const long long tid =
+        static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+    const long long nthreads = static_cast<long long>(gridDim.x) * THREADS;
+
+    stamp(p, 0);
+    const int lane = threadIdx.x & 31;
+    const int q = lane & (LANES - 1);
+    const bool point = q < Q;
+    T N[NVPC], dN[NVPC][DIM];
+    point_tables<T, NVPC, DIM>(static_cast<const T*>(p.N2),
+                               static_cast<const T*>(p.dN2), q, point, N,
+                               dN);
+    constexpr int PER_WARP = 32 / LANES;
+    for (long long e0 = (tid >> 5) * PER_WARP; e0 < nc;
+         e0 += (nthreads >> 5) * PER_WARP) {
+        const long long e = e0 + (lane / LANES);
+        const bool valid = e < nc;
+        const int* ids = p.vd + e * ND;
+        const int id0 = valid ? ids[q] : -1;
+        const int id1 = (valid && q + LANES < ND) ? ids[q + LANES] : -1;
+        const T a0 = gather<T>(u, id0, nv_full);
+        const T a1 = gather<T>(u, id1, nv_full);
+        const T c0 = gather<T>(gc, id0, nv_full);
+        const T c1 = gather<T>(gc, id1, nv_full);
+        T s0 = T(0), s1 = T(0);
+        if (stiff) {
+            s0 = gather<T>(ga, id0, nv_full);
+            s1 = gather<T>(ga, id1, nv_full);
+        }
+        T ue[ND], gce[ND], gae[ND];
+#pragma unroll
+        for (int j = 0; j < ND; ++j) {
+            ue[j] = __shfl_sync(FULL, j < LANES ? a0 : a1, j % LANES, LANES);
+            gce[j] = __shfl_sync(FULL, j < LANES ? c0 : c1, j % LANES,
+                                 LANES);
+            gae[j] = __shfl_sync(FULL, j < LANES ? s0 : s1, j % LANES,
+                                 LANES);
+        }
+        T Ji[DIM][DIM];
+#pragma unroll
+        for (int d = 0; d < DIM; ++d)
+#pragma unroll
+            for (int k = 0; k < DIM; ++k)
+                Ji[d][k] = valid ? JinvT[(e * DIM + d) * DIM + k] : T(0);
+        const T w = (valid && point) ? wdet[e * Q + q] : T(0);
+
+        T uq[DIM], guq[DIM][DIM];
+        point_fields<T, NVPC, DIM>(N, dN, ue, ue, Ji, uq, guq);
+        // the cotangent at the point, and (grad u_q)^T g_q
+        T gq[DIM], gt[DIM];
+#pragma unroll
+        for (int c = 0; c < DIM; ++c) {
+            T s = T(0);
+#pragma unroll
+            for (int a = 0; a < NVPC; ++a) s += N[a] * gce[a * DIM + c];
+            gq[c] = w * s;
+        }
+#pragma unroll
+        for (int d = 0; d < DIM; ++d) {
+            T s = T(0);
+#pragma unroll
+            for (int c = 0; c < DIM; ++c) s += gq[c] * guq[c][d];
+            gt[d] = s;
+        }
+        T fb[ND];
+#pragma unroll
+        for (int b = 0; b < NVPC; ++b) {
+            T ug = T(0);                          // u_q . grad phi_b
+#pragma unroll
+            for (int d = 0; d < DIM; ++d) {
+                T gphi = T(0);
+#pragma unroll
+                for (int k = 0; k < DIM; ++k) gphi += Ji[d][k] * dN[b][k];
+                ug += uq[d] * gphi;
+            }
+#pragma unroll
+            for (int c = 0; c < DIM; ++c)
+                fb[b * DIM + c] = N[b] * gt[c] + ug * gq[c];
+        }
+        if (stiff) {
+            T gaq[DIM], gga[DIM][DIM], fa[ND];
+            point_fields<T, NVPC, DIM>(N, dN, gae, gae, Ji, gaq, gga);
+            point_stiff<T, NVPC, DIM>(dN, Ji, gga, nu * w, sym, fa);
+#pragma unroll
+            for (int j = 0; j < ND; ++j) fb[j] += fa[j];
+        }
+#pragma unroll
+        for (int off = LANES / 2; off > 0; off /= 2)
+#pragma unroll
+            for (int j = 0; j < ND; ++j)
+                fb[j] += __shfl_xor_sync(FULL, fb[j], off, LANES);
+        if (valid) {
+            T v0 = T(0), v1 = T(0);
+#pragma unroll
+            for (int j = 0; j < ND; ++j) {
+                if (j == q) v0 = fb[j];
+                if (j == q + LANES) v1 = fb[j];
+            }
+            T* o = scratch + e * ND;
+            o[q] = v0;
+            if (q + LANES < ND) o[q + LANES] = v1;
+        }
+    }
+    // the facet-block rows transposed: slot (f, b) = column b of block f
+    // against ga at the block's dofs
+    {
+        const T* fac_elem = static_cast<const T*>(p.fac_elem);
+        for (long long r = nthreads - 1 - tid; r < nfrows; r += nthreads) {
+            const long long f = r / ND;
+            const int b = static_cast<int>(r % ND);
+            const T* blk = fac_elem + f * ND * ND;
+            const int* fids = p.fac_vd + f * ND;
+            T acc = T(0);
+#pragma unroll
+            for (int a = 0; a < ND; ++a)
+                acc += blk[a * ND + b] * gather<T>(ga, fids[a], nv_full);
+            scratch[nslot + r] = acc;
+        }
+    }
+
+    stamp(p, 1);
+    grid_barrier(p.bar);
+    stamp(p, 2);
+
+    // per dof: its element slots in the fixed order, then its facet slots
+    for (long long i = tid; i < nv_full; i += nthreads) {
+        T acc = T(0);
+        for (int k0 = 0; k0 < p.width; k0 += BATCH) {
+            int s[BATCH];
+            T v[BATCH];
+#pragma unroll
+            for (int u = 0; u < BATCH; ++u)
+                s[u] = k0 + u < p.width
+                           ? p.ell[static_cast<size_t>(k0 + u) * nv_full + i]
+                           : -1;
+#pragma unroll
+            for (int u = 0; u < BATCH; ++u)
+                v[u] = s[u] >= 0 ? __ldcg(scratch + s[u]) : T(0);
+#pragma unroll
+            for (int u = 0; u < BATCH; ++u)
+                if (s[u] >= 0) acc += v[u];
+        }
+        if (nfrows > 0)
+            for (int k = 0; k < p.fwidth; ++k) {
+                const int sl = p.fell[static_cast<size_t>(k) * nv_full + i];
+                if (sl >= 0) acc += __ldcg(scratch + nslot + sl);
+            }
+        out[i] = static_cast<TU>(acc);
+    }
+    stamp(p, 3);
+}
+
+// Launch a kernel that meets at grid_barrier: enough blocks for `work`
+// threads, but never more than can be resident at once (occ blocks an SM,
+// queried once per instantiation: a host query costs more than the
+// launch), with the cooperative attribute, which makes the driver refuse a
+// grid that cannot be.
+template <typename... Params, typename... Args>
+cudaError_t launch_resident(void (*kern)(Params...), int& occ, int& sms,
+                            long long work, cudaStream_t st,
+                            Args... args) {
     cudaError_t err;
     if (occ == 0) {
         int dev = 0;
@@ -440,12 +652,7 @@ cudaError_t launch(const ConvPlan& p, const void* u1, const void* u2,
             return err;
         if (occ == 0) return cudaErrorInvalidConfiguration;
     }
-    const long long lanes = static_cast<long long>(p.nc) * LANES;
-    const long long rows = FUSED ? static_cast<long long>(p.nfac) * ND : 0;
-    long long work = lanes > rows ? lanes : rows;
-    if (p.nv_full > work) work = p.nv_full;
     long long blocks = (work + THREADS - 1) / THREADS;
-    // every block resident at once: the grid barrier needs it
     const long long most = static_cast<long long>(occ) * sms;
     if (blocks > most) blocks = most;
 
@@ -459,12 +666,47 @@ cudaError_t launch(const ConvPlan& p, const void* u1, const void* u2,
     attr[0].val.cooperative = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, kern, p, static_cast<const TU*>(u1),
-                             static_cast<const TU*>(u2),
-                             static_cast<TU*>(out_c), static_cast<TU*>(out_a),
-                             static_cast<T>(nu), sym);
+    err = cudaLaunchKernelEx(&cfg, kern, args...);
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
+}
+
+// the threads a launch needs: 8 lanes an element, a facet-block row each
+// (nfrows), a dof each
+__host__ long long conv_work(const ConvPlan& p, long long nfrows) {
+    const long long lanes = static_cast<long long>(p.nc) * LANES;
+    long long work = lanes > nfrows ? lanes : nfrows;
+    if (p.nv_full > work) work = p.nv_full;
+    return work;
+}
+
+template <typename T, typename TU, int NVPC, int Q, int DIM, bool FUSED>
+cudaError_t launch(const ConvPlan& p, const void* u1, const void* u2,
+                   void* out_c, void* out_a, double nu, int sym,
+                   cudaStream_t st) {
+    constexpr int ND = NVPC * DIM;
+    static int occ = 0, sms = 0;
+    return launch_resident(
+        conv_kernel<T, TU, NVPC, Q, DIM, FUSED>, occ, sms,
+        conv_work(p, FUSED ? static_cast<long long>(p.nfac) * ND : 0), st,
+        p, static_cast<const TU*>(u1), static_cast<const TU*>(u2),
+        static_cast<TU*>(out_c), static_cast<TU*>(out_a),
+        static_cast<T>(nu), sym);
+}
+
+template <typename T, typename TU>
+cudaError_t launch_vjp(const ConvPlan& p, const void* u, const void* gc,
+                       const void* ga, void* out, double nu, int sym,
+                       cudaStream_t st) {
+    constexpr int ND = 12;
+    static int occ = 0, sms = 0;
+    return launch_resident(
+        vjp_kernel<T, TU, 6, 7, 2>, occ, sms,
+        conv_work(p, ga != nullptr ? static_cast<long long>(p.nfac) * ND
+                                   : 0),
+        st, p, static_cast<const TU*>(u), static_cast<const TU*>(gc),
+        static_cast<const TU*>(ga), static_cast<TU*>(out),
+        static_cast<T>(nu), sym);
 }
 
 template <typename T, typename TU>
@@ -552,6 +794,7 @@ int convection_th2d(const ConvPlan* plan, const void* u1, const void* u2,
                     void* stream) {
     const ConvPlan& p = *plan;
     if (p.nc <= 0 || p.nv_full <= 0 || p.nfac < 0 || p.width <= 0 ||
+        p.fused < 0 || p.fused > 1 ||
         (p.nfac > 0 && (!p.fused || p.fac_elem == nullptr ||
                         p.fac_vd == nullptr || p.fell == nullptr ||
                         p.fwidth <= 0)) ||
@@ -591,6 +834,37 @@ int conv_quad_th2d(const void* ueg, const void* uebc, const void* JinvT,
         static_cast<const float*>(N2), static_cast<const float*>(dN2),
         static_cast<float*>(fe), nc);
     return static_cast<int>(cudaGetLastError());
+}
+
+// The VJP of convection_th2d's fused form in u (2D Taylor-Hood): plan with
+// fused = 2 (scratch: nc*12 element slots, then nfac*12 facet slots); u,
+// gc, ga (null: the VJP of the vector form, no stiffness, no facets) and
+// out (nv_full) in u's type.  Returns the cudaError_t of the launch.
+int conv_vjp_th2d(const ConvPlan* plan, const void* u, const void* gc,
+                  const void* ga, void* out, double nu, int sym,
+                  void* stream) {
+    const ConvPlan& p = *plan;
+    if (p.nc <= 0 || p.nv_full <= 0 || p.nfac < 0 || p.width <= 0 ||
+        p.fused != 2 || u == nullptr || gc == nullptr || out == nullptr ||
+        (p.nfac > 0 && (p.fac_elem == nullptr || p.fac_vd == nullptr ||
+                        p.fell == nullptr || p.fwidth <= 0)) ||
+        p.bar == nullptr ||
+        static_cast<long long>(p.nc) * 12 +
+                static_cast<long long>(p.nfac) * 12 >= (1LL << 31))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    cudaError_t err;
+    if (p.work_f64)
+        err = p.u_f64 ? launch_vjp<double, double>(p, u, gc, ga, out, nu,
+                                                   sym, st)
+                      : launch_vjp<double, float>(p, u, gc, ga, out, nu,
+                                                  sym, st);
+    else
+        err = p.u_f64 ? launch_vjp<float, double>(p, u, gc, ga, out, nu,
+                                                  sym, st)
+                      : launch_vjp<float, float>(p, u, gc, ga, out, nu, sym,
+                                                 st);
+    return static_cast<int>(err);
 }
 
 const char* convection_error_string(int err) {

@@ -445,6 +445,120 @@ int vecmat(const void* x, const void* KT, void* y, void* part, void* bar,
         static_cast<cudaStream_t>(stream)));
 }
 
+// ---------------------------------------------------------------------------
+// The transposed apply  y = KT @ g  on the same stored operand: the VJP in x
+// of y' = x @ KT (the backward of the dense inverse apply in a gradient
+// through the time loop, ops/kernels.py: VecmatFn).  The TPU package has no
+// kernel of its own for it: jax.grad transposes the XLA dot of
+// solve/adjoint.py:99.  The operand is read as stored, never as symmetric
+// (the saddle inverse of a symmetric K is symmetric only to rounding).
+//
+// Bound: bytes, as the forward: every entry of KT is read once for one
+// multiply-add; g (n) and y (m) are small.
+//
+// Design (simple, one launch, no scratch, no atomics): a warp a row at a
+// time, T_WARPS warps a block, as many blocks as are resident at once (the
+// warps walk the rows with a grid stride, so the last wave is one row a
+// warp, not a block of rows).  Lane l reads the row's 16-byte vectors l,
+// l+32, ...
+// (T_UNROLL of them loaded before they are added, streamed past L1 and L2
+// with __ldcs: KT never fits the 50 MB L2), multiplies by g read through
+// the read-only path (__ldg: g is shared by every row and stays in L1/L2),
+// adds in ascending order in a register, and a fixed xor butterfly over the
+// warp joins the 32 partial sums: bitwise reproducible launch to launch.
+// Columns in [n, ld) are loaded with their vector but never added.
+constexpr int T_WARPS = 8;
+constexpr int T_UNROLL = 4;
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+__device__ __forceinline__ float4 ld_stream(const float4* p) {
+    return __ldcs(p);
+}
+__device__ __forceinline__ double2 ld_stream(const double2* p) {
+    return __ldcs(p);
+}
+
+// acc + s . g[col0 : col0 + width], the components in order, past n skipped
+__device__ __forceinline__ float dot_vec(float acc, const float4& s,
+                                         const float* __restrict__ g,
+                                         int col0, int n) {
+    const float v[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+        if (col0 + c < n) acc += v[c] * __ldg(g + col0 + c);
+    return acc;
+}
+__device__ __forceinline__ double dot_vec(double acc, const double2& s,
+                                          const double* __restrict__ g,
+                                          int col0, int n) {
+    if (col0 < n) acc += s.x * __ldg(g + col0);
+    if (col0 + 1 < n) acc += s.y * __ldg(g + col0 + 1);
+    return acc;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(T_WARPS * 32)
+vecmat_t_kernel(const T* __restrict__ KT, const T* __restrict__ g,
+                T* __restrict__ y, int m, int n, int ld) {
+    using V = typename Vec<T>::type;
+    constexpr int W = Vec<T>::n;
+    const int lane = threadIdx.x & 31;
+    const int nvec = (n + W - 1) / W;
+    // whole warps take whole rows: the loop's condition is the warp's
+    for (long long row = static_cast<long long>(blockIdx.x) * T_WARPS +
+                         (threadIdx.x >> 5);
+         row < m; row += static_cast<long long>(gridDim.x) * T_WARPS) {
+        const V* r = reinterpret_cast<const V*>(KT + row * ld);
+        T acc = T(0);
+        for (int v0 = lane; v0 < nvec; v0 += 32 * T_UNROLL) {
+            V s[T_UNROLL];
+#pragma unroll
+            for (int u = 0; u < T_UNROLL; ++u) {
+                const int v = v0 + 32 * u;
+                s[u] = v < nvec ? ld_stream(r + v) : zero_vec(T(0));
+            }
+#pragma unroll
+            for (int u = 0; u < T_UNROLL; ++u) {
+                const int v = v0 + 32 * u;
+                if (v < nvec) acc = dot_vec(acc, s[u], g, v * W, n);
+            }
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+            acc += __shfl_xor_sync(FULL_MASK, acc, off);
+        if (lane == 0) y[row] = acc;
+    }
+}
+
+template <typename T>
+int vecmat_t(const void* g, const void* KT, void* y, int m, int n, int ld,
+             void* stream) {
+    if (m <= 0 || n <= 0 || ld < n)
+        return static_cast<int>(cudaErrorInvalidValue);
+    // per instantiation: the blocks resident at once (a host query costs
+    // more than the launch)
+    static int resident = 0;
+    if (resident == 0) {
+        int dev = 0, sms = 0, occ = 0;
+        cudaError_t err;
+        if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+            (err = cudaDeviceGetAttribute(
+                 &sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+            (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 &occ, vecmat_t_kernel<T>, T_WARPS * 32, 0)) != cudaSuccess)
+            return static_cast<int>(err);
+        if (occ == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+        resident = occ * sms;
+    }
+    long long blocks = (static_cast<long long>(m) + T_WARPS - 1) / T_WARPS;
+    if (blocks > resident) blocks = resident;
+    vecmat_t_kernel<T><<<static_cast<unsigned>(blocks), T_WARPS * 32, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(KT), static_cast<const T*>(g),
+        static_cast<T*>(y), m, n, ld);
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -471,6 +585,20 @@ int vecmat_f64(const void* x, const void* KT, void* y, void* part, void* bar,
                void* stream) {
     return vecmat<double>(x, KT, y, part, bar, m, n, ld, blocks, smem, trace,
                           stream);
+}
+
+// y = KT @ g (m) in f32: KT as for vecmat_f32 (rows ld apart, ld*4 a
+// multiple of 16, base 16-byte aligned), g (n).  No scratch.  Returns the
+// cudaError_t of the launch (0 = success).
+int vecmat_t_f32(const void* g, const void* KT, void* y, int m, int n,
+                 int ld, void* stream) {
+    return vecmat_t<float>(g, KT, y, m, n, ld, stream);
+}
+
+// The same in f64 (ld*8 a multiple of 16).
+int vecmat_t_f64(const void* g, const void* KT, void* y, int m, int n,
+                 int ld, void* stream) {
+    return vecmat_t<double>(g, KT, y, m, n, ld, stream);
 }
 
 const char* vecmat_error_string(int err) {

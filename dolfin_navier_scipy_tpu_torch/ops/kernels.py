@@ -6,13 +6,17 @@ Five sources:
   counterpart of the JAX package's Pallas kernel
   ``ops/pallas_kernels.py: vecmat_pallas``.  It streams the full dense
   saddle inverse from device memory once per time step — the bandwidth
-  floor of the dense-solver time loop.
+  floor of the dense-solver time loop; and its transposed apply ``KT @
+  g`` (:func:`vecmat_t`, the backward of a gradient through the loop).
 * the fused element pipeline of the convection vector
   (``csrc/convection.cu``): gather, quadrature and a fixed-order reduction
   in one launch, behind :func:`conv_vector` and
   :func:`conv_vector_amatvec`.  It is the kernel the JAX package probed
   for (``tools/probe_pallas_gather.py``: a gather inside a kernel body)
-  and had to leave to XLA.
+  and had to leave to XLA; and its VJP in the state, :func:`conv_vjp`, in
+  the same layout.  :class:`VecmatFn`, :class:`ConvAmatvecFn` and
+  :class:`ConvVectorFn` make both differentiable (``torch.autograd``,
+  forward mode too) for ``solve/adjoint.py``.
 * the banded and static-window block matvecs of the block-Schur solver
   (``csrc/bandmv.cu``: a warp-per-row kernel, and a bulk-copy ring kernel
   for single-level f32 operands too small in rows for the first to fill
@@ -187,6 +191,9 @@ def _vecmat_lib():
         for fn in (lib.vecmat_f32, lib.vecmat_f64):
             fn.argtypes = [ptr] * 5 + [i] * 4 + [ctypes.c_longlong, ptr, ptr]
             fn.restype = i
+        for fn in (lib.vecmat_t_f32, lib.vecmat_t_f64):
+            fn.argtypes = [ptr] * 3 + [i] * 3 + [ptr]
+            fn.restype = i
         lib.vecmat_error_string.argtypes = [i]
         lib.vecmat_error_string.restype = ctypes.c_char_p
         lib._dns_typed = True
@@ -320,23 +327,31 @@ def _vecmat_check(x, KT):
             f"KT is {KT.dtype} on {KT.device}")
 
 
-def _vecmat_launch(x, KT, trace=None):
-    """Launch ``csrc/vecmat.cu`` on the current stream (``trace``: an int64
-    tensor of 4 per block for the blocks' timestamps, or None).  Returns
-    ``y``."""
+def _vecmat_operand_check(name, KT):
+    """What both kernels of ``csrc/vecmat.cu`` need of the stored operand;
+    returns ``(m, n, ld)``."""
     if KT.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"vecmat kernel takes f32 or f64, not {KT.dtype}")
+        raise TypeError(f"{name} kernel takes f32 or f64, not {KT.dtype}")
     m, n = KT.shape
     ld, item = KT.stride(0), KT.element_size()
     if (KT.stride(1) != 1 or ld < n or (ld * item) % 16
             or KT.data_ptr() % 16):
         raise ValueError(
-            f"vecmat kernel needs rows 16-byte aligned and unit column "
+            f"{name} kernel needs rows 16-byte aligned and unit column "
             f"stride, got strides {KT.stride()} of {KT.dtype}: allocate the "
             f"operand once with ops.kernels.vecmat_operand / "
             f"as_vecmat_operand (it is never copied here)")
     if m == 0 or n == 0 or m >= 2 ** 31 or ld >= 2 ** 31:
-        raise ValueError(f"vecmat kernel: unsupported shape {(m, n)}")
+        raise ValueError(f"{name} kernel: unsupported shape {(m, n)}")
+    return m, n, ld
+
+
+def _vecmat_launch(x, KT, trace=None):
+    """Launch ``csrc/vecmat.cu`` on the current stream (``trace``: an int64
+    tensor of 4 per block for the blocks' timestamps, or None).  Returns
+    ``y``."""
+    m, n, ld = _vecmat_operand_check("vecmat", KT)
+    item = KT.element_size()
     x = x.contiguous()
     lib = _vecmat_lib()
     fn = lib.vecmat_f32 if KT.dtype == torch.float32 else lib.vecmat_f64
@@ -385,6 +400,52 @@ def vecmat(x, KT):
 
 
 vecmat.launches = 0
+
+
+def vecmat_t_ref(g, KT):
+    """Plain PyTorch version of :func:`vecmat_t`: ``KT (m, n) @ g (n,)``."""
+    return KT @ g
+
+
+def vecmat_t(g, KT):
+    """``KT (m, n) @ g (n,) -> (m,)``: the VJP in ``x`` of ``y = x @ KT``
+    (:func:`vecmat`), on the same stored operand, accumulated in its type
+    (f32 or f64).  ``KT`` is taken as it is stored: nothing assumes it
+    symmetric.
+
+    On a CUDA tensor this launches ``vecmat_t_kernel`` of
+    ``csrc/vecmat.cu`` (row dot products, a warp a row; one device kernel,
+    no scratch) on the current stream and counts it in
+    ``vecmat_t.launches``; ``KT`` must be a :func:`vecmat_operand` (rows
+    16-byte aligned, unit column stride; anything else raises).  On a CPU
+    tensor it is :func:`vecmat_t_ref`.
+    """
+    if g.dim() != 1 or KT.dim() != 2 or KT.shape[1] != g.shape[0]:
+        raise ValueError(f"vecmat_t: KT {tuple(KT.shape)} @ g "
+                         f"{tuple(g.shape)}")
+    if g.dtype != KT.dtype or g.device != KT.device:
+        raise ValueError(f"vecmat_t: g is {g.dtype} on {g.device}, KT is "
+                         f"{KT.dtype} on {KT.device}")
+    if not g.is_cuda:
+        return vecmat_t_ref(g, KT)
+    m, n, ld = _vecmat_operand_check("vecmat_t", KT)
+    g = g.contiguous()
+    lib = _vecmat_lib()
+    fn = lib.vecmat_t_f32 if KT.dtype == torch.float32 else lib.vecmat_t_f64
+    dev = KT.get_device()
+    y = torch.empty(m, dtype=KT.dtype, device=KT.device)
+    with _on_device(dev):
+        err = fn(g.data_ptr(), KT.data_ptr(), y.data_ptr(), m, n, ld,
+                 _raw_stream(dev))
+    if err != 0:
+        raise RuntimeError(
+            f"vecmat_t kernel launch failed for shape {(m, n)}: "
+            f"{lib.vecmat_error_string(err).decode()}")
+    vecmat_t.launches += 1
+    return y
+
+
+vecmat_t.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -964,7 +1025,16 @@ class DofTable:
         self.vd = vd
         self.nseg = nseg
         self._kernel_tables = None
+        self._clamped = None
         self._elem_plans = {}       # ElemPlan of elem_mv, by its key
+
+    def clamped(self):
+        """``vd`` with every id outside ``[0, nseg]`` on the dropped slot
+        ``nseg`` (what the plain versions gather and scatter through),
+        made once."""
+        if self._clamped is None:
+            self._clamped = self.vd.clamp(min=0, max=self.nseg)
+        return self._clamped
 
     def with_dof_map(self, dofmap):
         """The table of a permuted state layout: ``dofmap (nseg+1,)`` old
@@ -1000,9 +1070,15 @@ class _ConvPlanC(ctypes.Structure):
             "fused")])
 
 
+# the form of a ConvPlan: conv_vector, conv_vector_amatvec, conv_vjp
+_CONV_FORMS = {"vector": 0, "fused": 1, "vjp": 2}
+
+
 class ConvPlan:
     """Launch plan of ``csrc/convection.cu`` for one table set, one form
-    (``fused``), one state type, one set of facet blocks and one stream:
+    (``fused``: 0 the vector, 1 the fused vector and stiffness, 2 their
+    VJP, :data:`_CONV_FORMS`), one state type, one set of facet blocks and
+    one stream:
     every constant pointer and size in one C structure (``c``), the tensors
     behind them, and the kernel's scratch and barrier counter.  The scratch
     belongs to the plan's stream; :meth:`ConvTables.kernel_plan` makes one
@@ -1021,12 +1097,14 @@ class ConvPlan:
             fe = fac_elem.to(device=dev, dtype=t.dtype).contiguous()
             fv, fell = fac_vdofs.kernel_tables()
             self.keep += [fe, fv, fell]
+        # element slots: one set a load (the VJP sums both cotangents'
+        # terms into one), then a slot per facet-block row
         self.scratch = torch.empty(
-            (1 + fused) * t.nc * t.nd + nfac * t.nd, dtype=t.dtype,
+            (1 + (fused == 1)) * t.nc * t.nd + nfac * t.nd, dtype=t.dtype,
             device=dev)
         self.bar = torch.zeros(2, dtype=torch.int32, device=dev)
         self.stream = stream
-        self.nout = 2 if fused else 1
+        self.nout = 2 if fused == 1 else 1
         self.fn = None              # the C entry point, bound at first launch
 
         def ptr(x):
@@ -1038,12 +1116,12 @@ class ConvPlan:
             ptr(self.bar), None, t.nc, t.nv_full, nfac, ell.shape[0],
             0 if fell is None else fell.shape[0],
             int(t.dtype == torch.float64), int(udtype == torch.float64),
-            int(bool(fused)))
+            int(fused))
 
 
 def _plan_key(fused, udtype, stream, fac_elem, fac_vdofs):
     # the plan keeps both objects, so their ids stay theirs
-    return (bool(fused), udtype, stream, id(fac_elem), id(fac_vdofs))
+    return (int(fused), udtype, stream, id(fac_elem), id(fac_vdofs))
 
 
 class ConvTables:
@@ -1104,8 +1182,9 @@ class ConvTables:
 
     def kernel_plan(self, fused, udtype, fac_elem=None, fac_vdofs=None,
                     stream=0):
-        """The :class:`ConvPlan` of this table set for one form, state type,
-        facet-block set and stream: made at its first call, kept after."""
+        """The :class:`ConvPlan` of this table set for one form (``fused``,
+        :data:`_CONV_FORMS`), state type, facet-block set and stream: made
+        at its first call, kept after."""
         key = _plan_key(fused, udtype, stream, fac_elem, fac_vdofs)
         plan = self._plans.get(key)
         if plan is None:
@@ -1209,6 +1288,10 @@ def _conv_lib():
             [ctypes.POINTER(_ConvPlanC)] + [ptr] * 4
             + [ctypes.c_double, i, ptr])
         lib.convection_th2d.restype = i
+        lib.conv_vjp_th2d.argtypes = (
+            [ctypes.POINTER(_ConvPlanC)] + [ptr] * 4
+            + [ctypes.c_double, i, ptr])
+        lib.conv_vjp_th2d.restype = i
         lib.conv_quad_th2d.argtypes = [ptr] * 7 + [i, ptr]
         lib.conv_quad_th2d.restype = i
         lib.convection_error_string.argtypes = [i]
@@ -1248,11 +1331,13 @@ def _check_facets(name, t, fac_elem, fac_vdofs):
 
 
 def _conv_launch(name, t, u1, u2, fused, nu=0.0, sym=False, fac_elem=None,
-                 fac_vdofs=None):
+                 fac_vdofs=None, ga=None):
     """Launch ``csrc/convection.cu`` on the current stream through the
-    tables' plan; returns the ``(1 + fused, nv_full)`` output in ``u1``'s
-    type.  The checks that depend only on the plan's key run when the plan
-    is made."""
+    tables' plan for the form ``fused`` (:data:`_CONV_FORMS`; the VJP
+    takes the state ``u1``, the cotangents ``u2`` of the convection and
+    ``ga`` of the stiffness load); returns the ``(nout, nv_full)`` output in
+    ``u1``'s type.  The checks that depend only on the plan's key run when
+    the plan is made."""
     dev = u1.get_device()
     stream = _raw_stream(dev)
     plan = t._plans.get(_plan_key(fused, u1.dtype, stream, fac_elem,
@@ -1269,19 +1354,25 @@ def _conv_launch(name, t, u1, u2, fused, nu=0.0, sym=False, fac_elem=None,
         if fused:
             _check_facets(name, t, fac_elem, fac_vdofs)
         plan = t.kernel_plan(fused, u1.dtype, fac_elem, fac_vdofs, stream)
+    vjp = fused == _CONV_FORMS["vjp"]
     if plan.fn is None:
-        plan.fn = _conv_lib().convection_th2d
+        lib = _conv_lib()
+        plan.fn = lib.conv_vjp_th2d if vjp else lib.convection_th2d
     u1 = u1.contiguous()
     if u2 is not None:
         u2 = u2.contiguous()
     out = torch.empty((plan.nout, t.nv_full), dtype=u1.dtype,
                       device=u1.device)
     p0 = out.data_ptr()
+    if vjp:
+        ga = None if ga is None else ga.contiguous()
+        ptrs = (u2.data_ptr(), None if ga is None else ga.data_ptr(), p0)
+    else:
+        ptrs = (None if u2 is None else u2.data_ptr(), p0,
+                p0 + (plan.nout - 1) * t.nv_full * out.element_size())
     with _on_device(dev):
-        err = plan.fn(
-            plan.c, u1.data_ptr(), None if u2 is None else u2.data_ptr(),
-            p0, p0 + (plan.nout - 1) * t.nv_full * out.element_size(),
-            float(nu), int(bool(sym)), stream)
+        err = plan.fn(plan.c, u1.data_ptr(), *ptrs, float(nu),
+                      int(bool(sym)), stream)
     if err != 0:
         raise RuntimeError(
             f"{name} kernel launch failed (nc {t.nc}, nv_full {t.nv_full}, "
@@ -1343,6 +1434,61 @@ def conv_vector_amatvec(u, nu, sym, tables, fac_elem=None, fac_vdofs=None):
 
 
 conv_vector_amatvec.launches = 0
+
+
+def conv_vjp_ref(u, gc, ga, nu, sym, tables, fac_elem=None,
+                 fac_vdofs=None):
+    """Plain PyTorch version of :func:`conv_vjp`: the VJP of the plain
+    forward (:func:`conv_vector_amatvec_ref`, or with ``ga=None``
+    :func:`conv_vector_ref` of ``(u, u)``) by ``torch.autograd.grad``, so
+    it shares no hand derivation with the kernel (and runs inside a
+    backward pass)."""
+    with torch.enable_grad():
+        x = u.detach().requires_grad_(True)
+        if ga is None:
+            outs, grads = (conv_vector_ref(x, None, tables),), (gc,)
+        else:
+            outs = conv_vector_amatvec_ref(x, nu, sym, tables, fac_elem,
+                                           fac_vdofs)
+            grads = (gc, ga)
+        return torch.autograd.grad(outs, x, grads)[0]
+
+
+def conv_vjp(u, gc, ga, nu, sym, tables, fac_elem=None, fac_vdofs=None):
+    """The VJP in ``u`` of :func:`conv_vector_amatvec` ``(u, nu, sym,
+    tables, fac_elem, fac_vdofs)`` for the cotangents ``gc`` of the
+    convection and ``ga`` of ``A u``; with ``ga=None`` the VJP of
+    :func:`conv_vector` ``(u, None)``.  Arithmetic in ``tables.dtype``,
+    result in ``u``'s type.  Nothing assumes the facet blocks symmetric.
+
+    On a CUDA tensor this launches ``vjp_kernel`` of ``csrc/convection.cu``
+    (B5's layout: an element a group of 8 lanes, a quadrature point a
+    lane, grid barrier, the forward's dof-major slot tables; one device
+    kernel) on the current stream and counts it in ``conv_vjp.launches``;
+    on a CPU tensor it is :func:`conv_vjp_ref`.
+    """
+    name = "conv_vjp"
+    _check_state(name, u, tables)
+    _check_state(name, gc, tables, "gc")
+    if ga is not None:
+        _check_state(name, ga, tables, "ga")
+    if gc.dtype != u.dtype or (ga is not None and ga.dtype != u.dtype):
+        raise ValueError(f"{name}: the cotangents must be in u's type "
+                         f"{u.dtype}")
+    if ga is None:
+        fac_elem = fac_vdofs = None
+    if not u.is_cuda:
+        _check_facets(name, tables, fac_elem, fac_vdofs)
+        return conv_vjp_ref(u, gc, ga, nu, sym, tables, fac_elem,
+                            fac_vdofs)
+    out = _conv_launch(name, tables, u, gc, _CONV_FORMS["vjp"], nu=nu,
+                       sym=sym, fac_elem=fac_elem, fac_vdofs=fac_vdofs,
+                       ga=ga)
+    conv_vjp.launches += 1
+    return out[0]
+
+
+conv_vjp.launches = 0
 
 
 def conv_quad_ref(ue, ue_bc, tables):
@@ -1660,12 +1806,23 @@ def affine_element_terms(mode, x, t, cm=1.0, ca=0.0):
         return t.detJ[:, None] * (xe @ t.MrefI2)
     D = _aff_grad(t, xe)
     if mode == "j":
-        div = torch.diagonal(D, dim1=2, dim2=3).sum(-1)       # (nc,Q)
-        return (t.wdet * div) @ t.N1q                         # (nc,pnpc)
+        return _aff_div_terms(t, D)
     if mode == "a":
         cm, ca = 0.0, 1.0
     elif mode != "ma":
         raise ValueError(f"affine_mv mode {mode!r}")
+    return _aff_ma_terms(t, xe, D, cm, ca)
+
+
+def _aff_div_terms(t, D):
+    """Mode 'j''s element terms from the gradients ``D``."""
+    div = torch.diagonal(D, dim1=2, dim2=3).sum(-1)           # (nc,Q)
+    return (t.wdet * div) @ t.N1q                             # (nc,pnpc)
+
+
+def _aff_ma_terms(t, xe, D, cm, ca):
+    """Mode 'ma''s element terms from the gathered ``xe`` and its
+    gradients ``D``."""
     if t.sym:
         F = (ca * t.nu) * (D + D.transpose(2, 3))
     else:
@@ -1694,9 +1851,18 @@ def affine_mv_ref(mode, x, t, cm=1.0, ca=0.0):
 
 def affine_residual_ref(v, q, t, cm=1.0, ca=0.0):
     """Plain PyTorch version of :func:`affine_residual`: the dense
-    solver's three-call composition ``[cm M v + ca A v + J^T q ; J v]``."""
-    rv = affine_mv_ref("ma", v, t, cm, ca) + affine_mv_ref("jt", q, t)
-    return torch.cat([rv, affine_mv_ref("j", v, t)])
+    solver's three-call composition ``[cm M v + ca A v + J^T q ; J v]``,
+    its 'ma' and 'j' terms from one gather and one gradient of ``v`` (the
+    composition's bits)."""
+    xe = _aff_pad(t, v)[t.vdofs]
+    D = _aff_grad(t, xe)
+    ma = _aff_segsum(_aff_ma_terms(t, xe, D, cm, ca), t.vseg, v.dtype)
+    corr = _aff_facet(t, v, ca)
+    if corr is not None:
+        ma = ma + corr.to(v.dtype)
+    rv = ma + affine_mv_ref("jt", q, t)
+    return torch.cat([rv, _aff_segsum(_aff_div_terms(t, D), t.pseg,
+                                      v.dtype)])
 
 
 class _AffinePartC(ctypes.Structure):
@@ -2018,17 +2184,20 @@ def _elem_layout(E, transpose):
 
 
 def elem_mv_ref(E, x, in_tab, out_tab, transpose=False):
-    """Plain PyTorch version of :func:`elem_mv`: a gather, one einsum over
-    the blocks (``E`` rounded to ``x``'s type first) and one scatter-add
-    (``index_add_``: each output dof's slots in ascending order on the
-    CPU, the kernel's order)."""
+    """Plain PyTorch version of :func:`elem_mv`: a gather, one batched
+    product over the blocks (``E`` rounded to ``x``'s type first; the bits
+    of the einsum ``eab,eb->ea``) and one scatter-add (``index_add_``: each
+    output dof's slots in ascending order on the CPU, the kernel's
+    order)."""
     xpad = torch.cat([x, x.new_zeros(1)])
-    xe = xpad[in_tab.vd.clamp(min=0, max=in_tab.nseg)]
-    eq = "epb,ep->eb" if transpose else "eab,eb->ea"
-    fe = torch.einsum(eq, E.to(x.dtype), xe).reshape(-1)
-    ids = out_tab.vd.reshape(-1).clamp(min=0, max=out_tab.nseg)
+    xe = xpad[in_tab.clamped()]
+    Ex = E.to(x.dtype)
+    if transpose:
+        Ex = Ex.transpose(1, 2)
+    fe = torch.bmm(Ex, xe.unsqueeze(2)).reshape(-1)
     out = x.new_zeros(out_tab.nseg + 1)
-    return out.index_add_(0, ids, fe)[: out_tab.nseg]
+    return out.index_add_(0, out_tab.clamped().reshape(-1), fe)[
+        : out_tab.nseg]
 
 
 class _ElemPlanC(ctypes.Structure):
@@ -2286,3 +2455,123 @@ def elem_mv(E, x, in_tab, out_tab, transpose=False):
 
 
 elem_mv.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# autograd: B1 and B5 as differentiable functions (both devices: the CPU
+# reaches the plain versions through the same wrappers the card launches)
+# ---------------------------------------------------------------------------
+
+def _plain(*ts):
+    """The tensors under functorch's wrappers.  Inside ``torch.func.jvp``
+    a ``Function``'s ``jvp`` receives wrapped tensors and factory functions
+    make wrapped ones, which have no storage for a kernel to read: the
+    ``jvp`` methods below compute on the values under the wrappers, with
+    functorch's dispatch off, and hand back plain tensors (one order of
+    derivative through the kernels).  Reverse mode is ``torch.autograd``
+    (the ``torch.func`` reverse transforms are not supported)."""
+    from torch._C._functorch import get_unwrapped, is_functorch_wrapped_tensor
+
+    out = []
+    for t in ts:
+        while t is not None and is_functorch_wrapped_tensor(t):
+            t = get_unwrapped(t)
+        out.append(t)
+    return out
+
+
+class VecmatFn(torch.autograd.Function):
+    """``y = x @ KT`` through :func:`vecmat`, differentiable in ``x``:
+    backward :func:`vecmat_t` (``KT @ g``), forward mode :func:`vecmat`
+    itself (the map is linear).  ``KT`` is a constant: a ``KT`` that
+    requires grad raises."""
+
+    @staticmethod
+    def forward(x, KT):
+        if KT.requires_grad:
+            raise ValueError("VecmatFn: KT is a constant operand; it must "
+                             "not require grad")
+        return vecmat(x, KT)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        KT = inputs[1]
+        ctx.save_for_backward(KT)
+        ctx.save_for_forward(KT)
+
+    @staticmethod
+    def backward(ctx, g):
+        (KT,) = ctx.saved_tensors
+        return vecmat_t(g.contiguous(), KT), None
+
+    @staticmethod
+    def jvp(ctx, dx, dKT):
+        KT, dx = _plain(*ctx.saved_tensors, dx)
+        with torch._C._DisableFuncTorch():
+            return vecmat(dx.contiguous(), KT)
+
+
+class ConvAmatvecFn(torch.autograd.Function):
+    """``(N(u)u, A u)`` through :func:`conv_vector_amatvec`, differentiable
+    in ``u``: backward :func:`conv_vjp`; forward mode ``conv_vector(u, du)
+    + conv_vector(du, u)`` and the stiffness output of
+    ``conv_vector_amatvec(du)`` (linear in ``u``), so it needs no kernel of
+    its own.  The other arguments are constants."""
+
+    @staticmethod
+    def forward(u, nu, sym, tables, fac_elem=None, fac_vdofs=None):
+        return conv_vector_amatvec(u, nu, sym, tables, fac_elem, fac_vdofs)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        u, ctx.nu, ctx.sym, ctx.tables, ctx.fac_elem, ctx.fac_vdofs = inputs
+        ctx.save_for_backward(u)
+        ctx.save_for_forward(u)
+
+    @staticmethod
+    def backward(ctx, gc, ga):
+        (u,) = ctx.saved_tensors
+        du = conv_vjp(u, gc.contiguous(), ga.contiguous(), ctx.nu, ctx.sym,
+                      ctx.tables, ctx.fac_elem, ctx.fac_vdofs)
+        return du, None, None, None, None, None
+
+    @staticmethod
+    def jvp(ctx, du, *_):
+        u, du, fe = _plain(*ctx.saved_tensors, du, ctx.fac_elem)
+        t = ctx.tables
+        with torch._C._DisableFuncTorch():
+            du = du.contiguous()
+            dc = conv_vector(u, du, t) + conv_vector(du, u, t)
+            da = conv_vector_amatvec(du, ctx.nu, ctx.sym, t, fe,
+                                     ctx.fac_vdofs)[1]
+        return dc, da
+
+
+class ConvVectorFn(torch.autograd.Function):
+    """``N(u)u`` through :func:`conv_vector` ``(u, None)``, differentiable
+    in ``u``: backward :func:`conv_vjp` with no stiffness cotangent,
+    forward mode ``conv_vector(u, du) + conv_vector(du, u)``."""
+
+    @staticmethod
+    def forward(u, tables):
+        return conv_vector(u, None, tables)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        u, ctx.tables = inputs
+        ctx.save_for_backward(u)
+        ctx.save_for_forward(u)
+
+    @staticmethod
+    def backward(ctx, g):
+        (u,) = ctx.saved_tensors
+        return conv_vjp(u, g.contiguous(), None, 0.0, False,
+                        ctx.tables), None
+
+    @staticmethod
+    def jvp(ctx, du, _):
+        u, du = _plain(*ctx.saved_tensors, du)
+        t = ctx.tables
+        with torch._C._DisableFuncTorch():
+            du = du.contiguous()
+            return conv_vector(u, du, t) + conv_vector(du, u, t)

@@ -18,17 +18,64 @@ time-dependent right-hand sides, Dirichlet controls, static feedback
 ``out_bundle``, CNAB) and ``resume_carry`` passed through to them; and
 the fully implicit Newton-in-time scheme (``treat_nonl_explicit=False``
 or ``lin_vel_point``, :func:`.newton_ti.solve_nse_newton_ti`, reference
-:1304-1587).  Checkpoints and Paraview output raise
-``NotImplementedError``.
+:1304-1587); the checkpoint store (``save_data``/``useolddata``/
+``clearprvdata``/``checkpoint_every``), the file-backed trajectory
+(``return_dictofvelstrs``) and the Paraview series (``paraviewoutput``)
+of the semi-explicit schemes.  As in the JAX package, the Newton-in-time
+path takes none of the last three groups.
 """
+
+import glob
+import os
+import pickle
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.io import get_datastr, host, save_npa
 from .pfromv import get_pfromv
 from .steady import solve_steadystate_nse
 from . import timeint
+
+
+# the control terms a JAX carry holds in a run without controls too, with
+# the JAX package's empty values
+_JAX_CONTROL_KEYS = dict(cnab=dict(cvals=None, cmems=(), bfv=0.0, mbc=0.0),
+                         sbdf2=dict(cvals=None, cmems=(), mbc=0.0,
+                                    mbc_p=0.0))
+
+
+def _carry_to_host(carry, scheme):
+    """A loop carry -> the ``.npz`` payload of a checkpoint: one pickled
+    tree of host arrays under ``carry_pkl``, with the JAX carry's key
+    names (the control terms a run without controls leaves out are added
+    with the JAX package's empty values) — the JAX package's format (its
+    ``solve/nse.py: _carry_to_host``), so a file either package writes is
+    one the other resumes.  Checkpoints are trusted files: load only the
+    ones the package wrote."""
+    carry = {**_JAX_CONTROL_KEYS[scheme], **carry}
+
+    def to_host(x):
+        if torch.is_tensor(x):
+            return host(x)
+        if isinstance(x, dict):
+            return {k: to_host(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(to_host(v) for v in x)
+        return x
+
+    return {"carry_pkl": np.frombuffer(pickle.dumps(to_host(carry)),
+                                       dtype=np.uint8)}
+
+
+def _carry_from_npz(path, device):
+    """The port's ``resume_carry`` from an ``.npz`` checkpoint of either
+    package (the pickled tree of host arrays)."""
+    from ..utils.convert import carry_from_jax
+
+    dat = np.load(path)
+    return carry_from_jax(pickle.loads(dat["carry_pkl"].tobytes()), device)
 
 
 def _dense(m):
@@ -97,6 +144,14 @@ def solve_nse(
     * ``precision`` ('accurate' | 'fast') — f64 vs f32 element kernels on
       the CPU; on the card both run f32 kernels under an f64 carry via
       the increment formulation,
+    * ``save_data``/``useolddata``/``clearprvdata``/``checkpoint_every``
+      — ``get_datastr``-keyed loop-carry checkpoints (``data_prfx``) with
+      EXACT resume: the horizon runs in sections on the inner state layout,
+      each section's final carry stored (``save_data``), the run resumed
+      from the latest stored one (``useolddata``); ``return_dictofvelstrs``
+      — the saved states as ``.npy`` files, ``{t: path}``;
+      ``paraviewoutput``/``vfileprfx``/``prvoutpnts`` — the saved states
+      as a PVD series,
     * ``device`` — where the time loop runs; ``None`` is the CUDA card,
     * further keywords go to the integrator: ``outfunc``/``out_bundle``
       (per-step observables of ``cnab``, e.g.
@@ -107,17 +162,6 @@ def solve_nse(
     Returns a dict with final ``(v, p)`` (inner dofs / physical pressure,
     device tensors), the blow-up flag, and the decimated trajectory.
     """
-    unported = dict(
-        save_data=save_data, useolddata=useolddata,
-        clearprvdata=clearprvdata, checkpoint_every=checkpoint_every,
-        return_dictofvelstrs=return_dictofvelstrs,
-        paraviewoutput=paraviewoutput)
-    given = sorted(k for k, v in unported.items() if v)
-    if given:
-        raise NotImplementedError(
-            f"solve_nse: {', '.join(given)} not ported yet (checkpoints "
-            "and Paraview output follow in a later slice of the port: "
-            "ROADMAP A10)")
     if krylov:
         # reference kwarg parity (solve_nse docstring
         # stokes_navier_utils.py:651-664): the per-step saddle solves go
@@ -242,15 +286,80 @@ def solve_nse(
             controls=controls, save_every=save_every, verbose=verbose,
             device=device, **kw)
 
-    out = schemes[time_int_scheme](
-        trange=trange, prob=prob, inivel=iniv, inip=inip,
-        stokes_flow=stokes_flow,
-        f_tdp=f_tdp, g_tdp=g_tdp,
-        dynamic_rhs=dynamic_rhs, dynamic_rhs_memory=dynamic_rhs_memory,
-        controls=controls, check_ff_maxv=check_ff_maxv,
-        umat=umat, vmat=vmat, linsolver=linsolver,
-        state_layout=state_layout,
-        save_every=save_every, verbose=verbose, device=device, **kw)
+    ckpt = save_data or useolddata or clearprvdata
+
+    def integrate(tpiece, resume_carry=None):
+        return schemes[time_int_scheme](
+            trange=tpiece, prob=prob, inivel=iniv, inip=inip,
+            stokes_flow=stokes_flow,
+            f_tdp=f_tdp, g_tdp=g_tdp,
+            dynamic_rhs=dynamic_rhs, dynamic_rhs_memory=dynamic_rhs_memory,
+            controls=controls, check_ff_maxv=check_ff_maxv,
+            umat=umat, vmat=vmat, linsolver=linsolver,
+            # checkpoint carries are stored in the inner layout; every
+            # section runs on it, so resumed sections match
+            state_layout="inner" if ckpt else state_layout,
+            save_every=save_every, resume_carry=resume_carry,
+            verbose=verbose, device=device, **kw)
+
+    if ckpt:
+        # the checkpoint store keyed like the reference's per-step cache
+        # (get_datastr_snu, stokes_navier_utils.py:21-37, :950-1070);
+        # checkpoints hold the whole loop carry, so a resumed run gives
+        # the uninterrupted trajectory EXACTLY (the reference re-bootstraps
+        # from the last stored velocity)
+        nts = len(trange) - 1
+
+        def ckpt_path(t):
+            key = get_datastr(time=None if t is None else float(t),
+                              meshp=prob.nv_full, nu=prob.nu, Nts=nts,
+                              data_prfx=data_prfx, semiexpl=True)
+            return key + "__carry.npz"
+
+        if clearprvdata:
+            pat = ckpt_path(None).replace("timeNone", "time*")
+            for f in glob.glob(pat):
+                os.remove(f)
+        k_ck = checkpoint_every or max(1, nts // 4)
+        # checkpoint indices: multiples of k_ck (past 0 and 1, where the
+        # bootstrap lives) and the final step
+        ckinds = [i for i in range(k_ck, nts, k_ck) if i >= 2] + [nts]
+        i_start, carry = 0, None
+        if useolddata:
+            for i in sorted(ckinds, reverse=True):
+                if os.path.exists(ckpt_path(trange[i])):
+                    carry = _carry_from_npz(ckpt_path(trange[i]), device)
+                    i_start = i
+                    break
+        bounds = [i for i in ckinds if i > i_start]
+        if not bounds:
+            # the stored final checkpoint covers the horizon already
+            return dict(v=carry["v"], p=carry["p"],
+                        ffflag=bool(carry["flag"]), times=None, vs=None,
+                        ps=None, carry=carry, iniv=iniv, inip=inip,
+                        resumed_from=float(trange[i_start]))
+        # each section builds its operators from its own step (as the JAX
+        # package does), so a resumed section repeats the bits of the
+        # uninterrupted run's
+        pieces, lo = [], i_start
+        for hi in bounds:
+            out = integrate(trange[lo:hi + 1], resume_carry=carry)
+            carry = out["carry"]
+            if save_data:
+                path = ckpt_path(trange[hi])
+                os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+                np.savez(path, **_carry_to_host(carry, time_int_scheme))
+            pieces.append(out)
+            lo = hi
+        out = pieces[-1]
+        saved = [p for p in pieces if p["times"] is not None]
+        if len(pieces) > 1 and out["times"] is not None:
+            out["times"] = np.concatenate([p["times"] for p in saved])
+            out["vs"] = torch.cat([p["vs"] for p in saved])
+            out["ps"] = torch.cat([p["ps"] for p in saved])
+            out["ffflag"] = any(p["ffflag"] for p in pieces)
+    else:
+        out = integrate(trange)
     out["iniv"], out["inip"] = iniv, inip
     if return_vp_dict and out["times"] is not None:
         out["vp_dict"] = {
@@ -258,4 +367,25 @@ def solve_nse(
                            p=out["ps"][i].cpu().numpy())
             for i, t in enumerate(out["times"])
         }
+    if return_dictofvelstrs and out["times"] is not None:
+        # the file-backed trajectory {t: path}: the reference's way of
+        # handing linearization points between runs
+        # (stokes_navier_utils.py:1057-1070)
+        os.makedirs(os.path.dirname(data_prfx) or ".", exist_ok=True)
+        out["dictofvelstrs"] = {}
+        for i, t in enumerate(out["times"]):
+            pth = f"{data_prfx}__vel_t{float(t):.6f}"
+            save_npa(out["vs"][i], pth)
+            out["dictofvelstrs"][float(t)] = pth + ".npy"
+    if paraviewoutput and out["times"] is not None:
+        # the saved states as a PVD series, written after the loop from
+        # host copies (the reference writes inside its loop)
+        from ..utils.vtk import PVDWriter
+
+        pvd = PVDWriter(vfileprfx, prob, tfilter=prvoutpnts)
+        for i, t in enumerate(out["times"]):
+            pvd.write(v_full=prob.embed(out["vs"][i]), p=out["ps"][i],
+                      t=float(t))
+        pvd.close()
+        out["pvdfile"] = vfileprfx + ".pvd"
     return out

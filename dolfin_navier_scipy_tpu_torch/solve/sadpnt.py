@@ -121,7 +121,9 @@ class InverseSaddleSolver:
                 KinvT = torch.linalg.inv(Kd).T
                 del Kd
             elif inv_method == "host":
-                KinvT = torch.from_numpy(np.linalg.inv(K).T)
+                # torch's LU inverse on its own thread pool (the caller's
+                # torch.set_num_threads), not numpy's BLAS threads
+                KinvT = torch.linalg.inv(torch.from_numpy(K)).T
             else:
                 raise ValueError(f"inv_method {inv_method!r}")
         assert KinvT.shape == (n_all, n_all), KinvT.shape

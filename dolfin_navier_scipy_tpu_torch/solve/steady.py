@@ -21,7 +21,9 @@ The returned pressure is the physical one (the raw saddle ``q`` is
 flipped, as in stokes_navier_utils.py:403,:469,:503).
 """
 
+import glob
 import logging
+import os
 import time
 import warnings
 
@@ -33,8 +35,6 @@ from ..device import resolve_device
 from ..ops.kernels import DofTable, as_vecmat_operand, dof_slot_table, \
     ell_slot_table, elem_mv, vecmat
 from .sadpnt import host_saddle_factorized, jacobi_pcg
-
-_UNPORTED = ("useolddata", "clearprvdata", "save_data")
 
 
 def _m_norm_host(Mc):
@@ -605,17 +605,43 @@ def solve_steadystate_nse(
     (see :func:`_resolve_steady_linsolver`).  ``device``: ``None`` = the
     problem's device (the card unless it names another).
 
-    Not ported (raise ``NotImplementedError``, ROADMAP A10): the
-    reference's filename-keyed velocity cache (``useolddata``,
-    ``clearprvdata``, ``save_data``).
+    ``useolddata``/``clearprvdata``/``save_data`` reproduce the
+    reference's filename-keyed velocity cache
+    (stokes_navier_utils.py:308-342), as the JAX package does: converged
+    states are stored under ``get_datastr`` keys (``data_prfx``, ``N``)
+    and reloaded when the stored Newton-update norm meets
+    ``vel_nwtn_tol``.
     """
-    given = [k for k, v in zip(_UNPORTED, (useolddata, clearprvdata,
-                                           save_data)) if v]
-    if given:
-        raise NotImplementedError(
-            f"solve_steadystate_nse: {', '.join(given)} (the velocity "
-            "cache) is not ported yet (ROADMAP A10)")
+    from ..utils import io as dou
+
     log = logging.getLogger(__name__)
+    cdatstr = dou.get_datastr(time=None, meshp=N, nu=prob.nu, Nts=None,
+                              data_prfx=data_prfx)
+    if clearprvdata:
+        for fname in glob.glob(cdatstr + "*__vel*"):
+            os.remove(fname)
+    if useolddata:
+        try:
+            norm_nwtnupd = float(np.asarray(
+                dou.load_npa(cdatstr + "__norm_nwtnupd")).ravel()[0])
+            vel_k = dou.load_npa(cdatstr + "__vel")
+        except (IOError, FileNotFoundError):
+            norm_nwtnupd = None
+            if verbose:
+                log.info("no old velocity data found")
+        if norm_nwtnupd is not None and norm_nwtnupd < vel_nwtn_tol:
+            if verbose:
+                log.info(f"loaded converged velocity from {cdatstr}")
+            ret = vel_k
+            if return_vp:
+                from .pfromv import get_pfromv
+
+                pdev = "cpu" if linsolver == "host-sparse" else \
+                    prob._dev(device)
+                ret = (vel_k, np.asarray(get_pfromv(
+                    v=vel_k.ravel()[prob.invinds], prob=prob,
+                    device=pdev)).reshape(-1, 1))
+            return (ret, [norm_nwtnupd]) if return_nwtnupd_norms else ret
     if linsolver != "host-sparse":      # the host route needs no device
         device = prob._dev(device)
     linsolver = _resolve_steady_linsolver(prob, linsolver, device)
@@ -655,6 +681,13 @@ def solve_steadystate_nse(
         stats.update(solves=sk.solves, n_fmv=sk.n_fmv, f_iters=sk.f_iters,
                      f_cycles=sk.f_cycles, pseudo_time_s=t_march)
     vwc = np.asarray(v).reshape(-1, 1)
+    if save_data:
+        dou.save_npa(vwc, cdatstr + "__vel")
+        # no Newton step ran (only_stokes, Picard only): inf, as the
+        # reference stores, so that useolddata never takes the state for
+        # a converged Newton solution
+        dou.save_npa(np.atleast_1d(norms[-1] if norms else np.inf),
+                     cdatstr + "__norm_nwtnupd")
     ret = (vwc, np.asarray(p).reshape(-1, 1)) if return_vp else vwc
     return (ret, norms) if return_nwtnupd_norms else ret
 

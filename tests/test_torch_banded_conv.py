@@ -9,6 +9,7 @@ import scipy.sparse as sps
 import torch
 from scipy.sparse.csgraph import reverse_cuthill_mckee
 
+import jax
 import jax.numpy as jnp
 
 from dolfin_navier_scipy_tpu.models import (
@@ -106,7 +107,7 @@ def test_f32_vector_matches_jax(name):
     jt, tt = _tails(name)
     w = _wspace(name)
     v = _state(w)
-    ref = np.asarray(jt.vector(jnp.asarray(v)))
+    ref = np.asarray(jax.jit(jt.vector)(jnp.asarray(v)))
     out = tt.vector(torch.from_numpy(v)).clone()
     assert out.dtype == torch.float32
     assert np.abs(out.numpy() - ref).max() <= 1e-6 * np.abs(ref).max()
@@ -128,7 +129,7 @@ def test_f64_tail_matches_the_jax_index_pipeline():
     assert bc.build_banded_conv_tail(w["t64"], nin, tail) is None
     t64 = bc.build_banded_conv_tail(w["t64"], nin, tail, force=True)
     v = _state(w, seed=5)
-    ref = np.asarray(w["j64"].vector(jnp.asarray(v)))
+    ref = np.asarray(jax.jit(w["j64"].vector)(jnp.asarray(v)))
     out = t64.vector(torch.from_numpy(v))
     assert out.dtype == torch.float64 and not out[nin:].any()
     assert (np.abs(out[:nin].numpy() - ref[:nin]).max()

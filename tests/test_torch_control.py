@@ -14,6 +14,7 @@ import pytest
 import scipy.sparse as sps
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from dolfin_navier_scipy_tpu.control import (
@@ -203,7 +204,7 @@ def test_smw_solver_matches(linsolver):
     if linsolver == "dense":
         assert _rel(got, host) <= RTOL
         return
-    want = JaxSMW(base=jops.solver, umat=U, vmat=V, c=c).solve(
+    want = jax.jit(JaxSMW(base=jops.solver, umat=U, vmat=V, c=c).solve)(
         jnp.asarray(bv), jnp.asarray(bp))
     assert _rel(got, want) <= RTOL
     assert _rel(got, host) <= RTOL_W

@@ -1052,3 +1052,93 @@ def test_newton_in_time_on_the_card_matches_the_cpu(linsolver):
         a, b = out[k].cpu().numpy(), cpu[k].numpy()
         assert np.linalg.norm(a - b) <= 1e-8 * np.linalg.norm(b), k
     assert out["nwtn_norms"][-1] < 1e-8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_vecmat_t_kernel_on_the_card(dtype):
+    """``vecmat_t`` (``KT @ g`` on the stored operand) against float64
+    ``KT @ g`` on unsymmetric operands of many shapes, one launch a call,
+    the same bits twice."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    rng = np.random.default_rng(5)
+    for m, n in [(512, 1024), (2049, 1022), (700, 1501), (5000, 1), (3, 7),
+                 (40, 30001), (20000, 33)]:
+        KT = as_vecmat_operand(
+            torch.from_numpy(rng.normal(size=(m, n))).to(dtype), device="cuda")
+        g = torch.from_numpy(rng.normal(size=(n,))).to(dtype).cuda()
+        before = kernels.vecmat_t.launches
+        y = kernels.vecmat_t(g, KT)
+        torch.cuda.synchronize()
+        assert kernels.vecmat_t.launches == before + 1
+        ref = KT.double() @ g.double()
+        tol = 1e-3 if dtype == torch.float32 else 1e-10
+        assert torch.allclose(y.double(), ref, atol=tol, rtol=1e-4), (m, n)
+        assert torch.equal(y, kernels.vecmat_t(g, KT)), (m, n)
+    with pytest.raises(ValueError, match="vecmat_operand"):
+        kernels.vecmat_t(g, KT.T.contiguous().T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("udtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.float64])
+def test_conv_vjp_kernel_on_the_card(wdtype, udtype):
+    """``conv_vjp`` against its plain version (the autograd VJP of the
+    plain forward) on the wake's tables with seeded unsymmetric facet
+    blocks, both forms, one kernel node a call, the same bits twice."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    prob = cylinderwake_problem(level=0, Re=100, device="cuda")
+    t = prob.conv_kernel_on(wdtype).tables
+    aff = AffineVectorOps.build(prob, wdtype, full_dofs=True, device="cuda")
+    rng = np.random.default_rng(6)
+    fe = torch.from_numpy(rng.normal(size=tuple(aff.fac_elem.shape))).to(
+        device="cuda", dtype=wdtype)
+    u, gc, ga = (torch.from_numpy(rng.normal(size=prob.nv_full)).to(
+        device="cuda", dtype=udtype) for _ in range(3))
+    eps = max(torch.finfo(wdtype).eps, torch.finfo(udtype).eps)
+    for sym in (True, False):
+        for args in ((u, gc, ga, prob.nu, sym, t, fe, aff.fac_dofs),
+                     (u, gc, None, 0.0, False, t)):
+            got = kernels.conv_vjp(*args)
+            ref = kernels.conv_vjp_ref(*args)
+            torch.cuda.synchronize()
+            assert got.dtype == udtype
+            assert (got - ref).abs().max() <= 500 * eps * ref.abs().max()
+            assert torch.equal(got, kernels.conv_vjp(*args))
+    types, _ = _captured(lambda: kernels.conv_vjp(
+        u, gc, ga, prob.nu, True, t, fe, aff.fac_dofs))
+    assert types.count(0) == 1
+
+
+@pytest.mark.cuda
+def test_adjoint_on_the_card_matches_the_cpu():
+    """``make_diff_cnab`` on the cavity: the card's gradient in the
+    schedule (f32 kernels under the f64 carry) against the CPU's f64
+    gradient, and its launches a gradient."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    from dolfin_navier_scipy_tpu_torch.solve import (
+        make_diff_cnab, solve_steadystate_nse)
+
+    grads = []
+    for dev in ("cuda", "cpu"):
+        prob = drivencavity_problem(N=8, nu=1e-2, device=dev)
+        v0 = np.asarray(solve_steadystate_nse(
+            prob, linsolver="host-sparse", vel_nwtn_tol=1e-11,
+            verbose=False)).ravel()[prob.invinds]
+        b = np.zeros(prob.nv_full)
+        b[prob.invinds] = np.random.default_rng(7).normal(
+            size=len(prob.invinds))
+        sim = make_diff_cnab(prob, 1e-3, bvec=b, device=dev)
+        amps = torch.zeros(10, dtype=torch.float64, device=dev,
+                           requires_grad=True)
+        before = (kernels.vecmat_t.launches, kernels.conv_vjp.launches)
+        (0.5 * (sim(v0, amps) ** 2).sum()).backward()
+        if dev == "cuda":
+            assert (kernels.vecmat_t.launches - before[0],
+                    kernels.conv_vjp.launches - before[1]) == (10, 9)
+        grads.append(amps.grad.cpu())
+    err = (grads[0] - grads[1]).abs().max() / grads[1].abs().max()
+    assert err <= 1e-4, err

@@ -10,6 +10,7 @@ import pytest
 import scipy.sparse as sps
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from dolfin_navier_scipy_tpu.models import (
@@ -60,8 +61,9 @@ def _field(tp, seed):
 def test_element_matrices_match_jax(name, picard):
     jp, tp, _, _ = _pair(name)
     v = _field(tp, 3)
-    ref = jp.conv_kernel.element_matrices(jnp.asarray(v),
-                                          picard_only=picard)
+    jk = jp.conv_kernel
+    ref = jax.jit(lambda x: jk.element_matrices(x, picard_only=picard))(
+        jnp.asarray(v))
     out = tp.conv_kernel.element_matrices(torch.as_tensor(v),
                                           picard_only=picard)
     assert tuple(out.shape) == (tp.ctx.wdet.shape[0], 6, 2, 6, 2)

@@ -37,10 +37,17 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
             "import dolfin_navier_scipy_tpu_torch.ops.quadform; "
             "import dolfin_navier_scipy_tpu_torch.solve.newton_ti; "
             "import dolfin_navier_scipy_tpu_torch.residual_checks; "
+            "import dolfin_navier_scipy_tpu_torch.solve.adjoint; "
+            "import dolfin_navier_scipy_tpu_torch.utils.io; "
+            "import dolfin_navier_scipy_tpu_torch.utils.vtk; "
+            "import dolfin_navier_scipy_tpu_torch.utils.spectra; "
             "from dolfin_navier_scipy_tpu_torch.solve import sbdf2, "
             "semi_implicit_euler; "
             "from dolfin_navier_scipy_tpu_torch.ops.kernels import "
-            "conv_vector, conv_vector_amatvec, elem_mv, conv_quad; "
+            "conv_vector, conv_vector_amatvec, elem_mv, conv_quad, "
+            "vecmat_t, conv_vjp, VecmatFn, ConvAmatvecFn, ConvVectorFn; "
+            "from dolfin_navier_scipy_tpu_torch.solve import "
+            "make_diff_cnab; "
             "from dolfin_navier_scipy_tpu_torch.solve import "
             "solve_nse_newton_ti; "
             "bad = [m for m in sys.modules if m == 'jax' or "
@@ -97,8 +104,8 @@ def test_entry_points_do_not_fall_back_to_the_cpu():
     from dolfin_navier_scipy_tpu_torch.ops.convection import ConvectionKernel
     from dolfin_navier_scipy_tpu_torch.models import make_inscan_liftdrag
     from dolfin_navier_scipy_tpu_torch.solve import (
-        InverseSaddleSolver, cnab, get_pfromv, sbdf2, semi_implicit_euler,
-        solve_nse)
+        InverseSaddleSolver, cnab, get_pfromv, make_diff_cnab, sbdf2,
+        semi_implicit_euler, solve_nse)
     from dolfin_navier_scipy_tpu_torch.utils.convert import carry_from_jax
     from dolfin_navier_scipy_tpu_torch.solve.timeint import _build_ops
 
@@ -123,6 +130,7 @@ def test_entry_points_do_not_fall_back_to_the_cpu():
         lambda: AffineVectorOps.build(prob),
         lambda: InverseSaddleSolver(prob.Mc, prob.Jc, prob.JTc),
         lambda: get_pfromv(v=[0.] * len(prob.invinds), prob=prob),
+        lambda: make_diff_cnab(prob, 0.1),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

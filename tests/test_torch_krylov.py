@@ -9,6 +9,7 @@ import pytest
 import scipy.sparse as sps
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from dolfin_navier_scipy_tpu.models import (
@@ -58,9 +59,9 @@ def test_device_pgmres_matches_jax(restart, maxiter):
     out = device_pgmres(lambda x: At @ x, torch.as_tensor(b),
                         lambda x: dt_ * x, tol=1e-15, restart=restart,
                         maxiter=maxiter)
-    ref = jax_pgmres(lambda x: jnp.asarray(A) @ x, jnp.asarray(b),
-                     lambda x: jnp.asarray(d) * x, tol=1e-15,
-                     restart=restart, maxiter=maxiter)
+    ref = jax.jit(lambda bb: jax_pgmres(
+        lambda x: jnp.asarray(A) @ x, bb, lambda x: jnp.asarray(d) * x,
+        tol=1e-15, restart=restart, maxiter=maxiter))(jnp.asarray(b))
     assert _rel(out, ref) <= 1e-10
     if restart >= len(b):
         assert _rel(out, np.linalg.solve(A, b)) <= 1e-10
@@ -68,9 +69,9 @@ def test_device_pgmres_matches_jax(restart, maxiter):
     x1 = device_pgmres(lambda x: At @ x, torch.as_tensor(b),
                        lambda x: dt_ * x, tol=1e-4, restart=3,
                        maxiter=50)
-    r1 = jax_pgmres(lambda x: jnp.asarray(A) @ x, jnp.asarray(b),
-                    lambda x: jnp.asarray(d) * x, tol=1e-4,
-                    restart=3, maxiter=50)
+    r1 = jax.jit(lambda bb: jax_pgmres(
+        lambda x: jnp.asarray(A) @ x, bb, lambda x: jnp.asarray(d) * x,
+        tol=1e-4, restart=3, maxiter=50))(jnp.asarray(b))
     assert _rel(x1, r1) <= 1e-10
     assert 1e-6 < _rel(A @ x1.numpy(), b) < 1e-2
 
@@ -143,7 +144,7 @@ def test_krylov_saddle_solver_matches_jax():
     rng = np.random.default_rng(12)
     rv, rp = rng.normal(size=slv.nv), rng.normal(size=slv.np)
     x, res = slv.solve_res(torch.as_tensor(rv), torch.as_tensor(rp))
-    xj = jslv.solve(jnp.asarray(rv), jnp.asarray(rp))
+    xj = jax.jit(jslv.solve)(jnp.asarray(rv), jnp.asarray(rp))
     assert _rel(x, xj) <= 1e-10
     direct = solve_sadpnt_host(amat=coeff, jmat=tp.Jc, jmatT=tp.JTc,
                                rhsv=rv, rhsp=rp).ravel()

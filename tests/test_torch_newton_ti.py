@@ -7,6 +7,7 @@ through ``solve_nse`` and the block-Schur preconditioner."""
 
 import copy
 import math
+import os
 
 import numpy as np
 import pytest
@@ -225,8 +226,14 @@ def test_schur_preconditioner_matches_jax():
     (dict(save_data=True), "save_data"),
     (dict(paraviewoutput=True), "paraviewoutput"),
 ])
-def test_the_keys_still_unported_raise(kwargs, match):
+def test_the_keys_still_unported_raise(kwargs, match, tmp_path):
+    """The keys raised until they were ported; as in the JAX package, the
+    Newton-in-time path takes neither (no checkpoint, no series): the
+    steady state stays, and nothing is written."""
     _, tp, vss = _cavity()
-    with pytest.raises(NotImplementedError, match=match):
-        solve_nse(prob=tp, trange=TRANGE, iniv=vss,
-                  treat_nonl_explicit=False, device="cpu", **kwargs)
+    out = solve_nse(prob=tp, trange=TRANGE[:3], iniv=vss,
+                    treat_nonl_explicit=False, device="cpu",
+                    vel_nwtn_stps=1, data_prfx=str(tmp_path / "d"),
+                    vfileprfx=str(tmp_path / "v"), **kwargs)
+    assert np.abs(out["v"].numpy() - vss).max() < 1e-8
+    assert os.listdir(tmp_path) == [], match

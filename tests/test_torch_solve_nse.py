@@ -2,6 +2,8 @@
 the CPU in f64 (20 CNAB steps, both state layouts), and its dispatch to
 Newton-in-time."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -210,17 +212,33 @@ def test_stokes_start_matches_the_host_solve():
     (dict(paraviewoutput=True), "paraviewoutput"),
     (dict(useolddata=True), "useolddata"),
 ])
-def test_unported_paths_raise(kwargs, match):
+def test_unported_paths_raise(kwargs, match, tmp_path):
+    """The checkpoint and output keywords, which raised until they were
+    ported, are taken: each run ends where the plain run ends (to the
+    rounding of the sections' steps) and writes what it names."""
     _, tp = _probs("cavity")
-    kw = dict(KW, **kwargs)
-    with pytest.raises(NotImplementedError, match=match):
-        solve_nse(prob=tp, device="cpu", **kw)
+    if "plain" not in _CACHE:
+        _CACHE["plain"] = solve_nse(prob=tp, device="cpu",
+                                    **dict(KW, state_layout="inner"))
+    files = dict(data_prfx=str(tmp_path / "d" / "traj"),
+                 vfileprfx=str(tmp_path / "v" / "vel"))
+    out = solve_nse(prob=tp, device="cpu", **dict(KW, **kwargs, **files))
+    ref = _CACHE["plain"]
+    assert (out["v"] - ref["v"]).abs().max() <= 1e-13 * ref["v"].abs().max()
+    written = sorted(os.listdir(tmp_path)) if os.path.isdir(tmp_path) else []
+    want = dict(save_data=["d"], paraviewoutput=["v"])
+    assert written == want.get(match, []), (match, written)
+    if match == "save_data":
+        assert len(os.listdir(tmp_path / "d")) == 4      # Nts // 4 apart
+    if match == "paraviewoutput":
+        assert out["pvdfile"] == files["vfileprfx"] + ".pvd"
 
 
 def test_auto_linsolver_raises_above_the_dense_window():
     """'auto' takes the banded block-Schur solver above 6000 condensed rows
     (it raised there until that solver was ported); 'krylov' is taken when
-    named; the steady solver's velocity cache still raises."""
+    named; the steady solver's velocity cache (which raised until it was
+    ported) finds no stored state in an empty store and solves."""
     from types import SimpleNamespace
 
     from dolfin_navier_scipy_tpu_torch.solve.timeint import _resolve_linsolver
@@ -236,8 +254,10 @@ def test_auto_linsolver_raises_above_the_dense_window():
     with pytest.raises(ValueError, match="time_int_scheme"):
         solve_nse(prob=_probs("cavity")[1], device="cpu",
                   **dict(KW, time_int_scheme="rk4"))
-    with pytest.raises(NotImplementedError, match="A10"):
-        solve_steadystate_nse(_probs("cavity")[1], useolddata=True)
+    v = solve_steadystate_nse(_probs("cavity")[1], useolddata=True,
+                              data_prfx="no/such/store/", verbose=False,
+                              linsolver="host-sparse", only_stokes=True)
+    assert v.shape == (_probs("cavity")[1].nv_full, 1)
 
 
 def _tiny():
