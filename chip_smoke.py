@@ -35,7 +35,8 @@ Needs one CUDA card, ``nvcc`` and no network; takes no arguments.  It
 7. builds the block-Schur factors on the device (``setup="device"``: X by
    block PCG over the banded F) and from the host's splu on the level-1
    F: X and the solves of the two agree, two device builds give the same
-   bits, and no hand-written kernel runs during a setup,
+   bits, and no hand-written kernel but B7 (the block PCG's tail) runs
+   during a setup,
 8. drives the default call at level 2 of the wake (29 507 condensed rows,
    where ``setup="auto"`` is the device setup): ``warm_refine`` 0 and 1, a
    bitwise rerun, exact launch counts, against the same run on the card's
@@ -85,6 +86,20 @@ and a bitwise rerun;
 solution; after the CPU reference run, ``krylov_cnab`` runs the main
 path's CNAB call on the Krylov saddle solver against it.
 
+The 3D slice (after the level-2 path): ``wake3d_small`` drives the
+Schaefer-Turek 3D-2Z wake (``cylinderwake3d_problem``, Re 100) at nz=2,
+100 CNAB steps of dt 1e-3 from the Stokes start, through the default call
+(the banded route) and ``banded=False`` (the element-operator block-Schur
+route: F blocks through ``elem_mv``, ``S^-1`` and X through ``vecmat``, the
+Jacobi-PCG tail through B7, ``csrc/pcg.cu``), ``warm_refine`` 0 and 1,
+against the CPU f64 run of the element route (1e-4 / 1e-6), and holds the
+3D forms of B5, B9, B10 and B7 against their plain versions on its
+operands; ``wake3d_path`` drives both routes at nz=8 (the full width,
+device setups): the routes' refine-1 runs agree to 1e-6, a bitwise rerun,
+exact launches, and the kernels timed beside their bounds.  Every jacobi
+or block PCG on the card (the W-less banded solve, the device setups' X
+and W) runs its tail through B7.
+
 Every phase prints one JSON line; any failed phase raises, so the exit
 code is non-zero and the final line is missing.  The last line is
 ``{"ok": true, "device": {...}}``, the one before it the ``kernels`` table.
@@ -95,6 +110,7 @@ import copy
 import ctypes
 import glob
 import hashlib
+import inspect
 import itertools
 import json
 import math
@@ -116,8 +132,8 @@ if not torch.cuda.is_available():
 from dolfin_navier_scipy_tpu_torch.control import (
     apply_robin_penalty, get_heunab_lti)
 from dolfin_navier_scipy_tpu_torch.models import (
-    LiftDragSurfForce, cylinderwake_problem, make_inscan_liftdrag,
-    observation_operator, pressure_drop)
+    LiftDragSurfForce, cylinderwake3d_problem, cylinderwake_problem,
+    make_inscan_liftdrag, observation_operator, pressure_drop)
 from dolfin_navier_scipy_tpu_torch.ops import banded_conv, kernels
 from dolfin_navier_scipy_tpu_torch.ops.affine import AffineVectorOps
 from dolfin_navier_scipy_tpu_torch.ops.banded_conv import (
@@ -129,9 +145,10 @@ from dolfin_navier_scipy_tpu_torch.ops.kernels import (
     affine_residual_ref, as_band_operand, as_vecmat_operand,
     banded_mv, banded_mv_ref, conv_quad, conv_quad_ref, conv_vector,
     conv_vector_amatvec, conv_vector_amatvec_ref, conv_vector_ref, conv_vjp,
-    conv_vjp_ref, elem_mv, elem_mv_ref, rect_mv,
-    rect_mv_levels, rect_mv_levels_ref, rect_mv_ref, vecmat, vecmat_ref,
-    vecmat_t, vecmat_t_ref)
+    conv_vjp_ref, elem_mv, elem_mv_ref, block_pcg_init, block_pcg_init_ref,
+    block_pcg_step, block_pcg_step_ref, pcg_init, pcg_init_ref, pcg_step,
+    pcg_step_ref, rect_mv, rect_mv_levels, rect_mv_levels_ref, rect_mv_ref,
+    vecmat, vecmat_ref, vecmat_t, vecmat_t_ref)
 from dolfin_navier_scipy_tpu_torch.solve import (
     DirichletControl, KrylovSaddleSolver, SchurSaddleSolver, make_diff_cnab,
     sbdf2, solve_nse, solve_nse_newton_ti, solve_sadpnt_host,
@@ -140,7 +157,9 @@ from dolfin_navier_scipy_tpu_torch.utils.io import Timer
 from dolfin_navier_scipy_tpu_torch.solve.newton_ti import _make_bundle, _sweep
 from dolfin_navier_scipy_tpu_torch.solve.steady import (
     SteadyKrylovKernel, _sk_elem32)
-from dolfin_navier_scipy_tpu_torch.solve.timeint import _build_ops
+from dolfin_navier_scipy_tpu_torch.solve.sadpnt import _tridiag_bmm
+from dolfin_navier_scipy_tpu_torch.solve.timeint import (
+    _NITER_WARM as NITER_WARM, _build_ops)
 
 # published peaks of one H100 SXM (NVIDIA data sheet): device memory rate
 # and the f32 / f64 rates outside the tensor cores
@@ -236,7 +255,7 @@ def device_kernels(fn):
 
 
 def zero_counts():
-    for w in WRAPPERS + ADJ_WRAPPERS:
+    for w in WRAPPERS + ADJ_WRAPPERS + PCG_WRAPPERS:
         w.launches = 0
     conv_quad.launches = 0
     rect_mv.storage_launches = dict.fromkeys(rect_mv.storage_launches, 0)
@@ -818,8 +837,8 @@ def device_setup_path(prob, dev, dt):
     level-1 ``F = M + dt/2 A``.  In f32 storage (no bf16 levels, no W: what
     is compared is X) X agrees to 1e-5 of its largest entry and the solves
     (refine 0 and 1) to 1e-5; two builds in the card's default storage
-    (bf16 levels, W) give the same bits; no hand-written kernel runs in a
-    setup."""
+    (bf16 levels, W) give the same bits; no hand-written kernel but B7's
+    column-blocked form (the block PCG's tail) runs in a setup."""
     F = sps.csr_matrix(prob.Mc + 0.5 * dt * prob.Ac)
     args = (F, prob.Jc, prob.JTc)
     zero_counts()
@@ -837,6 +856,11 @@ def device_setup_path(prob, dev, dt):
     setup_counts = counts()
     require(setup_counts == {w.__name__: 0 for w in WRAPPERS},
             f"kernel launches during the setups: {setup_counts}")
+    # the device setups' block PCG (X; W in the default storage) is B7's
+    # column-blocked form, one launch an iteration after torch.bmm
+    setup_b7 = pcg_counts()
+    require(setup_b7["block_pcg_step"] > 0 and setup_b7["pcg_step"] == 0,
+            f"B7 launches during the setups: {setup_b7}")
     host, devs = built["host_f32"], built["device_f32"]
     require(host.setup == "host" and devs.setup == "device", "setups")
     xscale = float(host.Xb.abs().max())
@@ -862,6 +886,7 @@ def device_setup_path(prob, dev, dt):
         F="M + dt/2 A, dt 1e-3", nv=host.nv, np=host.np,
         x_err_over_max_x=x_err, solve_rel_err=solve_err,
         builds_bitwise_equal=True, launches_during_setups=setup_counts,
+        b7_launches_during_setups=setup_b7,
         seconds={k: v for k, v in built.items() if k.endswith("seconds")},
         parts_seconds={k: built[k].setup_timing
                        for k in ("host_f32", "device_f32", "device")})
@@ -2936,6 +2961,484 @@ def checkpoint_path(dev):
     shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# 3D: the Schaefer-Turek 3D-2Z wake on tets, both block-Schur routes
+# ---------------------------------------------------------------------------
+
+# Schaefer-Turek 3D-2Z: channel 2.5 x 0.41 x 0.41, cylinder at (0.5, 0.2),
+# no-slip z-walls, paraboloid inflow of peak 2.25 charvel, Re = 100
+WAKE3D = dict(level=0, nu=1e-3, charvel=1.0, paraboloid_inflow=True,
+              zslip=False, length=2.5, center=(0.5, 0.2))
+NTS3D, DT3D = 100, 1e-3
+NZ_SMALL, NZ_PATH = 2, 8
+PCG_WRAPPERS = (pcg_init, pcg_step, block_pcg_init, block_pcg_step)
+PCG_REPLACES = dict(vector="dolfin_navier_scipy_tpu/solve/sadpnt.py:677",
+                    block="dolfin_navier_scipy_tpu/solve/sadpnt.py:252")
+PCG_DESIGN = ("one launch after the matvec: a resident grid, two fixed-order "
+              "reductions through per-block partials and a grid barrier "
+              "each, the scalars on the device")
+CONV3D_DESIGN = ("a 128-thread block an element, a thread a quadrature "
+                 "point, the 30 element sums in point order, then the "
+                 "grid barrier and the dof-major ELL sums")
+AFFINE3D_DESIGN = ("the partitions of the 2D form; a warp an element, a lane "
+                   "a slot, exact reference matrices (no point loop)")
+
+
+def pcg_counts():
+    return {w.__name__: w.launches for w in PCG_WRAPPERS}
+
+
+def all_counts():
+    return {**counts(), **pcg_counts()}
+
+
+def wake3d(nz):
+    t0 = time.time()
+    prob = cylinderwake3d_problem(nz=nz, **WAKE3D)
+    return prob, time.time() - t0
+
+
+def elem_counts_want(nsteps, refine, niter):
+    """Launches of a 3D CNAB run on the element route with ``warm_refine``
+    ``refine``: per loop step the fused convection, and per solve (one plus
+    one a refine round) a warm (or cold) PCG of ``niter`` iterations (F x0
+    on the warm one, the residual's F v on a round), J y, ``S^-1`` and X by
+    ``vecmat``, the round's J^T q and J v; the bootstrap's three convection
+    vectors and the AB2 start."""
+    s, r = nsteps, refine
+    return dict(vecmat=2 * s * (1 + r), conv_vector=4,
+                conv_vector_amatvec=s, banded_mv=0, rect_mv=0,
+                rect_mv_levels=0, affine_mv=s * (1 + 3 * r),
+                affine_residual=0, elem_mv=s * (1 + niter) * (1 + r),
+                pcg_init=s * (1 + r), pcg_step=s * niter * (1 + r),
+                block_pcg_init=0, block_pcg_step=0)
+
+
+def band_counts_want(slv, nsteps, refine, niter):
+    """The same on the banded route (w-space): with W as in the level-1
+    Schur path; without W each solve is a warm PCG over the banded F (B7
+    after each banded_mv)."""
+    s, r = nsteps, refine
+    want = dict(vecmat=0, conv_vector=s + 4, conv_vector_amatvec=0,
+                rect_mv=s * (1 + 3 * r), affine_mv=0, affine_residual=0,
+                elem_mv=0, block_pcg_init=0, block_pcg_step=0)
+    if slv.Wb is not None:
+        want.update(banded_mv=s * (1 + r), rect_mv_levels=3 * s * (1 + r),
+                    pcg_init=0, pcg_step=0)
+    else:
+        want.update(banded_mv=s * (1 + (1 + niter) * (1 + r)),
+                    rect_mv_levels=2 * s * (1 + r), pcg_init=s * (1 + r),
+                    pcg_step=s * niter * (1 + r))
+    return want
+
+
+def pcg_bound_ms(n, k, itemsize):
+    """Least time for one PCG tail: x, r, p, F p and dinv read once, x, r
+    and p written once (``k`` columns each, dinv once); ~10 operations an
+    entry over the rate of the type."""
+    kk = max(k, 1)
+    nbytes = itemsize * (8 * n * kk + n)
+    ops = 10.0 * n * kk
+    rate = F32_FLOP_PER_S if itemsize == 4 else F64_FLOP_PER_S
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / rate
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def check_pcg(fmv, dinv, n, k, what, gen, niter):
+    """B7 against its plain version: ``niter`` iterations of the kernel
+    and of the plain tail from the same start, each after its own matvec
+    ``fmv`` (vector form, ``k`` 0) or on ``k`` columns; the iterate and
+    ``rz`` within 1e-4 relative in f32 (1e-10 in f64: the two sum in
+    other orders, and CG carries that through its iterations), the same
+    bits on a rerun, one kernel node a call; timed by graph replay beside
+    its plain version (no single library call computes the tail)."""
+    dev = dinv.device
+    shape = (n,) if k == 0 else (n, k)
+    b = torch.randn(shape, generator=gen, dtype=torch.float64).to(
+        device=dev, dtype=dinv.dtype)
+    init, step = ((pcg_init, pcg_step) if k == 0
+                  else (block_pcg_init, block_pcg_step))
+    init_ref, step_ref = ((pcg_init_ref, pcg_step_ref) if k == 0
+                          else (block_pcg_init_ref, block_pcg_step_ref))
+
+    def run(kernel):
+        st = list(init(b, dinv) if kernel else init_ref(b, dinv))
+        for _ in range(niter):
+            (step if kernel else step_ref)(*st[:3], fmv(st[2]), dinv, st[3])
+        return st
+
+    got, again, ref = run(True), run(True), run(False)
+    torch.cuda.synchronize()
+    err = rel(got[0], ref[0])
+    rz_err = float(((got[3] - ref[3]).abs() / ref[3].abs()).max())
+    bar = 1e-4 if dinv.dtype == torch.float32 else 1e-10
+    require(err <= bar and rz_err <= bar, f"B7 ({what}) disagrees with its "
+            f"plain version after {niter} iterations: x {err:.3e}, rz "
+            f"{rz_err:.3e} > {bar}")
+    require(all(torch.equal(a_, b_) for a_, b_ in zip(got, again)),
+            f"B7 ({what}) is not reproducible")
+    # the timed calls iterate on copies (the state runs on past the check)
+    st = [t.clone() for t in got]
+    ap = fmv(st[2])
+
+    def one():
+        step(st[0], st[1], st[2], ap, dinv, st[3])
+
+    stp = [t.clone() for t in st]
+
+    def one_plain():
+        step_ref(stp[0], stp[1], stp[2], ap, dinv, stp[3])
+
+    max_abs = float((got[0] - ref[0]).abs().max())
+    ran, types = device_kernels(one)
+    require(ran == 1, f"B7 ({what}) ran {ran} device kernels ({types})")
+    bound, by = pcg_bound_ms(n, k, dinv.element_size())
+    ms = graph_ms(one)
+    return dict(name=step.__name__, operand=what, n=n, k=k,
+                dtype=str(dinv.dtype), iterations=niter, rel_err=err,
+                rz_rel_err=rz_err, max_abs_err=max_abs,
+                device_kernels_per_call=ran, ms=ms,
+                eager_ms=time_ms(one, 200), plain_ms=graph_ms(one_plain),
+                library_ms=None, bound_ms=bound, bound_by=by,
+                roofline_share=bound / ms)
+
+
+def affine3d_bound_ms(t, mode, x_item, facets):
+    """Least time for one 3D affine call (the exact reference-matrix form
+    the kernel applies): the vectors, the int32 ids, JinvT and detJ, the
+    reference matrices and the facet blocks read once, the output written
+    once; the multiply-adds of the reference contractions an element
+    (``csrc/affine.cu: block_body_3d``) over the rate of the work type."""
+    s = t.wdet.element_size()
+    nc, nd, pn = t.nc, t.nvpc * t.dim, t.pnpc
+    nfac = int(t.fac_elem.shape[0]) if facets else 0
+    nin = dict(jt=t.npc, res=t.nin + t.npc).get(mode, t.nin)
+    nout = dict(j=t.npc, res=t.nin + t.npc).get(mode, t.nin)
+    ids = dict(jt=pn, res=nd + pn).get(mode, nd)
+    nbytes = (x_item * (nin + nout) + 4 * nc * ids + s * nc * 10
+              + s * 1120 + nfac * nd * (s * nd + 4))
+    per = dict(m=nd * 20, a=nd * (2 * 270 + 9 * 16), j=pn * (2 * 90 + 18),
+               jt=nd * (2 * 12 + 6))
+    per["ma"] = per["m"] + per["a"]
+    per["res"] = per["ma"] + per["jt"] + per["j"]
+    flops = nc * per[mode] + 2 * nfac * nd * nd
+    rate = F32_FLOP_PER_S if s == 4 else F64_FLOP_PER_S
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / rate
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def kernels3d(prob, slv_elem, slv_band, what, gen, timed):
+    """K1-K4 on the 3D operands of ``prob``: the convection kernel (f32
+    tables, f64 and f32 states, both sym, the outflow facet blocks), the
+    affine kernel in every mode and the residual (f32 tables, full dofs),
+    B10 on the element route's F blocks (30 x 30) and J / J^T (4 x 30),
+    B7 on the element route's F (vector form) and on a block of 256
+    columns of the banded F (the device setup's form)."""
+    dev = torch.device("cuda")
+    kern = prob.conv_kernel_on(torch.float32, dev)
+    aff = slv_elem.res_ops[1].aff
+    u = torch.randn(prob.nv_full, generator=gen, dtype=torch.float64).to(dev)
+    u2 = torch.randn(prob.nv_full, generator=gen,
+                     dtype=torch.float64).to(dev)
+    conv = check_conv(kern, aff, aff.fac_dofs, u, u2, what, True, timed,
+                      counted=timed)
+    conv += check_conv(kern, aff, aff.fac_dofs, u.float(), u2.float(),
+                       what + ", f32 state", True, False)
+    bound_fn = globals()["affine_bound_ms"]
+    globals()["affine_bound_ms"] = affine3d_bound_ms
+    try:
+        affc = check_affine(aff, prob, True, what, gen,
+                            timed=(dict(m=torch.float32, a=torch.float32,
+                                        j=torch.float32, jt=torch.float32,
+                                        res=torch.float32) if timed else None),
+                            counted=timed)
+    finally:
+        globals()["affine_bound_ms"] = bound_fn
+    F = slv_elem.res_ops[0]
+    el = [check_elem(F.elem, F.tab, F.tab, False, what + ", F = M + dt/2 A",
+                     gen, ELEM_REPLACES["op"])]
+    if timed:
+        _, _, J = build_element_ops(prob, dtype=torch.float32, device=dev)
+        el.append(check_elem(J.elem, J.vtab, J.ptab, False,
+                             what + ", DivElementOp J", gen,
+                             ELEM_REPLACES["div"]))
+        el.append(check_elem(J.elem, J.ptab, J.vtab, True,
+                             what + ", DivElementOp J^T", gen,
+                             ELEM_REPLACES["div"]))
+    pcg = [check_pcg(F.matvec, slv_elem.dinv, slv_elem.nv, 0,
+                     what + ", element route F", gen, slv_elem.ncg)]
+    B = slv_band._op["B"]
+    dpad = torch.zeros(B.shape[0] * B.shape[1], dtype=torch.float32,
+                       device=dev)
+    dpad[:slv_band._nin] = slv_band.dinv_b
+    pcg.append(check_pcg(lambda P: _tridiag_bmm(B, P), dpad, dpad.shape[0],
+                         256, what + ", banded F, 256 columns", gen, 12))
+    return dict(conv=conv, affine=affc, elem=el, pcg=pcg)
+
+
+def nse3d(prob, dev, **kw):
+    """One user call: ``solve_nse`` over ``NTS3D`` steps of ``DT3D``, with
+    its launches (zeroed just before, read just after) and host seconds."""
+    zero_counts()
+    t0 = time.time()
+    out = solve_nse(prob=prob, t0=0.0, tE=NTS3D * DT3D, Nts=NTS3D,
+                    device=dev, **kw)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    return out, dict(all_counts(), affine_modes=dict(
+        affine_mv.mode_launches)), seconds
+
+
+def route_info(out):
+    slv = out["ops"].solver
+    return dict(route="banded" if slv.banded else "element",
+                setup=slv.setup, W=getattr(slv, "Wb", None) is not None,
+                setup_timing=slv.setup_timing,
+                loop_ms_per_step=1e3 * out["timing"]["loop_s"] / (NTS3D - 1))
+
+
+def check3d_run(prob, out, c, want, what):
+    require(not out["ffflag"], f"{what}: blow-up flag")
+    v = out["v"]
+    require(bool(torch.isfinite(v).all()) and v.shape[0] == len(prob.invinds),
+            f"{what}: final v")
+    got = {k: c[k] for k in want}
+    require(got == want, f"{what}: launches {got} != {want}")
+    div = divergence_rel(prob, v)
+    require(div <= 1e-6, f"{what}: divergence {div:.3e} > 1e-6")
+    return div
+
+
+def w_truncation(prob, slv, gen, nvec=4):
+    """``|W b - F^-1 b| / |F^-1 b|`` of the banded solver's truncated
+    inverse (all its levels) on ``nvec`` seeded vectors, ``F^-1 b`` by an
+    f64 host solve: what an unrefined W-route solve leaves."""
+    if slv.Wb is None:
+        return None
+    F = sps.csc_matrix(prob.Mc + 0.5 * DT3D * prob.Ac)
+    full2in = np.full(prob.nv_full, -1, np.int64)
+    full2in[prob.invinds] = np.arange(len(prob.invinds))
+    perm = full2in[slv.permf.cpu().numpy()]
+    lu = spla.splu(F)
+    out = []
+    for _ in range(nvec):
+        b = torch.randn(F.shape[0], generator=gen,
+                        dtype=torch.float64).numpy()
+        x = lu.solve(b)[perm]
+        y = slv._wapply(torch.as_tensor(b[perm], dtype=torch.float32,
+                                        device=slv.Wb.device))
+        out.append(float(np.linalg.norm(y.double().cpu().numpy() - x)
+                         / np.linalg.norm(x)))
+    return out
+
+
+def wake3d_small(dev, gen):
+    """3D-2Z at nz=2 (the oracle size): the default call (banded route)
+    and the element route (``banded=False``), ``warm_refine`` 0 and 1,
+    against the CPU f64 run of the element route with host setup (1e-4 /
+    1e-6; the banded route's unrefined W solve: wtol times the run's
+    relative change of v, see below); divergence, exact launches; K1-K4
+    against their plain versions on this problem's operands."""
+    prob, build_s = wake3d(NZ_SMALL)
+    vss, pss = solve_steadystate_nse(prob, only_stokes=True, return_vp=True,
+                                     linsolver="host-sparse", device=dev)
+    ini = dict(iniv=vss.ravel()[prob.invinds], inip=pss.ravel())
+    t0 = time.time()
+    ref = solve_nse(prob=prob, t0=0.0, tE=NTS3D * DT3D, Nts=NTS3D,
+                    linsolver="schur", banded=False, warm_refine=1,
+                    device="cpu", **ini)
+    cpu_s = time.time() - t0
+    require(not ref["ops"].solver.banded and ref["ops"].solver.setup ==
+            "host", "the CPU reference is the element route, host setup")
+    vref = ref["v"]
+    runs, ops = {}, {}
+    for name, kw in (("banded", {}), ("element", dict(banded=False))):
+        for r in (0, 1):
+            out, c, s = nse3d(prob, dev, warm_refine=r,
+                              ops=ops.get(name), **ini, **kw)
+            ops[name] = out["ops"]
+            slv = out["ops"].solver
+            require(slv.banded == (name == "banded"), f"{name}: route")
+            want = (band_counts_want(slv, NTS3D - 1, r, NITER_WARM)
+                    if slv.banded else elem_counts_want(NTS3D - 1, r,
+                                                        NITER_WARM))
+            if r == 0:
+                # the first call builds the solver (W's block PCG: B7)
+                want = {k: w for k, w in want.items()
+                        if not k.startswith("block_pcg")}
+            div = check3d_run(prob, out, c, want, f"wake3d_small {name} r{r}")
+            err = rel(out["v"], vref)
+            runs[f"{name}_refine{r}"] = dict(
+                rel_err_vs_cpu_f64=err, bar=1e-4 if r == 0 else 1e-6,
+                divergence=div, seconds=s, launches=c, **route_info(out))
+    # the unrefined W route's bar: W's truncation (wtol) imprints on every
+    # increment and, W being one fixed operator, the imprints add up with
+    # the increments: wtol times the run's relative change of v (36 % from
+    # the Stokes start here), where the 2D runs' 1e-4 comes from runs that
+    # move far less (the JAX package records 1.9e-4 for its own unrefined
+    # W route at level 2, README); the other runs keep 1e-4 / 1e-6
+    wtol = inspect.signature(SchurSaddleSolver).parameters["wtol"].default
+    moved = float(np.linalg.norm(vref.numpy() - ini["iniv"])
+                  / np.linalg.norm(vref.numpy()))
+    wtrunc = w_truncation(prob, ops["banded"].solver, gen)
+    for name, run in runs.items():
+        if name == "banded_refine0" and run["W"]:
+            run["bar"] = max(run["bar"], wtol * moved)
+            run["bar_from"] = "wtol x the run's relative change of v"
+    say(phase="wake3d_small_runs", runs=runs, cpu_reference_seconds=cpu_s,
+        v_moved_rel=moved, wtol=wtol, w_truncation=wtrunc)
+    for name, run in runs.items():
+        require(run["rel_err_vs_cpu_f64"] <= run["bar"],
+                f"wake3d_small {name}: {run['rel_err_vs_cpu_f64']:.3e} from "
+                f"the CPU f64 run > {run['bar']}")
+    chk = kernels3d(prob, ops["element"].solver, ops["banded"].solver,
+                    f"wake3d nz={NZ_SMALL}", gen, timed=False)
+    say(phase="wake3d_small", problem=f"3D-2Z nz={NZ_SMALL}",
+        nv_full=prob.nv_full, nin=len(prob.invinds), np=prob.np_cond,
+        tets=prob.space.mesh.num_cells, build_seconds=build_s,
+        cpu_reference_seconds=cpu_s, runs=runs,
+        checks={k: [{kk: vv for kk, vv in c_.items() if kk != "plan"}
+                    for c_ in v] for k, v in chk.items()})
+
+
+def step_share(prob, dev, ops, ini, refine, kw, short=11, long=41):
+    """Device busy ms, device kernels and wall ms a loop step of a route
+    (``ops`` reused): two profiled user calls of ``short`` and ``long``
+    steps, differenced, so that the bootstrap and the calls' fixed costs
+    drop out (the profiler's own overhead stays in the wall).  None where
+    the profiler saw no device event."""
+    got = {}
+    for n in (short, long):
+        got[n] = busy_share(lambda n=n: solve_nse(
+            prob=prob, t0=0.0, tE=n * DT3D, Nts=n, device=dev,
+            warm_refine=refine, ops=ops, **ini, **kw))
+    d = long - short
+    (b0, k0, w0), (b1, k1, w1) = got[short], got[long]
+    wall = 1e3 * (w1 - w0) / d
+    if b0 is None or b1 is None:
+        return dict(busy_ms=None, kernels=None, wall_ms=wall,
+                    busy_share=None)
+    busy = (b1 - b0) / d
+    return dict(busy_ms=busy, kernels=(k1 - k0) / d, wall_ms=wall,
+                busy_share=busy / wall if wall > 0 else None)
+
+
+def wake3d_path(dev, gen):
+    """3D-2Z at full width (nz=8): the default call (banded route, device
+    setup) and ``banded=False`` (element route, device setup), refine 0
+    and 1; the two routes' refine-1 runs agree to 1e-6, each refine 0
+    within 1e-4 of its refine 1; divergence; a bitwise rerun of the element
+    route; exact launches; setup parts and loop ms a step; K1-K4 timed
+    beside their bounds and the library's CSR matvecs."""
+    prob, build_s = wake3d(NZ_PATH)
+    t0 = time.time()
+    vss, pss = solve_steadystate_nse(prob, only_stokes=True, return_vp=True,
+                                     linsolver="host-sparse", device=dev)
+    stokes_s = time.time() - t0
+    ini = dict(iniv=vss.ravel()[prob.invinds], inip=pss.ravel())
+    F = sps.csr_matrix(prob.Mc + 0.5 * DT3D * prob.Ac)
+    band_gb = SchurSaddleSolver.__init__.__globals__[
+        "_banded_bandwidth_gb"](F)
+    runs, ops, outs, launches = {}, {}, {}, {}
+    for name, kw in (("banded", {}), ("element", dict(banded=False))):
+        for r in (0, 1):
+            out, c, s = nse3d(prob, dev, warm_refine=r, ops=ops.get(name),
+                              **ini, **kw)
+            ops[name] = out["ops"]
+            slv = out["ops"].solver
+            require(slv.banded == (name == "banded") and slv.setup ==
+                    "device", f"{name}: route and setup")
+            want = (band_counts_want(slv, NTS3D - 1, r, NITER_WARM)
+                    if slv.banded else elem_counts_want(NTS3D - 1, r,
+                                                        NITER_WARM))
+            if r == 0:
+                # the first call builds the solver: its setup's B7 launches
+                # (the device setup's block PCG) are reported, not checked
+                want = {k: w for k, w in want.items()
+                        if not k.startswith("block_pcg")}
+            div = check3d_run(prob, out, c, want, f"wake3d_path {name} r{r}")
+            outs[name, r] = out["v"]
+            launches[name, r] = c
+            runs[f"{name}_refine{r}"] = dict(divergence=div, seconds=s,
+                                             launches=c, **route_info(out))
+    rerun, c, s = nse3d(prob, dev, warm_refine=1, ops=ops["element"],
+                        banded=False, **ini)
+    shares = {f"{name}_refine{r}": step_share(
+        prob, dev, ops[name], ini, r,
+        {} if name == "banded" else dict(banded=False))
+        for name in ("banded", "element") for r in (0, 1)}
+    routes = rel(outs["element", 1], outs["banded", 1])
+    r01 = {name: rel(outs[name, 0], outs[name, 1])
+           for name in ("banded", "element")}
+    say(phase="wake3d_path_runs", runs=runs, routes_rel_refine1=routes,
+        refine0_vs_1=r01, F_band_gb=band_gb, step_share=shares)
+    require(torch.equal(rerun["v"], outs["element", 1]),
+            "wake3d_path: the element route's rerun differs in its bits")
+    require(routes <= 1e-6, f"wake3d_path: the two routes at refine 1 differ "
+            f"by {routes:.3e} > 1e-6")
+    require(max(r01.values()) <= 1e-4, f"wake3d_path: refine 0 vs 1 {r01}")
+    chk = kernels3d(prob, ops["element"].solver, ops["banded"].solver,
+                    f"wake3d nz={NZ_PATH}", gen, timed=True)
+    say(phase="wake3d_path", problem=f"3D-2Z nz={NZ_PATH}",
+        nv_full=prob.nv_full, nin=len(prob.invinds), np=prob.np_cond,
+        tets=prob.space.mesh.num_cells, F_band_gb=band_gb,
+        build_seconds=build_s, stokes_seconds=stokes_s,
+        routes_rel_refine1=routes, refine0_vs_1=r01,
+        element_rerun_bitwise=True, runs=runs,
+        checks={k: [{kk: vv for kk, vv in c_.items() if kk != "plan"}
+                    for c_ in v] for k, v in chk.items()})
+    return chk, launches, ops
+
+
+def rows3d(chk, launches, ops):
+    """The ``kernels`` line's rows of this slice's forms: K1 (fused and
+    vector), K2 (per mode), K3 (F, J, J^T), B7 (vector and block), with
+    the launches of the nz=8 routes at refine 1 (the block form: the
+    banded route's device setup)."""
+    le, lb = launches["element", 1], launches["banded", 1]
+    setup = launches["banded", 0]
+    rows = []
+    for form, name, n in (("amatvec_sym_True", "convection_3d",
+                           le["conv_vector_amatvec"]),
+                          ("vector", "convection_vector_3d",
+                           lb["conv_vector"])):
+        c = next(c for c in chk["conv"] if c["form"] == form and "ms" in c)
+        rows.append(dict(
+            name=name, route="cuda",
+            source="dolfin_navier_scipy_tpu_torch/csrc/convection.cu",
+            replaces="tools/probe_pallas_gather.py:14", launches=n,
+            shape=dict(nc=c["nc"], nv_full=c["nv_full"],
+                       facet_blocks=c["facet_blocks"], tables=c["tables"],
+                       state=c["state"]),
+            max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"],
+            bound_ms=c["bound_ms"], bound_by=c["bound_by"], library_ms=None,
+            eager_ms=c["eager_ms"],
+            device_kernels_per_call=c.get("device_kernels_per_call"),
+            design=CONV3D_DESIGN))
+    for r in affine_rows(chk["affine"], "_3d", dict(
+            le["affine_modes"], res=le["affine_residual"])):
+        r["design"] = AFFINE3D_DESIGN
+        rows.append(r)
+    for c, n in zip(chk["elem"], (le["elem_mv"], 0, 0)):
+        rows.append(dict(elem_row(c, n), name="elem_mv_3d"
+                         + ("" if "F =" in c["operand"] else
+                            "_jt" if c["transpose"] else "_j")))
+    for c, n, kind in zip(chk["pcg"], (le["pcg_step"],
+                                       setup["block_pcg_step"]),
+                          ("vector", "block")):
+        rows.append(dict(
+            name=c["name"], route="cuda",
+            source="dolfin_navier_scipy_tpu_torch/csrc/pcg.cu",
+            replaces=PCG_REPLACES[kind], launches=n, operand=c["operand"],
+            shape=dict(n=c["n"], k=c["k"], dtype=c["dtype"]),
+            max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"],
+            bound_ms=c["bound_ms"], bound_by=c["bound_by"], library_ms=None,
+            eager_ms=c["eager_ms"],
+            device_kernels_per_call=c["device_kernels_per_call"],
+            design=PCG_DESIGN))
+    return rows
+
+
 def main():
     t_start = time.time()
     dev = torch.device("cuda")
@@ -3375,6 +3878,10 @@ def main():
     # -- 8. the default call at level 2: the factors built on the card -------
     res_launches2, level2_rows = level2_path(dev, gen, nsteps)
 
+    # -- 9. 3D: the Schaefer-Turek 3D-2Z wake, both block-Schur routes -----
+    wake3d_small(dev, gen)
+    chk3d, launches3d, ops3d = wake3d_path(dev, gen)
+
     # -- the kernels table and the verdict ----------------------------------
     main_chk = checks[0]
 
@@ -3494,7 +4001,11 @@ def main():
         # the backward kernels of the adjoint, with the launches of one
         # gradient (level 1: the example's, in the schedule; level 2: in
         # the initial state)
-        *adjoint_rows(adj_rows)])
+        *adjoint_rows(adj_rows),
+        # this slice's forms: K1-K4 on the 3D-2Z nz=8 operands, with the
+        # launches of its two routes (refine 1; B7's block form: the
+        # banded route's device setup)
+        *rows3d(chk3d, launches3d, ops3d)])
     say(ok=True, device=dict(platform="gpu",
                              kind=torch.cuda.get_device_name(0),
                              count=torch.cuda.device_count()))

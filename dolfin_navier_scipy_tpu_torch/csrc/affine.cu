@@ -72,8 +72,10 @@
 // The vector may be f64 while the work type T is f32 (f64 carry, f32
 // tables): the cast happens in the gather's load and the sum's store.
 //
-// Written over NVPC, PN, Q, DIM as compile-time parameters (Q <= 8); only
-// the 2D Taylor-Hood instantiation (6, 3, 7, 2) is built.  Plain C
+// block_body is written over NVPC, PN, Q, DIM as compile-time parameters
+// (Q <= 8) and built for 2D Taylor-Hood (6, 3, 7, 2); the 3D Taylor-Hood
+// form (10, 4, 125, 3) is block_body_3d (reference matrices, a warp an
+// element; see there), on the same partitions.  Plain C
 // interface, loaded with ctypes; the caller allocates the output and checks
 // the returned cudaError_t.
 
@@ -113,6 +115,9 @@ struct AffinePlan {
     const void* N2;         // (Q, NVPC)
     const void* dN2;        // (Q, NVPC, DIM)
     const void* N1;         // (Q, PN)
+    const void* ref;        // 3D only: the reference matrices Mref (NVPC,
+                            // NVPC), Sref (DIM, DIM, NVPC, NVPC), Bref (PN,
+                            // DIM, NVPC), in that order; null in 2D
     int nc, nin, npc, nfac;
     int work_f64;
 };
@@ -604,54 +609,246 @@ block_kernel(const AffinePlan p, const AffinePart part,
                             facets, reinterpret_cast<T*>(smem_raw));
 }
 
+// -- the 3D Taylor-Hood form ----------------------------------------------
+//
+// On affine tets every matvec of the family is exact from constant reference
+// matrices (the degree-5 rule integrates the P2 mass, stiffness and
+// divergence exactly), so no 125-point loop is run: with Mref[a][b] = sum_q
+// qw N2[q,a] N2[q,b], Sref[k][l][a][b] = sum_q qw dN2[q,a,k] dN2[q,b,l],
+// Bref[p][k][b] = sum_q qw N1[q,p] dN2[q,b,k], Kg = Ji^T Ji and dj = detJ,
+//
+//   MA:  fe[a,c] = cm dj sum_b Mref[a][b] x[b,c]
+//                + ca nu dj sum_{k,l} ( Kg[k][l] Z[k][l][c]
+//                                      + Ji[c][l] sum_d Ji[d][k] Z[k][l][d] )
+//        (the second term with sym only), Z[k][l][d] = sum_b Sref[k][l][a][b]
+//        x[b,d];
+//   J:   fe[p]   = dj sum_{c,k} Ji[c][k] sum_b Bref[p][k][b] x[b,c];
+//   JT:  fe[a,c] = dj sum_k Ji[c][k] sum_p Bref[p][k][a] q[p].
+//
+// A warp takes one element (lane j its slot j: dof (a, c) = (j / 3, j % 3),
+// or pressure node j), the element's 30 + 4 values in a warp-private row of
+// shared memory; no sum runs across lanes, so every slot is one thread's
+// fixed-order chain.  The partition, the facet rows and the per-dof sums are
+// the 2D form's.  Bound: the element arithmetic is ~4e3 operations an
+// element in MA (against ~3e4 for the quadrature loop), so at 3D-2Z nz=8 a
+// call is ~0.1 GFLOP, and bytes (the ids, geometry and x: ~2 MB) bound it
+// at the memory rate.
+constexpr int PACK3 = 36;           // ids an element: 30 velocity, 4
+                                    // pressure, 2 padding
+constexpr int XS3 = 40;             // a warp's row of element values
+constexpr int WARPS = BLOCK_THREADS / 32;
+
+template <typename T, typename TU, int MODE>
+__device__ __forceinline__ void block_body_3d(
+    const AffinePlan& p, const AffinePart& pt, int b, const TU* x,
+    const TU* xq, TU* y, T cm, T ca, T nu, int sym, int facets, T* smem) {
+    constexpr int NVPC = 10, PN = 4, DIM = 3, ND = NVPC * DIM;
+    constexpr bool PRES = MODE == MODE_J;
+    constexpr bool RES = MODE == MODE_RES;
+    constexpr int NS = PRES ? PN : ND;
+    const int4 cnt = reinterpret_cast<const int4*>(pt.cnt)[b];
+    const int ne = cnt.x, nfac = cnt.y, nf = facets ? cnt.y : 0;
+    const int n = pt.nown;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    T* xs = smem + warp * XS3;                       // this warp's row
+    T* sv = smem + WARPS * XS3;                      // the block's values
+    T* sk = sv + nfac;
+    T* st = sk + static_cast<size_t>(ne) * NS;
+    T* sj = st + static_cast<size_t>(ne) * NS;
+    const T* Mref = static_cast<const T*>(p.ref);
+    const T* Sref = Mref + NVPC * NVPC;
+    const T* Bref = Sref + DIM * DIM * NVPC * NVPC;
+    const int a = lane / DIM, c = lane % DIM;
+    const size_t row0 = static_cast<size_t>(b) * pt.emax;
+    for (int l = warp; l < ne; l += WARPS) {
+        const int* ids = pt.ids + (row0 + l) * PACK3;
+        const T* g = static_cast<const T*>(pt.geo) + (row0 + l) * PACK;
+        // lane j: id j (velocity 0-29, pressure 0-1); lanes 0-3: ids 32-35
+        // (pressure 2-3, padding)
+        const int idA = ids[lane];
+        const int idB = lane < PACK3 - 32 ? ids[32 + lane] : -1;
+        if (MODE != MODE_JT && lane < ND) xs[lane] = gather<T>(x, idA, p.nin);
+        if (MODE == MODE_JT || RES) {
+            const TU* qv = MODE == MODE_JT ? x : xq;
+            if (lane >= ND) xs[lane] = gather<T>(qv, idA, p.npc);
+            if (lane < PN - (32 - ND)) xs[32 + lane] = gather<T>(qv, idB,
+                                                                p.npc);
+        }
+        T Ji[DIM][DIM];
+#pragma unroll
+        for (int d = 0; d < DIM; ++d)
+#pragma unroll
+            for (int k = 0; k < DIM; ++k) Ji[d][k] = g[d * DIM + k];
+        const T dj = g[DIM * DIM];
+        __syncwarp();
+        if ((PRES || RES) && lane < PN) {
+            // J terms of pressure node `lane`
+            T s = T(0);
+#pragma unroll
+            for (int k = 0; k < DIM; ++k)
+#pragma unroll
+                for (int cc = 0; cc < DIM; ++cc) {
+                    T z = T(0);
+#pragma unroll
+                    for (int bb = 0; bb < NVPC; ++bb)
+                        z = fmad(Bref[(lane * DIM + k) * NVPC + bb],
+                                 xs[bb * DIM + cc], z);
+                    s = fmad(Ji[cc][k], z, s);
+                }
+            (RES ? sj : sk)[l * PN + lane] = mul(dj, s);
+        }
+        if (!PRES && lane < ND) {
+            T Jc[DIM];                                   // Ji[c][.]
+#pragma unroll
+            for (int k = 0; k < DIM; ++k)
+                Jc[k] = c == 0 ? Ji[0][k] : (c == 1 ? Ji[1][k] : Ji[2][k]);
+            if (MODE == MODE_JT || RES) {
+                const T* qe = xs + ND;
+                T s = T(0);
+#pragma unroll
+                for (int k = 0; k < DIM; ++k) {
+                    T z = T(0);
+#pragma unroll
+                    for (int pp = 0; pp < PN; ++pp)
+                        z = fmad(Bref[(pp * DIM + k) * NVPC + a], qe[pp], z);
+                    s = fmad(Jc[k], z, s);
+                }
+                (RES ? st : sk)[l * ND + lane] = mul(dj, s);
+            }
+            if (MODE == MODE_MA || RES) {
+                T fe = T(0);
+                if (ca != T(0)) {
+                    T s1 = T(0), s2 = T(0);
+#pragma unroll
+                    for (int k = 0; k < DIM; ++k)
+#pragma unroll
+                        for (int m = 0; m < DIM; ++m) {
+                            const T* S = Sref + ((k * DIM + m) * NVPC + a) *
+                                                    NVPC;
+                            T z[DIM];
+#pragma unroll
+                            for (int d = 0; d < DIM; ++d) {
+                                z[d] = T(0);
+#pragma unroll
+                                for (int bb = 0; bb < NVPC; ++bb)
+                                    z[d] = fmad(S[bb], xs[bb * DIM + d], z[d]);
+                            }
+                            T kg = T(0), jz = T(0), zc = T(0);
+#pragma unroll
+                            for (int d = 0; d < DIM; ++d) {
+                                kg = fmad(Ji[d][k], Ji[d][m], kg);
+                                jz = fmad(Ji[d][k], z[d], jz);
+                                zc = d == c ? z[d] : zc;
+                            }
+                            s1 = fmad(kg, zc, s1);
+                            s2 = fmad(Jc[m], jz, s2);
+                        }
+                    fe = mul(mul(mul(ca, nu), dj), sym ? add(s1, s2) : s1);
+                }
+                if (cm != T(0)) {
+                    T s = T(0);
+#pragma unroll
+                    for (int bb = 0; bb < NVPC; ++bb)
+                        s = fmad(Mref[a * NVPC + bb], xs[bb * DIM + c], s);
+                    fe = fmad(mul(cm, dj), s, fe);
+                }
+                sk[l * ND + lane] = fe;
+            }
+        }
+        __syncwarp();
+    }
+    if (!PRES && nf > 0)
+        for (int f = tid; f < nf; f += BLOCK_THREADS) {
+            const size_t fr = static_cast<size_t>(b) * pt.fmax + f;
+            sv[f] = facet_row<T, TU, ND>(
+                static_cast<const T*>(pt.fco) + fr * ND, pt.fids + fr * ND,
+                x, p.nin, ca);
+        }
+    __syncthreads();
+    if (tid < cnt.w) {
+        // a 3D dof may have more slots than MAX_SLOTS: read them from lell
+        const int* col = pt.lell + cnt.z + tid;
+        const int i = pt.own[cnt.z + tid];
+        if (pt.lwidth <= MAX_SLOTS) {
+            int slot[MAX_SLOTS];
+#pragma unroll
+            for (int u = 0; u < MAX_SLOTS; ++u)
+                slot[u] = u < pt.lwidth ? col[static_cast<size_t>(u) * n]
+                                        : -1;
+            sum_dof<T, TU, MODE>([&slot](int u) { return slot[u]; },
+                                 MAX_SLOTS, i, sv, st, nfac, nf, p.nin, y);
+        } else {
+            sum_wide_dof<T, TU, MODE>(col, n, pt.lwidth, i, sv, st, nfac, nf,
+                                      p.nin, y);
+        }
+    }
+}
+
+template <typename T, typename TU, int MODE>
+__global__ void __launch_bounds__(BLOCK_THREADS)
+block_kernel_3d(const AffinePlan p, const AffinePart part,
+                const TU* __restrict__ x, const TU* __restrict__ xq,
+                TU* __restrict__ y, T cm, T ca, T nu, int sym, int facets) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    block_body_3d<T, TU, MODE>(p, part, blockIdx.x, x, xq, y, cm, ca, nu,
+                               sym, facets, reinterpret_cast<T*>(smem_raw));
+}
+
 __global__ void empty_kernel() {}
 
 // The grid, block and shared memory of a launch.
-template <typename T>
+template <typename T, bool D3>
 cudaError_t geometry(const AffinePlan& p, const AffineCall& c, dim3& grid,
                      dim3& block, size_t& smem) {
-    constexpr int ND = NVPC_ * DIM_;
+    constexpr int ND = D3 ? 30 : NVPC_ * DIM_, PN = D3 ? 4 : PN_;
     const int mode = c.mode;
     const AffinePart& pt = mode == MODE_J ? c.pb : c.vb;
     const long long blocks = pt.nblk;
-    const int per_elem = mode == MODE_J     ? PN_
-                         : mode == MODE_RES ? 2 * ND + PN_
+    const int per_elem = mode == MODE_J     ? PN
+                         : mode == MODE_RES ? 2 * ND + PN
                                             : ND;
     smem = (static_cast<size_t>(pt.fmax) +
-            static_cast<size_t>(pt.emax) * per_elem) * sizeof(T);
+            static_cast<size_t>(pt.emax) * per_elem +
+            (D3 ? WARPS * XS3 : 0)) * sizeof(T);
     if (blocks <= 0 || smem > 48 * 1024) return cudaErrorInvalidValue;
     grid = dim3(static_cast<unsigned>(blocks));
     block = dim3(BLOCK_THREADS);
     return cudaSuccess;
 }
 
-template <typename T, typename TU, int MODE>
+template <typename T, typename TU, int MODE, bool D3>
 cudaError_t launch(const AffinePlan& p, const AffineCall& c, const void* x,
                    const void* xq, void* y, cudaStream_t st) {
     dim3 grid, block;
     size_t smem;
-    cudaError_t err = geometry<T>(p, c, grid, block, smem);
+    cudaError_t err = geometry<T, D3>(p, c, grid, block, smem);
     if (err != cudaSuccess) return err;
     const TU* xx = static_cast<const TU*>(x);
     const TU* qq = static_cast<const TU*>(xq);
     TU* yy = static_cast<TU*>(y);
     const T cm = static_cast<T>(c.cm), ca = static_cast<T>(c.ca),
             nu = static_cast<T>(c.nu);
-    block_kernel<T, TU, MODE><<<grid, block, smem, st>>>(
-        p, MODE == MODE_J ? c.pb : c.vb, xx, qq, yy, cm, ca, nu, c.sym,
-        c.facets);
+    if (D3)
+        block_kernel_3d<T, TU, MODE><<<grid, block, smem, st>>>(
+            p, MODE == MODE_J ? c.pb : c.vb, xx, qq, yy, cm, ca, nu, c.sym,
+            c.facets);
+    else
+        block_kernel<T, TU, MODE><<<grid, block, smem, st>>>(
+            p, MODE == MODE_J ? c.pb : c.vb, xx, qq, yy, cm, ca, nu, c.sym,
+            c.facets);
     return cudaGetLastError();
 }
 
-template <typename T, typename TU>
+template <typename T, typename TU, bool D3>
 cudaError_t launch_mode(const AffinePlan& p, const AffineCall& c,
                         const void* x, const void* xq, void* y,
                         cudaStream_t st) {
     switch (c.mode) {
-        case MODE_MA: return launch<T, TU, MODE_MA>(p, c, x, xq, y, st);
-        case MODE_J: return launch<T, TU, MODE_J>(p, c, x, xq, y, st);
-        case MODE_JT: return launch<T, TU, MODE_JT>(p, c, x, xq, y, st);
-        case MODE_RES: return launch<T, TU, MODE_RES>(p, c, x, xq, y, st);
+        case MODE_MA: return launch<T, TU, MODE_MA, D3>(p, c, x, xq, y, st);
+        case MODE_J: return launch<T, TU, MODE_J, D3>(p, c, x, xq, y, st);
+        case MODE_JT: return launch<T, TU, MODE_JT, D3>(p, c, x, xq, y, st);
+        case MODE_RES:
+            return launch<T, TU, MODE_RES, D3>(p, c, x, xq, y, st);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -664,18 +861,59 @@ bool valid_part(const AffinePart& b, bool facets) {
            (!facets || b.fmax == 0 || (b.fids != nullptr && b.fco != nullptr));
 }
 
-bool valid_call(const AffinePlan& p, const AffineCall& c) {
+bool valid_call(const AffinePlan& p, const AffineCall& c, bool d3) {
+    const long long nd = d3 ? 30 : 12;
     if (p.nc <= 0 || p.nin <= 0 || p.npc <= 0 || p.nfac < 0 ||
         p.qw == nullptr || p.N2 == nullptr || p.dN2 == nullptr ||
-        p.N1 == nullptr || c.mode < 0 || c.mode > 3 ||
-        static_cast<long long>(p.nc) * 12 +
-                static_cast<long long>(p.nfac) * 12 >= (1LL << 31))
+        p.N1 == nullptr || (d3 && p.ref == nullptr) || c.mode < 0 ||
+        c.mode > 3 ||
+        static_cast<long long>(p.nc) * nd +
+                static_cast<long long>(p.nfac) * nd >= (1LL << 31))
         return false;
     if (c.facets && (!(c.mode == MODE_MA || c.mode == MODE_RES) ||
                      p.nfac == 0))
         return false;
     return c.mode == MODE_J ? valid_part(c.pb, false)
                             : valid_part(c.vb, c.facets);
+}
+
+}  // namespace
+
+namespace {
+
+template <bool D3>
+int affine_run(const AffinePlan* plan, const AffineCall* call,
+               const void* x, const void* xq, void* y, void* stream) {
+    const AffinePlan& p = *plan;
+    const AffineCall& c = *call;
+    if (!valid_call(p, c, D3))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    cudaError_t err;
+    if (p.work_f64)
+        err = c.x_f64 ? launch_mode<double, double, D3>(p, c, x, xq, y, st)
+                      : launch_mode<double, float, D3>(p, c, x, xq, y, st);
+    else
+        err = c.x_f64 ? launch_mode<float, double, D3>(p, c, x, xq, y, st)
+                      : launch_mode<float, float, D3>(p, c, x, xq, y, st);
+    return static_cast<int>(err);
+}
+
+template <bool D3>
+int affine_empty(const AffinePlan* plan, const AffineCall* call,
+                 void* stream) {
+    const AffinePlan& p = *plan;
+    const AffineCall& c = *call;
+    if (!valid_call(p, c, D3))
+        return static_cast<int>(cudaErrorInvalidValue);
+    dim3 grid, block;
+    size_t smem;
+    cudaError_t err = p.work_f64
+                          ? geometry<double, D3>(p, c, grid, block, smem)
+                          : geometry<float, D3>(p, c, grid, block, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    empty_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>();
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -694,34 +932,28 @@ extern "C" {
 // Returns the cudaError_t of the launch (0 = success).
 int affine_th2d(const AffinePlan* plan, const AffineCall* call,
                 const void* x, const void* xq, void* y, void* stream) {
-    const AffinePlan& p = *plan;
-    const AffineCall& c = *call;
-    if (!valid_call(p, c)) return static_cast<int>(cudaErrorInvalidValue);
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    cudaError_t err;
-    if (p.work_f64)
-        err = c.x_f64 ? launch_mode<double, double>(p, c, x, xq, y, st)
-                      : launch_mode<double, float>(p, c, x, xq, y, st);
-    else
-        err = c.x_f64 ? launch_mode<float, double>(p, c, x, xq, y, st)
-                      : launch_mode<float, float>(p, c, x, xq, y, st);
-    return static_cast<int>(err);
+    return affine_run<false>(plan, call, x, xq, y, stream);
+}
+
+// The 3D Taylor-Hood instantiation (NVPC 10, PN 4, DIM 3): the same modes
+// and arguments; plan->ref holds the reference matrices, the packed rows
+// are PACK3 ids (30 velocity, 4 pressure, padding) and PACK geometry
+// (JinvT, detJ, padding) an element.
+int affine_th3d(const AffinePlan* plan, const AffineCall* call,
+                const void* x, const void* xq, void* y, void* stream) {
+    return affine_run<true>(plan, call, x, xq, y, stream);
 }
 
 // An empty kernel on the grid, block and shared memory of the same call:
 // the floor a latency-bound launch meets on this card.
 int affine_th2d_empty(const AffinePlan* plan, const AffineCall* call,
                       void* stream) {
-    const AffinePlan& p = *plan;
-    const AffineCall& c = *call;
-    if (!valid_call(p, c)) return static_cast<int>(cudaErrorInvalidValue);
-    dim3 grid, block;
-    size_t smem;
-    cudaError_t err = p.work_f64 ? geometry<double>(p, c, grid, block, smem)
-                                 : geometry<float>(p, c, grid, block, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    empty_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>();
-    return static_cast<int>(cudaGetLastError());
+    return affine_empty<false>(plan, call, stream);
+}
+
+int affine_th3d_empty(const AffinePlan* plan, const AffineCall* call,
+                      void* stream) {
+    return affine_empty<true>(plan, call, stream);
 }
 
 const char* affine_error_string(int err) {

@@ -63,8 +63,10 @@
 //     once per table set by the caller; a call passes the plan, the states,
 //     the outputs, nu, sym and the stream.
 //
-// Written over NVPC, Q, DIM as compile-time parameters (Q <= 8); only the 2D
-// Taylor-Hood instantiation (6, 7, 2) is built.
+// conv_kernel is written over NVPC, Q, DIM as compile-time parameters
+// (Q <= 8) and built for 2D Taylor-Hood (6, 7, 2); the 3D Taylor-Hood form
+// (10, 125, 3) is conv_block_kernel (a block an element, a thread a point;
+// see there).
 //
 // quad_kernel (conv_quad_th2d) is phase 1 alone, for the banded convection
 // tail (the quadrature chain of BandedConvTail.vector,
@@ -267,6 +269,99 @@ __device__ __forceinline__ void point_tables(const T* N2, const T* dN2,
     }
 }
 
+// The facet-block rows: ffe[f,a] = fac_elem[f,a,:] . u, one thread each,
+// counted from the grid's last thread (the last block holds the fewest
+// elements; the first would do them after a full element group).
+template <typename T, typename TU, int ND>
+__device__ __forceinline__ void facet_rows(const ConvPlan& p,
+                                           const TU* __restrict__ u1,
+                                           long long tid, long long nthreads,
+                                           size_t nslot) {
+    const T* fac_elem = static_cast<const T*>(p.fac_elem);
+    T* scratch = static_cast<T*>(p.scratch);
+    const int nv_full = p.nv_full;
+    for (long long r = nthreads - 1 - tid;
+         r < static_cast<long long>(p.nfac) * ND; r += nthreads) {
+        const T* row = fac_elem + r * ND;
+        const int* fids = p.fac_vd + (r / ND) * ND;
+        T acc = T(0);
+#pragma unroll
+        for (int b = 0; b < ND; ++b)
+            acc += row[b] * gather<T>(u1, fids[b], nv_full);
+        scratch[2 * nslot + r] = acc;
+    }
+}
+
+// Phase 2 of the forward kernels: per dof, its slots in the fixed order;
+// the slot indices of a batch first (element slots and the first facet
+// slots together), then their values, then the sums in order: two
+// dependent loads deep while a dof has at most BATCH element slots.
+template <typename T, typename TU, bool FUSED>
+__device__ __forceinline__ void reduce_dofs(const ConvPlan& p,
+                                            TU* __restrict__ out_c,
+                                            TU* __restrict__ out_a,
+                                            long long tid,
+                                            long long nthreads,
+                                            size_t nslot) {
+    const T* scratch = static_cast<const T*>(p.scratch);
+    const int nv_full = p.nv_full;
+    for (long long i = tid; i < nv_full; i += nthreads) {
+        T c = T(0), a = T(0);
+        int f[FBATCH];
+        T vf[FBATCH];
+        if constexpr (FUSED) {
+#pragma unroll
+            for (int u = 0; u < FBATCH; ++u)
+                f[u] = u < p.fwidth
+                           ? p.fell[static_cast<size_t>(u) * nv_full + i]
+                           : -1;
+        }
+        for (int k0 = 0; k0 < p.width; k0 += BATCH) {
+            int s[BATCH];
+            T vc[BATCH], va[BATCH];
+#pragma unroll
+            for (int u = 0; u < BATCH; ++u)
+                s[u] = k0 + u < p.width
+                           ? p.ell[static_cast<size_t>(k0 + u) * nv_full + i]
+                           : -1;
+            if constexpr (FUSED) {
+                if (k0 == 0) {
+#pragma unroll
+                    for (int u = 0; u < FBATCH; ++u)
+                        vf[u] = f[u] >= 0
+                                    ? __ldcg(scratch + 2 * nslot + f[u])
+                                    : T(0);
+                }
+            }
+#pragma unroll
+            for (int u = 0; u < BATCH; ++u) {
+                vc[u] = s[u] >= 0 ? __ldcg(scratch + s[u]) : T(0);
+                if constexpr (FUSED)
+                    va[u] = s[u] >= 0 ? __ldcg(scratch + nslot + s[u])
+                                      : T(0);
+            }
+#pragma unroll
+            for (int u = 0; u < BATCH; ++u)
+                if (s[u] >= 0) {
+                    c += vc[u];
+                    if constexpr (FUSED) a += va[u];
+                }
+        }
+        out_c[i] = static_cast<TU>(c);
+        if constexpr (FUSED) {
+            // the facet slots after all element slots, in their order
+#pragma unroll
+            for (int u = 0; u < FBATCH; ++u)
+                if (f[u] >= 0) a += vf[u];
+            for (int k = FBATCH; k < p.fwidth; ++k) {
+                const int sl = p.fell[static_cast<size_t>(k) * nv_full + i];
+                if (sl >= 0) a += __ldcg(scratch + 2 * nslot + sl);
+            }
+            out_a[i] = static_cast<TU>(a);
+        }
+    }
+}
+
 template <typename T, typename TU, int NVPC, int Q, int DIM, bool FUSED>
 __global__ void __launch_bounds__(THREADS)
 conv_kernel(const ConvPlan p, const TU* __restrict__ u1,
@@ -360,86 +455,120 @@ conv_kernel(const ConvPlan p, const TU* __restrict__ u1,
             }
         }
     }
-    // the facet-block rows: ffe[f,a] = fac_elem[f,a,:] . u, one thread each,
-    // counted from the grid's last thread (the last block holds the fewest
-    // elements; the first would do them after a full element group)
-    if (FUSED) {
-        const T* fac_elem = static_cast<const T*>(p.fac_elem);
-        for (long long r = nthreads - 1 - tid;
-             r < static_cast<long long>(p.nfac) * ND; r += nthreads) {
-            const T* row = fac_elem + r * ND;
-            const int* fids = p.fac_vd + (r / ND) * ND;
-            T acc = T(0);
-#pragma unroll
-            for (int b = 0; b < ND; ++b)
-                acc += row[b] * gather<T>(u1, fids[b], nv_full);
-            scratch[2 * nslot + r] = acc;
-        }
-    }
+    if (FUSED) facet_rows<T, TU, ND>(p, u1, tid, nthreads, nslot);
 
     stamp(p, 1);
     grid_barrier(p.bar);
     stamp(p, 2);
 
-    // -- phase 2: per dof, its slots in the fixed order ---------------------
-    // the slot indices of a batch first (element slots and the first facet
-    // slots together), then their values, then the sums in order: two
-    // dependent loads deep while a dof has at most BATCH element slots
-    for (long long i = tid; i < nv_full; i += nthreads) {
-        T c = T(0), a = T(0);
-        int f[FBATCH];
-        T vf[FBATCH];
-        if constexpr (FUSED) {
-#pragma unroll
-            for (int u = 0; u < FBATCH; ++u)
-                f[u] = u < p.fwidth
-                           ? p.fell[static_cast<size_t>(u) * nv_full + i]
-                           : -1;
+    reduce_dofs<T, TU, FUSED>(p, out_c, out_a, tid, nthreads, nslot);
+    stamp(p, 3);
+}
+
+// The 3D Taylor-Hood form (NVPC 10, Q 125, DIM 3: the collapsed degree-5
+// tet rule): 8 lanes cannot hold 125 points, so a block of 128 threads
+// takes one element at a time (grid-stride over the elements), thread q its
+// point q (125 active).  The element's 30 dof values (and u2's) and its
+// JinvT go to shared memory; each point's thread keeps its rows of N2 and
+// dN2 in registers, computes its fields (point_fields), and stores the
+// point's load factors: wc[c] = w (u2q . grad) U_c and, fused, the
+// stiffness factors G[k][c] of point_stiff, 3 + 9 values a point.  Then
+// thread j < 30 forms the convection load of element dof j = (a, c) as
+// sum_q N2[q,a] wc[q][c], and thread 32 + j the stiffness load sum_q sum_k
+// dN2[q,a,k] G[q][k][c], q ascending: a fixed order, no atomics.  The
+// facet rows, the grid barrier and the per-dof sums are conv_kernel's.
+// Bound: operations (about 1.1e5 an element), not bytes: at 3D-2Z nz=8
+// (14 208 elements) about 1.6 GFLOP a call, 24 us at the f32 rate without
+// tensor cores.
+template <typename T, typename TU, int NVPC, int Q, int DIM, bool FUSED>
+__global__ void __launch_bounds__(THREADS)
+conv_block_kernel(const ConvPlan p, const TU* __restrict__ u1,
+                  const TU* __restrict__ u2, TU* __restrict__ out_c,
+                  TU* __restrict__ out_a, T nu, int sym) {
+    constexpr int ND = NVPC * DIM;
+    static_assert(Q <= THREADS && ND <= 32, "a thread a point, a dof");
+    __shared__ T sue[ND], su2e[ND], sJi[DIM * DIM];
+    __shared__ T swc[THREADS][DIM];
+    __shared__ T sG[FUSED ? THREADS : 1][DIM * DIM];
+    const T* __restrict__ JinvT = static_cast<const T*>(p.JinvT);
+    const T* __restrict__ wdet = static_cast<const T*>(p.wdet);
+    const T* __restrict__ N2 = static_cast<const T*>(p.N2);
+    const T* __restrict__ dN2 = static_cast<const T*>(p.dN2);
+    T* scratch = static_cast<T*>(p.scratch);
+    const int nc = p.nc, nv_full = p.nv_full;
+    const size_t nslot = static_cast<size_t>(nc) * ND;
+    const int t = threadIdx.x;
+    const long long tid = static_cast<long long>(blockIdx.x) * THREADS + t;
+    const long long nthreads = static_cast<long long>(gridDim.x) * THREADS;
+    const bool point = t < Q;
+    T N[NVPC], dN[NVPC][DIM];
+    point_tables<T, NVPC, DIM>(N2, dN2, t, point, N, dN);
+
+    stamp(p, 0);
+    for (long long e = blockIdx.x; e < nc; e += gridDim.x) {
+        if (t < ND) {
+            const int id = p.vd[e * ND + t];
+            sue[t] = gather<T>(u1, id, nv_full);
+            su2e[t] = u2 != nullptr ? gather<T>(u2, id, nv_full) : sue[t];
+        } else if (t >= 32 && t < 32 + DIM * DIM) {
+            sJi[t - 32] = JinvT[e * DIM * DIM + (t - 32)];
         }
-        for (int k0 = 0; k0 < p.width; k0 += BATCH) {
-            int s[BATCH];
-            T vc[BATCH], va[BATCH];
+        __syncthreads();
+        if (point) {
+            T Ji[DIM][DIM], uq[DIM], guq[DIM][DIM];
 #pragma unroll
-            for (int u = 0; u < BATCH; ++u)
-                s[u] = k0 + u < p.width
-                           ? p.ell[static_cast<size_t>(k0 + u) * nv_full + i]
-                           : -1;
+            for (int d = 0; d < DIM; ++d)
+#pragma unroll
+                for (int k = 0; k < DIM; ++k) Ji[d][k] = sJi[d * DIM + k];
+            point_fields<T, NVPC, DIM>(N, dN, sue, su2e, Ji, uq, guq);
+            const T w = wdet[e * Q + t];
+#pragma unroll
+            for (int c = 0; c < DIM; ++c) {
+                T s = T(0);
+#pragma unroll
+                for (int d = 0; d < DIM; ++d) s += uq[d] * guq[c][d];
+                swc[t][c] = w * s;
+            }
             if constexpr (FUSED) {
-                if (k0 == 0) {
+                const T nuw = nu * w;
 #pragma unroll
-                    for (int u = 0; u < FBATCH; ++u)
-                        vf[u] = f[u] >= 0
-                                    ? __ldcg(scratch + 2 * nslot + f[u])
-                                    : T(0);
-                }
+                for (int k = 0; k < DIM; ++k)
+#pragma unroll
+                    for (int c = 0; c < DIM; ++c) {
+                        T s = T(0);
+#pragma unroll
+                        for (int d = 0; d < DIM; ++d) {
+                            const T F = sym ? guq[c][d] + guq[d][c]
+                                            : guq[c][d];
+                            s += Ji[d][k] * F;
+                        }
+                        sG[t][k * DIM + c] = nuw * s;
+                    }
             }
-#pragma unroll
-            for (int u = 0; u < BATCH; ++u) {
-                vc[u] = s[u] >= 0 ? __ldcg(scratch + s[u]) : T(0);
-                if constexpr (FUSED)
-                    va[u] = s[u] >= 0 ? __ldcg(scratch + nslot + s[u])
-                                      : T(0);
-            }
-#pragma unroll
-            for (int u = 0; u < BATCH; ++u)
-                if (s[u] >= 0) {
-                    c += vc[u];
-                    if constexpr (FUSED) a += va[u];
-                }
         }
-        out_c[i] = static_cast<TU>(c);
-        if constexpr (FUSED) {
-            // the facet slots after all element slots, in their order
+        __syncthreads();
+        if (t < ND) {
+            const int a = t / DIM, c = t % DIM;
+            T s = T(0);
+            for (int q = 0; q < Q; ++q) s += N2[q * NVPC + a] * swc[q][c];
+            scratch[e * ND + t] = s;
+        } else if (FUSED && t >= 32 && t < 32 + ND) {
+            const int j = t - 32, a = j / DIM, c = j % DIM;
+            T s = T(0);
+            for (int q = 0; q < Q; ++q)
 #pragma unroll
-            for (int u = 0; u < FBATCH; ++u)
-                if (f[u] >= 0) a += vf[u];
-            for (int k = FBATCH; k < p.fwidth; ++k) {
-                const int sl = p.fell[static_cast<size_t>(k) * nv_full + i];
-                if (sl >= 0) a += __ldcg(scratch + 2 * nslot + sl);
-            }
-            out_a[i] = static_cast<TU>(a);
+                for (int k = 0; k < DIM; ++k)
+                    s += dN2[(q * NVPC + a) * DIM + k] * sG[q][k * DIM + c];
+            scratch[nslot + e * ND + j] = s;
         }
+        __syncthreads();
     }
+    if (FUSED) facet_rows<T, TU, ND>(p, u1, tid, nthreads, nslot);
+
+    stamp(p, 1);
+    grid_barrier(p.bar);
+    stamp(p, 2);
+    reduce_dofs<T, TU, FUSED>(p, out_c, out_a, tid, nthreads, nslot);
     stamp(p, 3);
 }
 
@@ -720,6 +849,33 @@ cudaError_t launch_form(const ConvPlan& p, const void* u1, const void* u2,
                                                sym, st);
 }
 
+template <typename T, typename TU, bool FUSED>
+cudaError_t launch_3d(const ConvPlan& p, const void* u1, const void* u2,
+                      void* out_c, void* out_a, double nu, int sym,
+                      cudaStream_t st) {
+    constexpr int ND = 30;
+    static int occ = 0, sms = 0;
+    long long work = static_cast<long long>(p.nc) * THREADS;
+    const long long rest = conv_work(p, FUSED ? static_cast<long long>(
+                                                    p.nfac) * ND : 0);
+    if (rest > work) work = rest;
+    return launch_resident(
+        conv_block_kernel<T, TU, 10, 125, 3, FUSED>, occ, sms, work, st, p,
+        static_cast<const TU*>(u1), static_cast<const TU*>(u2),
+        static_cast<TU*>(out_c), static_cast<TU*>(out_a),
+        static_cast<T>(nu), sym);
+}
+
+template <typename T, typename TU>
+cudaError_t launch_form_3d(const ConvPlan& p, const void* u1, const void* u2,
+                           void* out_c, void* out_a, double nu, int sym,
+                           cudaStream_t st) {
+    return p.fused ? launch_3d<T, TU, true>(p, u1, u2, out_c, out_a, nu, sym,
+                                            st)
+                   : launch_3d<T, TU, false>(p, u1, u2, out_c, out_a, nu,
+                                             sym, st);
+}
+
 // The quadrature of the banded convection tail (ops/banded_conv.py): the
 // element field comes in, already gathered, as ueg (nc, ND) — G's banded
 // product, in the tail's sorted element order — plus the constant field of
@@ -814,6 +970,36 @@ int convection_th2d(const ConvPlan* plan, const void* u1, const void* u2,
                                                    nu, sym, st)
                       : launch_form<float, float>(p, u1, u2, out_c, out_a,
                                                   nu, sym, st);
+    return static_cast<int>(err);
+}
+
+// The 3D Taylor-Hood instantiation (NVPC 10, Q 125, DIM 3): the same plan
+// and arguments as convection_th2d (ND 30), conv_block_kernel's layout.
+int convection_th3d(const ConvPlan* plan, const void* u1, const void* u2,
+                    void* out_c, void* out_a, double nu, int sym,
+                    void* stream) {
+    const ConvPlan& p = *plan;
+    if (p.nc <= 0 || p.nv_full <= 0 || p.nfac < 0 || p.width <= 0 ||
+        p.fused < 0 || p.fused > 1 ||
+        (p.nfac > 0 && (!p.fused || p.fac_elem == nullptr ||
+                        p.fac_vd == nullptr || p.fell == nullptr ||
+                        p.fwidth <= 0)) ||
+        p.bar == nullptr ||
+        static_cast<long long>(p.nc) * 30 * 2 +
+                static_cast<long long>(p.nfac) * 30 >= (1LL << 31))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    cudaError_t err;
+    if (p.work_f64)
+        err = p.u_f64 ? launch_form_3d<double, double>(p, u1, u2, out_c,
+                                                       out_a, nu, sym, st)
+                      : launch_form_3d<double, float>(p, u1, u2, out_c,
+                                                      out_a, nu, sym, st);
+    else
+        err = p.u_f64 ? launch_form_3d<float, double>(p, u1, u2, out_c,
+                                                      out_a, nu, sym, st)
+                      : launch_form_3d<float, float>(p, u1, u2, out_c, out_a,
+                                                     nu, sym, st);
     return static_cast<int>(err);
 }
 

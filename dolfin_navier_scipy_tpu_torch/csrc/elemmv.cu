@@ -11,11 +11,13 @@
 // each element's input ids, an id outside [0, n_in) (the Dirichlet "trash"
 // slot n_in) reads 0; an output id outside [0, n_out) has no row (dropped).
 //
-// The uses (ops/elementop.py, solve/steady.py):
-//   ElementOp.matvec        E (nc, 12, 12), in = out = the velocity ids;
-//   DivElementOp.matvec     E (nc, 3, 12), in velocity, out pressure ids;
+// The uses (ops/elementop.py, solve/steady.py; 2D, and in 3D C = 30 and 4):
+//   ElementOp.matvec        E (nc, 12, 12), in = out = the velocity ids
+//                           (3D: (nc, 30, 30), the element Schur path's F);
+//   DivElementOp.matvec     E (nc, 3, 12), in velocity, out pressure ids
+//                           (3D: (nc, 4, 30));
 //   DivElementOp.rmatvec    the transpose of that table: R 12, C 3,
-//                           SR 1, SC 12;
+//                           SR 1, SC 12 (3D: R 30, C 4);
 //   the steady solver's F-matvec, f32 (nc, 12, 12) on the inner-dof table
 //   (the linearized convection plus the stiffness, solve/steady.py:
 //   _sk_elem32).
@@ -64,6 +66,14 @@
 //   rows, 48-576 B each; the transpose's blocks whole) and computing
 //   there was 0.5-2 us slower a call at every size on an H100, also as a
 //   two-stage pipeline: it is not built (PERF.md).
+//
+// The 3D blocks keep this design and E's natural layout.  A row of 30 f32
+// entries is 120 bytes, not a whole number of 16-byte vectors: rows are
+// read by 8-byte loads (f32; f64 rows, 240 bytes, by 16-byte loads), and an
+// element's 30 input positions (60 bytes) by 4-byte loads.  Padding E's
+// rows to 32 entries would allow 16-byte loads but read and store 7 % more
+// bytes of the operand that bounds the kernel, and change the layout every
+// other caller builds.
 //
 // Plain C interface, loaded with ctypes; the caller allocates the output
 // and checks the returned cudaError_t.
@@ -171,6 +181,29 @@ __device__ __forceinline__ void load_vec(const double* p, double (&v)[C]) {
         v[2 * k] = q.x, v[2 * k + 1] = q.y;
     }
 }
+// the 30-wide rows of the 3D blocks (120 bytes in f32: 8-byte aligned,
+// not 16; 240 in f64: 16-byte aligned) and their 30 positions (60 bytes:
+// 4-byte aligned)
+__device__ __forceinline__ void load_row30(const float* p, float (&v)[30]) {
+#pragma unroll
+    for (int k = 0; k < 15; ++k) {
+        const float2 q = reinterpret_cast<const float2*>(p)[k];
+        v[2 * k] = q.x, v[2 * k + 1] = q.y;
+    }
+}
+__device__ __forceinline__ void load_row30(const double* p,
+                                           double (&v)[30]) {
+    load_vec<30>(p, v);
+}
+__device__ __forceinline__ void load_pos30(const unsigned short* p,
+                                           unsigned short (&v)[30]) {
+#pragma unroll
+    for (int k = 0; k < 15; ++k) {
+        const unsigned q = reinterpret_cast<const unsigned*>(p)[k];
+        v[2 * k] = q & 0xffffu, v[2 * k + 1] = q >> 16;
+    }
+}
+
 template <int C>
 __device__ __forceinline__ void load_vec(const unsigned short* p,
                                          unsigned short (&v)[C]) {
@@ -224,11 +257,29 @@ elemmv_kernel(const ElemPlan p, const TE* __restrict__ E,
         const unsigned short* li = lin + (w.y >> 16);
         TE ev[C];
         unsigned short iv[C];
-        if (C == 12 && p.SC == 1) {
-            // a row of 12 contiguous entries starts 16-byte aligned (E
-            // is), its element's 12 positions 8-byte aligned
-            load_vec(row, ev);
-            load_vec(li, iv);
+        if constexpr (C == 12) {
+            if (p.SC == 1) {
+                // a row of 12 contiguous entries starts 16-byte aligned (E
+                // is), its element's 12 positions 8-byte aligned
+                load_vec(row, ev);
+                load_vec(li, iv);
+            } else {
+#pragma unroll
+                for (int c = 0; c < C; ++c) {
+                    ev[c] = row[c * p.SC];
+                    iv[c] = li[c];
+                }
+            }
+        } else if constexpr (C == 30) {
+            // 8-byte loads (f32; 16-byte in f64) of a contiguous row, the
+            // positions in pairs; the transpose's strided rows one by one
+            if (p.SC == 1) {
+                load_row30(row, ev);
+            } else {
+#pragma unroll
+                for (int c = 0; c < C; ++c) ev[c] = row[c * p.SC];
+            }
+            load_pos30(li, iv);
         } else {
 #pragma unroll
             for (int c = 0; c < C; ++c) {
@@ -263,17 +314,28 @@ cudaError_t launch(const ElemPlan& p, const void* E, const void* x, void* y,
     const dim3 grid(p.nblk), block(THREADS);
     const size_t smem = static_cast<size_t>(p.smem);
     // above 48 KB a block opts in, once per instantiation
-    static int opted[2] = {0, 0};
+    static int opted[4] = {0, 0, 0, 0};
     void* fn = nullptr;
     int* flag = nullptr;
-    if (p.C == 3) {
-        fn = reinterpret_cast<void*>(elemmv_kernel<TE, TX, 3>);
-        flag = opted;
-    } else if (p.C == 12) {
-        fn = reinterpret_cast<void*>(elemmv_kernel<TE, TX, 12>);
-        flag = opted + 1;
-    } else {
-        return cudaErrorInvalidValue;
+    switch (p.C) {
+        case 3:
+            fn = reinterpret_cast<void*>(elemmv_kernel<TE, TX, 3>);
+            flag = opted;
+            break;
+        case 4:
+            fn = reinterpret_cast<void*>(elemmv_kernel<TE, TX, 4>);
+            flag = opted + 1;
+            break;
+        case 12:
+            fn = reinterpret_cast<void*>(elemmv_kernel<TE, TX, 12>);
+            flag = opted + 2;
+            break;
+        case 30:
+            fn = reinterpret_cast<void*>(elemmv_kernel<TE, TX, 30>);
+            flag = opted + 3;
+            break;
+        default:
+            return cudaErrorInvalidValue;
     }
     if (smem > 48 * 1024 && !*flag) {
         const cudaError_t err = cudaFuncSetAttribute(
@@ -281,17 +343,31 @@ cudaError_t launch(const ElemPlan& p, const void* E, const void* x, void* y,
         if (err != cudaSuccess) return err;
         *flag = 1;
     }
-    if (p.C == 3)
-        elemmv_kernel<TE, TX, 3><<<grid, block, smem, st>>>(p, e, xx, yy);
-    else
-        elemmv_kernel<TE, TX, 12><<<grid, block, smem, st>>>(p, e, xx, yy);
+    switch (p.C) {
+        case 3:
+            elemmv_kernel<TE, TX, 3><<<grid, block, smem, st>>>(p, e, xx,
+                                                                yy);
+            break;
+        case 4:
+            elemmv_kernel<TE, TX, 4><<<grid, block, smem, st>>>(p, e, xx,
+                                                                yy);
+            break;
+        case 12:
+            elemmv_kernel<TE, TX, 12><<<grid, block, smem, st>>>(p, e, xx,
+                                                                 yy);
+            break;
+        default:
+            elemmv_kernel<TE, TX, 30><<<grid, block, smem, st>>>(p, e, xx,
+                                                                 yy);
+    }
     return cudaGetLastError();
 }
 
 bool valid_plan(const ElemPlan& p) {
     return p.nblk > 0 && p.hdr != nullptr && p.dids != nullptr &&
            p.blob != nullptr && p.dmax > 0 && p.blob_bytes % 16 == 0 &&
-           p.smem > 0 && p.smem <= 232448 && (p.C == 3 || p.C == 12) &&
+           p.smem > 0 && p.smem <= 232448 &&
+           (p.C == 3 || p.C == 4 || p.C == 12 || p.C == 30) &&
            p.SC > 0 && p.n_in >= 0;
 }
 

@@ -8,4 +8,8 @@ from .reference import (  # noqa: F401
     shape_p2,
     dshape_p2,
 )
-from .dofmap import TaylorHoodSpace, interpolate_velocity  # noqa: F401
+from .dofmap import (  # noqa: F401
+    TaylorHoodSpace,
+    TaylorHoodSpace3D,
+    interpolate_velocity,
+)

@@ -38,6 +38,9 @@ class GeoSetup:
     moving_wall_tags: List[int] = field(default_factory=list)
     moving_wall_fns: Dict[int, Callable] = field(default_factory=dict)
     liftdrag_tag: Optional[int] = None
+    # 3D: walls constraining only selected velocity components
+    # (the reference's z-slip walls, problem_setups.py 3D setups)
+    slip_walls: Dict[int, tuple] = field(default_factory=dict)
     control_tags: List[int] = field(default_factory=list)
     control_shapefuns: List[Callable] = field(default_factory=list)
     odcoo: Optional[dict] = None
@@ -196,11 +199,16 @@ def build_problem(
     ``device`` is only recorded (``prob.device``): nothing is moved to a
     device before a kernel or solver asks for it."""
     dim = getattr(mesh, "dim", 2)
-    if scheme != "TH" or dim != 2:
+    if scheme != "TH":
         raise NotImplementedError(
-            f"scheme {scheme!r} in {dim}D: only 2D Taylor-Hood is ported so "
-            "far (3D and CR follow in a later slice)")
-    space = TaylorHoodSpace(mesh)
+            f"scheme {scheme!r}: Taylor-Hood in 2D and 3D is ported; "
+            "Crouzeix-Raviart follows in a later slice (ROADMAP A11b)")
+    if dim == 3:
+        from ..fem.dofmap import TaylorHoodSpace3D
+
+        space = TaylorHoodSpace3D(mesh)
+    else:
+        space = TaylorHoodSpace(mesh)
     ctx = AssemblyContext(space)
 
     if Re is not None:
@@ -223,6 +231,8 @@ def build_problem(
     dircntrl = []
     for tag in geo.wall_tags:
         bcdict.update(space.dirichlet_dofs(tag, zerofn))
+    for tag, comps in geo.slip_walls.items():
+        bcdict.update(space.dirichlet_dofs(tag, zerofn, components=comps))
     for tag in geo.moving_wall_tags:
         fn = geo.moving_wall_fns.get(tag, zerofn)
         if geo.moving_wall_cntrl:

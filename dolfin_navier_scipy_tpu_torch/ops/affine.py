@@ -108,7 +108,13 @@ class AffineVectorOps:
         # facet corrections folded into the assembled A (outflow + Robin):
         # recovered as (stored element A) - (volume A)
         sym = bool(getattr(prob, "gradvsymmtrc", True))
-        volA = _volume_a_elements(ctx, prob.nu, sym)
+        # kept on the problem: the einsum over every quadrature point is
+        # the build's largest cost (seconds on a 3D mesh), the same for
+        # every build of its tables
+        vcache = prob.__dict__.setdefault("_volume_a", {})
+        if (prob.nu, sym) not in vcache:
+            vcache[prob.nu, sym] = _volume_a_elements(ctx, prob.nu, sym)
+        volA = vcache[prob.nu, sym]
         corr = prob.elem_tensors["A"] - volA
         nrm = np.abs(corr).sum(axis=(1, 2))
         fsel = np.flatnonzero(nrm > 1e-15)

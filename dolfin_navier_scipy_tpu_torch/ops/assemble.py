@@ -1,5 +1,5 @@
 """Host-side (numpy, vectorized-over-elements) assembly of the static
-Stokes operators for 2D Taylor-Hood elements.
+Stokes operators for Taylor-Hood elements on triangles and tetrahedra.
 
 Produces the same operator set as the reference's
 ``dolfin_to_sparrays.get_stokessysmats`` (dolfin_to_sparrays.py:167-322):
@@ -14,8 +14,8 @@ Produces the same operator set as the reference's
   (dolfin_to_sparrays.py:277-320).
 
 These are one-time setup costs; matrices are returned as scipy CSR and
-converted to device formats by :mod:`.sparse`.  3D and Crouzeix-Raviart
-elements are not ported yet.
+converted to device formats by :mod:`.sparse`.  Crouzeix-Raviart elements
+are not ported yet (ROADMAP A11b).
 """
 
 from dataclasses import dataclass
@@ -35,9 +35,24 @@ from ..fem.reference import (
 )
 
 
+# velocity/pressure shape functions per (scheme, dim); the 3D entries are
+# registered at the first 3D context
+_VEL_SHAPES = {("TH", 2): (shape_p2, dshape_p2)}
+_PRS_SHAPES = {("TH", 2): (shape_p1, dshape_p1)}
+
+
+def _register_3d():
+    from ..fem.reference3d import (
+        dshape_p1_3d, dshape_p2_3d, shape_p1_3d, shape_p2_3d)
+
+    _VEL_SHAPES[("TH", 3)] = (shape_p2_3d, dshape_p2_3d)
+    _PRS_SHAPES[("TH", 3)] = (shape_p1_3d, dshape_p1_3d)
+
+
 @dataclass
 class AssemblyContext:
-    """Precomputed per-element geometry + shape tables (quadrature deg 5).
+    """Precomputed per-element geometry + shape tables (quadrature deg 5:
+    7 points on a triangle, the 125-point collapsed rule on a tet).
 
     Everything needed by both host assembly and the device kernels;
     plain numpy, frozen after construction.  ``N2`` = velocity element
@@ -51,16 +66,26 @@ class AssemblyContext:
         mesh = space.mesh
         scheme = getattr(space, "scheme", "TH")
         self.dim = getattr(space, "dim", 2)
-        if (scheme, self.dim) != ("TH", 2):
+        if self.dim == 3 and (scheme, 3) not in _VEL_SHAPES:
+            _register_3d()
+        if (scheme, self.dim) not in _VEL_SHAPES:
             raise NotImplementedError(
-                f"scheme {scheme!r} in {self.dim}D: only 2D Taylor-Hood is "
-                "ported so far (3D and CR follow in a later slice)")
-        self.vel_shape, self.vel_dshape = shape_p2, dshape_p2
-        self.qpts, self.qwts = tri_quadrature(5)
-        self.N2 = shape_p2(self.qpts)            # (Q,nvpc)
-        self.dN2 = dshape_p2(self.qpts)          # (Q,nvpc,2)
-        self.N1 = shape_p1(self.qpts)            # (Q,pnpc)
-        self.dN1 = dshape_p1(self.qpts)          # (Q,pnpc,2)
+                f"scheme {scheme!r} in {self.dim}D: Taylor-Hood in 2D and 3D "
+                "is ported; Crouzeix-Raviart follows in a later slice "
+                "(ROADMAP A11b)")
+        vel_shape, vel_dshape = _VEL_SHAPES[(scheme, self.dim)]
+        prs_shape, prs_dshape = _PRS_SHAPES[(scheme, self.dim)]
+        self.vel_shape, self.vel_dshape = vel_shape, vel_dshape
+        if self.dim == 3:
+            from ..fem.reference3d import tet_quadrature
+
+            self.qpts, self.qwts = tet_quadrature(5)
+        else:
+            self.qpts, self.qwts = tri_quadrature(5)
+        self.N2 = vel_shape(self.qpts)           # (Q,nvpc)
+        self.dN2 = vel_dshape(self.qpts)         # (Q,nvpc,dim)
+        self.N1 = prs_shape(self.qpts)           # (Q,pnpc)
+        self.dN1 = prs_dshape(self.qpts)         # (Q,pnpc,dim)
         self.Jm, self.detJ, self.JinvT = mesh.cell_jacobians()
         # physical gradients at quad points
         self.gphi2 = np.einsum("edk,qak->eqad", self.JinvT, self.dN2)
@@ -190,7 +215,10 @@ def facet_quad_data(ctx: AssemblyContext, tag: int, nq: int = 3):
       ``cells (nf,)``, ``N (nf,Q,n)`` velocity traces, ``gphi`` physical
       gradients, ``w (nf,Q)`` physical weights (sum = facet measure),
       ``normal (nf,dim)`` outward normals, ``xq`` physical points.
+    In 3D the faces take the degree-5 triangle rule (``nq`` unused).
     """
+    if ctx.dim == 3:
+        return _facet_quad_data_3d(ctx, tag)
     mesh = ctx.space.mesh
     fcells, flocs = mesh.tagged_facets(tag)
     s, ws = edge_quadrature(nq)
@@ -303,3 +331,45 @@ def assemble_rhs(ctx: AssemblyContext, fv_fn=None, fp_fn=None, t=None):
         fe = np.einsum("eq,qa,eq->ea", ctx.wdet, ctx.N1, vals)
         np.add.at(fp[:, 0], space.p1_dofmap.ravel(), fe.ravel())
     return fv, fp
+
+
+def _facet_quad_data_3d(ctx: AssemblyContext, tag: int):
+    """Boundary-face quadrature tables on a tet mesh."""
+    from ..fem.reference3d import face_points_on_tet
+    from ..mesh.tetmesh import LOCAL_FACES
+
+    mesh = ctx.space.mesh
+    fcells, flocs = mesh.tagged_facets(tag)
+    qp2, qw2 = tri_quadrature(5)          # weights sum to 1/2 (ref area)
+    nqf = len(qw2)
+    nvpc = ctx.N2.shape[1]
+    nf = len(fcells)
+    N = np.empty((nf, nqf, nvpc))
+    dN = np.empty((nf, nqf, nvpc, 3))
+    xq = np.empty((nf, nqf, 3))
+    w = np.empty((nf, nqf))
+    normal = np.empty((nf, 3))
+    for lf in range(4):
+        sel = np.flatnonzero(flocs == lf)
+        if len(sel) == 0:
+            continue
+        refpts = face_points_on_tet(lf, qp2)
+        N[sel] = ctx.vel_shape(refpts)[None]
+        dref = ctx.vel_dshape(refpts)
+        dN[sel] = np.einsum("edk,qak->eqad", ctx.JinvT[fcells[sel]], dref)
+        tri = mesh.cells[fcells[sel]][:, LOCAL_FACES[lf]]
+        va = mesh.verts[tri[:, 0]]
+        vb = mesh.verts[tri[:, 1]]
+        vc = mesh.verts[tri[:, 2]]
+        # |cross| = 2*area; the tri rule's weights sum to 1/2 (ref area),
+        # so scaling by |cross| makes the weights sum to the face area
+        areas2 = np.linalg.norm(np.cross(vb - va, vc - va), axis=1)
+        w[sel] = qw2[None, :] * areas2[:, None]
+        r = qp2[:, 0:1]
+        sc = qp2[:, 1:2]
+        xq[sel] = (va[:, None, :] * (1 - r - sc)[None, :, :]
+                   + vb[:, None, :] * r[None, :, :]
+                   + vc[:, None, :] * sc[None, :, :])
+        for f in sel:
+            normal[f] = mesh.facet_normal(fcells[f], flocs[f])
+    return dict(cells=fcells, N=N, gphi=dN, w=w, normal=normal, xq=xq)

@@ -21,7 +21,8 @@ def _table(ids, n):
 class ElementOp:
     """Velocity-space operator from element tensors, masked to inner dofs.
 
-    ``elem (nc, 12, 12)``, ``dofs (nc, 12)`` (a tensor or its
+    ``elem (nc, nd, nd)``, ``dofs (nc, nd)`` (``nd`` 12 in 2D, 30 in 3D; a
+    tensor or its
     :class:`..ops.kernels.DofTable`) mapping each element dof to its
     *inner* index, with ``n`` (= trash) for Dirichlet dofs: columns at
     boundary dofs read 0, rows there go to a dropped slot — the
@@ -52,12 +53,12 @@ class ElementOp:
 
 class DivElementOp:
     """Divergence block ``J`` (pressure rows x velocity cols) and its
-    transpose, from element tensors ``(nc, 3, 12)``."""
+    transpose, from element tensors ``(nc, pnpc, nd)``."""
 
     def __init__(self, elem, pdofs, vdofs, n_p, n_v):
-        self.elem = elem                    # (nc, 3, 12)
-        self.ptab = _table(pdofs, n_p)      # (nc, 3) -> [0, n_p] (trash n_p)
-        self.vtab = _table(vdofs, n_v)      # (nc, 12) -> [0, n_v]
+        self.elem = elem                    # (nc, pnpc, nd)
+        self.ptab = _table(pdofs, n_p)      # (nc, pnpc) -> [0, n_p] (trash)
+        self.vtab = _table(vdofs, n_v)      # (nc, nd) -> [0, n_v]
         self.pdofs, self.vdofs = self.ptab.vd, self.vtab.vd
         self.n_p = n_p
         self.n_v = n_v
@@ -85,7 +86,8 @@ def build_element_ops(prob, dtype=torch.float64, device=None):
     nin = len(prob.invinds)
     full2in = np.full(prob.nv_full + 1, nin, dtype=np.int64)
     full2in[prob.invinds] = np.arange(nin, dtype=np.int64)
-    vd = space.vdofs_of_cells().reshape(-1, 12)
+    vd = space.vdofs_of_cells()
+    vd = vd.reshape(vd.shape[0], -1)                   # (nc, nd)
     vtab = DofTable(torch.as_tensor(full2in[vd], device=device), nin)
 
     npc = prob.np_cond

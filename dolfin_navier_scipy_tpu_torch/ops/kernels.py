@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch versions.
 
-Five sources:
+Six sources:
 
 * the dense inverse apply ``y = x @ KT`` (``csrc/vecmat.cu``), the
   counterpart of the JAX package's Pallas kernel
@@ -38,6 +38,14 @@ Five sources:
   to XLA there; a block computes the element rows of the output dofs of
   a chunk of elements (the partition of :func:`affine_partition`, tables
   made once per operand by :func:`elem_partition`).
+* the tail of a fixed-count Jacobi-PCG iteration after its matvec
+  (``csrc/pcg.cu``, B7) behind :func:`pcg_step` / :func:`pcg_init` and
+  their column-blocked forms :func:`block_pcg_step` /
+  :func:`block_pcg_init`: the JAX package's ``jacobi_pcg`` and
+  ``_block_pcg_jit`` loop bodies (XLA there), one launch an iteration.
+
+B5, B9 and B10 are built for 2D and 3D Taylor-Hood (``(nvpc, Q, dim)`` =
+``(6, 7, 2)`` and ``(10, 125, 3)``).
 
 Build and binding: each ``csrc/*.cu`` is compiled at first use by ``nvcc``
 for ``sm_90a`` into a shared library with a plain C interface (under
@@ -1072,6 +1080,10 @@ class _ConvPlanC(ctypes.Structure):
 
 # the form of a ConvPlan: conv_vector, conv_vector_amatvec, conv_vjp
 _CONV_FORMS = {"vector": 0, "fused": 1, "vjp": 2}
+# the (nvpc, Q, dim) instantiations csrc/convection.cu builds: 2D
+# Taylor-Hood (every form; conv_kernel, 8 lanes an element) and 3D
+# Taylor-Hood (the forward forms; conv_block_kernel, a block an element)
+_CONV_BUILT = ((6, 7, 2), (10, 125, 3))
 
 
 class ConvPlan:
@@ -1292,6 +1304,8 @@ def _conv_lib():
             [ctypes.POINTER(_ConvPlanC)] + [ptr] * 4
             + [ctypes.c_double, i, ptr])
         lib.conv_vjp_th2d.restype = i
+        lib.convection_th3d.argtypes = lib.convection_th2d.argtypes
+        lib.convection_th3d.restype = i
         lib.conv_quad_th2d.argtypes = [ptr] * 7 + [i, ptr]
         lib.conv_quad_th2d.restype = i
         lib.convection_error_string.argtypes = [i]
@@ -1347,17 +1361,22 @@ def _conv_launch(name, t, u1, u2, fused, nu=0.0, sym=False, fac_elem=None,
         if t.dtype not in ok or u1.dtype not in ok:
             raise TypeError(f"{name} kernel takes f32 or f64, not tables "
                             f"{t.dtype} / state {u1.dtype}")
-        if (t.nvpc, t.Q, t.dim) != (6, 7, 2):
+        form = (t.nvpc, t.Q, t.dim)
+        if form not in _CONV_BUILT or (
+                form != (6, 7, 2) and fused == _CONV_FORMS["vjp"]):
             raise NotImplementedError(
-                f"{name} kernel: only the 2D Taylor-Hood instantiation (nvpc "
-                f"6, Q 7, dim 2) is built, not {(t.nvpc, t.Q, t.dim)}")
+                f"{name} kernel: built for 2D Taylor-Hood (nvpc 6, Q 7, dim "
+                f"2) and, the forward forms only, 3D Taylor-Hood (10, 125, "
+                f"3), not {form}")
         if fused:
             _check_facets(name, t, fac_elem, fac_vdofs)
         plan = t.kernel_plan(fused, u1.dtype, fac_elem, fac_vdofs, stream)
     vjp = fused == _CONV_FORMS["vjp"]
     if plan.fn is None:
         lib = _conv_lib()
-        plan.fn = lib.conv_vjp_th2d if vjp else lib.convection_th2d
+        plan.fn = (lib.conv_vjp_th2d if vjp else
+                   lib.convection_th3d if t.dim == 3 else
+                   lib.convection_th2d)
     u1 = u1.contiguous()
     if u2 is not None:
         u2 = u2.contiguous()
@@ -1749,9 +1768,32 @@ def affine_fit(t, kind, chunk, smem_max=None):
         def build(c):
             return affine_partition(vids, t.nin, c, fac,
                                     pids if joint else None, t.npc)
+    # the 3D kernel keeps a row of element values a warp (8 x 40) first
+    extra = _AFFINE_WARP_ROWS if t.dim == 3 else 0
     return fit_chunk(
-        build, lambda part: (part["fmax"] + part["emax"] * per_elem)
+        build, lambda part: (part["fmax"] + part["emax"] * per_elem + extra)
         * t.wdet.element_size(), chunk, smem_max)
+
+
+# csrc/affine.cu's 3D form: WARPS * XS3 values of shared memory before the
+# block's values
+_AFFINE_WARP_ROWS = 8 * 40
+
+
+def affine_reference_matrices(t):
+    """The exact reference matrices the 3D affine kernel applies, packed
+    ``[Mref (nvpc, nvpc), Sref (dim, dim, nvpc, nvpc), Bref (pnpc, dim,
+    nvpc)]`` in the tables' type on their device: ``Mref[a,b] = sum_q qw
+    N2[q,a] N2[q,b]``, ``Sref[k,l,a,b] = sum_q qw dN2[q,a,k] dN2[q,b,l]``,
+    ``Bref[p,k,b] = sum_q qw N1[q,p] dN2[q,b,k]`` (f64 on the host)."""
+    qw, N2, dN2, N1 = (x.detach().cpu().double().numpy()
+                       for x in (t.qw, t.N2, t.dN2, t.N1q))
+    M = np.einsum("q,qa,qb->ab", qw, N2, N2)
+    S = np.einsum("q,qak,qbl->klab", qw, dN2, dN2)
+    B = np.einsum("q,qp,qbk->pkb", qw, N1, dN2)
+    return torch.as_tensor(np.concatenate([M.ravel(), S.ravel(),
+                                           B.ravel()])).to(
+        device=t.wdet.device, dtype=t.wdet.dtype)
 
 
 def _aff_pad(t, x):
@@ -1875,7 +1917,8 @@ class _AffinePartC(ctypes.Structure):
 
 class _AffinePlanC(ctypes.Structure):
     # csrc/affine.cu: AffinePlan, field for field
-    _fields_ = ([(f, ctypes.c_void_p) for f in ("qw", "N2", "dN2", "N1")]
+    _fields_ = ([(f, ctypes.c_void_p) for f in ("qw", "N2", "dN2", "N1",
+                                                 "ref")]
                 + [(f, ctypes.c_int) for f in (
                     "nc", "nin", "npc", "nfac", "work_f64")])
 
@@ -1910,25 +1953,41 @@ class AffinePlan:
         nfac = int(t.fac_elem.shape[0])
         self.t, self.nfac = t, nfac
         self.sm = _sm_count(t.wdet.device.index)
-        # each element's packed rows: its ids (12 velocity, 3 pressure) and
-        # geometry (JinvT, wdet, detJ), 16 entries each
-        self._ids16 = torch.cat([vd32, pd32,
-                                 torch.full_like(pd32[:, :1], -1)], 1)
-        self._geo16 = torch.cat([t.JinvT.reshape(t.nc, -1), t.wdet,
-                                 t.detJ[:, None],
-                                 t.wdet.new_zeros(t.nc, 16 - 4 - t.Q - 1)],
-                                1)
+        self.d3 = t.dim == 3
+        self.ref = None
+        if self.d3:
+            # each element's packed rows: its ids (30 velocity, 4 pressure,
+            # padding: 36) and geometry (JinvT, detJ, padding: 16); the
+            # kernel applies the exact reference matrices
+            self._ids = torch.cat([vd32, pd32,
+                                   torch.full_like(pd32[:, :2], -1)], 1)
+            self._geo = torch.cat([t.JinvT.reshape(t.nc, -1),
+                                   t.detJ[:, None],
+                                   t.wdet.new_zeros(t.nc, 16 - 9 - 1)], 1)
+            self.ref = affine_reference_matrices(t)
+        else:
+            # each element's packed rows: its ids (12 velocity, 3 pressure)
+            # and geometry (JinvT, wdet, detJ), 16 entries each
+            self._ids = torch.cat([vd32, pd32,
+                                   torch.full_like(pd32[:, :1], -1)], 1)
+            self._geo = torch.cat([t.JinvT.reshape(t.nc, -1), t.wdet,
+                                   t.detJ[:, None],
+                                   t.wdet.new_zeros(t.nc, 16 - 4 - t.Q - 1)],
+                                  1)
         self._fac = None
         if nfac:
             fv = t.fac_dofs.vd.to(torch.int32)
             self._fac = (fv, t.fac_elem.reshape(-1, fv.shape[1]))
         self.keep, self.parts, self.calls = [], {}, {}
         self.c = _AffinePlanC(_ptr(t.qw), _ptr(t.N2), _ptr(t.dN2),
-                              _ptr(t.N1q), t.nc, t.nin, t.npc, nfac,
+                              _ptr(t.N1q), _ptr(self.ref), t.nc, t.nin,
+                              t.npc, nfac,
                               int(t.wdet.dtype == torch.float64))
         self.addr = ctypes.addressof(self.c)
         lib = _affine_lib()
-        self.fn, self.empty_fn = lib.affine_th2d, lib.affine_th2d_empty
+        self.fn, self.empty_fn = (
+            (lib.affine_th3d, lib.affine_th3d_empty) if self.d3 else
+            (lib.affine_th2d, lib.affine_th2d_empty))
         self.nu, self.sym = float(t.nu), int(bool(t.sym))
         self.nin, self.npc = t.nin, t.npc
 
@@ -1954,11 +2013,11 @@ class AffinePlan:
         # block b's element l at row b * emax + l, padding rows -1 / 0
         rows = torch.as_tensor(_packed_rows(part["eptr"], emax), device=dev)
         elem = torch.as_tensor(part["elem"], device=dev).long()
-        pid = torch.full((nblk * emax, 16), -1, dtype=torch.int32,
-                         device=dev)
-        pid[rows] = self._ids16[elem]
+        pid = torch.full((nblk * emax, self._ids.shape[1]), -1,
+                         dtype=torch.int32, device=dev)
+        pid[rows] = self._ids[elem]
         pgeo = t.wdet.new_zeros(nblk * emax, 16)
-        pgeo[rows] = self._geo16[elem]
+        pgeo[rows] = self._geo[elem]
         pfid = pfco = None
         if fmax:
             fac = self._fac
@@ -2035,6 +2094,10 @@ def _affine_lib():
         lib.affine_th2d.restype = i
         lib.affine_th2d_empty.argtypes = [ptr] * 3
         lib.affine_th2d_empty.restype = i
+        lib.affine_th3d.argtypes = [ptr] * 6
+        lib.affine_th3d.restype = i
+        lib.affine_th3d_empty.argtypes = [ptr] * 3
+        lib.affine_th3d_empty.restype = i
         lib.affine_error_string.argtypes = [i]
         lib.affine_error_string.restype = ctypes.c_char_p
         lib._dns_typed = True
@@ -2051,10 +2114,10 @@ def _affine_plan_for(t, dev):
     if t.wdet.dtype not in ok:
         raise TypeError(f"affine kernel takes f32 or f64 tables, not "
                         f"{t.wdet.dtype}")
-    if (t.nvpc, t.Q, t.dim, t.pnpc) != (6, 7, 2, 3):
+    if (t.nvpc, t.Q, t.dim, t.pnpc) not in ((6, 7, 2, 3), (10, 125, 3, 4)):
         raise NotImplementedError(
-            f"affine kernel: only the 2D Taylor-Hood instantiation (nvpc "
-            f"6, Q 7, dim 2, pnpc 3) is built, not "
+            f"affine kernel: built for 2D Taylor-Hood (nvpc 6, Q 7, dim 2, "
+            f"pnpc 3) and 3D Taylor-Hood (10, 125, 3, 4), not "
             f"{(t.nvpc, t.Q, t.dim, t.pnpc)}")
     if torch.cuda.is_current_stream_capturing():
         raise RuntimeError(
@@ -2455,6 +2518,222 @@ def elem_mv(E, x, in_tab, out_tab, transpose=False):
 
 
 elem_mv.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B7: the fused Jacobi-PCG tail
+# ---------------------------------------------------------------------------
+
+class _PcgArgsC(ctypes.Structure):
+    # csrc/pcg.cu: PcgArgs, field for field
+    _fields_ = ([(f, ctypes.c_void_p) for f in (
+        "x", "r", "p", "ap", "dinv", "rz", "b", "fx0", "part", "bar")]
+        + [(f, ctypes.c_int) for f in ("n", "k", "f64")])
+
+
+def _pcg_lib():
+    lib = _load("pcg")
+    if not getattr(lib, "_dns_typed", False):
+        ptr, i = ctypes.c_void_p, ctypes.c_int
+        for fn in (lib.pcg_step, lib.pcg_init):
+            fn.argtypes = [ctypes.POINTER(_PcgArgsC), ptr]
+            fn.restype = i
+        lib.pcg_grid.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
+        lib.pcg_grid.restype = i
+        lib.pcg_error_string.argtypes = [i]
+        lib.pcg_error_string.restype = ctypes.c_char_p
+        lib._dns_typed = True
+    return lib
+
+
+def pcg_init_ref(b, dinv, x0=None, fx0=None):
+    """Plain PyTorch version of :func:`pcg_init`."""
+    x = torch.zeros_like(b) if x0 is None else x0.to(b.dtype).clone()
+    r = b.clone() if fx0 is None else b - fx0
+    z = (dinv * r).to(b.dtype)
+    return x, r, z, r @ z
+
+
+def pcg_step_ref(x, r, p, Ap, dinv, rz):
+    """Plain PyTorch version of :func:`pcg_step` (in place, the
+    arithmetic of the JAX package's ``jacobi_pcg`` body)."""
+    pAp = p @ Ap
+    alpha = rz / torch.where(pAp == 0, 1.0, pAp)
+    x.add_(alpha * p)
+    r.sub_(alpha * Ap)
+    z = (dinv * r).to(r.dtype)
+    rz_n = r @ z
+    beta = rz_n / torch.where(rz == 0, 1.0, rz)
+    p.copy_(z + beta * p)
+    rz.copy_(rz_n)
+
+
+def block_pcg_init_ref(B, dinv):
+    """Plain PyTorch version of :func:`block_pcg_init`."""
+    R = B.clone()
+    Z = dinv[:, None] * R
+    return torch.zeros_like(B), R, Z, (R * Z).sum(dim=0)
+
+
+def block_pcg_step_ref(X, R, P, AP, dinv, rz):
+    """Plain PyTorch version of :func:`block_pcg_step` (in place, the
+    JAX package's ``_block_pcg_jit`` body: per-column scalars)."""
+    pAp = (P * AP).sum(dim=0)
+    alpha = rz / torch.where(pAp == 0, 1.0, pAp)
+    X.add_(alpha[None, :] * P)
+    R.sub_(alpha[None, :] * AP)
+    Z = dinv[:, None] * R
+    rz_n = (R * Z).sum(dim=0)
+    beta = rz_n / torch.where(rz == 0, 1.0, rz)
+    P.copy_(Z + beta[None, :] * P)
+    rz.copy_(rz_n)
+
+
+def _pcg_check(name, ts, n, k):
+    dt = ts[0].dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"{name} kernel takes f32 or f64, not {dt}")
+    for t in ts:
+        if t is None:
+            continue
+        if t.dtype != dt or t.device != ts[0].device or not \
+                t.is_contiguous():
+            raise ValueError(f"{name}: every operand contiguous, {dt} on "
+                             f"{ts[0].device}; got {t.dtype} on {t.device}")
+    shape = (n,) if k == 0 else (n, k)
+    for t in ts[:4]:
+        if t is not None and tuple(t.shape) != shape:
+            raise ValueError(f"{name}: operand {tuple(t.shape)}, wanted "
+                             f"{shape}")
+
+
+def _pcg_launch(name, entry, n, k, x, r, p, ap, dinv, rz, b=None, fx0=None):
+    """One launch of ``csrc/pcg.cu`` (``entry`` 'step' or 'init') on the
+    current stream: the grid every block of which is resident (its partial
+    sums and grid-barrier counter belong to the stream; see
+    :func:`_stream_scratch`)."""
+    dev = x.get_device()
+    stream = _raw_stream(dev)
+    lib = _pcg_lib()
+    kk = max(k, 1)
+    key = ("pcg", stream, n, k, x.dtype)
+
+    def make():
+        blocks = ctypes.c_int(0)
+        with _on_device(dev):
+            err = lib.pcg_grid(n, k, int(x.dtype == torch.float64),
+                               ctypes.byref(blocks))
+        if err != 0:
+            raise RuntimeError(f"{name}: {lib.pcg_error_string(err)}")
+        part = torch.zeros(2 * blocks.value * max(kk, 32) + 64,
+                           dtype=x.dtype, device=x.device)
+        bar = torch.zeros(2, dtype=torch.int64, device=x.device)
+        return part, bar
+
+    part, bar = _stream_scratch(key, make)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    args = _PcgArgsC(ptr(x), ptr(r), ptr(p), ptr(ap), ptr(dinv), ptr(rz),
+                     ptr(b), ptr(fx0), ptr(part), ptr(bar), n, k,
+                     int(x.dtype == torch.float64))
+    fn = lib.pcg_step if entry == "step" else lib.pcg_init
+    with _on_device(dev):
+        err = fn(ctypes.byref(args), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed (n {n}, k {k}): "
+                           f"{lib.pcg_error_string(err).decode()}")
+
+
+def pcg_init(b, dinv, x0=None, fx0=None):
+    """The start of :func:`..solve.sadpnt.jacobi_pcg`: ``x = x0`` (or 0),
+    ``r = b - fx0`` (``fx0 = F x0``, or ``r = b``), ``z = dinv r``, ``p =
+    z``, ``rz = r . z``; returns ``(x, r, p, rz)`` (``rz`` a 0-d tensor on
+    ``b``'s device: no host sync).
+
+    On a CUDA tensor ``r``, ``p`` and ``rz`` come from one launch of the
+    kernel of ``csrc/pcg.cu`` (a fixed-order reduction through per-block
+    partials and a grid barrier), counted in ``pcg_init.launches``; on a
+    CPU tensor it is :func:`pcg_init_ref`."""
+    if not b.is_cuda:
+        return pcg_init_ref(b, dinv, x0, fx0)
+    n = b.shape[0]
+    _pcg_check("pcg_init", (b, dinv, fx0), n, 0)
+    x = torch.zeros_like(b) if x0 is None else x0.to(b.dtype).clone()
+    r, p = torch.empty_like(b), torch.empty_like(b)
+    rz = b.new_empty(())
+    _pcg_launch("pcg_init", "init", n, 0, x, r, p, None, dinv, rz, b=b,
+                fx0=fx0)
+    pcg_init.launches += 1
+    return x, r, p, rz
+
+
+pcg_init.launches = 0
+
+
+def pcg_step(x, r, p, Ap, dinv, rz):
+    """One Jacobi-PCG iteration after the matvec ``Ap = F p``, in place:
+    ``alpha = rz / pAp`` (0/0 guard), ``x += alpha p``, ``r -= alpha Ap``,
+    ``z = dinv r``, ``rz_n = r . z``, ``beta = rz_n / rz`` (guard), ``p = z
+    + beta p``, ``rz = rz_n``; ``rz`` a 0-d tensor.
+
+    On a CUDA tensor this is one launch of the hand-written kernel of
+    ``csrc/pcg.cu`` (B7: the two reductions through per-block partials and
+    a grid barrier each, every block summing the partials in the same
+    order: bitwise reproducible; the scalars never leave the device) on
+    the current stream, counted in ``pcg_step.launches``; on a CPU tensor
+    it is :func:`pcg_step_ref`."""
+    if not x.is_cuda:
+        return pcg_step_ref(x, r, p, Ap, dinv, rz)
+    n = x.shape[0]
+    _pcg_check("pcg_step", (x, r, p, Ap, dinv, rz), n, 0)
+    _pcg_launch("pcg_step", "step", n, 0, x, r, p, Ap, dinv, rz)
+    pcg_step.launches += 1
+
+
+pcg_step.launches = 0
+
+
+def block_pcg_init(B, dinv):
+    """The start of :func:`..solve.sadpnt._block_pcg` for ``B (n, k)``:
+    ``X = 0``, ``R = B``, ``P = dinv R``, ``rz = (R * P).sum(0)``; returns
+    ``(X, R, P, rz)``.  On a CUDA tensor one launch of ``csrc/pcg.cu``'s
+    column-blocked form (counted in ``block_pcg_init.launches``); on a CPU
+    tensor :func:`block_pcg_init_ref`."""
+    if not B.is_cuda:
+        return block_pcg_init_ref(B, dinv)
+    n, k = B.shape
+    B = B.contiguous()
+    _pcg_check("block_pcg_init", (B, None, None, None, dinv), n, k)
+    X = torch.zeros_like(B)
+    R, P = torch.empty_like(B), torch.empty_like(B)
+    rz = B.new_empty(k)
+    _pcg_launch("block_pcg_init", "init", n, k, X, R, P, None, dinv, rz,
+                b=B)
+    block_pcg_init.launches += 1
+    return X, R, P, rz
+
+
+block_pcg_init.launches = 0
+
+
+def block_pcg_step(X, R, P, AP, dinv, rz):
+    """:func:`pcg_step` for a block of columns ``(n, k)`` with per-column
+    scalars ``rz (k,)``, in place.  On a CUDA tensor one launch of
+    ``csrc/pcg.cu``'s column-blocked form (counted in
+    ``block_pcg_step.launches``); on a CPU tensor
+    :func:`block_pcg_step_ref`."""
+    if not X.is_cuda:
+        return block_pcg_step_ref(X, R, P, AP, dinv, rz)
+    n, k = X.shape
+    AP = AP.contiguous()
+    _pcg_check("block_pcg_step", (X, R, P, AP, dinv, rz), n, k)
+    _pcg_launch("block_pcg_step", "step", n, k, X, R, P, AP, dinv, rz)
+    block_pcg_step.launches += 1
+
+
+block_pcg_step.launches = 0
 
 
 # ---------------------------------------------------------------------------

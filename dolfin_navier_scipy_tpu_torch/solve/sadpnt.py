@@ -11,13 +11,17 @@ reference's CNAB loop fast, time_int_utils.py:89-91):
 * :class:`InverseSaddleSolver` — explicit dense inverse, applied by the
   hand-written kernel :func:`..ops.kernels.vecmat`; optional residual
   refinement on the sparse/element operators.
-* :class:`SchurSaddleSolver` — the banded block-Schur solver: RCM-banded
+* :class:`SchurSaddleSolver` — the block-Schur solver.  Banded: RCM-banded
   ``F``, static-window ``J``/``J^T``, banded ``X = F^-1 J^T`` (from a host
   ``splu`` or, ``setup="device"``, by block PCG on the device), dense
   ``S^-1`` and the truncated inverse ``W ~ F^-1``; every per-step
   application is one of the hand-written kernels
   :func:`..ops.kernels.banded_mv`, :func:`..ops.kernels.rect_mv`,
-  :func:`..ops.kernels.rect_mv_levels`.
+  :func:`..ops.kernels.rect_mv_levels`.  Element-operator path
+  (``banded=False``, or a band the gate refuses): F's element blocks
+  (:func:`..ops.kernels.elem_mv`), Jacobi-PCG in natural order, ``X^T``
+  and ``S^{-T}`` through :func:`..ops.kernels.vecmat`.  Every PCG tail is
+  :func:`..ops.kernels.pcg_step` / ``block_pcg_step`` (B7).
 * :class:`SMWSolver` — Sherman-Morrison-Woodbury wrap of any of them for
   static low-rank feedback updates.
 * :class:`SaddleSolver` — dense LU on the device; small systems and
@@ -25,9 +29,7 @@ reference's CNAB loop fast, time_int_utils.py:89-91):
 * ``host`` — scipy SuperLU (:func:`host_saddle_factorized`), the
   correctness oracle and the one-off setup solver.
 
-Not ported yet (raise ``NotImplementedError``): the non-banded
-(element-operator) Schur path.  The Krylov solvers are in
-:mod:`.krylov` and :mod:`.krylov_saddle`.
+The Krylov solvers are in :mod:`.krylov` and :mod:`.krylov_saddle`.
 
 Sign convention: the raw saddle solution ``q`` relates to the physical
 pressure as ``p = -q`` (the reference flips it too:
@@ -42,8 +44,9 @@ import torch
 
 from ..device import resolve_device, timer
 from ..ops.kernels import (
-    as_band_operand, as_vecmat_operand, band_operand, banded_mv, pair_stack,
-    rect_mv, rect_mv_levels, vecmat)
+    as_band_operand, as_vecmat_operand, band_operand, banded_mv,
+    block_pcg_init, block_pcg_step, pair_stack, pcg_init, pcg_step, rect_mv,
+    rect_mv_levels, vecmat, vecmat_operand)
 from ..ops.sparse import ell_from_scipy_fast
 
 
@@ -182,29 +185,20 @@ class InverseSaddleSolver:
 def jacobi_pcg(fmv, dinv, b, niter, x0=None):
     """Jacobi-preconditioned CG with a FIXED iteration count (no host
     read-back in the loop: the division guards replace the convergence
-    test).  The carry stays in ``b``'s dtype whatever ``fmv`` computes in;
-    on the card ``fmv`` is a hand-written matvec (:func:`..ops.kernels.
-    banded_mv` in the banded solver)."""
-    if x0 is None:
-        x = torch.zeros_like(b)
-        r = b
-    else:
-        x = x0.to(b.dtype)
-        r = b - fmv(x).to(b.dtype)
-    z = (dinv * r).to(b.dtype)
-    p = z
-    rz = r @ z
+    test).  The carry stays in ``b``'s dtype whatever ``fmv`` computes in.
+    An iteration is ``fmv(p)`` (on the card a hand-written matvec:
+    :func:`..ops.kernels.banded_mv` in the banded solver, ``elem_mv`` on
+    the element path) and one :func:`..ops.kernels.pcg_step` (B7, one
+    launch on the card; on the CPU its plain version, this loop's
+    arithmetic); the start is one :func:`..ops.kernels.pcg_init`."""
+    dinv = dinv.to(b.dtype)
+    fx0 = None
+    if x0 is not None:
+        x0 = x0.to(b.dtype)
+        fx0 = fmv(x0).to(b.dtype)
+    x, r, p, rz = pcg_init(b, dinv, x0, fx0)
     for _ in range(niter):
-        Ap = fmv(p).to(b.dtype)
-        pAp = p @ Ap
-        alpha = rz / torch.where(pAp == 0, 1.0, pAp)
-        x = x + alpha * p
-        r = r - alpha * Ap
-        z = (dinv * r).to(b.dtype)
-        rz_n = r @ z
-        beta = rz_n / torch.where(rz == 0, 1.0, rz)
-        p = z + beta * p
-        rz = rz_n
+        pcg_step(x, r, p, fmv(p).to(b.dtype), dinv, rz)
     return x
 
 
@@ -314,25 +308,15 @@ def _block_pcg(fmv, dinv, B, niter):
     """Jacobi-PCG on ``F X = B`` for a block of right-hand sides ``B (n,
     k)``: per-column step sizes, a FIXED count, the 0/0 guards of
     :func:`jacobi_pcg` (an all-zero column stays exactly zero).  ``fmv``
-    applies F to an ``(n, k)`` block (:func:`_tridiag_bmm` in the Schur
-    setup: one-off work that the JAX package left to XLA, so a library
-    product; TF32 is off package-wide)."""
-    X = torch.zeros_like(B)
-    R = B
-    Z = dinv[:, None] * R
-    P = Z
-    rz = (R * Z).sum(dim=0)
+    applies F to an ``(n, k)`` block (:func:`_tridiag_bmm` over the banded
+    F, or ``torch.sparse.mm`` over F's CSR on the element path: one-off
+    setup products that the JAX package left to XLA; TF32 is off
+    package-wide); the rest of an iteration is one
+    :func:`..ops.kernels.block_pcg_step` (B7's column-blocked form)."""
+    dinv = dinv.to(B.dtype)
+    X, R, P, rz = block_pcg_init(B, dinv)
     for _ in range(niter):
-        AP = fmv(P)
-        pAp = (P * AP).sum(dim=0)
-        alpha = rz / torch.where(pAp == 0, 1.0, pAp)
-        X = X + alpha[None, :] * P
-        R = R - alpha[None, :] * AP
-        Z = dinv[:, None] * R
-        rz_n = (R * Z).sum(dim=0)
-        beta = rz_n / torch.where(rz == 0, 1.0, rz)
-        P = Z + beta[None, :] * P
-        rz = rz_n
+        block_pcg_step(X, R, P, fmv(P), dinv, rz)
     return X
 
 
@@ -493,6 +477,38 @@ def _schur_of_banded(JTb, jtbases, Xb, xbases, npp):
     return S[:npp, :npp]
 
 
+def _element_factors_device(F, J, jT, dinv_np, niter, device, chunk=256):
+    """``(X (nv, np) f32, S = J X (np, np) f64)`` on ``device``: ``J^T``'s
+    columns ``chunk`` at a time, uploaded as triplets, solved by
+    :func:`_block_pcg` over F as an f32 CSR tensor (``torch.sparse.mm``)
+    and multiplied by J in f64 as each chunk is solved — the JAX package's
+    ``_build_schur_factors_device`` (its ELL gathers in XLA)."""
+    from ..ops.sparse import ell_from_scipy_fast
+
+    nv, npp = jT.shape
+    Fd = ell_from_scipy_fast(F, dtype=torch.float32, device=device).mat
+    Jd = ell_from_scipy_fast(J, dtype=torch.float64, device=device).mat
+    dinv = torch.as_tensor(np.asarray(dinv_np, np.float32), device=device)
+    co = sps.csc_matrix(jT).tocoo()
+    order = np.argsort(co.col, kind="stable")
+    rows = torch.as_tensor(co.row[order].astype(np.int64), device=device)
+    colj = torch.as_tensor(co.col[order].astype(np.int64), device=device)
+    vals = torch.as_tensor(co.data[order].astype(np.float32), device=device)
+    bounds = np.searchsorted(co.col[order], np.arange(0, npp + chunk, chunk))
+    X = torch.empty((nv, npp), dtype=torch.float32, device=device)
+    S = torch.empty((npp, npp), dtype=torch.float64, device=device)
+    for k, c0 in enumerate(range(0, npp, chunk)):
+        c1 = min(c0 + chunk, npp)
+        s, e = int(bounds[k]), int(bounds[k + 1])
+        B = torch.zeros((nv, c1 - c0), dtype=torch.float32, device=device)
+        # CSC entries are unique: a plain store, no accumulation
+        B[rows[s:e], colj[s:e] - c0] = vals[s:e]
+        Xc = _block_pcg(lambda P: torch.sparse.mm(Fd, P), dinv, B, niter)
+        X[:, c0:c1] = Xc
+        S[:, c0:c1] = torch.sparse.mm(Jd, Xc.double())
+    return X, S
+
+
 class SchurSaddleSolver:
     """Block-Schur saddle solver for ``[[F, J^T],[J, 0]]`` with SPD ``F = M
     + theta dt A`` (mass-dominated at CFL-scale dt), banded mode — the JAX
@@ -529,15 +545,20 @@ class SchurSaddleSolver:
     ``winv`` (None: W when ``nv > 5000`` or the F band is over 120 MB; never
     on the CPU above nv 4000), ``wtol`` (3e-3, W's truncation), ``xband_k``
     (4, X's window floor in blocks), ``banded_maxgb`` (3) and
-    ``winv_maxgb`` (4), ``lowbit`` ('auto': on a CUDA device).  The
-    cost-model half of the JAX package's banded gate waits for a
-    measurement on the card: ``banded="auto"`` takes the banded form
-    whenever its band fits ``banded_maxgb``; ``index_nvals`` is accepted
-    for it and not read.  A failure anywhere in the device setup raises;
-    nothing falls back to the host.
+    ``winv_maxgb`` (4), ``lowbit`` ('auto': on a CUDA device).
+    ``banded="auto"`` is the JAX package's gate (its ``DNS_TPU_BANDED``):
+    the band within ``banded_maxgb`` and predicted by
+    :func:`..ops.banded_conv.banded_wins` (``index_nvals``: the element
+    values of the index pipeline) to beat the element pipeline, on the
+    JAX package's constants on every device (ROADMAP F16).  A failure
+    anywhere in the device setup raises; nothing falls back to the host.
 
-    Not ported (``NotImplementedError``): the non-banded element-operator
-    path.
+    The element-operator path (``banded=False`` or the gate refusing the
+    band; ``self.banded`` says which ran) is :meth:`_setup_element`, with
+    ``solve`` / ``solve_warm`` in natural order: ``res_ops = (Kop, Jop)``
+    apply F and J / J^T (else F, J, J^T as CSR tensors); the JAX package's
+    buffer deletion, staged inverse and flush of tiny entries are TPU
+    memory and denormal work-arounds with no counterpart here.
     """
 
     def __init__(self, coeff=None, jmat=None, jmatT=None, res_ops=None,
@@ -578,15 +599,22 @@ class SchurSaddleSolver:
         if setup not in ("host", "device"):
             raise ValueError(f"setup {setup!r}")
         self.setup = setup
+        self.refine = int(refine or 0)
         if banded == "auto":
-            banded = _banded_bandwidth_gb(F) <= banded_maxgb
-        if not banded:
-            raise NotImplementedError(
-                "SchurSaddleSolver: the non-banded (element-operator) "
-                "block-Schur path is not ported yet (ROADMAP A11); the "
-                "banded form needs its F band within "
-                f"banded_maxgb={banded_maxgb}")
+            # the JAX package's gate: the band within the cap AND the band
+            # stream predicted to beat the element pipeline, on that
+            # package's constants (the CPU entry of GATE) on every device,
+            # so that both packages take the same route (ROADMAP F16)
+            from ..ops.banded_conv import banded_wins
+
+            est = _banded_bandwidth_gb(F)
+            banded = est <= banded_maxgb and banded_wins(
+                est * 1e9, nvals=index_nvals, ndofs=nv)
+        self.banded = bool(banded)
         lap("probes_s")
+        if not banded:
+            self._setup_element(F, J, jT, dv, full_map, lap)
+            return
 
         # ---- banded forms, all in RCM-permuted velocity / pp pressure order
         blocks, perm, bs, nblk = _build_banded(F)
@@ -779,8 +807,6 @@ class SchurSaddleSolver:
         self._wbases_t = bases_t(self._wbases) if self._ww else None
         lap("w_s")
 
-        # refine stays 0 here: the integrators pass warm_refine per call
-        self.refine = int(refine or 0)
         # the operands the solves apply: under f64 work on the CPU the
         # plain products would cast the f32 blocks at every call, so they
         # apply f64 copies made once (the same values, the same sums)
@@ -790,13 +816,129 @@ class SchurSaddleSolver:
                                  ("J", self.Jb), ("JT", self.JTb),
                                  ("X", self.Xb), ("W", self.Wb))}
 
+    # ---- the element-operator ("non-banded") path ----
+
+    def _setup_element(self, F, J, jT, dv, full_map, lap):
+        """The factors of the element path in natural order: ``X = F^-1
+        J^T`` stored transposed (``XT (np, nv)``, :func:`..ops.kernels.
+        vecmat_operand` rows: ``q @ X^T`` is one :func:`..ops.kernels.
+        vecmat`), ``S = J X`` and ``S^{-1}`` in f64, stored transposed
+        (``SinvT``: ``g @ S^{-T} = S^{-1} g`` is one ``vecmat``; S is
+        symmetric only to rounding).  In f32 work ``S^{-1}`` is the JAX
+        package's hi/lo f32 pair, side by side (``(np, 2 np)``, the two
+        halves of the product added).  ``setup="host"``: one ``splu`` of
+        F; ``"device"``: X by :func:`_block_pcg` over F as a CSR tensor,
+        256 pressure columns at a time, ``S`` from the f32 X in f64 and
+        its f64 inverse on the device.  With ``full_map`` X's columns and
+        the Jacobi diagonal are zero-padded onto the bc dofs (the zero
+        ``dinv`` masks the bc rows of the full-dof element matvecs)."""
+        device, dtype = self.device, self.dtype
+        nv, npp = F.shape[0], J.shape[0]
+        self.Bblk = self.Eblk = self.Wb = self.Xb = None
+        self._nin = nv
+        cols = None
+        if full_map is not None:
+            cols = torch.as_tensor(np.asarray(full_map[0], np.int64),
+                                   device=device)
+            self.nv = full_map[1]
+        if self.setup == "device":
+            X, S = _element_factors_device(
+                F, J, jT, 1.0 / dv, max(40, self.ncg + 12), device)
+        else:
+            X = spsla.splu(F).solve(np.asarray(jT.todense()))   # (nv, np)
+            S = torch.as_tensor(np.asarray(J @ X), device=device)
+            X = torch.as_tensor(X, device=device)
+        lap("x_s")
+        self.XT = vecmat_operand(npp, self.nv, dtype, device)
+        if cols is None:
+            self.XT.copy_(X.T)
+        else:
+            self.XT.index_copy_(1, cols, X.T.to(dtype))
+        del X
+        lap("s_s")
+        Sinv64 = torch.linalg.inv(S.to(torch.float64))
+        del S
+        if dtype == torch.float32:
+            hi = Sinv64.to(torch.float32)
+            lo = (Sinv64 - hi.to(torch.float64)).to(torch.float32)
+            self.SinvT = vecmat_operand(npp, 2 * npp, dtype, device)
+            self.SinvT[:, :npp] = hi.T
+            self.SinvT[:, npp:] = lo.T
+        else:
+            self.SinvT = as_vecmat_operand(Sinv64.T, dtype, device)
+        del Sinv64
+        lap("sinv_s")
+        dinv = torch.as_tensor(1.0 / dv).to(device=device, dtype=dtype)
+        if cols is None:
+            self.dinv = dinv
+        else:
+            self.dinv = torch.zeros(self.nv, dtype=dtype, device=device)
+            self.dinv[cols] = dinv
+            if self.res_ops is None:
+                raise ValueError("full_map requires full-dof res_ops")
+        self.F_ell = self.J_ell = self.JT_ell = None
+        if self.res_ops is None:
+            self.F_ell = ell_from_scipy_fast(F, dtype=dtype, device=device)
+            self.J_ell = ell_from_scipy_fast(J, dtype=dtype, device=device)
+            self.JT_ell = ell_from_scipy_fast(jT, dtype=dtype,
+                                              device=device)
+
+    def _fmv(self, x):
+        if self.res_ops is not None:
+            return self.res_ops[0].matvec(x)
+        return self.F_ell.matvec(x)
+
+    def _jmv(self, x):
+        if self.res_ops is not None:
+            return self.res_ops[1].matvec(x)
+        return self.J_ell.matvec(x)
+
+    def _jtmv(self, q):
+        if self.res_ops is not None:
+            return self.res_ops[1].rmatvec(q)
+        return self.JT_ell.matvec(q)
+
+    def _sapply_elem(self, g):
+        """``S^{-1} g``: one :func:`..ops.kernels.vecmat` on ``S^{-T}``
+        (f32 work: the hi and lo halves added)."""
+        y = vecmat(g.to(self.SinvT.dtype), self.SinvT)
+        if y.shape[0] > self.np:
+            y = y[: self.np] + y[self.np:]
+        return y
+
+    def _xapply_elem(self, q):
+        """``X q``: one :func:`..ops.kernels.vecmat` on ``X^T``."""
+        return vecmat(q.to(self.XT.dtype), self.XT)
+
+    def _base_solve(self, bv, bp, x0=None, niter=None):
+        """One Schur solve in natural order: ``y`` by Jacobi-PCG (fixed
+        count, warm-startable), ``q = S^{-1} (J y - bp)``, ``v = y - X
+        q``; returns ``(v, q, y)``."""
+        y = jacobi_pcg(self._fmv, self.dinv, bv, niter or self.ncg, x0=x0)
+        q = self._sapply_elem(self._jmv(y) - bp)
+        return y - self._xapply_elem(q), q, y
+
+    def _refine_elem(self, bv, bp, v, q, refine, niter):
+        """``refine`` residual rounds, each correction solved at O(1)
+        scale (cold PCG of ``niter`` iterations + the Schur tail)."""
+        for _ in range(refine):
+            rv = bv - (self._fmv(v) + self._jtmv(q))
+            rp = bp - self._jmv(v)
+            s = torch.sqrt(torch.mean(rv * rv) + torch.mean(rp * rp)
+                           + 1e-30)
+            dv, dq, _ = self._base_solve(rv / s, rp / s, niter=niter)
+            v = v + s * dv
+            q = q + s * dq
+        return v, q
+
     # ---- permuted banded core: every application one kernel launch ----
 
     @property
     def warm_size(self):
         """Length of the warm-start vector ``y`` threaded through
-        :meth:`solve_warm` (the permuted inner size)."""
-        return self._nin
+        :meth:`solve_warm` (the permuted inner size on the banded path,
+        the solver's velocity size on the element path)."""
+        return self._nin if self.banded else self.nv
 
     @property
     def ncg_warm(self):
@@ -900,17 +1042,34 @@ class SchurSaddleSolver:
     def solve(self, rhsv, rhsp, refine=None):
         """Raw stacked ``[v; q]`` like :class:`InverseSaddleSolver`;
         ``refine`` residual rounds (default: the solver's ``refine``)."""
+        refine = self.refine if refine is None else refine
+        if not self.banded:
+            bv = rhsv.reshape(-1).to(self.dtype)
+            bp = rhsp.reshape(-1).to(self.dtype)
+            v, q, _ = self._base_solve(bv, bp)
+            v, q = self._refine_elem(bv, bp, v, q, refine, None)
+            return torch.cat([v, q])
         bvp, bpp = self._perm_in(rhsv, rhsp)
         v, q, _ = self._solve_core_perm(
-            bvp, bpp, refine=self.refine if refine is None else refine)
+            bvp, bpp, refine=refine)
         return self._perm_out(v, q)
 
     def solve_warm(self, rhsv, rhsp, y0, niter=None, refine=0,
                    niter_ref=None):
         """Warm-started solve for time stepping: ``y0`` is the previous
         velocity-block solve (or an extrapolation of the last two) in
-        permuted inner space (length :attr:`warm_size`); ``refine``
-        residual rounds follow.  Returns ``([v; q], y)``."""
+        permuted inner space (length :attr:`warm_size`; natural order on
+        the element path); ``refine`` residual rounds follow, each with a
+        cold PCG of ``niter_ref or niter`` iterations on the element path.
+        Returns ``([v; q], y)``."""
+        if not self.banded:
+            bv = rhsv.reshape(-1).to(self.dtype)
+            bp = rhsp.reshape(-1).to(self.dtype)
+            niter = niter or self.ncg_warm
+            v, q, y = self._base_solve(bv, bp, x0=y0, niter=niter)
+            v, q = self._refine_elem(bv, bp, v, q, refine,
+                                     niter_ref or niter)
+            return torch.cat([v, q]), y
         bvp, bpp = self._perm_in(rhsv, rhsp)
         v, q, y = self._solve_core_perm(
             bvp, bpp, y0p=y0, niter=niter or self.ncg_warm, refine=refine,

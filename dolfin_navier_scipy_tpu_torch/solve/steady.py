@@ -122,14 +122,17 @@ class SteadySolverKernel:
                    torch.as_tensor(K.col, device=device)] = \
             torch.as_tensor(K.data, device=device)
 
-        # the element blocks (nc, 6, 2, 6, 2) -> K: each distinct target
-        # entry sums its element contributions in ascending element order
-        # (an ELL gather and a sum, then one write per entry: no atomics)
+        # the element blocks (nc, nvpc, dim, nvpc, dim) -> K: each distinct
+        # target entry sums its element contributions in ascending element
+        # order (an ELL gather and a sum, then one write per entry: no
+        # atomics)
         full2cond = np.full(prob.nv_full, ncond, dtype=np.int64)
         full2cond[prob.invinds] = np.arange(nin, dtype=np.int64)
-        cvd = full2cond[prob.space.vdofs_of_cells()].reshape(-1, 12)
-        rows = np.broadcast_to(cvd[:, :, None], cvd.shape + (12,))
-        cols = np.broadcast_to(cvd[:, None, :], cvd.shape + (12,))
+        cvd = full2cond[prob.space.vdofs_of_cells()]
+        cvd = cvd.reshape(cvd.shape[0], -1)
+        nd = cvd.shape[1]
+        rows = np.broadcast_to(cvd[:, :, None], cvd.shape + (nd,))
+        cols = np.broadcast_to(cvd[:, None, :], cvd.shape + (nd,))
         keep = ((rows < ncond) & (cols < ncond)).ravel()
         flat = (rows * ncond + cols).ravel()
         uniq, inv = np.unique(flat[keep], return_inverse=True)

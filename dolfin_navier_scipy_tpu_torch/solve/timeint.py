@@ -104,7 +104,7 @@ def _resolve_linsolver(prob, linsolver):
 
 def _build_ops(prob, dt, theta, inv_dtype=None, refine=None,
                precision="accurate", linsolver="auto", work_dtype=None,
-               layout="inner", winv=None, device=None):
+               layout="inner", winv=None, banded="auto", device=None):
     """Operator/solver bundle for the INCREMENT-form integrators.
 
     The integrators advance ``v_n = v_c + delta`` with a saddle solve for
@@ -118,8 +118,10 @@ def _build_ops(prob, dt, theta, inv_dtype=None, refine=None,
       — f64-grade trajectory via the increment form.
 
     ``linsolver``: 'dense' (precomputed saddle inverse; O(n^2) memory),
-    'schur' (the banded block-Schur solver, :class:`SchurSaddleSolver`;
-    ``winv`` goes to it), 'krylov' (matrix-free GMRES with a SIMPLE-type
+    'schur' (the block-Schur solver, :class:`SchurSaddleSolver`: banded,
+    or on its element-operator path — ``banded`` goes to it, 'auto' its
+    gate, the JAX package's ``DNS_TPU_BANDED`` — and ``winv``, its
+    truncated inverse W), 'krylov' (matrix-free GMRES with a SIMPLE-type
     Schur preconditioner, :class:`..solve.krylov_saddle.
     KrylovSaddleSolver`; tolerance 1e-7 in f32 work, 1e-11 in f64) or
     'auto' (dense up to 6000 condensed rows).  ``layout='full'`` builds the Schur solver
@@ -143,31 +145,45 @@ def _build_ops(prob, dt, theta, inv_dtype=None, refine=None,
     coeff = sps.csr_matrix(prob.Mc + theta * dt * prob.Ac)
     if linsolver == "schur":
         # the element values of the index pipeline, for the banded gate's
-        # cost model (accepted by the solver, not read yet)
+        # cost model
         space = getattr(prob, "space", None)
         nvals = (None if space is None
                  else int(np.prod(space.vdofs_of_cells().shape)))
         if layout == "full":
             from ..ops.affine import AffineVectorOps
+            from ..ops.elementop import ElementOp
 
             afful = AffineVectorOps.build(prob, work_dtype, full_dofs=True,
                                           device=device)
+            # the element path's F-matvec: the per-element blocks of M +
+            # theta dt A over the full dofs (one elem_mv launch); the
+            # banded path applies its own operators
+            vd = space.vdofs_of_cells()
+            fel = (prob.elem_tensors["M"]
+                   + theta * dt * prob.elem_tensors["A"])
+            fop = ElementOp(
+                torch.as_tensor(fel).to(device=device, dtype=work_dtype),
+                torch.as_tensor(vd.reshape(vd.shape[0], -1), device=device),
+                prob.nv_full)
             solver = SchurSaddleSolver(
-                coeff, prob.Jc, prob.JTc, dtype=work_dtype,
-                full_map=(prob.invinds, prob.nv_full),
+                coeff, prob.Jc, prob.JTc, res_ops=(fop, afful.view("j")),
+                dtype=work_dtype, full_map=(prob.invinds, prob.nv_full),
                 band_extra=prob.Ac, index_nvals=nvals, winv=winv,
-                device=device)
+                banded=banded, device=device)
             ops = TimeIntOps(solver=solver, M=afful.view("m"),
                              A=afful.view("a"), dt=dt, theta=theta,
                              wdtype=work_dtype, device=device)
             ops.full_schur = afful
             return ops
-        # the banded solver applies its own operators (the element views
-        # the JAX package hands it serve only its non-banded path)
-        solver = SchurSaddleSolver(coeff, prob.Jc, prob.JTc,
-                                   dtype=work_dtype, index_nvals=nvals,
-                                   winv=winv, device=device)
         aff = prob.affine_ops(work_dtype, device=device)
+        # the element path's residual operators (the banded path applies
+        # its own)
+        res_ops = (None if aff is None else
+                   (aff.view("ma", cm=1.0, ca=theta * dt), aff.view("j")))
+        solver = SchurSaddleSolver(coeff, prob.Jc, prob.JTc,
+                                   res_ops=res_ops, dtype=work_dtype,
+                                   index_nvals=nvals, winv=winv,
+                                   banded=banded, device=device)
         if aff is not None:
             Mop, Aop = aff.view("m"), aff.view("a")
         else:
@@ -377,6 +393,22 @@ def _dense64(m):
     return np.asarray(_to_dense(m), dtype=np.float64)
 
 
+def _host_factors(prob, key, amat):
+    """The host ``splu`` of the saddle matrix ``[[amat, J^T], [J, 0]]`` of
+    ``prob``, made once per ``key`` and kept on the problem: the Heun
+    bootstrap's two factorizations are the same for every run of a
+    problem at one step size and operator set (a 3D saddle matrix takes
+    minutes to factor)."""
+    cache = prob.__dict__.setdefault("_host_lu", {})
+    # made anew when an operator was replaced (apply_robin_penalty: Ac)
+    mats = (prob.Mc, prob.Ac, prob.Jc, prob.JTc)
+    got = cache.get(key)
+    if got is None or any(a is not b for a, b in zip(got[0], mats)):
+        got = cache[key] = (mats, host_saddle_factorized(amat, prob.Jc,
+                                                         prob.JTc))
+    return got[1]
+
+
 def _heun_bootstrap(prob, t0, t1, v0, p0, f_vdp, f_tdp, g_tdp, dynamic_rhs,
                     drm, controls, cn, predictor="IMEX-Euler", umat=None,
                     vmat=None):
@@ -448,7 +480,8 @@ def _heun_bootstrap(prob, t0, t1, v0, p0, f_vdp, f_tdp, g_tdp, dynamic_rhs,
         pre_uscal = 0.5 * dt
         pre_amat = prob.Mc + 0.5 * dt * prob.Ac
     if fb is None:
-        presolve = host_saddle_factorized(pre_amat, prob.Jc, prob.JTc)
+        presolve = _host_factors(prob, ("heun_predictor", predictor, dt),
+                                 pre_amat)
         tvp = presolve(tfv, fp_n + tbfp)
     else:
         tvp = solve_sadpnt_host(
@@ -471,7 +504,7 @@ def _heun_bootstrap(prob, t0, t1, v0, p0, f_vdp, f_tdp, g_tdp, dynamic_rhs,
                            + dfv_c + nfc_ch + tnfc_n))
     if fb is not None:
         rhs_n = rhs_n + 0.5 * dt * (fb(v0h) + fb(tv_nh))
-    msolve = host_saddle_factorized(prob.Mc, prob.Jc, prob.JTc)
+    msolve = _host_factors(prob, ("heun_mass",), prob.Mc)
     vp = msolve(rhs_n, fp_n + bfp_nh)
     v_n = todev(vp[:nin].ravel())
     p_n = todev(-vp[nin:].ravel() / dt)
@@ -707,6 +740,73 @@ def _cnab_wspace(prob, ops, bs, v0, cn, dt, trange, save_every,
         bootstrap=bs, ops=ops, carry=carry, bct=bct)
 
 
+def _cnab_elem(prob, ops, bs, v0, cn, dt, trange, save_every,
+               check_ff_maxv, warm_refine, outfunc, out_bundle, device, lap,
+               banded_conv=None):
+    """The CNAB loop of the Schur solver's element path on the full dof
+    layout (the JAX package's full-layout step with its w-space off): the
+    state in natural order, the convection and the stiffness from one
+    fused element launch (facet rows included), each step one
+    :meth:`SchurSaddleSolver.solve_warm` warm-started from the
+    extrapolation of the last two velocity-block solves.  ``banded_conv``
+    has no meaning here (the banded tail needs the w-space)."""
+    slv, afful = ops.solver, ops.full_schur
+    w = ops.wdtype
+    nf = prob.nv_full
+    kern_w = _kern(prob, "fast" if w == torch.float32 else "accurate",
+                   device)
+    fvbc = -np.asarray(prob.full["A"]
+                       @ prob.bc_full_vec()).ravel()[prob.invinds]
+    fvf = np.zeros(nf)
+    fvf[prob.invinds] = np.asarray(prob.fv).ravel() - fvbc
+    nu, sym = float(prob.nu), bool(getattr(prob, "gradvsymmtrc", True))
+    fb = dict(fv=torch.as_tensor(fvf).to(device=device, dtype=w),
+              kern=kern_w, fp=cn["fp"], ob=out_bundle)
+    vf0 = _embed(cn, bs["v"])
+    # the AB2 "previous convection" entering the first step is the one at
+    # the ORIGINAL v0 (time_int_utils.py:78+:112)
+    nfc0 = (-kern_w.vector(_embed(cn, v0))).to(w)
+
+    def fstep(b, c, t):
+        vf, nfc_o = c["v"], c["nfc"]
+        cv, av = b["kern"].vector_and_amatvec(
+            vf, nu, sym=sym, fac_elem=afful.fac_elem,
+            fac_vdofs=afful.fac_dofs)
+        nfc_c = (-cv).to(w)
+        rhs = (-dt * av.to(w) + (0.5 * dt) * (3.0 * nfc_c - nfc_o)
+               + dt * b["fv"])
+        rp = (b["fp"] - c["gp"]).to(w)
+        y0 = 2.0 * c["ysol"] - c["ysol_p"]
+        sol, y_n = slv.solve_warm(rhs, rp, y0, niter=_NITER_WARM,
+                                  refine=warm_refine)
+        v_n = vf + sol[:nf].to(vf.dtype)
+        p_n = (-sol[nf:] / dt).to(c["p"].dtype)
+        flag = _blowup_flag(c["flag"], v_n, check_ff_maxv)
+        return dict(v=torch.where(flag, vf, v_n),
+                    p=torch.where(flag, c["p"], p_n),
+                    nfc=nfc_c, gp=b["fp"], flag=flag,
+                    ysol=torch.where(flag, c["ysol"], y_n),
+                    ysol_p=torch.where(flag, c["ysol_p"], c["ysol"]))
+
+    ysz = slv.warm_size
+    carry = dict(v=vf0, p=bs["p"], nfc=nfc0, gp=bs["gp"],
+                 flag=torch.zeros((), dtype=torch.bool, device=device),
+                 ysol=torch.zeros(ysz, dtype=w, device=device),
+                 ysol_p=torch.zeros(ysz, dtype=w, device=device))
+    lap("setup_s")
+    carry, ys, tout, outs = _run_scan(fstep, fb, carry, trange[2:],
+                                      save_every, outfunc)
+    ffflag = bool(carry["flag"])
+    lap("loop_s")
+    inv = cn["invinds"]
+    return dict(
+        v=carry["v"][inv], p=carry["p"], ffflag=ffflag, times=tout,
+        vs=None if ys is None else ys[0][:, inv],
+        ps=None if ys is None else ys[1],
+        outs=outs, out_times=np.asarray(trange[2:]),
+        bootstrap=bs, ops=ops, carry=carry)
+
+
 def cnab(trange=None, prob=None, inivel=None, inip=None,
          stokes_flow=False,
          f_tdp=None, g_tdp=None, dynamic_rhs=None, dynamic_rhs_memory=None,
@@ -717,7 +817,7 @@ def cnab(trange=None, prob=None, inivel=None, inip=None,
          linsolver="auto", state_layout="auto", warm_refine=0,
          resume_carry=None, umat=None, vmat=None,
          outfunc=None, out_bundle=None, winv=None, banded_conv=None,
-         verbose=False, device=None, **kw):
+         banded="auto", verbose=False, device=None, **kw):
     """Crank-Nicolson / Adams-Bashforth-2 (reference time_int_utils.py:23).
 
     ``f_tdp(t)``, ``g_tdp(t)``: time-dependent momentum / continuity
@@ -744,8 +844,11 @@ def cnab(trange=None, prob=None, inivel=None, inip=None,
     velocity, then the bc dofs; pressure in the solver's ``pp`` order): the
     solver's right-hand side is a slice, the convection tables are
     re-indexed once, the diffusion is the banded ``A`` of the solver, and
-    natural order is restored at exit and in the saved rows.
-    ``warm_refine`` residual rounds follow each of its solves; on the inner
+    natural order is restored at exit and in the saved rows.  On the
+    solver's element path (``banded=False``, or its gate refusing the
+    band: the JAX package's ``DNS_TPU_BANDED``) the full layout keeps
+    natural order and each step is one :meth:`SchurSaddleSolver.
+    solve_warm`.  ``warm_refine`` residual rounds follow each of its solves; on the inner
     layout ``warm_refine`` > 0 sets the residual rounds of each solve (the
     JAX package reads it on the w-space step only).  ``banded_conv``: the
     w-space step's convection through the banded tail (``None``: its gate
@@ -778,7 +881,7 @@ def cnab(trange=None, prob=None, inivel=None, inip=None,
         lin_res = _resolve_linsolver(prob, linsolver)
         ops = _build_ops(prob, dt, theta=0.5, inv_dtype=inv_dtype,
                          refine=refine, precision=precision,
-                         linsolver=lin_res, winv=winv,
+                         linsolver=lin_res, winv=winv, banded=banded,
                          layout=("full" if want_full and lin_res == "schur"
                                  else "inner"),
                          device=device)
@@ -816,9 +919,10 @@ def cnab(trange=None, prob=None, inivel=None, inip=None,
         hasattr(ops.solver, "KinvT")
         and getattr(ops.solver, "res_ops", None) is not None))
     if use_full and schur_full:
-        out = _cnab_wspace(prob, ops, bs, v0, cn, dt, trange, save_every,
-                           check_ff_maxv, warm_refine, outfunc, out_bundle,
-                           device, lap, banded_conv)
+        run = _cnab_wspace if ops.solver.banded else _cnab_elem
+        out = run(prob, ops, bs, v0, cn, dt, trange, save_every,
+                  check_ff_maxv, warm_refine, outfunc, out_bundle, device,
+                  lap, banded_conv)
         out["timing"] = timing
         return out
     if use_full:
@@ -961,7 +1065,7 @@ def sbdf2(trange=None, prob=None, inivel=None, inip=None,
           inv_dtype=None, refine=None, ops=None, precision="accurate",
           linsolver="auto", state_layout="inner", warm_refine=0,
           resume_carry=None, umat=None, vmat=None,
-          outfunc=None, out_bundle=None,
+          outfunc=None, out_bundle=None, banded="auto",
           verbose=False, device=None, **kw):
     """Semi-implicit BDF2 (reference ``sbdftwo``, time_int_utils.py:260):
     implicit ``M + 2/3 dt A``, extrapolated convection ``2 N(v_c)-N(v_p)``.
@@ -987,7 +1091,7 @@ def sbdf2(trange=None, prob=None, inivel=None, inip=None,
         ops = _build_ops(prob, dt, theta=2.0 / 3.0, inv_dtype=inv_dtype,
                          refine=refine, precision=precision,
                          linsolver=_resolve_linsolver(prob, linsolver),
-                         device=device)
+                         banded=banded, device=device)
     # BDF2 treats the linear feedback term fully implicitly: the 2/3 dt
     # weighted update is folded into the solver
     ops, fbk = _wrap_feedback(ops, umat, vmat, c=2.0 / 3.0 * dt,

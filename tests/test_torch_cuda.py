@@ -1142,3 +1142,98 @@ def test_adjoint_on_the_card_matches_the_cpu():
         grads.append(amps.grad.cpu())
     err = (grads[0] - grads[1]).abs().max() / grads[1].abs().max()
     assert err <= 1e-4, err
+
+
+def _wake3d():
+    from dolfin_navier_scipy_tpu_torch.models import cylinderwake3d_problem
+
+    return cylinderwake3d_problem(level=0, nz=1, nu=1e-3, charvel=1.0,
+                                  paraboloid_inflow=True, zslip=False,
+                                  length=2.5, center=(0.5, 0.2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["conv3d", "affine3d", "elem30", "pcg"])
+def test_3d_kernels_on_the_card(kernel):
+    """The 3D forms of B5 (``conv_vector`` / ``conv_vector_amatvec``, 125
+    points), B9 (every ``affine_mv`` mode and ``affine_residual``), B10
+    (30-column blocks and the 4 x 30 divergence, both ways) and B7 (the
+    PCG tail, vector and column-blocked) against their plain versions on
+    the 3D-2Z wake at nz=1, f32 and f64; one launch counted a call, the
+    same bits twice."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    from dolfin_navier_scipy_tpu_torch.ops.elementop import (
+        build_element_ops)
+    from dolfin_navier_scipy_tpu_torch.ops.kernels import (
+        block_pcg_init, block_pcg_init_ref, block_pcg_step,
+        block_pcg_step_ref, elem_mv, elem_mv_ref, pcg_init, pcg_init_ref,
+        pcg_step, pcg_step_ref)
+
+    prob = _wake3d()
+    rng = np.random.default_rng(40)
+
+    def rel(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm())
+
+    for dt in (torch.float32, torch.float64):
+        tol = 1e-5 if dt == torch.float32 else 1e-12
+        if kernel == "conv3d":
+            t = prob.conv_kernel_on(dt, "cuda").tables
+            aff = AffineVectorOps.build(prob, dt, full_dofs=True,
+                                        device="cuda")
+            u = torch.from_numpy(rng.normal(size=prob.nv_full)).cuda()
+            before = conv_vector_amatvec.launches
+            got = conv_vector_amatvec(u, aff.nu, True, t, aff.fac_elem,
+                                      aff.fac_dofs)
+            assert conv_vector_amatvec.launches == before + 1
+            ref = conv_vector_amatvec_ref(u, aff.nu, True, t, aff.fac_elem,
+                                          aff.fac_dofs)
+            again = conv_vector_amatvec(u, aff.nu, True, t, aff.fac_elem,
+                                        aff.fac_dofs)
+            for g, r, a in zip(got, ref, again):
+                assert rel(g, r) <= tol and torch.equal(g, a)
+            assert rel(conv_vector(u, None, t), conv_vector_ref(u, None, t)) \
+                <= tol
+        elif kernel == "affine3d":
+            aff = AffineVectorOps.build(prob, dt, full_dofs=False,
+                                        device="cuda")
+            for mode in ("m", "a", "ma", "j", "jt"):
+                n = aff.npc if mode == "jt" else aff.nin
+                x = torch.from_numpy(rng.normal(size=n)).to("cuda", dt)
+                y = affine_mv(mode, x, aff, 1.0, 0.3)
+                assert rel(y, affine_mv_ref(mode, x, aff, 1.0, 0.3)) <= tol
+                assert torch.equal(y, affine_mv(mode, x, aff, 1.0, 0.3))
+            v = torch.from_numpy(rng.normal(size=aff.nin)).to("cuda", dt)
+            q = torch.from_numpy(rng.normal(size=aff.npc)).to("cuda", dt)
+            assert rel(affine_residual(v, q, aff, 1.0, 0.3),
+                       affine_residual_ref(v, q, aff, 1.0, 0.3)) <= tol
+        elif kernel == "elem30":
+            M, _, J = build_element_ops(prob, dtype=dt, device="cuda")
+            x = torch.from_numpy(rng.normal(size=M.n)).to("cuda", dt)
+            q = torch.from_numpy(rng.normal(size=J.n_p)).to("cuda", dt)
+            for E, inp, tin, tout, tr in (
+                    (M.elem, x, M.tab, M.tab, False),
+                    (J.elem, x, J.vtab, J.ptab, False),
+                    (J.elem, q, J.ptab, J.vtab, True)):
+                y = elem_mv(E, inp, tin, tout, tr)
+                assert rel(y, elem_mv_ref(E, inp, tin, tout, tr)) <= tol
+                assert torch.equal(y, elem_mv(E, inp, tin, tout, tr))
+        else:
+            M, _, _ = build_element_ops(prob, dtype=dt, device="cuda")
+            dinv = 1.0 / torch.diagonal(torch.as_tensor(
+                prob.Mc.toarray())).to("cuda", dt)
+            b = torch.from_numpy(rng.normal(size=M.n)).to("cuda", dt)
+            st, sr = list(pcg_init(b, dinv)), list(pcg_init_ref(b, dinv))
+            for _ in range(8):
+                pcg_step(*st[:3], M.matvec(st[2]), dinv, st[3])
+                pcg_step_ref(*sr[:3], M.matvec(sr[2]), dinv, sr[3])
+            assert rel(st[0], sr[0]) <= 100 * tol
+            B = torch.from_numpy(rng.normal(size=(M.n, 40))).to("cuda", dt)
+            st = list(block_pcg_init(B, dinv))
+            sr = list(block_pcg_init_ref(B, dinv))
+            Mc = torch.as_tensor(prob.Mc.toarray()).to("cuda", dt)
+            for _ in range(8):
+                block_pcg_step(*st[:3], Mc @ st[2], dinv, st[3])
+                block_pcg_step_ref(*sr[:3], Mc @ sr[2], dinv, sr[3])
+            assert rel(st[0], sr[0]) <= 100 * tol

@@ -41,11 +41,16 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
             "import dolfin_navier_scipy_tpu_torch.utils.io; "
             "import dolfin_navier_scipy_tpu_torch.utils.vtk; "
             "import dolfin_navier_scipy_tpu_torch.utils.spectra; "
+            "import dolfin_navier_scipy_tpu_torch.mesh.tetmesh; "
+            "import dolfin_navier_scipy_tpu_torch.mesh.dolfinxml; "
+            "import dolfin_navier_scipy_tpu_torch.fem.reference3d; "
+            "import dolfin_navier_scipy_tpu_torch.models.cylinderwake3d; "
             "from dolfin_navier_scipy_tpu_torch.solve import sbdf2, "
             "semi_implicit_euler; "
             "from dolfin_navier_scipy_tpu_torch.ops.kernels import "
             "conv_vector, conv_vector_amatvec, elem_mv, conv_quad, "
-            "vecmat_t, conv_vjp, VecmatFn, ConvAmatvecFn, ConvVectorFn; "
+            "vecmat_t, conv_vjp, VecmatFn, ConvAmatvecFn, ConvVectorFn, "
+            "pcg_step, pcg_init, block_pcg_step, block_pcg_init; "
             "from dolfin_navier_scipy_tpu_torch.solve import "
             "make_diff_cnab; "
             "from dolfin_navier_scipy_tpu_torch.solve import "

@@ -215,10 +215,17 @@ def test_lowbit_storage_matches_jax(monkeypatch):
     (dict(banded=False), "non-banded"),
 ])
 def test_unported_schur_paths_raise(kw, match):
+    # the non-banded (element-operator) path, once unported, now builds
+    # and solves: its f64 solve equals the host sparse saddle solve
     _, tp = _probs("cavity")
     F = sps.csr_matrix(tp.Mc + 0.5 * 1e-3 * tp.Ac)
-    with pytest.raises(NotImplementedError, match=match):
-        SchurSaddleSolver(F, tp.Jc, tp.JTc, device="cpu", **kw)
+    slv = SchurSaddleSolver(F, tp.Jc, tp.JTc, device="cpu",
+                            dtype=torch.float64, **kw)
+    assert not slv.banded, match
+    bv, bp = _rhs(slv, 7)
+    exact = host_saddle_factorized(F, tp.Jc, tp.JTc)(bv, bp).ravel()
+    got = slv.solve(torch.from_numpy(bv), torch.from_numpy(bp), refine=1)
+    assert _rel(got, exact) <= 1e-10
 
 
 def _jax_cnab(winv, warm_refine, layout="auto"):
