@@ -243,6 +243,14 @@ def graph_ms(fn, calls=20, replays=10):
     return time_ms(graph.replay, replays) / calls
 
 
+def library_times(fn, reps=200, calls=20):
+    """One library call's time as its kernel's is taken: a CUDA-graph
+    replay (``library_ms``), and back-to-back eager calls
+    (``library_eager_ms``: what a caller that does not capture pays)."""
+    return dict(library_ms=graph_ms(fn, calls=calls),
+                library_eager_ms=time_ms(fn, reps))
+
+
 def device_kernels(fn):
     """Device kernels that one call of ``fn`` runs: the kernel nodes (type
     0) of the call captured in a CUDA graph (``captured``), with every
@@ -313,7 +321,7 @@ def check_vecmat(x, KT, what, reps, counted=False):
                ms=graph_ms(lambda: vecmat(x, KT)),
                eager_ms=time_ms(lambda: vecmat(x, KT), reps),
                plain_ms=time_ms(lambda: vecmat_ref(x, KT), reps),
-               library_ms=time_ms(lambda: torch.mv(KTt, x), reps),
+               **library_times(lambda: torch.mv(KTt, x), reps),
                bound_ms=bound, bound_by=by)
     out["roofline_share"] = bound / out["ms"]
     return out
@@ -802,8 +810,9 @@ def check_band(forms, counted=True):
         row.update(ms=graph_ms(run, calls=max(20, len(copies))),
                    eager_ms=time_ms(run, 200),
                    plain_ms=time_ms(cycling(plain, copies), 50),
-                   library_ms=(None if library is None else
-                               time_ms(cycling(library, copies), 200)),
+                   **(dict(library_ms=None) if library is None else
+                      library_times(cycling(library, copies),
+                                    calls=max(20, len(copies)))),
                    library=None if library is None else lib_label,
                    timed_over_copies=len(copies),
                    ms_warm_l2=graph_ms(lambda: call(B)),
@@ -1045,6 +1054,7 @@ def level2_path(dev, gen, nsteps):
                     max_abs_err=chk["max_abs_err"], ms=chk["ms"],
                     plain_ms=chk["plain_ms"], bound_ms=chk["bound_ms"],
                     bound_by=chk["bound_by"], library_ms=chk["library_ms"],
+                    library_eager_ms=chk.get("library_eager_ms"),
                     library=chk["library"], eager_ms=chk["eager_ms"],
                     kernel=chk["kernel"], design=BAND_DESIGN[chk["kernel"]])
 
@@ -1058,6 +1068,7 @@ def level2_path(dev, gen, nsteps):
              plain_ms=vec_check["plain_ms"], bound_ms=vec_check["bound_ms"],
              bound_by=vec_check["bound_by"],
              library_ms=vec_check["library_ms"],
+             library_eager_ms=vec_check.get("library_eager_ms"),
              eager_ms=vec_check["eager_ms"], design=DESIGN),
         dict(name="convection_vector_level2", route="cuda",
              source="dolfin_navier_scipy_tpu_torch/csrc/convection.cu",
@@ -1302,23 +1313,30 @@ def check_affine(aff, prob, full_dofs, what, gen, timed=None, counted=False,
                            plain_ms=time_ms(plain, 50), bound_ms=bound,
                            bound_by=by)
                 if mode == "res":
-                    row.update(library_ms=None, library=None,
-                               composition_ms=graph_ms(lambda: torch.cat([
-                                   affine_mv("ma", xd, aff, cm, ca)
-                                   + affine_mv("jt", qd, aff),
-                                   affine_mv("j", xd, aff)])))
+                    # the library's one call: the assembled saddle
+                    # operator [[cm M + ca A, J^T], [J, 0]] on [v; q]
+                    B = sps.bmat([[cm * M + ca * A, JT], [J, None]])
+                    xl = torch.cat([xd, qd])
+                    row.update(composition_ms=graph_ms(lambda: torch.cat([
+                        affine_mv("ma", xd, aff, cm, ca)
+                        + affine_mv("jt", qd, aff),
+                        affine_mv("j", xd, aff)])))
                 else:
                     B = dict(m=M, a=A, j=J, jt=JT,
-                             ma=sps.csr_matrix(cm * M + ca * A))[mode]
-                    csr = torch.sparse_csr_tensor(
-                        torch.as_tensor(B.indptr, dtype=torch.int64),
-                        torch.as_tensor(B.indices, dtype=torch.int64),
-                        torch.as_tensor(B.data), size=B.shape).to(
-                            device=dev, dtype=aff.wdet.dtype)
-                    xl = xd.to(aff.wdet.dtype)[:, None]
-                    row.update(library_ms=time_ms(lambda: csr @ xl, 200),
-                               library="cuSPARSE CSR matvec (torch sparse "
-                                       "CSR @) with the assembled matrix")
+                             ma=cm * M + ca * A)[mode]
+                    xl = xd
+                B = sps.csr_matrix(B)
+                csr = torch.sparse_csr_tensor(
+                    torch.as_tensor(B.indptr, dtype=torch.int64),
+                    torch.as_tensor(B.indices, dtype=torch.int64),
+                    torch.as_tensor(B.data), size=B.shape).to(
+                        device=dev, dtype=aff.wdet.dtype)
+                xl = xl.to(aff.wdet.dtype)[:, None]
+                row.update(**library_times(lambda: csr @ xl),
+                           library="cuSPARSE CSR matvec (torch sparse CSR @) "
+                                   "with the assembled matrix" + (
+                                       " (the saddle operator)"
+                                       if mode == "res" else ""))
                 row["roofline_share"] = bound / row["ms"]
             out.append(row)
     return out
@@ -1344,6 +1362,7 @@ def affine_rows(checks, suffix, launches):
             max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"],
             bound_ms=c["bound_ms"], bound_by=c["bound_by"],
             library_ms=c["library_ms"], library=c["library"],
+            library_eager_ms=c.get("library_eager_ms"),
             eager_ms=c["eager_ms"], floor_ms=c["floor_ms"],
             composition_ms=c.get("composition_ms"),
             device_kernels_per_call=c.get("device_kernels_per_call"),
@@ -1788,7 +1807,7 @@ def check_elem(E, in_tab, out_tab, transpose, what, gen, replaces):
                 device_kernels_per_call=1, graph_replay_equal=True,
                 ms=ms, eager_ms=time_ms(run, 200),
                 plain_ms=time_ms(plain, 50),
-                library_ms=time_ms(lambda: csr @ xl, 200),
+                **library_times(lambda: csr @ xl),
                 library="cuSPARSE CSR matvec (torch sparse CSR @) with the "
                         "assembled matrix",
                 bound_ms=bound, bound_by=by, roofline_share=bound / ms,
@@ -1802,12 +1821,19 @@ def elem_bits_cases(dev):
     f32 vector: bits that depend on the kernel's arithmetic alone."""
     _, A, J = build_element_ops(dfg_problem(1), dtype=torch.float64,
                                 device=dev)
-    rng = np.random.default_rng(20)
+    return seeded_elem_cases((
+        ("velocity 12x12", A.elem.shape, A.tab, A.tab, False),
+        ("J 3x12", J.elem.shape, J.vtab, J.ptab, False),
+        ("J^T", J.elem.shape, J.ptab, J.vtab, True)), 20, dev)
+
+
+def seeded_elem_cases(operands, seed, dev):
+    """For each ``(name, E's shape, in_tab, out_tab, transpose)`` of
+    ``operands``: blocks and a vector from ``numpy`` seeded with ``seed``,
+    in f32 / f32, f64 / f64 and f64 blocks under an f32 vector."""
+    rng = np.random.default_rng(seed)
     out = []
-    for name, shape, tin, tout, tr in (
-            ("velocity 12x12", A.elem.shape, A.tab, A.tab, False),
-            ("J 3x12", J.elem.shape, J.vtab, J.ptab, False),
-            ("J^T", J.elem.shape, J.ptab, J.vtab, True)):
+    for name, shape, tin, tout, tr in operands:
         for edt, xdt in ((torch.float32, torch.float32),
                          (torch.float64, torch.float64),
                          (torch.float64, torch.float32)):
@@ -1876,6 +1902,7 @@ def elem_row(c, launches):
         max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"],
         bound_ms=c["bound_ms"], bound_by=c["bound_by"],
         library_ms=c["library_ms"], library=c["library"],
+            library_eager_ms=c.get("library_eager_ms"),
         eager_ms=c["eager_ms"],
         device_kernels_per_call=c["device_kernels_per_call"],
         plan=c["plan"], design=ELEM_DESIGN)
@@ -2624,7 +2651,7 @@ def check_vecmat_t(g, KT, what, reps):
                ms=graph_ms(lambda: vecmat_t(g, KT)),
                eager_ms=time_ms(lambda: vecmat_t(g, KT), reps),
                plain_ms=time_ms(lambda: vecmat_t_ref(g, KT), reps),
-               library_ms=time_ms(lambda: torch.mv(KT, g), reps),
+               **library_times(lambda: torch.mv(KT, g), reps),
                library="torch.mv(KT, g)", bound_ms=bound, bound_by=by)
     out["roofline_share"] = bound / out["ms"]
     return out
@@ -2895,6 +2922,7 @@ def adjoint_rows(rows):
                  max_abs_err=vt["max_abs_err"], ms=vt["ms"],
                  plain_ms=vt["plain_ms"], bound_ms=vt["bound_ms"],
                  bound_by=vt["bound_by"], library_ms=vt["library_ms"],
+                 library_eager_ms=vt.get("library_eager_ms"),
                  library=vt["library"], eager_ms=vt["eager_ms"],
                  device_kernels_per_call=vt["device_kernels_per_call"]),
             dict(name="conv_vjp" + sfx, route="cuda",
@@ -2980,8 +3008,107 @@ PCG_DESIGN = ("one launch after the matvec: a resident grid, two fixed-order "
 CONV3D_DESIGN = ("a 128-thread block an element, a thread a quadrature "
                  "point, the 30 element sums in point order, then the "
                  "grid barrier and the dof-major ELL sums")
-AFFINE3D_DESIGN = ("the partitions of the 2D form; a warp an element, a lane "
-                   "a slot, exact reference matrices (no point loop)")
+AFFINE3D_DESIGN = ("the 2D form's partitions, never split; a block's ids, "
+                   "geometry, slot table and reference matrices by bulk "
+                   "copies, x gathered for all its slots in one pass; "
+                   "velocity slots a warp an element (the lane's Sref rows "
+                   "in registers, Z shared by shuffles), pressure slots a "
+                   "thread an (element, node); exact reference matrices")
+ELEM30_DESIGN = ("the 2D form's partition and tables; each warp's 32 rows "
+                 "copied by cp.async (8-byte pieces, neighbouring lanes on "
+                 "neighbouring bytes) into its stage in shared memory, a "
+                 "row a lane from there; a thread a dof summing its rows "
+                 "in slot order")
+
+
+# sha256 (first 16 hex digits) of y from the first 3D forms of
+# csrc/elemmv.cu and csrc/affine.cu (commit 541cd06) on the seeded
+# operands of elem3d_bits_cases and affine3d_bits_cases (3D-2Z, nz=2): the
+# redesigned kernels keep every chain and every dof's slot order, so they
+# must give these bits (tools_torch/elemmv_variants.py and
+# affine_variants.py --wake3d 2 print them for any checkout)
+ELEM3D_BITS = {
+    "F 30x30, E float32, x float32": "efeee3ace69e6844",
+    "F 30x30, E float64, x float64": "7b9a53a1d05b11c2",
+    "F 30x30, E float64, x float32": "eca10a6baf4bc618",
+    "J 4x30, E float32, x float32": "b80223e4967ca074",
+    "J 4x30, E float64, x float64": "563ddac5df40df13",
+    "J 4x30, E float64, x float32": "081cdef9b7392d1e",
+    "J^T, E float32, x float32": "07da98d06afd7d23",
+    "J^T, E float64, x float64": "c512b3c67b2c3f3a",
+    "J^T, E float64, x float32": "db31bca9ce4b3302"}
+AFFINE3D_BITS = {
+    "m, tables float32, x float32": "62dc360676e2a861",
+    "m, tables float32, x float64": "04918b0e1ba6e505",
+    "a, tables float32, x float32": "2f850e3b6db63ff4",
+    "a, tables float32, x float64": "69466252476e4206",
+    "ma, tables float32, x float32": "d4328ef8595da101",
+    "ma, tables float32, x float64": "a4fa6a4bc546b1cc",
+    "j, tables float32, x float32": "60d48e812e3c81f0",
+    "j, tables float32, x float64": "676debf1ced227c4",
+    "jt, tables float32, x float32": "74926b6bcefca5a7",
+    "jt, tables float32, x float64": "c862f099af1d98b3",
+    "res, tables float32, x float32": "e528c1613755cbde",
+    "res, tables float32, x float64": "a5bca16d354e57c8",
+    "m, tables float64, x float32": "abbcf9e66e8ff728",
+    "m, tables float64, x float64": "78045c2ce0084bac",
+    "a, tables float64, x float32": "34bc316069d062f2",
+    "a, tables float64, x float64": "02418061ffa5a464",
+    "ma, tables float64, x float32": "237ccd9177947f87",
+    "ma, tables float64, x float64": "08686b0dfc75887f",
+    "j, tables float64, x float32": "78d12c10fd881f12",
+    "j, tables float64, x float64": "66553dea28ea425e",
+    "jt, tables float64, x float32": "96354349e52f9e78",
+    "jt, tables float64, x float64": "af9c9235fd8e2b3e",
+    "res, tables float64, x float32": "7ab2c7457007cf2d",
+    "res, tables float64, x float64": "3e8f40df8c82e3c0"}
+
+
+def elem3d_bits_cases(prob, dev):
+    """``[(name, E, x, in_tab, out_tab, transpose)]`` on a 3D problem's
+    tables: the element route's full-dof velocity table (F's 30 x 30
+    blocks, as ``solve_nse`` builds it) and the divergence's (J 4 x 30, its
+    transpose), seeded as :func:`elem_bits_cases`'s."""
+    _, _, J = build_element_ops(prob, dtype=torch.float64, device=dev)
+    vd = prob.space.vdofs_of_cells()
+    ftab = kernels.DofTable(torch.as_tensor(vd.reshape(vd.shape[0], -1),
+                                            device=dev), prob.nv_full)
+    return seeded_elem_cases((
+        ("F 30x30", (vd.shape[0], 30, 30), ftab, ftab, False),
+        ("J 4x30", J.elem.shape, J.vtab, J.ptab, False),
+        ("J^T", J.elem.shape, J.ptab, J.vtab, True)), 30, dev)
+
+
+def affine3d_bits_cases(prob, dev):
+    """``[(name, tables, mode, cm, ca, x, q)]``: the full-dof 3D tables in
+    f32 and f64, every mode of ``AFFINE_MODES`` (the residual 'res'),
+    seeded f32 and f64 vectors."""
+    rng = np.random.default_rng(31)
+    out = []
+    for tdt in (torch.float32, torch.float64):
+        aff = AffineVectorOps.build(prob, tdt, full_dofs=True, device=dev)
+        for mode, cm, ca in AFFINE_MODES:
+            n = aff.npc if mode == "jt" else aff.nin
+            for xdt in (torch.float32, torch.float64):
+                x = torch.as_tensor(rng.normal(size=n)).to(dev, xdt)
+                q = torch.as_tensor(rng.normal(size=aff.npc)).to(dev, xdt)
+                out.append((f"{mode}, tables {str(tdt)[6:]}, x "
+                            f"{str(xdt)[6:]}", aff, mode, cm, ca, x, q))
+    return out
+
+
+def affine_bits(mod, cases):
+    """``{name: the first 16 hex digits of sha256(y)}`` of the affine
+    kernel of ``mod`` (a module with ``affine_mv`` and
+    ``affine_residual``: this checkout's ``ops.kernels`` or another's) on
+    ``cases``, each table set on plans of its own."""
+    out, own = {}, {}
+    for name, aff, mode, cm, ca, x, q in cases:
+        t = own.setdefault(id(aff), fresh_tables(aff))
+        y = (mod.affine_residual(x, q, t, cm, ca) if mode == "res"
+             else mod.affine_mv(mode, x, t, cm, ca))
+        out[name] = hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()[:16]
+    return out
 
 
 def pcg_counts():
@@ -3107,8 +3234,12 @@ def affine3d_bound_ms(t, mode, x_item, facets):
     """Least time for one 3D affine call (the exact reference-matrix form
     the kernel applies): the vectors, the int32 ids, JinvT and detJ, the
     reference matrices and the facet blocks read once, the output written
-    once; the multiply-adds of the reference contractions an element
-    (``csrc/affine.cu: block_body_3d``) over the rate of the work type."""
+    once; the operations the function needs over the rate of the work
+    type, counting a multiply-add as two: a velocity slot (a, c) forms its
+    own component of Z = Sref x (90 multiply-adds), contracts it with the
+    element's metric JinvT^T JinvT (9; the metric's 27 once an element)
+    and, symmetric, with JinvT (27 + 9); M a slot is 10 + 1, J a pressure
+    node 99, J^T a slot 15; each slot is then added once into its dof."""
     s = t.wdet.element_size()
     nc, nd, pn = t.nc, t.nvpc * t.dim, t.pnpc
     nfac = int(t.fac_elem.shape[0]) if facets else 0
@@ -3117,11 +3248,14 @@ def affine3d_bound_ms(t, mode, x_item, facets):
     ids = dict(jt=pn, res=nd + pn).get(mode, nd)
     nbytes = (x_item * (nin + nout) + 4 * nc * ids + s * nc * 10
               + s * 1120 + nfac * nd * (s * nd + 4))
-    per = dict(m=nd * 20, a=nd * (2 * 270 + 9 * 16), j=pn * (2 * 90 + 18),
-               jt=nd * (2 * 12 + 6))
+    sym = bool(t.sym)
+    per = dict(m=nd * 22 + 1,
+               a=nd * (2 * (90 + 9 + 36 * sym) + sym + 1) + 2 * 27 + 2,
+               j=pn * (2 * 99 + 1), jt=nd * (2 * 15 + 1))
     per["ma"] = per["m"] + per["a"]
     per["res"] = per["ma"] + per["jt"] + per["j"]
-    flops = nc * per[mode] + 2 * nfac * nd * nd
+    sums = dict(j=pn, res=2 * nd + pn).get(mode, nd)
+    flops = nc * (per[mode] + sums) + 2 * nfac * nd * nd
     rate = F32_FLOP_PER_S if s == 4 else F64_FLOP_PER_S
     t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / rate
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
@@ -3148,9 +3282,9 @@ def kernels3d(prob, slv_elem, slv_band, what, gen, timed):
     globals()["affine_bound_ms"] = affine3d_bound_ms
     try:
         affc = check_affine(aff, prob, True, what, gen,
-                            timed=(dict(m=torch.float32, a=torch.float32,
-                                        j=torch.float32, jt=torch.float32,
-                                        res=torch.float32) if timed else None),
+                            timed=(dict.fromkeys(
+                                ("m", "a", "ma", "j", "jt", "res"),
+                                torch.float32) if timed else None),
                             counted=timed)
     finally:
         globals()["affine_bound_ms"] = bound_fn
@@ -3293,7 +3427,14 @@ def wake3d_small(dev, gen):
                 f"the CPU f64 run > {run['bar']}")
     chk = kernels3d(prob, ops["element"].solver, ops["banded"].solver,
                     f"wake3d nz={NZ_SMALL}", gen, timed=False)
+    bits = dict(elem=elem_bits(elem_mv, elem3d_bits_cases(prob, dev)),
+                affine=affine_bits(kernels, affine3d_bits_cases(prob, dev)))
+    require(bits["elem"] == ELEM3D_BITS, f"elem_mv (3D): other bits than "
+            f"the first 3D kernel's: {bits['elem']} != {ELEM3D_BITS}")
+    require(bits["affine"] == AFFINE3D_BITS, f"affine (3D): other bits than "
+            f"the first 3D kernel's: {bits['affine']} != {AFFINE3D_BITS}")
     say(phase="wake3d_small", problem=f"3D-2Z nz={NZ_SMALL}",
+        same_bits_as_first_3d_kernels=True,
         nv_full=prob.nv_full, nin=len(prob.invinds), np=prob.np_cond,
         tets=prob.space.mesh.num_cells, build_seconds=build_s,
         cpu_reference_seconds=cpu_s, runs=runs,
@@ -3420,9 +3561,12 @@ def rows3d(chk, launches, ops):
         r["design"] = AFFINE3D_DESIGN
         rows.append(r)
     for c, n in zip(chk["elem"], (le["elem_mv"], 0, 0)):
-        rows.append(dict(elem_row(c, n), name="elem_mv_3d"
-                         + ("" if "F =" in c["operand"] else
-                            "_jt" if c["transpose"] else "_j")))
+        row = dict(elem_row(c, n), name="elem_mv_3d"
+                   + ("" if "F =" in c["operand"] else
+                      "_jt" if c["transpose"] else "_j"))
+        if c["plan"]["staged"]:
+            row["design"] = ELEM30_DESIGN
+        rows.append(row)
     for c, n, kind in zip(chk["pcg"], (le["pcg_step"],
                                        setup["block_pcg_step"]),
                           ("vector", "block")):
@@ -3897,7 +4041,8 @@ def main():
             shape=chk["shape"], max_abs_err=chk["max_abs_err"],
             ms=chk["ms"], plain_ms=chk["plain_ms"],
             bound_ms=chk["bound_ms"], bound_by=chk["bound_by"],
-            library_ms=chk["library_ms"], library=chk["library"],
+            library_ms=chk["library_ms"],
+                    library_eager_ms=chk.get("library_eager_ms"), library=chk["library"],
             eager_ms=chk["eager_ms"],
             device_kernels_per_call=chk["device_kernels_per_call"],
             kernel=chk["kernel"], design=BAND_DESIGN[chk["kernel"]])
@@ -3931,6 +4076,7 @@ def main():
             max_abs_err=chk["max_abs_err"], ms=chk["ms"],
             plain_ms=chk["plain_ms"], bound_ms=chk["bound_ms"],
             bound_by=chk["bound_by"], library_ms=chk["library_ms"],
+                    library_eager_ms=chk.get("library_eager_ms"),
             library=chk.get("library"), eager_ms=chk["eager_ms"],
             device_kernels_per_call=chk["device_kernels_per_call"])
 
@@ -3945,6 +4091,7 @@ def main():
              plain_ms=main_chk["plain_ms"], bound_ms=main_chk["bound_ms"],
              bound_by=main_chk["bound_by"],
              library_ms=main_chk["library_ms"],
+             library_eager_ms=main_chk.get("library_eager_ms"),
              eager_ms=main_chk["eager_ms"],
              device_kernels_per_call=main_chk["device_kernels_per_call"],
              design=DESIGN),

@@ -74,8 +74,9 @@
 //
 // block_body is written over NVPC, PN, Q, DIM as compile-time parameters
 // (Q <= 8) and built for 2D Taylor-Hood (6, 3, 7, 2); the 3D Taylor-Hood
-// form (10, 4, 125, 3) is block_body_3d (reference matrices, a warp an
-// element; see there), on the same partitions.  Plain C
+// form (10, 4, 125, 3) is block_body_3d (reference matrices, a block's
+// work staged in shared memory first; see there), on the same partitions
+// (never split: its threads loop over a block's dofs).  Plain C
 // interface, loaded with ctypes; the caller allocates the output and checks
 // the returned cudaError_t.
 
@@ -97,16 +98,25 @@ struct AffinePart {
     const int* fids;        // (nblk, fmax, ND): a facet row's ids, or null
     const void* fco;        // (nblk, fmax, ND): its coefficients, or null
     const int* own;         // (n,): the owned dofs, block after block
-    const int* lell;        // (lwidth, nown): own[k]'s slots as positions
-                            // in its block's shared memory (facet rows at
+    const int* lell;        // 2D (3D: null): (lwidth, nown): own[k]'s
+                            // slots as positions in its block's shared
+                            // memory (facet rows at
                             // [0, nf), element slot (l, j) at nf + l*ns + j;
                             // the residual's pressure slots past its two
                             // velocity value sets), element slots first,
                             // -1 past its count
+    const int* sinfo;       // 3D (else null): (nblk, 2): the offset of the
+                            // block's slot table in slots (ints, a multiple
+                            // of 4) and its rows (the most slots of a dof
+                            // of the block)
+    const int* slots;       // 3D: each block's rows of lell over its dofs,
+                            // row u of dof k at u * (owned dofs) + k
     int nblk, emax, fmax, lwidth;
     int nown;               // owned dofs in all (the residual's: nin + npc,
                             // pressure dof p owned as nin + p)
-    int maxown;             // the most dofs a block owns (<= BLOCK_THREADS)
+    int maxown;             // the most dofs a block owns (2D: at most
+                            // BLOCK_THREADS; a 3D block's threads loop)
+    int smax;               // 3D: the largest block's slot table (ints)
 };
 
 // The reference tables (ops/kernels.py: _AffinePlanC, field for field).
@@ -138,6 +148,7 @@ constexpr int BLOCK_THREADS = 256;
 constexpr int MAX_SLOTS = 12;       // a dof's slots held in registers
 constexpr int LANES = 8;            // lanes per element
 constexpr int PACK = 16;            // ids and geometry an element
+constexpr int SMEM_MAX = 232448;    // the most a block may take (sm_90)
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int NVPC_ = 6, PN_ = 3, Q_ = 7, DIM_ = 2;
 
@@ -625,64 +636,348 @@ block_kernel(const AffinePlan p, const AffinePart part,
 //   J:   fe[p]   = dj sum_{c,k} Ji[c][k] sum_b Bref[p][k][b] x[b,c];
 //   JT:  fe[a,c] = dj sum_k Ji[c][k] sum_p Bref[p][k][a] q[p].
 //
-// A warp takes one element (lane j its slot j: dof (a, c) = (j / 3, j % 3),
-// or pressure node j), the element's 30 + 4 values in a warp-private row of
-// shared memory; no sum runs across lanes, so every slot is one thread's
-// fixed-order chain.  The partition, the facet rows and the per-dof sums are
-// the 2D form's.  Bound: the element arithmetic is ~4e3 operations an
-// element in MA (against ~3e4 for the quadrature loop), so at 3D-2Z nz=8 a
-// call is ~0.1 GFLOP, and bytes (the ids, geometry and x: ~2 MB) bound it
-// at the memory rate.
+// Every slot is one thread's fixed-order chain; the partition, the facet
+// rows and the per-dof sums are the 2D form's (a thread loops over the
+// block's dofs, so a 3D block is never split).  The first form took a warp
+// an element, each element a chain of dependent trips to L2 (its ids, then
+// x by those ids, its geometry) and, in MA, 90 loads of Sref and 270 of x a
+// lane; it trailed one cuSPARSE matvec.  This form stages a block's work
+// first and computes from shared memory and registers:
+//
+//   1. one thread starts the bulk copies (cp.async.bulk on two
+//      mbarriers): the block's packed ids (contiguous in the plan's
+//      tables), then the reference matrices, the elements' geometry rows
+//      and the block's slot table (ops/kernels.py: affine_slots3d); all
+//      threads wait for the ids, gather x (and q) for the slots the mode
+//      reads in one pass (16 independent loads a thread in flight), and
+//      compute the facet rows from global memory meanwhile;
+//   2. the velocity slots, a warp an element, lane (a, c) its slot: the
+//      lane keeps its rows of Sref (90 entries), Mref (10) and Bref (12)
+//      in registers for the whole block; in MA it forms only Z[k][l][a][c]
+//      (its own component: 90 multiply-adds where every lane formed all
+//      three, 270) and takes Z[k][l][a][d] of d != c from the lanes of its
+//      node by shuffles, with the same chains, so with the same bits;
+//   3. the pressure slots (J, the residual's J), a thread a (element,
+//      pressure node): 8 elements a warp, its Bref rows in registers;
+//   4. the dof sums, a dof's element slots read 8 at a time.
+//
+// The bulk copies (~60 KB a block at nz=8) are about half of a light
+// mode's call (tools_torch/affine_phases.py).  Bound (chip_smoke.py:
+// affine3d_bound_ms): at 3D-2Z nz=8 mode a needs ~0.12 GFLOP (272 flops a
+// slot in the symmetric form, operations) and the other modes' ids,
+// geometry and vectors a few MB (bytes); a call also pays the partition's
+// halo (elements recomputed by the blocks of their dofs).
+//
+// AFFINE3D_PHASES: the phases a build runs, all four unless a build
+// defines it (tools_torch/affine_phases.py leaves phases out to time the
+// rest).
+#ifndef AFFINE3D_PHASES
+#define AFFINE3D_PHASES 15
+#endif
+constexpr int PH_GATHER = 1, PH_FACETS = 2, PH_TERMS = 4, PH_SUMS = 8;
+constexpr int PHASES = AFFINE3D_PHASES;
 constexpr int PACK3 = 36;           // ids an element: 30 velocity, 4
                                     // pressure, 2 padding
-constexpr int XS3 = 40;             // a warp's row of element values
+constexpr int REF3 = 100 + 900 + 120;   // Mref, Sref, Bref
 constexpr int WARPS = BLOCK_THREADS / 32;
 
+// A 3D block's shared memory, in bytes (ops/kernels.py: affine_smem3d):
+// two mbarriers, the reference matrices, the elements' geometry rows and
+// ids, the dofs' slot table, the gathered values, the facet rows' and
+// elements' values.
+template <typename T>
+__host__ __device__ constexpr size_t smem3d(int emax, int fmax, int smax,
+                                            int per_elem) {
+    return 16 +
+           (static_cast<size_t>(REF3) +
+            static_cast<size_t>(emax) * (PACK + PACK3 + per_elem) + fmax) *
+               sizeof(T) +
+           (static_cast<size_t>(emax) * PACK3 + smax) * sizeof(int);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                 :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+// the arrival, announcing the bytes the copies will bring
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    uint32_t done = 0;
+    while (!done) {
+        asm volatile(
+            "{\n\t.reg .pred p;\n\t"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+            "selp.u32 %0, 1, 0, p;\n\t}"
+            : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+    }
+}
+
+// `bytes` contiguous bytes (16-byte aligned, a multiple of 16) into shared
+// memory, completing on bar
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1], %2, [%3];"
+        :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+        : "memory");
+}
+
+// Owned dof i of a 3D block: sum_dof's sums in its order, the slots read
+// from column col (stride m) of the block's slot table.  The element slots
+// come first, then the facet rows, then -1: the element slots are read
+// SLOTS3 at a time (their loads in flight together) and added one after
+// the other while they last; then the facet rows one by one.
+constexpr int SLOTS3 = 8;
+
 template <typename T, typename TU, int MODE>
+__device__ __forceinline__ void sum_dof3(const int* col, int m, int width,
+                                         int i, const T* sv, const T* st,
+                                         int nfac, int nf, int nin, TU* y) {
+    constexpr bool RES = MODE == MODE_RES;
+    const bool vel = MODE != MODE_J && (!RES || i < nin);
+    T acc = T(0), acc_t = T(0);
+    int u = 0;
+    for (int got = SLOTS3; got == SLOTS3 && u < width; u += got) {
+        int s[SLOTS3];
+        T v[SLOTS3], w[SLOTS3];
+#pragma unroll
+        for (int c = 0; c < SLOTS3; ++c) {
+            s[c] = u + c < width ? col[(u + c) * m] : -1;
+            v[c] = s[c] >= nfac ? sv[s[c]] : T(0);
+            w[c] = RES && vel && s[c] >= nfac ? st[s[c] - nfac] : T(0);
+        }
+        got = 0;
+#pragma unroll
+        for (int c = 0; c < SLOTS3; ++c)
+            if (s[c] >= nfac) {
+                acc = add(acc, v[c]);
+                if (RES && vel) acc_t = add(acc_t, w[c]);
+                ++got;
+            }
+    }
+    // u: the first slot past the element slots
+    if (vel && nf > 0)
+        for (; u < width; ++u) {
+            const int s = col[u * m];
+            if (s < 0) break;
+            acc = add(acc, sv[s]);
+        }
+    if (RES && vel)
+        y[i] = static_cast<TU>(acc) + static_cast<TU>(acc_t);
+    else
+        y[i] = static_cast<TU>(acc);
+}
+
+// Block b of partition pt in 3D.  MODE and the value sets as block_body's;
+// HAS_A: the A terms (ca != 0) of MA and RES.
+template <typename T, typename TU, int MODE, bool HAS_A>
 __device__ __forceinline__ void block_body_3d(
     const AffinePlan& p, const AffinePart& pt, int b, const TU* x,
-    const TU* xq, TU* y, T cm, T ca, T nu, int sym, int facets, T* smem) {
+    const TU* xq, TU* y, T cm, T ca, T nu, int sym, int facets,
+    unsigned char* smem) {
     constexpr int NVPC = 10, PN = 4, DIM = 3, ND = NVPC * DIM;
     constexpr bool PRES = MODE == MODE_J;
     constexpr bool RES = MODE == MODE_RES;
+    constexpr bool VEL_MA = MODE == MODE_MA || RES;
+    constexpr bool VEL_JT = MODE == MODE_JT || RES;
     constexpr int NS = PRES ? PN : ND;
     const int4 cnt = reinterpret_cast<const int4*>(pt.cnt)[b];
     const int ne = cnt.x, nfac = cnt.y, nf = facets ? cnt.y : 0;
-    const int n = pt.nown;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    T* xs = smem + warp * XS3;                       // this warp's row
-    T* sv = smem + WARPS * XS3;                      // the block's values
+    const int emax = pt.emax;
+    uint64_t* bar = reinterpret_cast<uint64_t*>(smem);   // ids; the rest
+    T* ref = reinterpret_cast<T*>(smem + 16);
+    T* geo = ref + REF3;                                 // emax x PACK
+    int* ids = reinterpret_cast<int*>(geo + static_cast<size_t>(emax) *
+                                                PACK);   // emax x PACK3
+    int* sl = ids + static_cast<size_t>(emax) * PACK3;   // the slot table
+    T* xs = reinterpret_cast<T*>(sl + pt.smax);
+    T* sv = xs + static_cast<size_t>(emax) * PACK3;      // the values
     T* sk = sv + nfac;
     T* st = sk + static_cast<size_t>(ne) * NS;
     T* sj = st + static_cast<size_t>(ne) * NS;
-    const T* Mref = static_cast<const T*>(p.ref);
+    const size_t row0 = static_cast<size_t>(b) * emax;
+    const int2 si = reinterpret_cast<const int2*>(pt.sinfo)[b];
+    const int soff = si.x, sw = si.y;
+
+    // 1. the ids by a bulk copy; the reference matrices, geometry and slot
+    // table by three more; the gathered values; the facet rows
+    if (tid == 0) {
+        mbar_init(bar, 1);
+        mbar_init(bar + 1, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        const uint32_t ib = ne * PACK3 * sizeof(int),
+                       gb = ne * PACK * sizeof(T), rb = REF3 * sizeof(T),
+                       sb = (sw * cnt.w + 3) / 4 * 16;
+        mbar_arrive_tx(bar, ib);
+        if (ne > 0) bulk_copy(ids, pt.ids + row0 * PACK3, ib, bar);
+        mbar_arrive_tx(bar + 1, rb + gb + sb);
+        bulk_copy(ref, p.ref, rb, bar + 1);
+        if (ne > 0)
+            bulk_copy(geo, static_cast<const T*>(pt.geo) + row0 * PACK, gb,
+                      bar + 1);
+        if (sb > 0) bulk_copy(sl, pt.slots + soff, sb, bar + 1);
+    }
+    __syncthreads();
+    mbar_wait(bar, 0);
+    {
+        // only the slots the mode reads: velocity (G0 0, GN 30), pressure
+        // (JT: 30, 4) or both (RES: 0, 34)
+        constexpr int G0 = MODE == MODE_JT ? ND : 0;
+        constexpr int GN = MODE == MODE_JT ? PN : (RES ? ND + PN : ND);
+        const TU* qv = MODE == MODE_JT ? x : xq;
+        const int nx = ne * GN;
+        constexpr int U = 16;
+        for (int i0 = tid; i0 < nx; i0 += U * BLOCK_THREADS) {
+            T v[U];
+            int at[U];
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                const int i = i0 + u * BLOCK_THREADS;
+                const int l = i / GN, j = G0 + (i - l * GN);
+                at[u] = l * PACK3 + j;
+                v[u] = T(0);
+                if ((PHASES & PH_GATHER) && i < nx)
+                    v[u] = j < ND ? gather<T>(x, ids[at[u]], p.nin)
+                                  : gather<T>(qv, ids[at[u]], p.npc);
+            }
+#pragma unroll
+            for (int u = 0; u < U; ++u)
+                if (i0 + u * BLOCK_THREADS < nx) xs[at[u]] = v[u];
+        }
+    }
+    if ((PHASES & PH_FACETS) && !PRES && nf > 0)
+        for (int f = tid; f < nf; f += BLOCK_THREADS) {
+            const size_t fr = static_cast<size_t>(b) * pt.fmax + f;
+            sv[f] = facet_row<T, TU, ND>(
+                static_cast<const T*>(pt.fco) + fr * ND, pt.fids + fr * ND,
+                x, p.nin, ca);
+        }
+    __syncthreads();
+    mbar_wait(bar + 1, 0);
+    const T* Mref = ref;
     const T* Sref = Mref + NVPC * NVPC;
     const T* Bref = Sref + DIM * DIM * NVPC * NVPC;
-    const int a = lane / DIM, c = lane % DIM;
-    const size_t row0 = static_cast<size_t>(b) * pt.emax;
-    for (int l = warp; l < ne; l += WARPS) {
-        const int* ids = pt.ids + (row0 + l) * PACK3;
-        const T* g = static_cast<const T*>(pt.geo) + (row0 + l) * PACK;
-        // lane j: id j (velocity 0-29, pressure 0-1); lanes 0-3: ids 32-35
-        // (pressure 2-3, padding)
-        const int idA = ids[lane];
-        const int idB = lane < PACK3 - 32 ? ids[32 + lane] : -1;
-        if (MODE != MODE_JT && lane < ND) xs[lane] = gather<T>(x, idA, p.nin);
-        if (MODE == MODE_JT || RES) {
-            const TU* qv = MODE == MODE_JT ? x : xq;
-            if (lane >= ND) xs[lane] = gather<T>(qv, idA, p.npc);
-            if (lane < PN - (32 - ND)) xs[32 + lane] = gather<T>(qv, idB,
-                                                                p.npc);
+
+    // 2. the velocity slots: a warp an element, lane (a, c) slot a DIM + c
+    // (lanes 30 and 31 compute node 9's values too, for its shuffles, and
+    // store nothing)
+    if constexpr ((VEL_MA || VEL_JT) && (PHASES & PH_TERMS)) {
+        const int a = min(lane, ND - 1) / DIM, c = lane % DIM;
+        T S[DIM * DIM][NVPC], Mr[NVPC], Bt[PN][DIM];
+#pragma unroll
+        for (int km = 0; km < DIM * DIM; ++km)
+#pragma unroll
+            for (int bb = 0; bb < NVPC; ++bb)
+                S[km][bb] = HAS_A ? Sref[(km * NVPC + a) * NVPC + bb] : T(0);
+#pragma unroll
+        for (int bb = 0; bb < NVPC; ++bb)
+            Mr[bb] = VEL_MA ? Mref[a * NVPC + bb] : T(0);
+#pragma unroll
+        for (int pp = 0; pp < PN; ++pp)
+#pragma unroll
+            for (int k = 0; k < DIM; ++k)
+                Bt[pp][k] = VEL_JT ? Bref[(pp * DIM + k) * NVPC + a] : T(0);
+        for (int l = warp; l < ne; l += WARPS) {
+            const T* xe = xs + l * PACK3;
+            const T* g = geo + l * PACK;
+            T Ji[DIM][DIM];
+#pragma unroll
+            for (int d = 0; d < DIM; ++d)
+#pragma unroll
+                for (int k = 0; k < DIM; ++k) Ji[d][k] = g[d * DIM + k];
+            const T dj = g[DIM * DIM];
+            T Jc[DIM];                                   // Ji[c][.]
+#pragma unroll
+            for (int k = 0; k < DIM; ++k) Jc[k] = g[c * DIM + k];
+            if constexpr (VEL_MA) {
+                T xc[NVPC];                              // x[., c]
+#pragma unroll
+                for (int bb = 0; bb < NVPC; ++bb) xc[bb] = xe[bb * DIM + c];
+                T fe = T(0);
+                if constexpr (HAS_A) {
+                    T zo[DIM * DIM];                     // Z[k][m][a][c]
+#pragma unroll
+                    for (int km = 0; km < DIM * DIM; ++km) {
+                        T z = T(0);
+#pragma unroll
+                        for (int bb = 0; bb < NVPC; ++bb)
+                            z = fmad(S[km][bb], xc[bb], z);
+                        zo[km] = z;
+                    }
+                    T s1 = T(0), s2 = T(0);
+#pragma unroll
+                    for (int k = 0; k < DIM; ++k)
+#pragma unroll
+                        for (int m = 0; m < DIM; ++m) {
+                            T kg = T(0);
+#pragma unroll
+                            for (int d = 0; d < DIM; ++d)
+                                kg = fmad(Ji[d][k], Ji[d][m], kg);
+                            s1 = fmad(kg, zo[k * DIM + m], s1);
+                            if (sym) {
+                                T jz = T(0);
+#pragma unroll
+                                for (int d = 0; d < DIM; ++d)
+                                    jz = fmad(Ji[d][k],
+                                              __shfl_sync(FULL,
+                                                          zo[k * DIM + m],
+                                                          a * DIM + d),
+                                              jz);
+                                s2 = fmad(Jc[m], jz, s2);
+                            }
+                        }
+                    fe = mul(mul(mul(ca, nu), dj), sym ? add(s1, s2) : s1);
+                }
+                if (cm != T(0)) {
+                    T s = T(0);
+#pragma unroll
+                    for (int bb = 0; bb < NVPC; ++bb)
+                        s = fmad(Mr[bb], xc[bb], s);
+                    fe = fmad(mul(cm, dj), s, fe);
+                }
+                if (lane < ND) sk[l * ND + lane] = fe;
+            }
+            if constexpr (VEL_JT) {
+                const T* qe = xe + ND;
+                T s = T(0);
+#pragma unroll
+                for (int k = 0; k < DIM; ++k) {
+                    T z = T(0);
+#pragma unroll
+                    for (int pp = 0; pp < PN; ++pp)
+                        z = fmad(Bt[pp][k], qe[pp], z);
+                    s = fmad(Jc[k], z, s);
+                }
+                if (lane < ND) (RES ? st : sk)[l * ND + lane] = mul(dj, s);
+            }
         }
-        T Ji[DIM][DIM];
+    }
+
+    // 3. the pressure slots: a thread an (element, pressure node)
+    if constexpr ((PRES || RES) && (PHASES & PH_TERMS)) {
+        const int pn = tid % PN;
+        T Bp[DIM][NVPC];
 #pragma unroll
-        for (int d = 0; d < DIM; ++d)
+        for (int k = 0; k < DIM; ++k)
 #pragma unroll
-            for (int k = 0; k < DIM; ++k) Ji[d][k] = g[d * DIM + k];
-        const T dj = g[DIM * DIM];
-        __syncwarp();
-        if ((PRES || RES) && lane < PN) {
-            // J terms of pressure node `lane`
+            for (int bb = 0; bb < NVPC; ++bb)
+                Bp[k][bb] = Bref[(pn * DIM + k) * NVPC + bb];
+        for (int l = tid / PN; l < ne; l += BLOCK_THREADS / PN) {
+            const T* xe = xs + l * PACK3;
+            const T* g = geo + l * PACK;
             T s = T(0);
 #pragma unroll
             for (int k = 0; k < DIM; ++k)
@@ -691,112 +986,39 @@ __device__ __forceinline__ void block_body_3d(
                     T z = T(0);
 #pragma unroll
                     for (int bb = 0; bb < NVPC; ++bb)
-                        z = fmad(Bref[(lane * DIM + k) * NVPC + bb],
-                                 xs[bb * DIM + cc], z);
-                    s = fmad(Ji[cc][k], z, s);
+                        z = fmad(Bp[k][bb], xe[bb * DIM + cc], z);
+                    s = fmad(g[cc * DIM + k], z, s);
                 }
-            (RES ? sj : sk)[l * PN + lane] = mul(dj, s);
+            (RES ? sj : sk)[l * PN + pn] = mul(g[DIM * DIM], s);
         }
-        if (!PRES && lane < ND) {
-            T Jc[DIM];                                   // Ji[c][.]
-#pragma unroll
-            for (int k = 0; k < DIM; ++k)
-                Jc[k] = c == 0 ? Ji[0][k] : (c == 1 ? Ji[1][k] : Ji[2][k]);
-            if (MODE == MODE_JT || RES) {
-                const T* qe = xs + ND;
-                T s = T(0);
-#pragma unroll
-                for (int k = 0; k < DIM; ++k) {
-                    T z = T(0);
-#pragma unroll
-                    for (int pp = 0; pp < PN; ++pp)
-                        z = fmad(Bref[(pp * DIM + k) * NVPC + a], qe[pp], z);
-                    s = fmad(Jc[k], z, s);
-                }
-                (RES ? st : sk)[l * ND + lane] = mul(dj, s);
-            }
-            if (MODE == MODE_MA || RES) {
-                T fe = T(0);
-                if (ca != T(0)) {
-                    T s1 = T(0), s2 = T(0);
-#pragma unroll
-                    for (int k = 0; k < DIM; ++k)
-#pragma unroll
-                        for (int m = 0; m < DIM; ++m) {
-                            const T* S = Sref + ((k * DIM + m) * NVPC + a) *
-                                                    NVPC;
-                            T z[DIM];
-#pragma unroll
-                            for (int d = 0; d < DIM; ++d) {
-                                z[d] = T(0);
-#pragma unroll
-                                for (int bb = 0; bb < NVPC; ++bb)
-                                    z[d] = fmad(S[bb], xs[bb * DIM + d], z[d]);
-                            }
-                            T kg = T(0), jz = T(0), zc = T(0);
-#pragma unroll
-                            for (int d = 0; d < DIM; ++d) {
-                                kg = fmad(Ji[d][k], Ji[d][m], kg);
-                                jz = fmad(Ji[d][k], z[d], jz);
-                                zc = d == c ? z[d] : zc;
-                            }
-                            s1 = fmad(kg, zc, s1);
-                            s2 = fmad(Jc[m], jz, s2);
-                        }
-                    fe = mul(mul(mul(ca, nu), dj), sym ? add(s1, s2) : s1);
-                }
-                if (cm != T(0)) {
-                    T s = T(0);
-#pragma unroll
-                    for (int bb = 0; bb < NVPC; ++bb)
-                        s = fmad(Mref[a * NVPC + bb], xs[bb * DIM + c], s);
-                    fe = fmad(mul(cm, dj), s, fe);
-                }
-                sk[l * ND + lane] = fe;
-            }
-        }
-        __syncwarp();
     }
-    if (!PRES && nf > 0)
-        for (int f = tid; f < nf; f += BLOCK_THREADS) {
-            const size_t fr = static_cast<size_t>(b) * pt.fmax + f;
-            sv[f] = facet_row<T, TU, ND>(
-                static_cast<const T*>(pt.fco) + fr * ND, pt.fids + fr * ND,
-                x, p.nin, ca);
-        }
     __syncthreads();
-    if (tid < cnt.w) {
-        // a 3D dof may have more slots than MAX_SLOTS: read them from lell
-        const int* col = pt.lell + cnt.z + tid;
-        const int i = pt.own[cnt.z + tid];
-        if (pt.lwidth <= MAX_SLOTS) {
-            int slot[MAX_SLOTS];
-#pragma unroll
-            for (int u = 0; u < MAX_SLOTS; ++u)
-                slot[u] = u < pt.lwidth ? col[static_cast<size_t>(u) * n]
-                                        : -1;
-            sum_dof<T, TU, MODE>([&slot](int u) { return slot[u]; },
-                                 MAX_SLOTS, i, sv, st, nfac, nf, p.nin, y);
-        } else {
-            sum_wide_dof<T, TU, MODE>(col, n, pt.lwidth, i, sv, st, nfac, nf,
-                                      p.nin, y);
-        }
+
+    // 4. the block's dofs, a thread each in turn, their slots from the
+    // block's slot table (left out: one store keeps the phases before)
+    if constexpr (!(PHASES & PH_SUMS)) {
+        if (tid == 0) y[b % 7] = static_cast<TU>(sv[nfac]);
+        return;
     }
+    for (int k = tid; k < cnt.w; k += BLOCK_THREADS)
+        sum_dof3<T, TU, MODE>(sl + k, cnt.w, sw, pt.own[cnt.z + k], sv, st,
+                              nfac, nf, p.nin, y);
 }
 
-template <typename T, typename TU, int MODE>
-__global__ void __launch_bounds__(BLOCK_THREADS)
+template <typename T, typename TU, int MODE, bool HAS_A>
+__global__ void __launch_bounds__(BLOCK_THREADS, 1)
 block_kernel_3d(const AffinePlan p, const AffinePart part,
                 const TU* __restrict__ x, const TU* __restrict__ xq,
                 TU* __restrict__ y, T cm, T ca, T nu, int sym, int facets) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    block_body_3d<T, TU, MODE>(p, part, blockIdx.x, x, xq, y, cm, ca, nu,
-                               sym, facets, reinterpret_cast<T*>(smem_raw));
+    block_body_3d<T, TU, MODE, HAS_A>(p, part, blockIdx.x, x, xq, y, cm, ca,
+                                      nu, sym, facets, smem_raw);
 }
 
 __global__ void empty_kernel() {}
 
-// The grid, block and shared memory of a launch.
+// The grid, block and shared memory of a launch (3D: up to the most a
+// block may take, opted into at its first launch).
 template <typename T, bool D3>
 cudaError_t geometry(const AffinePlan& p, const AffineCall& c, dim3& grid,
                      dim3& block, size_t& smem) {
@@ -807,16 +1029,26 @@ cudaError_t geometry(const AffinePlan& p, const AffineCall& c, dim3& grid,
     const int per_elem = mode == MODE_J     ? PN
                          : mode == MODE_RES ? 2 * ND + PN
                                             : ND;
-    smem = (static_cast<size_t>(pt.fmax) +
-            static_cast<size_t>(pt.emax) * per_elem +
-            (D3 ? WARPS * XS3 : 0)) * sizeof(T);
-    if (blocks <= 0 || smem > 48 * 1024) return cudaErrorInvalidValue;
+    smem = D3 ? smem3d<T>(pt.emax, pt.fmax, pt.smax, per_elem)
+              : (static_cast<size_t>(pt.fmax) +
+                 static_cast<size_t>(pt.emax) * per_elem) * sizeof(T);
+    if (blocks <= 0 || smem > (D3 ? SMEM_MAX : 48 * 1024))
+        return cudaErrorInvalidValue;
     grid = dim3(static_cast<unsigned>(blocks));
     block = dim3(BLOCK_THREADS);
     return cudaSuccess;
 }
 
-template <typename T, typename TU, int MODE, bool D3>
+// Above 48 KB a kernel opts in to more shared memory, once per kernel.
+cudaError_t opt_in(const void* fn, size_t smem, int& opted) {
+    if (smem <= 48 * 1024 || opted) return cudaSuccess;
+    const cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (err == cudaSuccess) opted = 1;
+    return err;
+}
+
+template <typename T, typename TU, int MODE, bool D3, bool HAS_A>
 cudaError_t launch(const AffinePlan& p, const AffineCall& c, const void* x,
                    const void* xq, void* y, cudaStream_t st) {
     dim3 grid, block;
@@ -828,36 +1060,59 @@ cudaError_t launch(const AffinePlan& p, const AffineCall& c, const void* x,
     TU* yy = static_cast<TU*>(y);
     const T cm = static_cast<T>(c.cm), ca = static_cast<T>(c.ca),
             nu = static_cast<T>(c.nu);
-    if (D3)
-        block_kernel_3d<T, TU, MODE><<<grid, block, smem, st>>>(
+    if constexpr (D3) {
+        static int opted = 0;
+        err = opt_in(reinterpret_cast<const void*>(
+                         block_kernel_3d<T, TU, MODE, HAS_A>),
+                     smem, opted);
+        if (err != cudaSuccess) return err;
+        block_kernel_3d<T, TU, MODE, HAS_A><<<grid, block, smem, st>>>(
             p, MODE == MODE_J ? c.pb : c.vb, xx, qq, yy, cm, ca, nu, c.sym,
             c.facets);
-    else
+    } else {
         block_kernel<T, TU, MODE><<<grid, block, smem, st>>>(
             p, MODE == MODE_J ? c.pb : c.vb, xx, qq, yy, cm, ca, nu, c.sym,
             c.facets);
+    }
     return cudaGetLastError();
 }
 
+// The 3D form takes its A terms at compile time (HAS_A: ca != 0); the 2D
+// form at run time.
 template <typename T, typename TU, bool D3>
 cudaError_t launch_mode(const AffinePlan& p, const AffineCall& c,
                         const void* x, const void* xq, void* y,
                         cudaStream_t st) {
+    const bool has_a = D3 && c.ca != 0.0;
     switch (c.mode) {
-        case MODE_MA: return launch<T, TU, MODE_MA, D3>(p, c, x, xq, y, st);
-        case MODE_J: return launch<T, TU, MODE_J, D3>(p, c, x, xq, y, st);
-        case MODE_JT: return launch<T, TU, MODE_JT, D3>(p, c, x, xq, y, st);
+        case MODE_MA:
+            return has_a ? launch<T, TU, MODE_MA, D3, D3>(p, c, x, xq, y, st)
+                         : launch<T, TU, MODE_MA, D3, false>(p, c, x, xq, y,
+                                                             st);
+        case MODE_J:
+            return launch<T, TU, MODE_J, D3, false>(p, c, x, xq, y, st);
+        case MODE_JT:
+            return launch<T, TU, MODE_JT, D3, false>(p, c, x, xq, y, st);
         case MODE_RES:
-            return launch<T, TU, MODE_RES, D3>(p, c, x, xq, y, st);
+            return has_a
+                       ? launch<T, TU, MODE_RES, D3, D3>(p, c, x, xq, y, st)
+                       : launch<T, TU, MODE_RES, D3, false>(p, c, x, xq, y,
+                                                            st);
         default: return cudaErrorInvalidValue;
     }
 }
 
-bool valid_part(const AffinePart& b, bool facets) {
+// (a 2D block owns at most BLOCK_THREADS dofs; a 3D block's threads loop)
+bool valid_part(const AffinePart& b, bool facets, bool d3) {
     return b.nblk > 0 && b.cnt != nullptr && b.ids != nullptr &&
-           b.geo != nullptr && b.own != nullptr && b.lell != nullptr &&
-           b.lwidth > 0 && b.emax > 0 &&
-           b.nown > 0 && b.maxown > 0 && b.maxown <= BLOCK_THREADS &&
+           b.geo != nullptr && b.own != nullptr &&
+           (d3 || b.lell != nullptr) && b.lwidth > 0 && b.emax > 0 &&
+           b.nown > 0 && b.maxown > 0 && (d3 || b.maxown <= BLOCK_THREADS) &&
+           (!d3 || (b.sinfo != nullptr && b.slots != nullptr &&
+                    b.smax >= 0 &&
+                    ((reinterpret_cast<uintptr_t>(b.ids) |
+                      reinterpret_cast<uintptr_t>(b.geo) |
+                      reinterpret_cast<uintptr_t>(b.slots)) & 15u) == 0)) &&
            (!facets || b.fmax == 0 || (b.fids != nullptr && b.fco != nullptr));
 }
 
@@ -865,7 +1120,10 @@ bool valid_call(const AffinePlan& p, const AffineCall& c, bool d3) {
     const long long nd = d3 ? 30 : 12;
     if (p.nc <= 0 || p.nin <= 0 || p.npc <= 0 || p.nfac < 0 ||
         p.qw == nullptr || p.N2 == nullptr || p.dN2 == nullptr ||
-        p.N1 == nullptr || (d3 && p.ref == nullptr) || c.mode < 0 ||
+        p.N1 == nullptr ||
+        (d3 && (p.ref == nullptr ||
+                (reinterpret_cast<uintptr_t>(p.ref) & 15u) != 0)) ||
+        c.mode < 0 ||
         c.mode > 3 ||
         static_cast<long long>(p.nc) * nd +
                 static_cast<long long>(p.nfac) * nd >= (1LL << 31))
@@ -873,8 +1131,8 @@ bool valid_call(const AffinePlan& p, const AffineCall& c, bool d3) {
     if (c.facets && (!(c.mode == MODE_MA || c.mode == MODE_RES) ||
                      p.nfac == 0))
         return false;
-    return c.mode == MODE_J ? valid_part(c.pb, false)
-                            : valid_part(c.vb, c.facets);
+    return c.mode == MODE_J ? valid_part(c.pb, false, d3)
+                            : valid_part(c.vb, c.facets, d3);
 }
 
 }  // namespace
@@ -911,6 +1169,9 @@ int affine_empty(const AffinePlan* plan, const AffineCall* call,
     cudaError_t err = p.work_f64
                           ? geometry<double, D3>(p, c, grid, block, smem)
                           : geometry<float, D3>(p, c, grid, block, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    static int opted = 0;
+    err = opt_in(reinterpret_cast<const void*>(empty_kernel), smem, opted);
     if (err != cudaSuccess) return static_cast<int>(err);
     empty_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>();
     return static_cast<int>(cudaGetLastError());

@@ -67,13 +67,23 @@
 //   there was 0.5-2 us slower a call at every size on an H100, also as a
 //   two-stage pipeline: it is not built (PERF.md).
 //
-// The 3D blocks keep this design and E's natural layout.  A row of 30 f32
-// entries is 120 bytes, not a whole number of 16-byte vectors: rows are
-// read by 8-byte loads (f32; f64 rows, 240 bytes, by 16-byte loads), and an
-// element's 30 input positions (60 bytes) by 4-byte loads.  Padding E's
-// rows to 32 entries would allow 16-byte loads but read and store 7 % more
-// bytes of the operand that bounds the kernel, and change the layout every
-// other caller builds.
+// The 3D blocks (C = 30, contiguous rows) keep the partition, the tables
+// and E's natural layout, but not the row read.  A row of 30 f32 entries
+// is 120 bytes: read by its own thread in 8-byte pieces, one warp-wide load
+// touched 32 rows 120 bytes apart (about 30 sectors a request, the rest of
+// each sector waiting in L1 for the next 14 loads), and the 30-wide kernel
+// ran at a quarter of its byte bound, behind one cuSPARSE matvec.  So each
+// warp first copies its next 32 rows (the rows its lanes compute, in the
+// block's element order: whole runs of an element's rows, contiguous in E)
+// into a warp-private stage of shared memory by cp.async, 8-byte pieces
+// (f32; 16-byte in f64), neighbouring lanes on neighbouring pieces, and
+// then each lane runs its row's chain from the stage.  The stage keeps E's
+// row stride (30 entries): a half-warp's 8-byte reads of 16 rows 120 bytes
+// apart fall on 16 distinct bank pairs, and a quarter-warp's 16-byte f64
+// reads on 8 distinct bank quads, so the reads do not conflict.  The row
+// each lane computes, its chain and the dof sums are the earlier kernel's:
+// the same bits.  The transpose's strided 30-wide rows (not on a path)
+// keep the direct read.
 //
 // Plain C interface, loaded with ctypes; the caller allocates the output
 // and checks the returned cudaError_t.
@@ -102,6 +112,8 @@ struct ElemPlan {
     int nblk, dmax;
     int blob_bytes;             // the largest block's tables
     int smem;                   // shared memory a block takes, in all
+                                // (C = 30 with SC = 1: the warps' stages
+                                // at its end, 16-byte aligned)
     int C, SC;                  // inputs a row; E's column stride
     int e_f64, x_f64;
     int n_in;
@@ -204,6 +216,24 @@ __device__ __forceinline__ void load_pos30(const unsigned short* p,
     }
 }
 
+// the 30-wide rows' stage: STAGE_ROWS rows a warp, E's row stride; a
+// row is PIECES pieces of two entries (8 bytes in f32, 16 in f64)
+constexpr int STAGE_ROWS = 32;
+constexpr int PIECES = 15;
+constexpr int C30_STAGE = STAGE_ROWS * 30 / 32;    // entries a thread
+
+__device__ __forceinline__ void copy_piece(float* dst, const float* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;"
+                 :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void copy_piece(double* dst, const double* src) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+                 :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void copies_done() {
+    asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
 template <int C>
 __device__ __forceinline__ void load_vec(const unsigned short* p,
                                          unsigned short (&v)[C]) {
@@ -212,6 +242,31 @@ __device__ __forceinline__ void load_vec(const unsigned short* p,
         const uint2 q = reinterpret_cast<const uint2*>(p)[k];
         v[4 * k] = q.x & 0xffffu, v[4 * k + 1] = q.x >> 16,
         v[4 * k + 2] = q.y & 0xffffu, v[4 * k + 3] = q.y >> 16;
+    }
+}
+
+// a row's C-wide dot over c ascending, each E entry rounded to x's type
+// first, one fused multiply-add a term
+template <typename TX, typename TE, int C>
+__device__ __forceinline__ TX row_dot(const TE (&ev)[C],
+                                      const unsigned short (&iv)[C],
+                                      const TX* xs) {
+    TX d = TX(0);
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+        d = fmad(static_cast<TX>(ev[c]), xs[iv[c]], d);
+    return d;
+}
+
+// 3. a dof a thread: its rows in its slot order
+template <typename TX>
+__device__ __forceinline__ void sum_dofs(const int4& h, const int* rp,
+                                         const int* own, const TX* sv,
+                                         TX* y) {
+    for (int k = threadIdx.x; k < h.w; k += THREADS) {
+        TX acc = TX(0);
+        for (int s = rp[k]; s < rp[k + 1]; ++s) acc = add(acc, sv[s]);
+        y[own[k]] = acc;
     }
 }
 
@@ -251,6 +306,37 @@ elemmv_kernel(const ElemPlan p, const TE* __restrict__ E,
     const int* own = rp + h.w + 1;
     const unsigned short* lin = reinterpret_cast<const unsigned short*>(
         own + h.w + 1);                             // 8-byte aligned
+    if constexpr (C == 30) {
+        if (p.SC == 1) {
+            // a warp's rows r0 + lane, r0 = 32 warp + 256 i (the rows a
+            // thread takes below), copied into its stage first
+            const int lane = tid & 31;
+            TE* stage = reinterpret_cast<TE*>(smem + p.smem) -
+                        (THREADS / 32 - (tid >> 5)) * STAGE_ROWS * C;
+            for (int r0 = tid & ~31; r0 < h.z; r0 += THREADS) {
+                const int nr = min(STAGE_ROWS, h.z - r0);
+                for (int i = lane; i < nr * PIECES; i += 32) {
+                    const int rr = i / PIECES, k = i - rr * PIECES;
+                    copy_piece(stage + rr * C + 2 * k,
+                               E + rows[r0 + rr].x + 2 * k);
+                }
+                copies_done();
+                __syncwarp();
+                if (lane < nr) {
+                    const uint2 w = rows[r0 + lane];
+                    TE ev[C];
+                    unsigned short iv[C];
+                    load_row30(stage + lane * C, ev);
+                    load_pos30(lin + (w.y >> 16), iv);
+                    sv[w.y & 0xffffu] = row_dot<TX, TE, C>(ev, iv, xs);
+                }
+                __syncwarp();
+            }
+            __syncthreads();
+            sum_dofs(h, rp, own, sv, y);
+            return;
+        }
+    }
     for (int r = tid; r < h.z; r += THREADS) {
         const uint2 w = rows[r];
         const TE* row = E + w.x;
@@ -271,14 +357,9 @@ elemmv_kernel(const ElemPlan p, const TE* __restrict__ E,
                 }
             }
         } else if constexpr (C == 30) {
-            // 8-byte loads (f32; 16-byte in f64) of a contiguous row, the
-            // positions in pairs; the transpose's strided rows one by one
-            if (p.SC == 1) {
-                load_row30(row, ev);
-            } else {
+            // the transpose's strided rows entry by entry
 #pragma unroll
-                for (int c = 0; c < C; ++c) ev[c] = row[c * p.SC];
-            }
+            for (int c = 0; c < C; ++c) ev[c] = row[c * p.SC];
             load_pos30(li, iv);
         } else {
 #pragma unroll
@@ -287,20 +368,10 @@ elemmv_kernel(const ElemPlan p, const TE* __restrict__ E,
                 iv[c] = li[c];
             }
         }
-        TX d = TX(0);
-#pragma unroll
-        for (int c = 0; c < C; ++c)
-            d = fmad(static_cast<TX>(ev[c]), xs[iv[c]], d);
-        sv[w.y & 0xffffu] = d;
+        sv[w.y & 0xffffu] = row_dot<TX, TE, C>(ev, iv, xs);
     }
     __syncthreads();
-
-    // 3. a dof a thread: its rows in its slot order
-    for (int k = tid; k < h.w; k += THREADS) {
-        TX acc = TX(0);
-        for (int s = rp[k]; s < rp[k + 1]; ++s) acc = add(acc, sv[s]);
-        y[own[k]] = acc;
-    }
+    sum_dofs(h, rp, own, sv, y);
 }
 
 __global__ void empty_kernel() {}
@@ -364,11 +435,16 @@ cudaError_t launch(const ElemPlan& p, const void* E, const void* x, void* y,
 }
 
 bool valid_plan(const ElemPlan& p) {
+    const int stage = (p.C == 30 && p.SC == 1)
+                          ? (p.e_f64 ? 8 : 4) * THREADS * C30_STAGE
+                          : 0;
     return p.nblk > 0 && p.hdr != nullptr && p.dids != nullptr &&
            p.blob != nullptr && p.dmax > 0 && p.blob_bytes % 16 == 0 &&
            p.smem > 0 && p.smem <= 232448 &&
            (p.C == 3 || p.C == 4 || p.C == 12 || p.C == 30) &&
-           p.SC > 0 && p.n_in >= 0;
+           p.SC > 0 && p.n_in >= 0 &&
+           (stage == 0 || (p.smem % 16 == 0 &&
+                           p.smem >= 16 + p.blob_bytes + stage));
 }
 
 }  // namespace

@@ -1589,24 +1589,29 @@ _AFFINE_RES = 3
 # How affine_plan cuts the elements, in their locality order, into chunks:
 # sized so that the grid has about BLOCKS_PER_SM blocks an SM (the fastest
 # chunk in the measured sweep at levels 1 and 2), ELEM_BLOCKS_PER_SM for
-# the element-matrix matvec (csrc/elemmv.cu; its sweep at levels 1-3), at
-# least MIN_CHUNK elements.  A partition whose largest block would take
+# the element-matrix matvec (csrc/elemmv.cu; its sweep at levels 1-3),
+# ELEM30_BLOCKS_PER_SM for its staged 30-column form (its sweep on the 3D
+# wake at nz=2 and 8, where 4 was 12 % slower on F at nz=8), at least
+# MIN_CHUNK elements.  A partition whose largest block would take
 # more shared memory than _AFFINE_SMEM (what a launch takes without opting
 # in; csrc/elemmv.cu opts in: _SMEM_PER_BLOCK) is made anew on chunks half
 # as large, until it fits.
-_AFFINE_PLAN = {"BLOCKS_PER_SM": 2, "ELEM_BLOCKS_PER_SM": 4, "MIN_CHUNK": 4}
+_AFFINE_PLAN = {"BLOCKS_PER_SM": 2, "ELEM_BLOCKS_PER_SM": 4,
+                "ELEM30_BLOCKS_PER_SM": 2, "MIN_CHUNK": 4}
 _AFFINE_SMEM = 48 * 1024
 
 
 def affine_plan(mode, nc, sm_count):
     """The chunk (elements a block's chunk takes in the locality order) of
-    ``mode`` (a key of ``_AFFINE_MODES``, ``'res'``, or ``'elem'``: the
-    element-matrix matvec of ``csrc/elemmv.cu``) on ``nc`` elements on a
-    card with ``sm_count`` SMs."""
-    if mode not in _AFFINE_MODES and mode not in ("res", "elem"):
+    ``mode`` (a key of ``_AFFINE_MODES``, ``'res'``, ``'elem'``: the
+    element-matrix matvec of ``csrc/elemmv.cu``, or ``'elem30'``: its
+    staged 30-column form) on ``nc`` elements on a card with ``sm_count``
+    SMs."""
+    if mode not in _AFFINE_MODES and mode not in ("res", "elem", "elem30"):
         raise ValueError(f"affine_mv mode {mode!r}")
     cfg = _AFFINE_PLAN
-    bps = cfg["ELEM_BLOCKS_PER_SM" if mode == "elem" else "BLOCKS_PER_SM"]
+    bps = cfg[{"elem": "ELEM_BLOCKS_PER_SM",
+               "elem30": "ELEM30_BLOCKS_PER_SM"}.get(mode, "BLOCKS_PER_SM")]
     return int(max(cfg["MIN_CHUNK"], -(-nc // (bps * sm_count))))
 
 
@@ -1749,10 +1754,15 @@ def fit_chunk(build, smem_of, chunk, smem_max):
 def affine_fit(t, kind, chunk, smem_max=None):
     """:func:`fit_chunk` of :func:`affine_partition` of the tables ``t``
     for ``kind`` ``'v'`` (velocity dofs and facet rows), ``'p'`` (pressure
-    dofs) or ``'res'`` (both), the shared memory its largest block's
-    values take (in the tables' type), at most ``smem_max`` bytes
-    (``_AFFINE_SMEM``)."""
-    smem_max = _AFFINE_SMEM if smem_max is None else smem_max
+    dofs) or ``'res'`` (both), the shared memory its largest block takes
+    (in 2D its values in the tables' type, at most ``_AFFINE_SMEM``; in 3D
+    :func:`affine_smem3d`, at most ``_SMEM_PER_BLOCK``), at most
+    ``smem_max`` bytes.  A 3D block is never split (its threads loop over
+    its dofs)."""
+    d3 = t.dim == 3
+    if smem_max is None:
+        smem_max = _SMEM_PER_BLOCK if d3 else _AFFINE_SMEM
+    max_own = np.iinfo(np.int32).max if d3 else 256
     nd = t.nvpc * t.dim
     vids, pids = t.vtab.vd.cpu().numpy(), t.ptab.vd.cpu().numpy()
     fac = t.fac_vdofs.cpu().numpy() if t.fac_elem.shape[0] else None
@@ -1760,24 +1770,61 @@ def affine_fit(t, kind, chunk, smem_max=None):
         per_elem = t.pnpc
 
         def build(c):
-            return affine_partition(pids, t.npc, c)
+            return affine_partition(pids, t.npc, c, max_own=max_own)
     else:
         joint = kind == "res"
         per_elem = 2 * nd + t.pnpc if joint else nd
 
         def build(c):
             return affine_partition(vids, t.nin, c, fac,
-                                    pids if joint else None, t.npc)
-    # the 3D kernel keeps a row of element values a warp (8 x 40) first
-    extra = _AFFINE_WARP_ROWS if t.dim == 3 else 0
-    return fit_chunk(
-        build, lambda part: (part["fmax"] + part["emax"] * per_elem + extra)
-        * t.wdet.element_size(), chunk, smem_max)
+                                    pids if joint else None, t.npc,
+                                    max_own=max_own)
+    item = t.wdet.element_size()
+    if d3:
+        def smem_of(part):
+            return affine_smem3d(part["emax"], part["fmax"],
+                                 affine_slots3d(part)[2], per_elem, item)
+    else:
+        def smem_of(part):
+            return (part["fmax"] + part["emax"] * per_elem) * item
+    return fit_chunk(build, smem_of, chunk, smem_max)
 
 
-# csrc/affine.cu's 3D form: WARPS * XS3 values of shared memory before the
-# block's values
-_AFFINE_WARP_ROWS = 8 * 40
+# csrc/affine.cu's 3D form: the reference matrices' entries, and the
+# geometry and id rows an element
+_AFFINE_REF3, _AFFINE_PACK, _AFFINE_PACK3 = 1120, 16, 36
+
+
+def affine_smem3d(emax, fmax, smax, per_elem, item):
+    """A 3D affine block's shared memory in bytes (``csrc/affine.cu:
+    smem3d``): two mbarriers, the reference matrices, ``emax`` elements'
+    geometry rows, ids (int32) and gathered values, a slot table of
+    ``smax`` int32, and the values of ``fmax`` facet rows and of
+    ``per_elem`` slots an element, entries of ``item`` bytes."""
+    return (16 + (_AFFINE_REF3 + emax * (_AFFINE_PACK + _AFFINE_PACK3
+                                        + per_elem) + fmax) * item
+            + (emax * _AFFINE_PACK3 + smax) * 4)
+
+
+def affine_slots3d(part):
+    """Each block's slot table of the 3D affine form (numpy): the rows of
+    ``part['lell']`` over the block's dofs, as many as the most slots of
+    one of them, row ``u`` of its dof ``k`` at ``u * (its dofs) + k``,
+    each table padded to 4 int32 (16 bytes).  Returns ``(sinfo (nblk, 2):
+    offset, rows; slots (int32); smax: the largest table)``."""
+    lell, cnt = part["lell"], part["cnt"]
+    sinfo = np.zeros((part["nblk"], 2), np.int32)
+    tabs, off = [], 0
+    for b in range(part["nblk"]):
+        cols = lell[:, cnt[b, 2]:cnt[b, 2] + cnt[b, 3]]
+        rows = int((cols >= 0).sum(0).max(initial=0))
+        tab = cols[:rows].ravel()
+        tab = np.concatenate([tab, np.full(-len(tab) % 4, -1, np.int32)])
+        sinfo[b] = off, rows
+        tabs.append(tab)
+        off += len(tab)
+    slots = np.concatenate(tabs).astype(np.int32)
+    return sinfo, slots, max(len(t) for t in tabs)
 
 
 def affine_reference_matrices(t):
@@ -1910,9 +1957,9 @@ def affine_residual_ref(v, q, t, cm=1.0, ca=0.0):
 class _AffinePartC(ctypes.Structure):
     # csrc/affine.cu: AffinePart, field for field
     _fields_ = ([(f, ctypes.c_void_p) for f in (
-        "cnt", "ids", "geo", "fids", "fco", "own", "lell")]
+        "cnt", "ids", "geo", "fids", "fco", "own", "lell", "sinfo", "slots")]
         + [(f, ctypes.c_int) for f in ("nblk", "emax", "fmax", "lwidth",
-                                       "nown", "maxown")])
+                                       "nown", "maxown", "smax")])
 
 
 class _AffinePlanC(ctypes.Structure):
@@ -2003,12 +2050,12 @@ class AffinePlan:
         t, dev = self.t, self.t.wdet.device
         nd = t.nvpc * t.dim
         part, used, smem = affine_fit(t, kind, chunk)
-        if smem > _AFFINE_SMEM:
+        most = _SMEM_PER_BLOCK if self.d3 else _AFFINE_SMEM
+        if smem > most:
             raise ValueError(
                 f"affine kernel: a block of {part['emax']} elements and "
                 f"{part['fmax']} facet rows takes {smem} bytes of shared "
-                f"memory, at most {_AFFINE_SMEM}, even on chunks of one "
-                f"element")
+                f"memory, at most {most}, even on chunks of one element")
         emax, fmax, nblk = part["emax"], part["fmax"], part["nblk"]
         # block b's element l at row b * emax + l, padding rows -1 / 0
         rows = torch.as_tensor(_packed_rows(part["eptr"], emax), device=dev)
@@ -2029,14 +2076,20 @@ class AffinePlan:
             pfid[frows] = fac[0][frow // nd]
             pfco = fac[1].new_zeros(nblk * fmax, nd)
             pfco[frows] = fac[1][frow]
-        cnt, own, lell = (
-            torch.as_tensor(np.ascontiguousarray(part[k], dtype=np.int32),
-                            device=dev) for k in ("cnt", "own", "lell"))
-        self.keep += [pid, pgeo, pfid, pfco, cnt, own, lell]
+        # the 3D form reads each block's own slot table, not lell
+        sinfo, slots, smax = (affine_slots3d(part) if self.d3
+                              else (None, None, 0))
+        cnt, own, lell, sinfo, slots = (
+            None if a is None else torch.as_tensor(
+                np.ascontiguousarray(a, dtype=np.int32), device=dev)
+            for a in (part["cnt"], part["own"],
+                      None if self.d3 else part["lell"], sinfo, slots))
+        self.keep += [pid, pgeo, pfid, pfco, cnt, own, lell, sinfo, slots]
         got = self.parts[kind, chunk] = (_AffinePartC(
             _ptr(cnt), _ptr(pid), _ptr(pgeo), _ptr(pfid), _ptr(pfco),
-            _ptr(own), _ptr(lell), nblk, emax, fmax, part["lell"].shape[0],
-            int(own.shape[0]), int(part["cnt"][:, 3].max())), used)
+            _ptr(own), _ptr(lell), _ptr(sinfo), _ptr(slots), nblk, emax,
+            fmax, part["lell"].shape[0], int(own.shape[0]),
+            int(part["cnt"][:, 3].max()), smax), used)
         return got
 
     def call(self, mode, cm, ca, dtype):
@@ -2276,7 +2329,7 @@ def _pad16(n):
 
 
 def elem_partition(in_ids, n_in, out_ids, n_out, layout, x_itemsize,
-                   chunk):
+                   chunk, stage_bytes=0):
     """The tables of ``csrc/elemmv.cu`` for one operand (numpy): the
     output dofs of ``out_ids (nc, R)`` over ``n_out`` partitioned by
     :func:`affine_partition` over chunks of ``chunk`` elements (no cap on
@@ -2287,7 +2340,8 @@ def elem_partition(in_ids, n_in, out_ids, n_out, layout, x_itemsize,
     bytes an entry.  A block's rows go in the order of its elements (and
     of the rows in an element), each with its entry in E and its place
     among the block's values, which run dof by dof and for each dof slot
-    by slot.
+    by slot.  ``stage_bytes``: the staged 30-column form's row stages,
+    at the end of a block's shared memory (16-byte aligned).
 
     Returns a dict: ``hdr (nblk, 4)``, ``dids (nblk, dmax)``, ``blob``
     (uint8) as the kernel reads them (``csrc/elemmv.cu: ElemPlan``);
@@ -2354,6 +2408,8 @@ def elem_partition(in_ids, n_in, out_ids, n_out, layout, x_itemsize,
         off += nb
     blob_bytes = int(hdr[:, 1].max())
     smem = 16 + blob_bytes + x_itemsize * (dmax + int(nrows.max()))
+    if stage_bytes:
+        smem = _pad16(smem) + stage_bytes
     return dict(hdr=hdr, dids=dids,
                 blob=np.frombuffer(b"".join(blobs), np.uint8), nblk=nblk,
                 dmax=dmax, blob_bytes=blob_bytes, smem=smem, rows=len(loc),
@@ -2361,21 +2417,33 @@ def elem_partition(in_ids, n_in, out_ids, n_out, layout, x_itemsize,
 
 
 def elem_fit(in_ids, n_in, out_ids, n_out, layout, x_itemsize, chunk,
-             smem_max=_SMEM_PER_BLOCK):
+             smem_max=_SMEM_PER_BLOCK, stage_bytes=0):
     """:func:`fit_chunk` of :func:`elem_partition` (its blocks' shared
     memory at most ``smem_max``, the most a block may take)."""
     return fit_chunk(
         lambda c: elem_partition(in_ids, n_in, out_ids, n_out, layout,
-                                 x_itemsize, c),
+                                 x_itemsize, c, stage_bytes),
         lambda part: part["smem"], chunk, smem_max)
+
+
+# csrc/elemmv.cu's staged 30-column form: 30 entries of E a thread (a
+# warp's 32 rows), 256 threads
+_ELEM30_STAGE = 256 * 30
+
+
+def elem_staged(layout):
+    """Whether ``csrc/elemmv.cu`` stages this layout's rows: 30 contiguous
+    entries (``(R, C, SR, SC)`` with C 30, SC 1)."""
+    return layout[1] == 30 and layout[3] == 1
 
 
 class ElemPlan:
     """Launch plan of ``csrc/elemmv.cu`` for one operand on one card: the
     tables of :func:`elem_partition` on the chunk :func:`affine_plan`
-    gives (``'elem'``, halved by :func:`elem_fit` until a block fits), on
-    the card, and their pointers and sizes in one C structure (``c``, at
-    ``addr``).  Made at the first call of an (input table, output table,
+    gives (``'elem'``; ``'elem30'`` and the row stages for the staged
+    30-column form, :func:`elem_staged`), halved by :func:`elem_fit` until
+    a block fits, on the card, and their pointers and sizes in one C
+    structure (``c``, at ``addr``).  Made at the first call of an (input table, output table,
     E layout, E type, x type, card), never inside a CUDA-graph capture,
     and kept on the output table.  The kernel keeps no state between
     launches, so a plan serves every stream and graphs captured with it
@@ -2386,10 +2454,14 @@ class ElemPlan:
         R, C, SR, SC = layout
         nc = int(out_tab.vd.shape[0])
         xitem = torch.empty((), dtype=x_dtype).element_size()
-        chunk = affine_plan("elem", nc, _sm_count(dev))
+        staged = elem_staged(layout)
+        chunk = affine_plan("elem30" if staged else "elem", nc,
+                            _sm_count(dev))
+        stage = (_ELEM30_STAGE * torch.empty((), dtype=e_dtype).element_size()
+                 if staged else 0)
         part, self.chunk, self.smem = elem_fit(
             in_tab.vd.cpu().numpy(), in_tab.nseg, out_tab.vd.cpu().numpy(),
-            out_tab.nseg, layout, xitem, chunk)
+            out_tab.nseg, layout, xitem, chunk, stage_bytes=stage)
         if self.smem > _SMEM_PER_BLOCK:
             raise ValueError(
                 f"elem_mv kernel: a block takes {self.smem} bytes of shared "
@@ -2399,7 +2471,7 @@ class ElemPlan:
         self.keep = [torch.as_tensor(np.array(part[k]), device=device)
                      for k in ("hdr", "dids", "blob")]
         self.nblk, self.rows = part["nblk"], part["rows"]
-        self.touched, self.nc = part["touched"], nc
+        self.touched, self.nc, self.staged = part["touched"], nc, staged
         self.c = _ElemPlanC(*(t.data_ptr() for t in self.keep), self.nblk,
                             part["dmax"], part["blob_bytes"], self.smem, C,
                             SC, int(e_dtype == torch.float64),
@@ -2419,7 +2491,7 @@ class ElemPlan:
     def describe(self):
         """What a launch does, for a printout."""
         return dict(chunk=self.chunk, blocks=self.nblk, smem=self.smem,
-                    rows=self.rows,
+                    rows=self.rows, staged=self.staged,
                     touched_per_element=self.touched / self.nc)
 
 
@@ -2485,8 +2557,9 @@ def elem_mv(E, x, in_tab, out_tab, transpose=False):
     On a CUDA tensor this launches the hand-written kernel of
     ``csrc/elemmv.cu`` on the current stream through the operands'
     :class:`ElemPlan` (one launch: a block the element rows of its output
-    dofs, copied into shared memory, each dof summed in its slots' order:
-    the same bits on every run and every plan) and counts it in
+    dofs into shared memory — 30-column rows staged there first by each
+    warp, :func:`elem_staged` —, each dof summed in its slots' order: the
+    same bits on every run and every plan) and counts it in
     ``elem_mv.launches``; ``E`` is copied first where its blocks are not
     contiguous and 16-byte aligned.  On a CPU tensor it is
     :func:`elem_mv_ref`."""

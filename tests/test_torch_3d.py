@@ -39,7 +39,11 @@ from dolfin_navier_scipy_tpu_torch.ops.assemble import (
     gradT_normal_facet_elements)
 from dolfin_navier_scipy_tpu_torch.ops.elementop import build_element_ops
 from dolfin_navier_scipy_tpu_torch.ops.kernels import (
-    affine_element_terms, affine_reference_matrices)
+    _ELEM30_STAGE, _SMEM_PER_BLOCK, DofTable, _elem_layout, affine_fit,
+    affine_element_terms, affine_mv_ref, affine_plan,
+    affine_reference_matrices, affine_residual_ref, affine_slots3d,
+    affine_smem3d,
+    elem_fit, elem_mv_ref, elem_staged)
 from dolfin_navier_scipy_tpu_torch.solve import SchurSaddleSolver, solve_nse
 
 from torch_parity import align_native
@@ -274,3 +278,262 @@ def test_solve_nse_3d_box_matches_jax(box, route, refine, monkeypatch):
     assert not ot["ffflag"]
     assert _rel(ot["v"], oj["v"]) <= 1e-10, route
     assert _rel(ot["p"], oj["p"]) <= 1e-10, route
+
+
+# -- the 3D kernels' schedules (csrc/elemmv.cu's staged 30-column form,
+# csrc/affine.cu: block_body_3d), replayed in numpy on their plans ---------
+
+H100_SMS = 132
+
+
+def _elem_rows(part, layout):
+    """Each block's tables of ``csrc/elemmv.cu`` as the kernel reads them,
+    its rows in the block's element order (the order the warps take):
+    ``(dids, entry in E, value position, first input position, dof row
+    pointers, dofs, input positions)``."""
+    for b in range(part["nblk"]):
+        off, nb, nrows, nown = (int(v) for v in part["hdr"][b])
+        tab = part["blob"][16 * off: 16 * off + nb]
+        word = tab[: 8 * nrows].view(np.uint32).astype(np.int64)
+        rp = tab[8 * nrows: 8 * nrows + 4 * (nown + 1)].view(np.int32)
+        own = tab[8 * nrows + 4 * (nown + 1): 8 * (nrows + nown) + 4].view(
+            np.int32)
+        lin = tab[8 * (nrows + nown + 1):].view(np.uint16)
+        yield (part["dids"][b], word[0::2], word[1::2] & 0xffff,
+               word[1::2] >> 16, rp, own, lin)
+
+
+def _elem_staged_replayed(E, x, tin, tout, tr):
+    """The staged 30-column schedule in numpy (f64): the plan of an
+    ``elem_mv`` of these operands on a 132-SM card; per block the
+    gathered inputs, then for each warp (8 a block) its rows ``r0 + lane``
+    (``r0 = 32 warp + 256 i``): the rows' 15 two-entry pieces copied into
+    the warp's stage of 32 rows (row stride 30), each lane's dot from its
+    stage row and its element's inputs, c ascending; each dof's rows
+    summed in order.  Returns ``y`` (each dof stored once) and the plan."""
+    R, C, _, sr, sc = _elem_layout(E, tr)
+    layout = (R, C, sr, sc)
+    assert elem_staged(layout)
+    item = E.element_size()
+    part, _, smem = elem_fit(
+        tin.vd.numpy(), tin.nseg, tout.vd.numpy(), tout.nseg, layout,
+        x.element_size(), affine_plan("elem30", E.shape[0], H100_SMS),
+        stage_bytes=_ELEM30_STAGE * item)
+    # the warps' stages at the end of the block's 16-byte aligned memory
+    assert smem % 16 == 0 and smem <= _SMEM_PER_BLOCK
+    assert smem >= 16 + part["blob_bytes"] + _ELEM30_STAGE * item
+    flat, xv = E.contiguous().numpy().ravel(), x.numpy()
+    y = np.full(tout.nseg, np.nan)
+    for dids, entry, dst, lb, rp, own, lin in _elem_rows(part, layout):
+        xs = np.where(dids >= 0, xv[np.maximum(dids, 0)], 0.0)
+        sv = np.full(len(entry), np.nan)
+        for warp in range(8):
+            for r0 in range(32 * warp, len(entry), 256):
+                nr = min(32, len(entry) - r0)
+                stage = np.full((32, C), np.nan)
+                i = np.arange(nr * 15)          # a warp's pieces, lane-wise
+                rr, k = i // 15, i % 15
+                for h in (0, 1):
+                    stage[rr, 2 * k + h] = flat[entry[r0 + rr] + 2 * k + h]
+                d = np.zeros(nr)
+                for c in range(C):
+                    d = d + stage[:nr, c] * xs[lin[lb[r0:r0 + nr] + c]]
+                assert np.isnan(sv[dst[r0:r0 + nr]]).all()
+                sv[dst[r0:r0 + nr]] = d
+        acc, cnt = np.zeros(len(own)), np.diff(rp)
+        for s in range(int(cnt.max(initial=0))):
+            m = cnt > s
+            acc[m] = acc[m] + sv[rp[:-1][m] + s]
+        assert np.isnan(y[own]).all()
+        y[own] = acc
+    return y, part
+
+
+@pytest.mark.parametrize("kind", ["F", "J", "JT"])
+def test_elem_kernel_3d_schedule_replayed(wake, kind):
+    """B10 on the 3D operands (the wake at nz=1): the 30-column operands
+    (F's 30 x 30 blocks on the full velocity dofs, J's 4 x 30) take the
+    staged schedule (each warp's rows copied into its stage, then a dot a
+    lane), replayed in numpy on the plan's tables to 1e-15 of the plain
+    version, every row and dof once; J^T (4 columns) keeps the
+    row-a-thread schedule (``_replayed``)."""
+    from test_torch_kernels import _replayed
+
+    _, tp = wake
+    rng = np.random.default_rng(17)
+    _, _, J = build_element_ops(tp, device="cpu")
+    if kind == "F":
+        vd = tp.space.vdofs_of_cells()
+        tab = DofTable(torch.as_tensor(vd.reshape(vd.shape[0], -1)),
+                       tp.nv_full)
+        E, tin, tout, tr = (torch.from_numpy(rng.normal(
+            size=(vd.shape[0], 30, 30))), tab, tab, False)
+    else:
+        E, (tin, tout, tr) = J.elem, ((J.vtab, J.ptab, False) if kind == "J"
+                                      else (J.ptab, J.vtab, True))
+    x = torch.from_numpy(rng.normal(size=tin.nseg))
+    R, C, _, sr, sc = _elem_layout(E, tr)
+    if kind == "JT":
+        assert not elem_staged((R, C, sr, sc))
+        y = _replayed(E, x, tin, tout, tr, "plan")
+    else:
+        y, part = _elem_staged_replayed(E, x, tin, tout, tr)
+        assert part["rows"] == int((tout.vd.numpy() < tout.nseg).sum())
+    ref = elem_mv_ref(E, x, tin, tout, tr).numpy()
+    assert np.abs(y - ref).max() <= 1e-15 * np.abs(ref).max()
+
+
+def _affine3d_replayed(t, mode, x, q, cm, ca):
+    """``block_body_3d``'s schedule in numpy (f64) on the plan's partition
+    of a 132-SM card: per block the staged ids and geometry rows, the
+    gathered values (``i = l * 36 + j``), the velocity slots a warp an
+    element and lane (a, c) its slot — Z[k][m][a][c] formed by the lane,
+    Z[k][m][a][d] read from lane 3 a + d (the shuffles) —, the pressure
+    slots a thread an (element, node), the facet rows, the dofs' sums
+    through the block's slot table (``affine_slots3d``).  Returns the
+    output, each dof stored once."""
+    kind = {"j": "p", "res": "res"}.get(mode, "v")
+    nd, pn, nin, npc = 30, 4, t.nin, t.npc
+    part, _, smem = affine_fit(
+        t, kind, affine_plan(mode, t.nc, H100_SMS))
+    assert smem <= _SMEM_PER_BLOCK
+    ns = pn if mode == "j" else nd
+    per_elem = {"j": pn, "res": 2 * nd + pn}.get(mode, nd)
+    sinfo, slots, smax = affine_slots3d(part)
+    assert smem == affine_smem3d(part["emax"], part["fmax"], smax, per_elem,
+                                 8)
+    r = affine_reference_matrices(t).numpy()
+    Mr, Sr = r[:100].reshape(10, 10), r[100:1000].reshape(3, 3, 10, 10)
+    Br = r[1000:].reshape(4, 3, 10)
+    vd, pd = t.vtab.vd.numpy(), t.ptab.vd.numpy()
+    ids = np.concatenate([vd, pd, np.full((t.nc, 2), -1)], 1)
+    geo = np.concatenate([t.JinvT.numpy().reshape(t.nc, 9),
+                          t.detJ.numpy()[:, None]], 1)
+    kcm, kca = dict(m=(1.0, 0.0), a=(0.0, 1.0)).get(mode, (cm, ca))
+    facets = mode in ("a", "ma", "res") and kca != 0.0 and t.fac_elem.shape[0]
+    fv = t.fac_dofs.vd.numpy()
+    fco = t.fac_elem.numpy().reshape(-1, nd)
+    xv, qv = x.numpy(), q.numpy()
+    xp, qp = np.append(xv, 0.0), np.append(qv, 0.0)
+    lane = np.arange(32)
+    a, c = np.minimum(lane, nd - 1) // 3, lane % 3
+    nout = dict(j=npc, res=nin + npc).get(mode, nin)
+    y = np.full(nout, np.nan)
+    cnt, own = part["cnt"], part["own"]
+    for b in range(part["nblk"]):
+        els = part["elem"][part["eptr"][b]:part["eptr"][b + 1]]
+        ne, nfac = len(els), int(cnt[b, 1])
+        bid, g = ids[els], geo[els]
+        xs = np.zeros((ne, 36))
+        if mode != "jt":
+            v = bid[:, :nd]
+            xs[:, :nd] = xp[np.where((v >= 0) & (v < nin), v, nin)]
+        if mode in ("jt", "res"):
+            src = xp if mode == "jt" else qp
+            v = bid[:, nd:nd + pn]
+            xs[:, nd:nd + pn] = src[np.where((v >= 0) & (v < npc), v, npc)]
+        Ji, dj = g[:, :9].reshape(ne, 3, 3), g[:, 9]
+        xe = xs[:, :nd].reshape(ne, 10, 3)
+        sk = np.full((ne, ns), np.nan)
+        st = np.full((ne, nd), np.nan)
+        sj = np.full((ne, pn), np.nan)
+        if mode in ("m", "a", "ma", "res"):
+            xc = xe[:, :, c]                              # (ne, 10, lane)
+            fe = np.zeros((ne, 32))
+            if kca != 0.0:
+                zo = np.zeros((ne, 3, 3, 32))             # the lane's Z
+                for bb in range(10):
+                    zo = zo + Sr[:, :, a, bb][None] * xc[:, None, None, bb]
+                s1, s2 = np.zeros((ne, 32)), np.zeros((ne, 32))
+                for k in range(3):
+                    for m in range(3):
+                        kg = np.zeros(ne)
+                        for d in range(3):
+                            kg = kg + Ji[:, d, k] * Ji[:, d, m]
+                        s1 = s1 + kg[:, None] * zo[:, k, m]
+                        jz = np.zeros((ne, 32))
+                        for d in range(3):
+                            jz = jz + Ji[:, d, k, None] * zo[:, k, m,
+                                                            3 * a + d]
+                        s2 = s2 + Ji[:, c, m] * jz
+                fe = kca * t.nu * dj[:, None] * (s1 + s2 if t.sym else s1)
+            if kcm != 0.0:
+                s = np.zeros((ne, 32))
+                for bb in range(10):
+                    s = s + Mr[a, bb] * xc[:, bb]
+                fe = fe + kcm * dj[:, None] * s
+            sk[:, :] = fe[:, :nd]
+        if mode in ("jt", "res"):
+            s = np.zeros((ne, 32))
+            for k in range(3):
+                z = np.zeros((ne, 32))
+                for pp in range(pn):
+                    z = z + Br[pp, k, a] * xs[:, nd + pp, None]
+                s = s + Ji[:, c, k] * z
+            (st if mode == "res" else sk)[:, :] = (dj[:, None] * s)[:, :nd]
+        if mode in ("j", "res"):
+            # thread tid takes node tid % 4 of elements tid // 4 + 64 i
+            out = sk if mode == "j" else sj
+            tid = np.arange(256)
+            ls = (tid // pn + 64 * np.arange(-(-ne // 64))[:, None]).ravel()
+            ps = np.tile(tid % pn, -(-ne // 64))
+            ls, ps = ls[ls < ne], ps[ls < ne]
+            s = np.zeros(len(ls))
+            for k in range(3):
+                for cc in range(3):
+                    z = np.zeros(len(ls))
+                    for bb in range(10):
+                        z = z + Br[ps, k, bb] * xe[ls, bb, cc]
+                    s = s + Ji[ls, cc, k] * z
+            assert np.isnan(out[ls, ps]).all()
+            out[ls, ps] = dj[ls] * s
+        fr = part["frow"][part["fptr"][b]:part["fptr"][b + 1]]
+        fvals = np.zeros(nfac)
+        if facets:
+            fx = xp[np.where(fv[fr // nd] < nin, fv[fr // nd], nin)]
+            fvals = kca * (fco[fr] * fx).sum(1)
+        vals = np.concatenate([fvals, sk.ravel()] + (
+            [st.ravel(), sj.ravel()] if mode == "res" else []))
+        # the block's slot table: a dof's slots in its column, in order
+        nk = int(cnt[b, 3])
+        tab = slots[sinfo[b, 0]:sinfo[b, 0] + sinfo[b, 1] * nk].reshape(
+            -1, nk)
+        for k in range(nk):
+            i, col = int(own[cnt[b, 2] + k]), [int(s) for s in tab[:, k]
+                                                if s >= 0]
+            vel = mode != "j" and (mode != "res" or i < nin)
+            acc = acc_t = 0.0
+            for s in col:
+                if s >= nfac:
+                    acc += vals[s]
+                    if mode == "res" and vel:
+                        acc_t += vals[s + ne * ns]
+            if vel and facets:
+                for s in col:
+                    if s < nfac:
+                        acc += vals[s]
+            assert np.isnan(y[i])
+            y[i] = acc + acc_t
+    return y
+
+
+@pytest.mark.parametrize("mode", ["m", "a", "ma", "j", "jt", "res"])
+def test_affine_kernel_3d_schedule_replayed(wake_affine, mode):
+    """``csrc/affine.cu: block_body_3d``'s thread mapping replayed in numpy
+    on the plan's partition (blocks never split: a 3D block's threads loop
+    over its dofs) and its staging order, on the wake's full-dof tables
+    (its outflow facet rows): within 1e-12 of the plain version, every
+    dof and every pressure slot taken once, the block's shared memory
+    within the card's."""
+    _, t = wake_affine
+    rng = np.random.default_rng(23)
+    n = t.npc if mode == "jt" else t.nin
+    x = torch.from_numpy(rng.normal(size=n))
+    q = torch.from_numpy(rng.normal(size=t.npc))
+    cm, ca = 1.0, 0.3
+    y = _affine3d_replayed(t, mode, x, q, cm, ca)
+    if mode == "res":
+        ref = affine_residual_ref(x, q, t, cm, ca)
+    else:
+        ref = affine_mv_ref(mode, x, t, cm, ca)
+    assert _rel(y, ref.numpy()) <= 1e-12

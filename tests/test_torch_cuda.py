@@ -1237,3 +1237,99 @@ def test_3d_kernels_on_the_card(kernel):
                 block_pcg_step(*st[:3], Mc @ st[2], dinv, st[3])
                 block_pcg_step_ref(*sr[:3], Mc @ sr[2], dinv, sr[3])
             assert rel(st[0], sr[0]) <= 100 * tol
+
+
+# plan settings for the redesigned 3D forms: the plan's chunks, chunks of
+# one element, and one block an SM (larger chunks, more dofs a block)
+_CHUNKS_3D = {"plan": {},
+              "one": dict(MIN_CHUNK=1, ELEM30_BLOCKS_PER_SM=10**6,
+                          BLOCKS_PER_SM=10**6),
+              "large": dict(ELEM30_BLOCKS_PER_SM=1, BLOCKS_PER_SM=1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", list(_CHUNKS_3D))
+@pytest.mark.parametrize("kernel", ["elem30", "affine3d"])
+def test_3d_redesigned_kernels_on_the_card(kernel, chunk, monkeypatch):
+    """The staged 30-column form of B10 (F's 30 x 30 blocks on the full
+    velocity dofs, J's 4 x 30; f32, f64 and f64 blocks under f32 vectors)
+    and B9's 3D form (every mode and the residual, f32 and f64 tables and
+    vectors, full dofs with the outflow facet rows) on the 3D-2Z wake at
+    nz=1, on the plan's chunk, on chunks of one element and on one block
+    an SM: within the plain versions' bars (1e-5 relative in f32, 1e-12 in
+    f64), the same bits on every chunk and twice on one."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    import copy
+
+    from dolfin_navier_scipy_tpu_torch.ops.elementop import (
+        build_element_ops)
+    from dolfin_navier_scipy_tpu_torch.ops.kernels import (
+        DofTable, elem_mv, elem_mv_ref)
+
+    prob = _wake3d()
+    rng = np.random.default_rng(41)
+
+    def rel(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm())
+
+    def on_chunk(call):
+        """``call()`` (on plans of its own) on the parametrized chunk and
+        on the plan's."""
+        with pytest.MonkeyPatch.context() as mp:
+            for k, v in _CHUNKS_3D[chunk].items():
+                mp.setitem(kernels._AFFINE_PLAN, k, v)
+            y = call()
+        return y, call()
+
+    if kernel == "elem30":
+        vd = prob.space.vdofs_of_cells()
+        for edt, xdt in ((torch.float32, torch.float32),
+                         (torch.float64, torch.float64),
+                         (torch.float64, torch.float32)):
+            _, _, J = build_element_ops(prob, dtype=edt, device="cuda")
+            F = torch.from_numpy(rng.normal(size=(vd.shape[0], 30, 30))).to(
+                "cuda", edt)
+            ftab = vd.reshape(vd.shape[0], -1)
+            for E, ids, n, is_j in ((F, ftab, prob.nv_full, False),
+                                    (J.elem, None, None, True)):
+                tin = (J.vtab if is_j else DofTable(torch.as_tensor(
+                    ids, device="cuda"), n))
+                x = torch.from_numpy(rng.normal(size=tin.nseg)).to(
+                    "cuda", xdt)
+
+                def call(E=E, x=x, tin=tin, is_j=is_j):
+                    a = DofTable(tin.vd, tin.nseg)
+                    b = DofTable(J.ptab.vd, J.ptab.nseg) if is_j else a
+                    return elem_mv(E, x, a, b)
+                y, y_plan = on_chunk(call)
+                ref = elem_mv_ref(E, x, tin, J.ptab if is_j else tin)
+                tol = 1e-5 if xdt == torch.float32 else 1e-12
+                assert rel(y, ref) <= tol, (edt, xdt, is_j)
+                assert torch.equal(y, y_plan) and torch.equal(
+                    y_plan, call()), (edt, xdt, is_j)
+        return
+    for tdt in (torch.float32, torch.float64):
+        aff = AffineVectorOps.build(prob, tdt, full_dofs=True, device="cuda")
+        for mode, cm, ca in (("m", 1.0, 0.0), ("a", 0.0, 1.0),
+                             ("ma", 1.0, 5e-3), ("j", 1.0, 0.0),
+                             ("jt", 1.0, 0.0), ("res", 1.0, 5e-3)):
+            n = aff.npc if mode == "jt" else aff.nin
+            for xdt in (torch.float32, torch.float64):
+                x = torch.from_numpy(rng.normal(size=n)).to("cuda", xdt)
+                q = torch.from_numpy(rng.normal(size=aff.npc)).to("cuda",
+                                                                 xdt)
+
+                def call(x=x, q=q, mode=mode, cm=cm, ca=ca):
+                    t = copy.copy(aff)
+                    t._plans = {}
+                    if mode == "res":
+                        return affine_residual(x, q, t, cm, ca)
+                    return affine_mv(mode, x, t, cm, ca)
+                y, y_plan = on_chunk(call)
+                ref = (affine_residual_ref(x, q, aff, cm, ca) if mode == "res"
+                       else affine_mv_ref(mode, x, aff, cm, ca))
+                tol = 1e-5 if torch.float32 in (tdt, xdt) else 1e-12
+                assert rel(y, ref) <= tol, (tdt, mode, xdt)
+                assert torch.equal(y, y_plan) and torch.equal(
+                    y_plan, call()), (tdt, mode, xdt)

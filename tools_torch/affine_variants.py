@@ -3,6 +3,7 @@
 card, against another checkout's kernel in turns.
 
     python3 tools_torch/affine_variants.py [--level 1 [2]]
+                                           [--wake3d NZ [NZ ...]]
                                            [--root CHECKOUT [CHECKOUT ...]]
                                            [--rounds 2] [--sweep] [--quick]
 
@@ -13,7 +14,14 @@ builds the inner-layout tables the dense solver's route uses
 'j', 'jt') on the vector type the paths give it (f64 under 'a', the f64
 carry; f32 elsewhere) and the fused residual :func:`affine_residual`
 (modes 'res'), one JSON line each, after the card's name and power limit,
-for each version:
+for each version.  With ``--wake3d NZ`` (``--level`` may be left empty:
+``--level``) it reads the 3D form on the full-dof tables of the
+Schaefer-Turek 3D-2Z wake at nz=NZ (``chip_smoke.py: WAKE3D``; f32 and f64
+tables, f32 vectors, as ``chip_smoke.py`` times them; the bound
+``chip_smoke.py: affine3d_bound_ms``, the library's residual one cuSPARSE
+CSR matvec of the assembled saddle operator); at nz=2 first each
+version's bits on ``chip_smoke.py: affine3d_bits_cases``
+(``AFFINE3D_BITS``):
 
 * ``other`` (``other1``, ... with more ``--root``): that checkout's
   ``affine_mv`` and its ``affine_residual`` or, where it has none, for
@@ -37,7 +45,8 @@ for each version:
   it is the larger), read in turns (other, this, sweep, sweep reversed,
   this, other, ``--rounds`` times); the graph-replayed time of an empty
   kernel on the same grid (``floor_ms``); the plain version's and one
-  cuSPARSE CSR matvec's (``library_ms``) time; the bound.  For 'res'
+  cuSPARSE CSR matvec's (``library_ms``, graph-replayed as the kernel;
+  ``library_eager_ms`` back to back) time; the bound.  For 'res'
   also the composition it replaces on this checkout's kernel (three
   launches, an add and a concatenation; ``composition_ms`` and whether
   the fused bits equal it).
@@ -66,6 +75,7 @@ MODES = (("m", 1.0, 0.0), ("a", 0.0, 1.0), ("ma", 1.0, 5e-4),
          ("j", 1.0, 0.0), ("jt", 1.0, 0.0), ("res", 1.0, 5e-4))
 STATE = dict(m=torch.float32, a=torch.float64, ma=torch.float32,
              j=torch.float32, jt=torch.float32, res=torch.float32)
+STATE3D = dict.fromkeys(STATE, torch.float32)
 SWEEP_BLOCKS_PER_SM = (1, 3, 4, 6, 8)
 
 
@@ -180,7 +190,8 @@ def bound_ms(t, mode, x_item):
 
 def read_mode(kernels, others, prob, aff, mode, cm, ca, args, gen):
     dev = aff.wdet.device
-    xdt = STATE[mode]
+    d3 = aff.dim == 3
+    xdt = (STATE3D if d3 else STATE)[mode]
     n = aff.npc if mode == "jt" else aff.nin
     x = torch.randn(n, generator=gen, dtype=torch.float64).to(dev, xdt)
     q = torch.randn(aff.npc, generator=gen,
@@ -214,7 +225,13 @@ def read_mode(kernels, others, prob, aff, mode, cm, ca, args, gen):
     row = dict(level=args.level_now, mode=mode, tables=str(aff.wdet.dtype),
                state=str(xdt), nc=aff.nc, nin=aff.nin, npc=aff.npc,
                facet_blocks=int(aff.fac_elem.shape[0]), cm=cm, ca=ca)
-    row["bound_ms"], row["bound_by"] = bound_ms(aff, mode, x.element_size())
+    if d3:
+        row["bound_ms"], row["bound_by"] = args.bound3d(
+            aff, mode, x.element_size(),
+            mode in ("a", "ma", "res") and ca != 0.0)
+    else:
+        row["bound_ms"], row["bound_by"] = bound_ms(aff, mode,
+                                                    x.element_size())
     for tag, fn, keys in versions:
         with (plan_override(kernels, **keys) if keys is not None
               else contextlib.nullcontext()):
@@ -262,6 +279,12 @@ def read_mode(kernels, others, prob, aff, mode, cm, ca, args, gen):
     if args.quick:
         say(**row)
         return row
+    if d3:
+        f = prob.full
+        M, A, J, JT = f["M"], f["A"], f["J"], f["JT"]
+    else:
+        M, A, J, JT = prob.Mc, prob.Ac, prob.Jc, prob.JTc
+    saddle = None
     if mode == "res":
         Kop, Jop = aff.view("ma", cm=cm, ca=ca), aff.view("j")
 
@@ -277,26 +300,29 @@ def read_mode(kernels, others, prob, aff, mode, cm, ca, args, gen):
             (this_y.double() - yc.double()).abs().max())
         row["plain_ms"] = events_ms(
             lambda: kernels.affine_residual_ref(x, q, aff, cm, ca), 20)
+        # the library's one call: the assembled saddle operator on [x; q]
+        saddle = sps.bmat([[cm * M + ca * A, JT], [J, None]])
     else:
         row["plain_ms"] = events_ms(
             lambda: kernels.affine_mv_ref(mode, x, aff, cm, ca), 20)
-        f = prob
-        M, A, J, JT = f.Mc, f.Ac, f.Jc, f.JTc
-        B = dict(m=M, a=A, j=J, jt=JT, ma=sps.csr_matrix(cm * M + ca * A))
-        B = sps.csr_matrix(B[mode])
-        csr = torch.sparse_csr_tensor(
-            torch.as_tensor(B.indptr, dtype=torch.int64),
-            torch.as_tensor(B.indices, dtype=torch.int64),
-            torch.as_tensor(B.data), size=B.shape).to(dev, aff.wdet.dtype)
-        xl = x.to(aff.wdet.dtype)[:, None]
-        row["library_ms"] = events_ms(lambda: csr @ xl, args.reps)
+    B = sps.csr_matrix(saddle if saddle is not None else dict(
+        m=M, a=A, j=J, jt=JT, ma=cm * M + ca * A)[mode])
+    csr = torch.sparse_csr_tensor(
+        torch.as_tensor(B.indptr, dtype=torch.int64),
+        torch.as_tensor(B.indices, dtype=torch.int64),
+        torch.as_tensor(B.data), size=B.shape).to(dev, aff.wdet.dtype)
+    xl = (torch.cat([x, q]) if mode == "res" else x).to(
+        aff.wdet.dtype)[:, None]
+    row["library_eager_ms"] = events_ms(lambda: csr @ xl, args.reps)
+    row["library_ms"] = graph_ms(lambda: csr @ xl)
     say(**row)
     return row
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--level", type=int, nargs="+", default=[1])
+    ap.add_argument("--level", type=int, nargs="*", default=[1])
+    ap.add_argument("--wake3d", type=int, nargs="*", default=[])
     ap.add_argument("--root", nargs="+", default=[])
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=200)
@@ -334,6 +360,33 @@ def main():
         prob = cylinderwake_problem(level=level, Re=100.0, charvel=0.2)
         for tname in args.tables:
             aff = prob.affine_ops(dts[tname], device=dev)
+            for mode, cm, ca in MODES:
+                if args.modes is None or mode in args.modes:
+                    read_mode(kernels, others, prob, aff, mode, cm, ca, args,
+                              gen)
+        del prob
+        torch.cuda.empty_cache()
+    if args.wake3d:
+        from chip_smoke import (WAKE3D, affine3d_bits_cases,
+                                affine3d_bound_ms, affine_bits)
+        from dolfin_navier_scipy_tpu_torch.models import (
+            cylinderwake3d_problem)
+        from dolfin_navier_scipy_tpu_torch.ops.affine import (
+            AffineVectorOps)
+        args.bound3d = affine3d_bound_ms
+    for nz in args.wake3d:
+        args.level_now = f"3D-2Z nz={nz}"
+        prob = cylinderwake3d_problem(nz=nz, **WAKE3D)
+        if nz == 2:
+            cases = affine3d_bits_cases(prob, dev)
+            bits = {tag: affine_bits(mod, cases) for tag, mod in others}
+            bits["this"] = affine_bits(kernels, cases)
+            say(phase="bits3d", nz=nz, bits=bits, same_as_this={
+                tag: b == bits["this"] for tag, b in bits.items()})
+            del cases
+        for tname in args.tables:
+            aff = AffineVectorOps.build(prob, dts[tname], full_dofs=True,
+                                        device=dev)
             for mode, cm, ca in MODES:
                 if args.modes is None or mode in args.modes:
                     read_mode(kernels, others, prob, aff, mode, cm, ca, args,

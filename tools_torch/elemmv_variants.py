@@ -3,6 +3,7 @@
 one card, against another checkout's kernel in turns.
 
     python3 tools_torch/elemmv_variants.py [--level 1 [2 [3]]]
+                                           [--wake3d NZ [NZ ...]]
                                            [--root CHECKOUT [CHECKOUT ...]]
                                            [--rounds 2] [--sweep] [--quick]
 
@@ -15,7 +16,13 @@ velocity table (the convection's blocks at a seeded velocity from
 state), and at level 1 also ``ElementOp`` M and A and ``DivElementOp`` J
 and J^T with f32 and f64 tables (``build_element_ops``), and reads
 :func:`elem_mv` on each under a seeded vector of the tables' type, one
-JSON line each, after the card's name and power limit, for each version:
+JSON line each, after the card's name and power limit, for each version.
+With ``--wake3d NZ`` (``--level`` may be left empty: ``--level``) it reads
+the 3D element route's operands of the Schaefer-Turek 3D-2Z wake at nz=NZ
+(``chip_smoke.py: WAKE3D``): F = M + dt/2 A in f32 (30 x 30 blocks on the
+full velocity dofs, as ``solve_nse`` builds it; the staged 30-column
+form) and ``DivElementOp`` J and J^T in f32 (4 x 30); at nz=2 also each
+version's bits on ``chip_smoke.py: elem3d_bits_cases`` (``ELEM3D_BITS``):
 
 * ``other`` (``other1``, ... with more ``--root``): that checkout's
   ``elem_mv`` (e.g. the parent commit, unpacked with ``git archive
@@ -24,7 +31,8 @@ JSON line each, after the card's name and power limit, for each version:
   directory);
 * ``this``: this checkout's wrapper on its plan; with ``--sweep`` also
   the same wrapper on other chunks (``bps/<n>``: the plan's
-  ``ELEM_BLOCKS_PER_SM`` set to ``n``);
+  ``ELEM_BLOCKS_PER_SM`` set to ``n``; for F's 30-column blocks
+  ``bps30/<n>``, ``ELEM30_BLOCKS_PER_SM``);
 * the result against the plain version (``rel_err``), two launches
   against each other (``bitwise``), a CUDA-graph replay against the eager
   call (``graph_replay_equal``) and against ``this``
@@ -32,7 +40,8 @@ JSON line each, after the card's name and power limit, for each version:
 * device ms a call in a CUDA-graph replay of 20 calls (``ms``) and eager
   ms a call over back-to-back calls (``eager_ms``), read in turns (other,
   this, sweep, sweep reversed, this, other, ``--rounds`` times); the
-  plain version's and one cuSPARSE CSR matvec's (``library_ms``) time;
+  plain version's and one cuSPARSE CSR matvec's (``library_ms``,
+  graph-replayed as the kernel; ``library_eager_ms`` back to back) time;
   the graph-replayed time of an empty kernel on this checkout's grid and
   shared memory (``floor_ms``); the bound (``chip_smoke.py:
   elem_bound_ms``); what this checkout's plan
@@ -61,15 +70,21 @@ sys.path[:0] = [ROOT, HERE]
 from affine_variants import (  # noqa: E402
     events_ms, graph_ms, load_other, plan_override, replay_equal, say)
 from chip_smoke import (  # noqa: E402
-    dfg_problem, elem_bits, elem_bits_cases, elem_bound_ms, elem_csr, rel)
+    DT3D, WAKE3D, dfg_problem, elem3d_bits_cases, elem_bits,
+    elem_bits_cases, elem_bound_ms, elem_csr, rel)
+from dolfin_navier_scipy_tpu_torch.models import (  # noqa: E402
+    cylinderwake3d_problem)
 from dolfin_navier_scipy_tpu_torch.ops import kernels  # noqa: E402
 from dolfin_navier_scipy_tpu_torch.ops.elementop import (  # noqa: E402
     build_element_ops)
 from dolfin_navier_scipy_tpu_torch.ops.kernels import DofTable  # noqa: E402
 
-# other plans (--sweep): chunks of 2 and 8 blocks an SM
+# other plans (--sweep): chunks of 2 and 8 blocks an SM; the staged
+# 30-column form's own key
 SWEEP = (("bps/2", dict(ELEM_BLOCKS_PER_SM=2)),
          ("bps/8", dict(ELEM_BLOCKS_PER_SM=8)))
+SWEEP30 = tuple((f"bps30/{n}", dict(ELEM30_BLOCKS_PER_SM=n))
+                for n in (1, 2, 4, 8, 16))
 
 
 def sk_operand(prob, dev, gen):
@@ -86,6 +101,21 @@ def sk_operand(prob, dev, gen):
     ea = torch.as_tensor(np.ascontiguousarray(prob.elem_tensors["A"])).to(
         dev, torch.float32)
     return en + ea, tab
+
+
+def wake3d_operands(prob, dev):
+    """The 3D element route's B10 operands: F = M + dt/2 A (f32, 30 x 30
+    on the full velocity dofs, as ``solve/timeint.py`` builds the element
+    path's F-matvec), J and J^T (f32, 4 x 30 on the inner dofs)."""
+    fel = prob.elem_tensors["M"] + 0.5 * DT3D * prob.elem_tensors["A"]
+    vd = prob.space.vdofs_of_cells()
+    ftab = DofTable(torch.as_tensor(vd.reshape(vd.shape[0], -1),
+                                    device=dev), prob.nv_full)
+    F = torch.as_tensor(fel).to(dev, torch.float32)
+    _, _, J = build_element_ops(prob, dtype=torch.float32, device=dev)
+    return [("F = M + dt/2 A", F, ftab, ftab, False),
+            ("DivElementOp J", J.elem, J.vtab, J.ptab, False),
+            ("DivElementOp J^T", J.elem, J.ptab, J.vtab, True)]
 
 
 def fresh(tin, tout):
@@ -109,7 +139,9 @@ def read(others, level, what, E, tin, tout, tr, args, gen):
     versions.append(("this", call_of(kernels.elem_mv, this_tabs), {}))
     sweep_tabs = {}
     if args.sweep:
-        for tag, keys in SWEEP:
+        R, C, _, sr, sc = kernels._elem_layout(E, tr)
+        staged = kernels.elem_staged((R, C, sr, sc))
+        for tag, keys in (SWEEP30 if staged else SWEEP):
             sweep_tabs[tag] = fresh(tin, tout)
             versions.append((tag, call_of(kernels.elem_mv, sweep_tabs[tag]),
                              keys))
@@ -150,14 +182,16 @@ def read(others, level, what, E, tin, tout, tr, args, gen):
             lambda: kernels.elem_mv_ref(E, x, tin, tout, tr), 20)
         csr = elem_csr(E, tin, tout, tr, x.dtype, dev)
         xl = x[:, None]
-        row["library_ms"] = events_ms(lambda: csr @ xl, args.reps)
+        row["library_eager_ms"] = events_ms(lambda: csr @ xl, args.reps)
+        row["library_ms"] = graph_ms(lambda: csr @ xl)
     say(**row)
     return row
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--level", type=int, nargs="+", default=[1, 2, 3])
+    ap.add_argument("--level", type=int, nargs="*", default=[1, 2, 3])
+    ap.add_argument("--wake3d", type=int, nargs="*", default=[])
     ap.add_argument("--root", nargs="+", default=[])
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=200)
@@ -211,6 +245,21 @@ def main():
                      J.vtab, J.ptab, False, args, gen)
                 read(others, level, "DivElementOp J^T, level 1", J.elem,
                      J.ptab, J.vtab, True, args, gen)
+        del prob
+        torch.cuda.empty_cache()
+    for nz in args.wake3d:
+        prob = cylinderwake3d_problem(nz=nz, **WAKE3D)
+        if nz == 2:
+            cases = elem3d_bits_cases(prob, dev)
+            bits = {tag: elem_bits(on_fresh(mod.elem_mv), cases)
+                    for tag, mod in others}
+            bits["this"] = elem_bits(on_fresh(kernels.elem_mv), cases)
+            say(phase="bits3d", nz=nz, bits=bits, same_as_this={
+                tag: b == bits["this"] for tag, b in bits.items()})
+            del cases
+        for what, E, tin, tout, tr in wake3d_operands(prob, dev):
+            read(others, f"3D-2Z nz={nz}", what, E, tin, tout, tr, args,
+                 gen)
         del prob
         torch.cuda.empty_cache()
 
