@@ -100,6 +100,14 @@ exact launches, and the kernels timed beside their bounds.  Every jacobi
 or block PCG on the card (the W-less banded solve, the device setups' X
 and W) runs its tail through B7.
 
+The banded convection tail (phase ``banded_conv_path``, after the
+checkpoints): ``conv_tail``, the tail's vector in one launch, at levels 1
+and 2 against its plain version, against B5's vector, and against the bits
+of the three-launch tail it replaced (``TAIL_BITS``), timed beside B5 and
+the library calls of its two 0/1 products; then the default call at level
+1 with ``banded_conv=True``.  The adjoint's ``vecmat_t`` is held to its
+first kernel's bits too (``VECMAT_T_BITS``).
+
 Every phase prints one JSON line; any failed phase raises, so the exit
 code is non-zero and the final line is missing.  The last line is
 ``{"ok": true, "device": {...}}``, the one before it the ``kernels`` table.
@@ -134,21 +142,22 @@ from dolfin_navier_scipy_tpu_torch.control import (
 from dolfin_navier_scipy_tpu_torch.models import (
     LiftDragSurfForce, cylinderwake3d_problem, cylinderwake_problem,
     make_inscan_liftdrag, observation_operator, pressure_drop)
-from dolfin_navier_scipy_tpu_torch.ops import banded_conv, kernels
+from dolfin_navier_scipy_tpu_torch.ops import kernels
 from dolfin_navier_scipy_tpu_torch.ops.affine import AffineVectorOps
 from dolfin_navier_scipy_tpu_torch.ops.banded_conv import (
-    banded_stream_us, banded_wins, build_banded_conv_tail, gate_constants,
-    index_pipeline_us, tail_patterns)
+    banded_wins, build_banded_conv_tail, gate_constants, index_pipeline_us,
+    tail_us)
 from dolfin_navier_scipy_tpu_torch.ops.elementop import build_element_ops
 from dolfin_navier_scipy_tpu_torch.ops.kernels import (
     _affine_launch, _windows, affine_mv, affine_mv_ref, affine_residual,
     affine_residual_ref, as_band_operand, as_vecmat_operand,
-    banded_mv, banded_mv_ref, conv_quad, conv_quad_ref, conv_vector,
+    banded_mv, banded_mv_ref, conv_quad_ref, conv_tail, conv_tail_ref,
+    conv_vector,
     conv_vector_amatvec, conv_vector_amatvec_ref, conv_vector_ref, conv_vjp,
     conv_vjp_ref, elem_mv, elem_mv_ref, block_pcg_init, block_pcg_init_ref,
     block_pcg_step, block_pcg_step_ref, pcg_init, pcg_init_ref, pcg_step,
     pcg_step_ref, rect_mv, rect_mv_levels, rect_mv_levels_ref, rect_mv_ref,
-    vecmat, vecmat_ref, vecmat_t, vecmat_t_ref)
+    tail_sum_ref, vecmat, vecmat_ref, vecmat_t, vecmat_t_grid, vecmat_t_ref)
 from dolfin_navier_scipy_tpu_torch.solve import (
     DirichletControl, KrylovSaddleSolver, SchurSaddleSolver, make_diff_cnab,
     sbdf2, solve_nse, solve_nse_newton_ti, solve_sadpnt_host,
@@ -160,6 +169,8 @@ from dolfin_navier_scipy_tpu_torch.solve.steady import (
 from dolfin_navier_scipy_tpu_torch.solve.sadpnt import _tridiag_bmm
 from dolfin_navier_scipy_tpu_torch.solve.timeint import (
     _NITER_WARM as NITER_WARM, _build_ops)
+from tools_torch.seeded_inputs import (
+    digest, seeded, seeded_operand, tail_state, wspace_kernel)
 
 # published peaks of one H100 SXM (NVIDIA data sheet): device memory rate
 # and the f32 / f64 rates outside the tensor cores
@@ -265,8 +276,7 @@ def device_kernels(fn):
 def zero_counts():
     for w in WRAPPERS + ADJ_WRAPPERS + PCG_WRAPPERS:
         w.launches = 0
-    conv_quad.launches = 0
-    rect_mv.storage_launches = dict.fromkeys(rect_mv.storage_launches, 0)
+    conv_tail.launches = 0
     affine_mv.mode_launches = dict.fromkeys(affine_mv.mode_launches, 0)
     for w in BAND_WRAPPERS:
         w.kernel_launches = dict.fromkeys(w.kernel_launches, 0)
@@ -2173,34 +2183,33 @@ def pseudotime_path(prob, v_newton):
 # ---------------------------------------------------------------------------
 
 TAIL_REPLACES = "dolfin_navier_scipy_tpu/ops/banded_conv.py:154"
+# sha256 prefixes (tools_torch/seeded_inputs.py: digest) of the tail's
+# vector by level, on the default call's w-space kernel and the seeded
+# state tail_state(vbc, nin, level): read on an H100 80GB HBM3 (700.00 W)
+# from commit 292ccd0's three-launch tail (int8 G and S through bandmv.cu,
+# the quadrature kernel between them), ``tail_vecmat_t.py --root``.  The
+# one-launch kernel must give the same bits.
+TAIL_BITS = {1: "c137b654ac7cec23", 2: "82b1e63a50d56902"}
+# the same for vecmat_t on seeded_operand(m, n, seed 1) under seeded(n, 2)
+# in f32, commit 292ccd0's kernel
+VECMAT_T_BITS = {(8794, 8794): "06da4bf475183140",
+                 (31061, 31061): "bac9e3c109126eb5"}
 
 
-def wspace_kernel(prob, dt, dev):
-    """The default call's w-space convection kernel (f32 tables) and bc
-    values, in the order of its block-Schur solver (``_cnab_wspace``)."""
-    ops = _build_ops(prob, dt, theta=0.5, linsolver="schur", layout="full",
-                     device=dev)
-    slv = ops.solver
-    nf, nin = prob.nv_full, slv._nin
-    wsrc = np.concatenate([slv.permf.cpu().numpy(), np.setdiff1d(
-        np.arange(nf), np.asarray(prob.invinds))]).astype(np.int64)
-    iposx = np.full(nf + 1, nf, np.int64)
-    iposx[wsrc] = np.arange(nf)
-    kern = prob.conv_kernel_on(torch.float32).with_dof_map(
-        torch.as_tensor(iposx, device=dev))
-    return kern, nin, np.asarray(prob.bc_full_vec()).ravel()[wsrc]
-
-
-def quad_bound_ms(t):
-    """Least time for one ``conv_quad``: ``ue``, ``ue_bc`` and the element
-    tables read once, ``fe`` written once; the element chain's
-    multiply-adds (``conv_bound_ms``'s, without gather or reduction) over
-    the f32 rate."""
+def tail_bound_ms(t, nin, u_itemsize=8):
+    """Least time for one tail vector: the sorted element ids, the state's
+    interior, ``ue_bc`` and the geometry and reference tables read once,
+    the element loads written and read once, the output written once, over
+    the memory rate; the quadrature's multiply-adds (the element chain's
+    fields, gradient and loads, as ``conv_bound_ms`` counts them) and the
+    row sums' adds over the f32 rate."""
     nc, nd, Q, dim, nvpc = t.nc, t.nd, t.Q, t.dim, t.nvpc
-    nbytes = 4 * (3 * nc * nd + nc * (dim * dim + Q) + Q * nvpc * (1 + dim))
+    nbytes = (4 * nc * nd + u_itemsize * nin + 4 * nc * nd
+              + 4 * nc * (dim * dim + Q) + 4 * Q * nvpc * (1 + dim)
+              + 2 * 4 * nc * nd + 4 * nin)
     per_q = (2 * nvpc * dim + 2 * nvpc * dim * dim + 2 * dim ** 3
              + 2 * dim * dim + dim + 2 * nvpc * dim)
-    flops = nc * Q * per_q + nc * nd
+    flops = nc * Q * per_q + 2 * nc * nd
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -2208,106 +2217,125 @@ def quad_bound_ms(t):
 
 def abs_chain(t):
     """The tables with every factor of the quadrature chain made positive:
-    ``conv_quad_ref`` on them (and on |ue|, |ue_bc|) is each row's sum of
-    absolute products."""
+    ``conv_quad_ref`` on them (and on |ue|, |ue_bc|) is each element
+    value's sum of absolute products."""
     ta = copy.copy(t)
     ta.JinvT, ta.wdet = t.JinvT.abs(), t.wdet.abs()
     ta._plain = tuple(w.abs() for w in t.plain_weights())
     return ta
 
 
-def tail_forms(tail, gen):
-    """``check_band``'s forms of the tail's two int8 products, G under the
-    f64 state and S under f32 element loads.  Their library forms compute
-    the same 0/1 products in one PyTorch call each on inputs made
-    beforehand: G as one ``index_select`` of the state (cast to f32, a zero
-    appended for the bc entries), S as one cuSPARSE CSR matvec; each is
-    held to the plain version first."""
-    dev = tail.Sb.device
-    nin, nvals = tail.nin, tail.nvals
-    xg = torch.randn(nin, generator=gen, dtype=torch.float64).to(dev)
-    xs = torch.randn(nvals, generator=gen, dtype=torch.float32).to(dev)
-    # the 0/1 pattern: element value j reads state row rows[j] (bc rows,
-    # at nin and above, read zero and are not scattered)
+def tail_library(tail, v, gen):
+    """The tail's two 0/1 products, each as one PyTorch call on inputs
+    made beforehand, held to the plain version and timed (graph replay):
+    G as one ``index_select`` of the state (cast to f32, a zero appended
+    for the bc entries), S as one cuSPARSE CSR matvec over seeded f32
+    element loads.  No one call computes the whole tail."""
+    dev, nin, nvals = v.device, tail.nin, tail.nvals
     rows = tail.kern.vd.reshape(-1).to(torch.int64)
     keep = rows < nin
     gidx = torch.where(keep, rows, torch.full_like(rows, nin))
-    xg_pad = torch.cat([xg.float(), xg.new_zeros(1, dtype=torch.float32)])
-    cols = torch.arange(nvals, device=dev)
+    v_pad = torch.cat([v[:nin].float(), v.new_zeros(1, dtype=torch.float32)])
+    g = torch.index_select(v_pad, 0, gidx)
+    require(torch.equal(g, kernels._tail_gather(v, tail.kern.tables, nin)),
+            "the library form of G is not the tail's gather")
     S_csr = torch.sparse_coo_tensor(
-        torch.stack([rows[keep], cols[keep]]),
+        torch.stack([rows[keep], torch.arange(nvals, device=dev)[keep]]),
         torch.ones(int(keep.sum()), device=dev), (nin, nvals)
     ).coalesce().to_sparse_csr()
-    libs = ((lambda B: torch.index_select(xg_pad, 0, gidx),
-             "torch.index_select of the f32 state, a zero appended for the "
-             "bc entries (made beforehand)"),
-            (lambda B: S_csr @ xs,
-             "cuSPARSE CSR matvec (torch sparse CSR @) of the f32 0/1 S"))
-    forms = []
-    for (operand, B, bases, x, nrows), lib in zip((
-            ("G (gather), int8", tail.Gb, tail.Gbases, xg, nvals),
-            ("S (scatter), int8", tail.Sb, tail.Sbases, xs, nin)), libs):
-        ref = rect_mv_ref(B, bases, x.float(), nrows)
-        err = float((lib[0](B) - ref).abs().max())
-        require(err <= 1e-6 * float(ref.abs().max()),
-                f"the library form of {operand} is not its product: {err}")
-        forms.append((
-            "rect_mv", operand, B,
-            lambda B, b=bases, x=x, n=nrows: rect_mv(B, b, x, n),
-            lambda B, b=bases, x=x, n=nrows: rect_mv_ref(B, b, x.float(), n),
-            lambda B, b=bases, x=x, n=nrows: rect_mv_ref(
-                B.abs(), b, x.float().abs(), n),
-            lib,
-            (1, B.shape[0], 1, B.shape[1], B.shape[2], x.shape[0], nrows,
-             True, x.element_size())))
-    return forms
+    fe = torch.randn(nvals, generator=gen, dtype=torch.float32).to(dev)
+    ref = tail_sum_ref(fe, tail.slots)
+    err = float((S_csr @ fe - ref).abs().max())
+    require(err <= 1e-6 * float(ref.abs().max()),
+            f"the library form of S is not its product: {err}")
+    return dict(
+        G=library_times(lambda: torch.index_select(v_pad, 0, gidx)),
+        S=library_times(lambda: S_csr @ fe),
+        library=("torch.index_select of the f32 state (G) + cuSPARSE CSR "
+                 "matvec of the f32 0/1 S (torch sparse CSR @), inputs "
+                 "made beforehand"))
 
 
-def check_quad(tail, gen):
-    """``conv_quad`` against its plain version within 1e-5 of each row's
-    sum of absolute products, one kernel node a call, the same bits twice;
-    timed (graph replay) beside its bound and the plain version."""
-    t = tail.kern.tables
+def check_tail(tail, kern, vbc, level, gen):
+    """The one-launch tail (``conv_tail``) at one level: against its plain
+    version on a seeded w-space state within 1e-5 of each row's sum of
+    absolute products, the same bits twice, one kernel node a call, the
+    bits of the three-launch tail on ``tail_state`` (``TAIL_BITS``), and
+    against B5 on the same state (1e-5 of max|B5|, bc rows zero); timed
+    (graph replay) beside its bound, B5's vector and the library calls of
+    its two products."""
+    nin, t, slots = tail.nin, tail.kern.tables, tail.slots
     dev = tail.ue_bc.device
-    ue = torch.randn(tail.nvals, generator=gen, dtype=torch.float32).to(dev)
-    y, again = conv_quad(ue, tail.ue_bc, t), conv_quad(ue, tail.ue_bc, t)
-    ref = conv_quad_ref(ue, tail.ue_bc, t)
-    bar = 1e-5 * conv_quad_ref(ue.abs(), tail.ue_bc.abs(), abs_chain(t)) \
-        + 1e-30
-    err = (y - ref).abs()
-    require(bool((err <= bar).all()), "conv_quad disagrees with its plain "
-            f"version: worst ratio to the row bar "
+    v = torch.from_numpy(vbc.copy()).to(dev)
+    v[:nin] = torch.randn(nin, generator=gen, dtype=torch.float64).to(dev)
+    zero_counts()
+    y = tail.vector(v).clone()
+    torch.cuda.synchronize()
+    require(conv_tail.launches == 1 and sum(counts().values()) == 0,
+            f"one tail vector: one conv_tail launch, got {conv_tail.launches}"
+            f" and {counts()}")
+    again = tail.vector(v).clone()
+    ref = conv_tail_ref(v, tail.ue_bc, t, slots)
+    gat = kernels._tail_gather(v, t, nin)
+    bar = 1e-5 * tail_sum_ref(conv_quad_ref(gat.abs(), tail.ue_bc.abs(),
+                                            abs_chain(t)), slots) + 1e-30
+    err = (y[:nin] - ref).abs()
+    require(bool(torch.isfinite(y).all()) and y.dtype == torch.float32,
+            "tail vector type or finiteness")
+    require(bool((err <= bar).all()), f"level {level}: conv_tail disagrees "
+            f"with its plain version: worst ratio to the row bar "
             f"{float((err / bar).max()):.3e}")
-    require(torch.equal(y, again), "conv_quad is not reproducible")
-    ran, types = device_kernels(lambda: conv_quad(ue, tail.ue_bc, t))
-    require(ran == 1, f"conv_quad ran {ran} device kernels ({types})")
-    bound, by = quad_bound_ms(t)
-    ms = graph_ms(lambda: conv_quad(ue, tail.ue_bc, t))
-    return dict(name="conv_quad", nc=t.nc, nvals=tail.nvals,
-                max_abs_err=float(err.max()),
-                max_err_over_row_bar=float((err / bar).max()),
-                device_kernels_per_call=ran, ms=ms,
-                eager_ms=time_ms(lambda: conv_quad(ue, tail.ue_bc, t), 200),
-                plain_ms=time_ms(lambda: conv_quad_ref(ue, tail.ue_bc, t),
-                                 50),
-                library_ms=None, bound_ms=bound, bound_by=by,
-                roofline_share=bound / ms)
+    require(torch.equal(y, again), "conv_tail is not reproducible")
+    require(not bool(y[nin:].any()), "the tail's bc rows are not zero")
+    b5 = kern.vector(v)
+    b5_err = float((y[:nin] - b5[:nin].float()).abs().max())
+    scale = float(b5.abs().max())
+    require(b5_err <= 1e-5 * scale, f"level {level}: tail vs B5 "
+            f"{b5_err:.3e} > 1e-5 of {scale:.3e}")
+    ran, types = device_kernels(lambda: tail.vector(v))
+    require(ran == 1, f"one tail vector ran {ran} device kernels ({types})")
+    vb = tail_state(vbc, nin, level, dev)
+    bits = digest(tail.vector(vb))
+    require(bits == TAIL_BITS[level], f"level {level}: the tail's bits "
+            f"{bits} are not the three-launch tail's {TAIL_BITS[level]}")
+    bound, by = tail_bound_ms(t, nin)
+    lib = tail_library(tail, v, gen)
+    out = dict(name="conv_tail", level=level, nc=t.nc, nin=nin,
+               nvals=tail.nvals, slot_width=int(slots.shape[0]),
+               table_bytes=tail.nbytes, bits=bits,
+               max_abs_err=float(err.max()),
+               max_err_over_row_bar=float((err / bar).max()),
+               tail_vs_b5_max_abs_err=b5_err, b5_max_abs=scale,
+               device_kernels_per_call=ran,
+               ms=graph_ms(lambda: tail.vector(v)),
+               eager_ms=time_ms(lambda: tail.vector(v), 200),
+               plain_ms=time_ms(lambda: conv_tail_ref(v, tail.ue_bc, t,
+                                                      slots), 20),
+               b5_ms=graph_ms(lambda: kern.vector(v)),
+               b5_bound_ms=conv_bound_ms(kern.tables, 8, False, False, 0)[0],
+               library_ms=None,
+               library_parts_ms=dict(G=lib["G"]["library_ms"],
+                                     S=lib["S"]["library_ms"]),
+               library_parts_eager_ms=dict(
+                   G=lib["G"]["library_eager_ms"],
+                   S=lib["S"]["library_eager_ms"]),
+               library=lib["library"], bound_ms=bound, bound_by=by)
+    out["library_sum_ms"] = sum(out["library_parts_ms"].values())
+    out["roofline_share"] = bound / out["ms"]
+    out["over_b5"] = out["ms"] / out["b5_ms"]
+    return out
 
 
 def banded_conv_path(dev, gen, nsteps, ref):
     """The banded convection tail (B6) at levels 1 and 2 on the default
-    call's own w-space kernel and bc tail, built with ``force``: S and G
-    bytes beside the ``_window_bytes`` prediction; the int8 ``rect_mv`` on
-    S and G and ``conv_quad`` against their plain versions; the tail's
-    vector against B5's on the same state (1e-5 of max|B5|, bc rows zero);
-    B6's three launches and B5's one timed (graph replay) beside their
-    bounds; the measured stream rate and B5 cost, and the gate's decision
-    under the card's constants.  Then, at level 1, the default call with
+    call's own w-space kernel and bc tail, built with ``force``: the slot
+    form (no band on the card), ``check_tail``, the measured cost per 1000
+    element values of the tail and of B5, and the gate's decision under
+    the card's constants.  Then, at level 1, the default call with
     ``banded_conv=True`` (``warm_refine`` 0 and 1) against the CPU f64 run
     ``ref`` at the default call's bars, with its exact launches.  Returns
-    ``(kernel rows' checks, launches of the forced run)``."""
-    levels = {}
-    quad_rows, band_rows = {}, {}
+    ``(the tail's checks by level, launches of the forced run)``."""
+    checks = {}
     dt = (TE - T0) / NTS
     for level in (LEVEL, LEVEL2):
         prob = cylinderwake_problem(level=level, Re=RE, charvel=CHARVEL)
@@ -2315,72 +2343,27 @@ def banded_conv_path(dev, gen, nsteps, ref):
         t0 = time.time()
         tail = build_banded_conv_tail(kern, nin, vbc[nin:], force=True)
         build_s = time.time() - t0
-        require(tail.store == "int8" and tail.Sb.dtype == torch.int8,
-                "the card's tail stores int8 blocks")
-        _, rows, cols, keep = tail_patterns(kern.vd.cpu().numpy(), nin)
-        bs = 256
-        pred = [banded_conv._window_bytes(r, c, -(-n // bs), bs) // 4
-                for r, c, n in ((rows[keep], cols[keep], nin),
-                                (cols[keep], rows[keep], tail.nvals))]
-        stored = [B.numel() for B in (tail.Sb, tail.Gb)]
-        require(stored == pred, f"S, G bytes {stored} != predicted {pred}")
-        band = check_band(tail_forms(tail, gen))
-        quad = check_quad(tail, gen)
-        # the tail against B5 on one w-space state: a seeded interior, the
-        # real constant bc tail
-        v = vbc.copy()
-        v[:nin] = torch.randn(nin, generator=gen,
-                              dtype=torch.float64).numpy()
-        vw = torch.from_numpy(v).to(dev)
-        b5 = kern.vector(vw)
-        zero_counts()
-        y = tail.vector(vw).clone()
-        torch.cuda.synchronize()
-        require(conv_quad.launches == 1 and rect_mv.launches == 2
-                and rect_mv.storage_launches["int8"] == 2
-                and conv_vector.launches == 0,
-                "one tail vector: two int8 rect_mv and one conv_quad")
-        err = float((y[:nin] - b5[:nin].float()).abs().max())
-        scale = float(b5.abs().max())
-        require(err <= 1e-5 * scale, f"level {level}: tail vs B5 "
-                f"{err:.3e} > 1e-5 of {scale:.3e}")
-        require(not bool(y[nin:].any()), "the tail's bc rows are not zero")
-        ran, types = device_kernels(lambda: tail.vector(vw))
-        require(ran == 3, f"one tail vector ran {ran} device kernels")
-        t_tail = graph_ms(lambda: tail.vector(vw))
-        t_b5 = graph_ms(lambda: kern.vector(vw))
-        b5_bound, b5_by = conv_bound_ms(kern.tables, 8, False, False, 0)
-        g, sc = band
-        t_gs = g["ms"] + sc["ms"]
+        require(tail.slots is not None and tail.Sb is None
+                and tail.Gb is None, "the card's tail holds no band")
+        chk = check_tail(tail, kern, vbc, level, gen)
         consts = gate_constants(dev)
-        by = sum(pred)
         measured = dict(
-            stream_gbps=by / (t_gs * 1e-3) / 1e9,
-            b5_us_per_1k_vals=1e3 * t_b5 / (tail.nvals / 1000.0))
-        wins = banded_wins(by, nvals=tail.nvals, consts=consts)
+            tail_us_per_1k_vals=1e3 * chk["ms"] / (tail.nvals / 1000.0),
+            b5_us_per_1k_vals=1e3 * chk["b5_ms"] / (tail.nvals / 1000.0))
+        wins = banded_wins(tail.nbytes, nvals=tail.nvals, consts=consts)
         gated = build_banded_conv_tail(kern, nin, vbc[nin:])
-        require((gated is not None) == (wins and by <= consts["max_gb"]
-                                         * 1e9), "the gate's decision")
-        levels[level] = dict(
-            nin=nin, nvals=tail.nvals, nc=kern.tables.nc,
-            windows=dict(wS=tail.windows[1], wG=tail.windows[4]),
-            S_bytes=stored[0], G_bytes=stored[1], predicted_bytes=pred,
-            build_seconds=build_s, tail_vs_b5_max_abs_err=err,
-            b5_max_abs=scale, device_kernels_per_vector=ran,
-            ms=dict(G=g["ms"], conv_quad=quad["ms"], S=sc["ms"],
-                    tail_vector=t_tail, b5_vector=t_b5),
-            bound_ms=dict(G=g["bound_ms"], conv_quad=quad["bound_ms"],
-                          S=sc["bound_ms"], b5_vector=b5_bound),
-            b5_bound_by=b5_by, measured=measured,
-            gate=dict(constants=consts, predicted_bytes=by,
-                      banded_stream_us=banded_stream_us(
-                          by, consts["stream_floor_gbps"]),
+        require((gated is not None) == (wins and tail.nbytes
+                                         <= consts["max_gb"] * 1e9),
+                "the gate's decision")
+        chk.update(build_seconds=build_s, windows=dict(
+            wS=tail.windows[1], wG=tail.windows[4]), measured=measured,
+            gate=dict(constants=consts,
+                      tail_us=tail_us(tail.nbytes, consts, nvals=tail.nvals),
                       index_pipeline_us=index_pipeline_us(
                           consts["index_us_per_1k_vals"], nvals=tail.nvals),
                       banded_wins=wins, builds=gated is not None))
-        quad_rows[level], band_rows[level] = quad, band
-        say(phase="banded_conv_level", level=level, int8_rect_mv=band,
-            conv_quad=quad, **levels[level])
+        checks[level] = chk
+        say(phase="banded_conv_level", **chk)
         del tail, gated, kern
         torch.cuda.empty_cache()
 
@@ -2393,18 +2376,16 @@ def banded_conv_path(dev, gen, nsteps, ref):
         zero_counts()
         o = solve_nse(prob=prob, warm_refine=wr, banded_conv=True, **dkw)
         torch.cuda.synchronize()
-        c = dict(counts(), conv_quad=conv_quad.launches,
-                 rect_mv_int8=rect_mv.storage_launches["int8"])
-        # a loop step: the tail (G, quadrature, S), the banded A, the solve
-        # (W, J, S^-1, X) and per refine round the residual (F, J^T, J) and
-        # a second solve; the start: 3 Heun bootstrap vectors and the AB2
+        c = dict(counts(), conv_tail=conv_tail.launches)
+        # a loop step: the tail (one launch), the banded A, the solve (W, J,
+        # S^-1, X) and per refine round the residual (F, J^T, J) and a
+        # second solve; the start: 3 Heun bootstrap vectors and the AB2
         # start value through B5
         want = dict(vecmat=0, conv_vector=4, conv_vector_amatvec=0,
                     banded_mv=nsteps * (1 + wr),
-                    rect_mv=nsteps * (1 + 3 * wr) + 2 * nsteps,
+                    rect_mv=nsteps * (1 + 3 * wr),
                     rect_mv_levels=nsteps * 3 * (1 + wr), affine_mv=0,
-                    affine_residual=0, elem_mv=0, conv_quad=nsteps,
-                    rect_mv_int8=2 * nsteps)
+                    affine_residual=0, elem_mv=0, conv_tail=nsteps)
         require(c == want, f"launches of the forced-tail run, warm_refine="
                 f"{wr}: {c} != {want}")
         require(o["bct"] is not None and o["ffflag"] is False, "tail run")
@@ -2429,7 +2410,7 @@ def banded_conv_path(dev, gen, nsteps, ref):
         "start_ssstokes=True, save_every=60, warm_refine=0|1, "
         "banded_conv=True)", problem="cylinderwake level 1, Re 100",
         steps=nsteps, runs=runs, oracle="the main path's CPU f64 run")
-    return quad_rows, band_rows, forced
+    return checks, forced
 
 
 def newton_counts(st, nts, npic, per_precond=None, pfromv=1):
@@ -2626,10 +2607,24 @@ def adj_counts():
                 vecmat_t=vecmat_t.launches, conv_vjp=conv_vjp.launches)
 
 
+def vecmat_t_bits(m, n, dev):
+    """``vecmat_t`` on the seeded ``(m, n)`` f32 operand of
+    ``VECMAT_T_BITS``: its digest, held to the record."""
+    KT = seeded_operand(kernels, m, n, 1, dev)
+    bits = digest(vecmat_t(seeded(n, 2, dev, torch.float32), KT))
+    require(bits == VECMAT_T_BITS[(m, n)], f"vecmat_t's bits at {(m, n)} "
+            f"{bits} are not the first kernel's {VECMAT_T_BITS[(m, n)]}")
+    del KT
+    torch.cuda.empty_cache()
+    return bits
+
+
 def check_vecmat_t(g, KT, what, reps):
     """``vecmat_t`` against its plain version on the same inputs (the bar
-    of :func:`check_vecmat`), one device kernel a call, then the timings
-    (the library call: ``torch.mv(KT, g)``)."""
+    of :func:`check_vecmat`), one device kernel a call, the bits of the
+    first kernel on a seeded operand of the same shape
+    (``VECMAT_T_BITS``), the grid it launches beside the blocks resident at
+    once, then the timings (the library call: ``torch.mv(KT, g)``)."""
     m, n = KT.shape
     y = vecmat_t(g, KT)
     torch.cuda.synchronize()
@@ -2644,8 +2639,11 @@ def check_vecmat_t(g, KT, what, reps):
             "vecmat_t kernel is not reproducible run to run")
     ran, types = device_kernels(lambda: vecmat_t(g, KT))
     require(ran == 1, f"vecmat_t ran {ran} device kernels ({types})")
+    bits = vecmat_t_bits(m, n, KT.device)
+    blocks, resident = vecmat_t_grid(m, KT.dtype)
     bound, by = vecmat_bound_ms(m, n, KT.element_size())
     out = dict(shape=[m, n], operand=what, dtype=str(KT.dtype),
+               bits=bits, grid_blocks=blocks, resident_blocks=resident,
                ld=KT.stride(0), max_abs_err=float(err.max()), atol=atol,
                rtol=rtol, device_kernels_per_call=ran,
                ms=graph_ms(lambda: vecmat_t(g, KT)),
@@ -2924,6 +2922,8 @@ def adjoint_rows(rows):
                  bound_by=vt["bound_by"], library_ms=vt["library_ms"],
                  library_eager_ms=vt.get("library_eager_ms"),
                  library=vt["library"], eager_ms=vt["eager_ms"],
+                 grid_blocks=vt["grid_blocks"],
+                 resident_blocks=vt["resident_blocks"],
                  device_kernels_per_call=vt["device_kernels_per_call"]),
             dict(name="conv_vjp" + sfx, route="cuda",
                  source="dolfin_navier_scipy_tpu_torch/csrc/convection.cu",
@@ -4013,8 +4013,7 @@ def main():
     checkpoint_path(dev)
 
     # -- the banded convection tail (B6), forced, against B5 and CPU f64 ----
-    quad_rows, tail_rows, tail_counts = banded_conv_path(dev, gen, nsteps,
-                                                         ref)
+    tail_checks, tail_counts = banded_conv_path(dev, gen, nsteps, ref)
 
     # -- 7. the control slice at level 1, against CPU f64 ------------------
     control_modes = control_path(dev, gen, nsteps)
@@ -4067,17 +4066,21 @@ def main():
             device_kernels_per_call=chk["device_kernels_per_call"],
             design=DESIGN)
 
-    def tail_row(name, source, chk, launches):
+    def tail_row(chk, launches):
         return dict(
-            name=name, route="cuda", source=source, replaces=TAIL_REPLACES,
-            launches=launches, operand=chk.get("operand", "conv_quad"),
-            shape=chk.get("shape", dict(nc=chk.get("nc"),
-                                        nvals=chk.get("nvals"))),
+            name="conv_tail", route="cuda",
+            source="dolfin_navier_scipy_tpu_torch/csrc/convection.cu",
+            replaces=TAIL_REPLACES, launches=launches,
+            shape=dict(nc=chk["nc"], nin=chk["nin"], nvals=chk["nvals"],
+                       slot_width=chk["slot_width"]),
             max_abs_err=chk["max_abs_err"], ms=chk["ms"],
             plain_ms=chk["plain_ms"], bound_ms=chk["bound_ms"],
-            bound_by=chk["bound_by"], library_ms=chk["library_ms"],
-                    library_eager_ms=chk.get("library_eager_ms"),
-            library=chk.get("library"), eager_ms=chk["eager_ms"],
+            bound_by=chk["bound_by"],
+            # no single PyTorch call computes the tail; its two 0/1
+            # products' calls (index_select, cuSPARSE) are summed beside
+            library_ms=None, library_parts_ms=chk["library_parts_ms"],
+            library_sum_ms=chk["library_sum_ms"], library=chk["library"],
+            b5_ms=chk["b5_ms"], eager_ms=chk["eager_ms"],
             device_kernels_per_call=chk["device_kernels_per_call"])
 
     say(phase="done", total_seconds=time.time() - t_start)
@@ -4138,13 +4141,9 @@ def main():
         elem_row(next(c for c in elem_checks
                       if c["operand"] == "_sk_elem32, level 2"),
                  elem_launches2),
-        # the banded convection tail: its int8 products (S at level 1) and
-        # its quadrature, with the launches of the forced default call
-        tail_row("rect_mv_int8", "dolfin_navier_scipy_tpu_torch/csrc/"
-                 "bandmv.cu", tail_rows[LEVEL][1],
-                 tail_counts["rect_mv_int8"]),
-        tail_row("conv_quad", "dolfin_navier_scipy_tpu_torch/csrc/"
-                 "convection.cu", quad_rows[LEVEL], tail_counts["conv_quad"]),
+        # the banded convection tail in one launch (level 1), with the
+        # launches of the forced default call
+        tail_row(tail_checks[LEVEL], tail_counts["conv_tail"]),
         # the backward kernels of the adjoint, with the launches of one
         # gradient (level 1: the example's, in the schedule; level 2: in
         # the initial state)

@@ -15,13 +15,6 @@
 //   * rect_mv: L = 1, f32, base_k = bases[k] — the static-window
 //     rectangular product `_rect_mv` of the same file (J, J^T, and W / X
 //     when stored in f32).
-//   * rect_mv on int8 blocks (L = 1, x f32 or f64): the 0/1 gather G and
-//     scatter S of the banded convection tail, BandedConvTail.vector of
-//     dolfin_navier_scipy_tpu/ops/banded_conv.py:154 (XLA there), with the
-//     f64 state rounded to f32 as the window is staged (the JAX package's
-//     astype before its product).  A 16-byte vector carries 16 entries,
-//     0/1 times an f32 x is exact; on bandmv_kernel only (bandmv_plan never
-//     picks the ring for them: its consumers read f32 rows).
 //   * rect_mv_levels: L in {1, 2, 3} row-stacked levels of bf16 (or f32),
 //     base_k = bases[k] — `_rect_mv_pair` over the `_pair_stack`-ed W and X
 //     (hi_only = level 0 alone) and `SchurSaddleSolver._sapply` over the
@@ -146,10 +139,6 @@ struct BF16 {
     using T = uint16_t;
     static constexpr int VEC = 8;
 };
-struct I8 {
-    using T = int8_t;
-    static constexpr int VEC = 16;
-};
 
 // entries of x a window holds: w rounded up to a whole 16-byte vector of
 // S's entries, 8 at least
@@ -198,24 +187,6 @@ __device__ __forceinline__ void unpack<BF16>(uint4 v, int c, int w,
     if (c + 8 > w) {
 #pragma unroll
         for (int e = 0; e < 8; ++e)
-            if (c + e >= w) b[e] = 0.f;
-    }
-}
-
-// the 16 int8 entries of a vector as floats (0/1 patterns: exact)
-template <>
-__device__ __forceinline__ void unpack<I8>(uint4 v, int c, int w,
-                                           float* b) {
-    const uint32_t u[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-            b[4 * i + j] = static_cast<float>(
-                static_cast<int8_t>((u[i] >> (8 * j)) & 0xffu));
-    if (c + 16 > w) {
-#pragma unroll
-        for (int e = 0; e < 16; ++e)
             if (c + e >= w) b[e] = 0.f;
     }
 }
@@ -304,13 +275,11 @@ __device__ __forceinline__ void stage_window(float* xs, const float* x,
     __syncthreads();
 }
 
-// XT: x's type (f64 only under int8 blocks: the f64 state is rounded to
-// f32 as the window is staged)
-template <typename S, int L, typename XT = float>
+template <typename S, int L>
 __global__ void __launch_bounds__(kThreads)
 bandmv_kernel(const typename S::T* __restrict__ B, long long sblk,
               long long slev, long long ld, const int* __restrict__ bases,
-              const XT* __restrict__ x, float* __restrict__ y, int bs,
+              const float* __restrict__ x, float* __restrict__ y, int bs,
               int w, int nx, long long nrows) {
     extern __shared__ float xs[];
     const int k = blockIdx.x;
@@ -320,8 +289,7 @@ bandmv_kernel(const typename S::T* __restrict__ B, long long sblk,
     const int nxs = window_len<S>(w);
     for (int j = threadIdx.x; j < nxs; j += kThreads) {
         const long long g = base + j;
-        xs[j] = (j < w && g >= 0 && g < nx) ? static_cast<float>(x[g])
-                                            : 0.f;
+        xs[j] = (j < w && g >= 0 && g < nx) ? x[g] : 0.f;
     }
     __syncthreads();
 
@@ -408,25 +376,6 @@ cudaError_t dispatch(int levels, const void* B, long long sblk,
                                     bs, w, nx, nrows, share_blocks, stream);
         default: return cudaErrorInvalidValue;
     }
-}
-
-// single-level int8 blocks on bandmv_kernel, under an f32 or f64 x
-template <typename XT>
-cudaError_t launch_i8(const void* B, long long sblk, long long ld,
-                      const int* bases, const void* x, float* y, int nblk,
-                      int bs, int w, int nx, long long nrows,
-                      cudaStream_t stream) {
-    const size_t smem = (size_t)window_len<I8>(w) * sizeof(float);
-    auto kern = bandmv_kernel<I8, 1, XT>;
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return e;
-    }
-    kern<<<dim3(nblk, (bs + kRows - 1) / kRows), kThreads, smem, stream>>>(
-        static_cast<const int8_t*>(B), sblk, 0, ld, bases,
-        static_cast<const XT*>(x), y, bs, w, nx, nrows);
-    return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -937,28 +886,6 @@ int bandmv_stack(const void* B, int storage, int levels, long long sblk,
                                     yf, nblk, bs, w, nx, nrows, blocks,
                                     unit_rows, stages, smem, s);
     return cudaErrorInvalidValue;
-}
-
-// y (nrows,) f32 = the single-level product above for int8 blocks (the
-// 0/1 gather and scatter of the banded convection tail), on bandmv_kernel:
-// x is f32 (x_f64 = 0) or f64 (1, rounded to f32 as the window is
-// staged); strides sblk, ld in elements (multiples of 16, B 16-byte
-// aligned); bases as for bandmv_f32x.  Returns the cudaError_t of the
-// launch (0 = success).
-int bandmv_i8(const void* B, long long sblk, long long ld, const void* bases,
-              const void* x, int x_f64, void* y, int nblk, int bs, int w,
-              int nx, long long nrows, void* stream) {
-    if (nblk <= 0 || bs <= 0 || w <= 0 || nx < 0 || nrows <= 0
-        || (long long)nblk * bs < nrows || ld < w || ld % 16 != 0
-        || sblk % 16 != 0 || (reinterpret_cast<uintptr_t>(B) % 16) != 0)
-        return cudaErrorInvalidValue;
-    const int* b = static_cast<const int*>(bases);
-    float* yf = static_cast<float*>(y);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return x_f64 ? launch_i8<double>(B, sblk, ld, b, x, yf, nblk, bs, w, nx,
-                                     nrows, s)
-                 : launch_i8<float>(B, sblk, ld, b, x, yf, nblk, bs, w, nx,
-                                    nrows, s);
 }
 
 const char* bandmv_error_string(int err) {

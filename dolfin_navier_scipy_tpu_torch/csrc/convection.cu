@@ -68,14 +68,38 @@
 // (10, 125, 3) is conv_block_kernel (a block an element, a thread a point;
 // see there).
 //
-// quad_kernel (conv_quad_th2d) is phase 1 alone, for the banded convection
-// tail (the quadrature chain of BandedConvTail.vector,
-// dolfin_navier_scipy_tpu/ops/banded_conv.py:154-171, XLA there): its
-// element field arrives gathered by a banded product and its loads leave
-// for another, so there is no gather, scatter or barrier; the same
-// per-point arithmetic (point_conv) and butterfly as conv_kernel.  f32.
-// Bound: its ~1 MB at level 1 is under a microsecond at the memory rate;
-// like conv_kernel it is bound by the launch and one dependent chain.
+// tail_kernel (conv_tail_th2d) is the banded convection tail's vector,
+// c = S @ quad(G @ v[:nin] + ue_bc) of BandedConvTail.vector
+// (dolfin_navier_scipy_tpu/ops/banded_conv.py:154-171, XLA there: two
+// banded 0/1 products around the quadrature), in one launch with
+// conv_kernel's structure and the bits of the three-launch form it
+// replaces (int8 0/1 bands through bandmv.cu and a quadrature kernel):
+//   * phase 1, conv_kernel's (element_loads) over the elements in the
+//     tail's sorted order: G has one 1 in each kept row, so G's product is
+//     the state at the element's interior ids rounded to f32 (0 at bc ids),
+//     plus the constant bc field ue_bc, as the band product's exact adds of
+//     1 x v and of zeros left it; then point_conv and the fixed butterfly,
+//     loads to scratch.
+//   * the grid barrier.
+//   * phase 2, a thread an interior row r, in the order the int8 S product
+//     summed it: the row's element-load slots p sat at window column j = p -
+//     Sbases[r / 256], read by lane (j / 16) % 32 of the row's warp; each
+//     lane added its entries in ascending j from 0.f, and a xor butterfly
+//     (16, 8, 4, 2, 1) joined the lanes, read at lane 0.  A lane with no
+//     entry gives an exact +0, so the sum is that tree over the lanes that
+//     have entries.  The host table (ops/kernels.py: tail_slot_table) lists
+//     a row's slots by the lane's 5-bit reversal (the butterfly's leaf
+//     order), then j, each with a code: 7 continues the lane's chain, 0-4
+//     starts a new lane and names the highest bit in which its leaf
+//     position differs from the last one's (how late the tree joins them).
+//     A thread evaluates the tree as an operator-precedence parse: pending
+//     left operands by level in registers, joined in ascending level when a
+//     higher separator comes, the rest at the end.  No floating-point
+//     atomics; f32 work, the state f32 or f64.
+// Bound: the function moves ~2 MB at wake level 2 (the tables, the state,
+// the element loads written and read once), under a microsecond at the
+// memory rate; like conv_kernel it is bound by the launch, the grid
+// barrier and two dependent loads a phase.
 //
 // Plain C interface, loaded with ctypes; the caller allocates the scratch,
 // the barrier words and the outputs, and checks the returned cudaError_t.
@@ -362,24 +386,22 @@ __device__ __forceinline__ void reduce_dofs(const ConvPlan& p,
     }
 }
 
+// Phase 1 of conv_kernel and tail_kernel: the elements, 8 lanes each (see
+// the file's head), grid-stride; the element loads (fused: and the
+// stiffness loads) go to scratch.  ebc, where given (the tail's constant
+// bc field, (nc, ND), with u2 null), is added to the gathered state: G's
+// product + ue_bc.
 template <typename T, typename TU, int NVPC, int Q, int DIM, bool FUSED>
-__global__ void __launch_bounds__(THREADS)
-conv_kernel(const ConvPlan p, const TU* __restrict__ u1,
-            const TU* __restrict__ u2, TU* __restrict__ out_c,
-            TU* __restrict__ out_a, T nu, int sym) {
+__device__ __forceinline__ void element_loads(
+    const ConvPlan& p, const TU* __restrict__ u1, const TU* __restrict__ u2,
+    const T* __restrict__ ebc, T nu, int sym, long long tid,
+    long long nthreads, size_t nslot) {
     constexpr int ND = NVPC * DIM;
     static_assert(Q <= LANES && ND <= 2 * LANES, "one lane per point");
     const T* __restrict__ JinvT = static_cast<const T*>(p.JinvT);
     const T* __restrict__ wdet = static_cast<const T*>(p.wdet);
     T* scratch = static_cast<T*>(p.scratch);
     const int nc = p.nc, nv_full = p.nv_full;
-    const size_t nslot = static_cast<size_t>(nc) * ND;
-    const long long tid =
-        static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
-    const long long nthreads = static_cast<long long>(gridDim.x) * THREADS;
-
-    stamp(p, 0);
-    // -- phase 1: elements, 8 lanes each -----------------------------------
     const int lane = threadIdx.x & 31;
     const int q = lane & (LANES - 1);
     const bool point = q < Q;
@@ -395,8 +417,12 @@ conv_kernel(const ConvPlan p, const TU* __restrict__ u1,
         const int* ids = p.vd + e * ND;
         const int id0 = valid ? ids[q] : -1;
         const int id1 = (valid && q + LANES < ND) ? ids[q + LANES] : -1;
-        const T a0 = gather<T>(u1, id0, nv_full);
-        const T a1 = gather<T>(u1, id1, nv_full);
+        T a0 = gather<T>(u1, id0, nv_full);
+        T a1 = gather<T>(u1, id1, nv_full);
+        if (ebc != nullptr) {
+            if (valid) a0 = a0 + ebc[e * ND + q];
+            if (valid && q + LANES < ND) a1 = a1 + ebc[e * ND + q + LANES];
+        }
         T b0 = a0, b1 = a1;
         if (u2 != nullptr) {
             b0 = gather<T>(u2, id0, nv_full);
@@ -455,6 +481,22 @@ conv_kernel(const ConvPlan p, const TU* __restrict__ u1,
             }
         }
     }
+}
+
+template <typename T, typename TU, int NVPC, int Q, int DIM, bool FUSED>
+__global__ void __launch_bounds__(THREADS)
+conv_kernel(const ConvPlan p, const TU* __restrict__ u1,
+            const TU* __restrict__ u2, TU* __restrict__ out_c,
+            TU* __restrict__ out_a, T nu, int sym) {
+    constexpr int ND = NVPC * DIM;
+    const size_t nslot = static_cast<size_t>(p.nc) * ND;
+    const long long tid =
+        static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+    const long long nthreads = static_cast<long long>(gridDim.x) * THREADS;
+
+    stamp(p, 0);
+    element_loads<T, TU, NVPC, Q, DIM, FUSED>(p, u1, u2, nullptr, nu, sym,
+                                              tid, nthreads, nslot);
     if (FUSED) facet_rows<T, TU, ND>(p, u1, tid, nthreads, nslot);
 
     stamp(p, 1);
@@ -876,63 +918,92 @@ cudaError_t launch_form_3d(const ConvPlan& p, const void* u1, const void* u2,
                                              sym, st);
 }
 
-// The quadrature of the banded convection tail (ops/banded_conv.py): the
-// element field comes in, already gathered, as ueg (nc, ND) — G's banded
-// product, in the tail's sorted element order — plus the constant field of
-// the bc tail uebc (nc, ND); out go the element loads fe (nc, ND), which S's
-// banded product sums.  No gather and no scatter: phase 1 of conv_kernel
-// alone, 8 lanes an element, lane q the point q, the same per-point
-// arithmetic (point_conv) and the same fixed butterfly over the points.
-template <typename T, int NVPC, int Q, int DIM>
-__global__ void __launch_bounds__(THREADS)
-quad_kernel(const T* __restrict__ ueg, const T* __restrict__ uebc,
-            const T* __restrict__ JinvT, const T* __restrict__ wdet,
-            const T* __restrict__ N2, const T* __restrict__ dN2,
-            T* __restrict__ fe, int nc) {
-    constexpr int ND = NVPC * DIM;
-    static_assert(Q <= LANES && ND <= 2 * LANES, "one lane per point");
-    const int lane = threadIdx.x & 31;
-    const int q = lane & (LANES - 1);
-    const bool point = q < Q;
-    T N[NVPC], dN[NVPC][DIM];
-    point_tables<T, NVPC, DIM>(N2, dN2, q, point, N, dN);
-    // every lane of the grid's warps stays to the end (the shuffles take
-    // whole warps); lanes past the last element carry zeros
-    const long long e =
-        (static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x) / LANES;
-    const bool valid = e < nc;
-    const T* ep = ueg + e * ND;
-    const T* bp = uebc + e * ND;
-    const T a0 = valid ? ep[q] + bp[q] : T(0);
-    const T a1 = (valid && q + LANES < ND) ? ep[q + LANES] + bp[q + LANES]
-                                           : T(0);
-    T ue[ND];
+// Phase 2 of tail_kernel: interior row i's slots (ell[k][i], nv_full =
+// nin rows), each (p << 3) | code, -1 past the row's count; the tree of the
+// int8 S product's warp (see the file's head).
+__device__ __forceinline__ float tail_row(const ConvPlan& p,
+                                          const float* scratch, int i) {
+    constexpr int LEVELS = 5;
+    float cur = 0.f, pend[LEVELS];
+    int has = 0;
 #pragma unroll
-    for (int j = 0; j < ND; ++j)
-        ue[j] = __shfl_sync(FULL, j < LANES ? a0 : a1, j % LANES, LANES);
-    T Ji[DIM][DIM];
+    for (int l = 0; l < LEVELS; ++l) pend[l] = 0.f;
+    for (int k0 = 0; k0 < p.width; k0 += BATCH) {
+        int s[BATCH];
+        float v[BATCH];
 #pragma unroll
-    for (int d = 0; d < DIM; ++d)
+        for (int u = 0; u < BATCH; ++u)
+            s[u] = k0 + u < p.width
+                       ? p.ell[static_cast<size_t>(k0 + u) * p.nv_full + i]
+                       : -1;
 #pragma unroll
-        for (int k = 0; k < DIM; ++k)
-            Ji[d][k] = valid ? JinvT[(e * DIM + d) * DIM + k] : T(0);
-    const T w = (valid && point) ? wdet[e * Q + q] : T(0);
-    T guq[DIM][DIM], fc[ND];
-    point_conv<T, NVPC, DIM>(N, dN, ue, ue, Ji, w, guq, fc);
+        for (int u = 0; u < BATCH; ++u)
+            v[u] = s[u] >= 0 ? __ldcg(scratch + (s[u] >> 3)) : 0.f;
 #pragma unroll
-    for (int off = LANES / 2; off > 0; off /= 2)
+        for (int u = 0; u < BATCH; ++u) {
+            if (s[u] < 0) continue;
+            const int code = s[u] & 7;
+            if (code == 7) {
+                cur = cur + v[u];
+                continue;
+            }
+            // a new lane: join the pending operands that bind tighter
 #pragma unroll
-        for (int j = 0; j < ND; ++j)
-            fc[j] += __shfl_xor_sync(FULL, fc[j], off, LANES);
-    if (!valid) return;
-    T c0 = T(0), c1 = T(0);
+            for (int l = 0; l < LEVELS; ++l)
+                if (l < code && ((has >> l) & 1)) {
+                    cur = pend[l] + cur;
+                    has &= ~(1 << l);
+                }
 #pragma unroll
-    for (int j = 0; j < ND; ++j) {
-        if (j == q) c0 = fc[j];
-        if (j == q + LANES) c1 = fc[j];
+            for (int l = 0; l < LEVELS; ++l)
+                if (l == code) pend[l] = cur;
+            has |= 1 << code;
+            cur = 0.f + v[u];
+        }
     }
-    fe[e * ND + q] = c0;
-    if (q + LANES < ND) fe[e * ND + q + LANES] = c1;
+#pragma unroll
+    for (int l = 0; l < LEVELS; ++l)
+        if ((has >> l) & 1) cur = pend[l] + cur;
+    return cur;
+}
+
+// The banded convection tail's vector in one launch (see the file's head):
+// p.vd the tail's sorted element ids (w-space), p.nv_full = nin (ids at or
+// above it read 0), p.ell the tail's slot table, scratch nc*ND f32.
+template <typename TU, int NVPC, int Q, int DIM>
+__global__ void __launch_bounds__(THREADS)
+tail_kernel(const ConvPlan p, const TU* __restrict__ u,
+            const float* __restrict__ uebc, float* __restrict__ out) {
+    constexpr int ND = NVPC * DIM;
+    float* scratch = static_cast<float*>(p.scratch);
+    const int nin = p.nv_full;
+    const long long tid =
+        static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+    const long long nthreads = static_cast<long long>(gridDim.x) * THREADS;
+
+    stamp(p, 0);
+    element_loads<float, TU, NVPC, Q, DIM, false>(
+        p, u, nullptr, uebc, 0.f, 0, tid, nthreads,
+        static_cast<size_t>(p.nc) * ND);
+
+    stamp(p, 1);
+    grid_barrier(p.bar);
+    stamp(p, 2);
+
+    for (long long i = tid; i < nin; i += nthreads)
+        out[i] = tail_row(p, scratch, static_cast<int>(i));
+    stamp(p, 3);
+}
+
+template <typename TU>
+cudaError_t launch_tail(const ConvPlan& p, const void* u, const void* uebc,
+                        void* out, cudaStream_t st) {
+    static int occ = 0, sms = 0;
+    return launch_resident(tail_kernel<TU, 6, 7, 2>, occ, sms,
+                           conv_work(p, 0), st, p,
+                           static_cast<const TU*>(u),
+                           static_cast<const float*>(uebc),
+                           static_cast<float*>(out));
 }
 
 }  // namespace
@@ -1003,23 +1074,23 @@ int convection_th3d(const ConvPlan* plan, const void* u1, const void* u2,
     return static_cast<int>(err);
 }
 
-// The banded tail's quadrature, 2D Taylor-Hood (NVPC 6, Q 7, DIM 2), f32:
-// ueg, uebc, fe (nc, 12); JinvT (nc, 2, 2), wdet (nc, 7), N2 (7, 6), dN2
-// (7, 6, 2), all contiguous.  Returns the cudaError_t of the launch.
-int conv_quad_th2d(const void* ueg, const void* uebc, const void* JinvT,
-                   const void* wdet, const void* N2, const void* dN2,
-                   void* fe, int nc, void* stream) {
-    if (nc <= 0 || static_cast<long long>(nc) * 12 >= (1LL << 31))
+// The banded convection tail's vector, 2D Taylor-Hood (NVPC 6, Q 7, DIM 2),
+// f32 work: plan with fused = 3, vd the tail's sorted element ids,
+// nv_full = nin, ell its slot table (width, nin), scratch nc*12 floats, no
+// facet blocks; u (at least nin) in the state's type (plan->u_f64), uebc
+// (nc, 12) f32, out (nin) f32.  Returns the cudaError_t of the launch.
+int conv_tail_th2d(const ConvPlan* plan, const void* u, const void* uebc,
+                   void* out, void* stream) {
+    const ConvPlan& p = *plan;
+    if (p.nc <= 0 || p.nv_full <= 0 || p.width <= 0 || p.fused != 3 ||
+        p.nfac != 0 || p.work_f64 != 0 || p.bar == nullptr ||
+        u == nullptr || uebc == nullptr || out == nullptr ||
+        static_cast<long long>(p.nc) * 12 * 8 >= (1LL << 31))
         return static_cast<int>(cudaErrorInvalidValue);
-    const long long blocks =
-        (static_cast<long long>(nc) * LANES + THREADS - 1) / THREADS;
-    quad_kernel<float, 6, 7, 2><<<static_cast<unsigned>(blocks), THREADS, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(ueg), static_cast<const float*>(uebc),
-        static_cast<const float*>(JinvT), static_cast<const float*>(wdet),
-        static_cast<const float*>(N2), static_cast<const float*>(dN2),
-        static_cast<float*>(fe), nc);
-    return static_cast<int>(cudaGetLastError());
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const cudaError_t err = p.u_f64 ? launch_tail<double>(p, u, uebc, out, st)
+                                    : launch_tail<float>(p, u, uebc, out, st);
+    return static_cast<int>(err);
 }
 
 // The VJP of convection_th2d's fused form in u (2D Taylor-Hood): plan with

@@ -456,19 +456,38 @@ int vecmat(const void* x, const void* KT, void* y, void* part, void* bar,
 // Bound: bytes, as the forward: every entry of KT is read once for one
 // multiply-add; g (n) and y (m) are small.
 //
-// Design (simple, one launch, no scratch, no atomics): a warp a row at a
-// time, T_WARPS warps a block, as many blocks as are resident at once (the
-// warps walk the rows with a grid stride, so the last wave is one row a
-// warp, not a block of rows).  Lane l reads the row's 16-byte vectors l,
-// l+32, ...
-// (T_UNROLL of them loaded before they are added, streamed past L1 and L2
-// with __ldcs: KT never fits the 50 MB L2), multiplies by g read through
-// the read-only path (__ldg: g is shared by every row and stays in L1/L2),
-// adds in ascending order in a register, and a fixed xor butterfly over the
-// warp joins the 32 partial sums: bitwise reproducible launch to launch.
-// Columns in [n, ld) are loaded with their vector but never added.
+// Design (one launch, no scratch, no atomics): a warp a row at a time, T_WARPS
+// warps a block.  Lane l reads the row's 16-byte vectors l, l+32, ...
+// (streamed past L1 and L2 with __ldcs: KT never fits the 50 MB L2), the
+// next T_UNROLL of them issued before the current T_UNROLL are added, so a
+// lane never waits with nothing in flight; multiplies each by the 16-byte
+// vector of g at the same columns (one read-only load, __ldg: g is shared by
+// every row and stays in L1/L2; the last, partial vector of a row reads g
+// entry by entry), adds the products in ascending order in a register, and a
+// fixed xor butterfly over the warp joins the 32 partial sums: bitwise
+// reproducible launch to launch, and the bits of the first kernel (commit
+// 292ccd0 and before), whose sum order is the same.  Columns in [n, ld)
+// are loaded with their vector but never added.
+//
+// The rows are handed out so that every warp streams the same bytes: with R
+// warps resident at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor x
+// SMs x T_WARPS), a warp takes k = ceil(m / R) rows, so the grid has
+// ceil(ceil(m / k) / T_WARPS) blocks, all resident, and warp w the rows w,
+// w + W, ... (W the grid's warps).  A grid of all R warps striding the rows
+// left m mod R rows to a last wave in which most warps had finished: at
+// 8794 rows (one row a warp and 346 over) that wave ran at one warp's
+// latency-bound rate.
+//
+// Measured in turns on an H100 80GB HBM3 at 700.00 W (graph replay, ms at
+// 8794^2 / 31 061^2 f32; tools_torch/tail_vecmat_t.py --cu on copies of
+// this file; PERF.md): the first kernel 0.1198-0.1211 / 1.2843-1.3154;
+// balanced rows alone 0.1114-0.1116 / 1.3126-1.3132; 16-byte g alone
+// 0.1166 / 1.3058-1.3086; both 0.1051-0.1067 / 1.3186-1.3280; both with
+// the next vectors in flight 0.1030-0.1032 / 1.2223-1.2248 at T_UNROLL 2,
+// 0.1035-0.1040 / 1.2554-1.2565 at 3, 0.1055-0.1062 / 1.2523-1.2590 at 4;
+// torch.mv 0.1271-0.1278 / 1.2686-1.2694.
 constexpr int T_WARPS = 8;
-constexpr int T_UNROLL = 4;
+constexpr int T_UNROLL = 2;
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
 __device__ __forceinline__ float4 ld_stream(const float4* p) {
@@ -483,6 +502,13 @@ __device__ __forceinline__ float dot_vec(float acc, const float4& s,
                                          const float* __restrict__ g,
                                          int col0, int n) {
     const float v[4] = {s.x, s.y, s.z, s.w};
+    if (col0 + 4 <= n) {
+        const float4 gv = __ldg(reinterpret_cast<const float4*>(g + col0));
+        const float w[4] = {gv.x, gv.y, gv.z, gv.w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc += v[c] * w[c];
+        return acc;
+    }
 #pragma unroll
     for (int c = 0; c < 4; ++c)
         if (col0 + c < n) acc += v[c] * __ldg(g + col0 + c);
@@ -491,8 +517,14 @@ __device__ __forceinline__ float dot_vec(float acc, const float4& s,
 __device__ __forceinline__ double dot_vec(double acc, const double2& s,
                                           const double* __restrict__ g,
                                           int col0, int n) {
+    if (col0 + 2 <= n) {
+        const double2 gv =
+            __ldg(reinterpret_cast<const double2*>(g + col0));
+        acc += s.x * gv.x;
+        acc += s.y * gv.y;
+        return acc;
+    }
     if (col0 < n) acc += s.x * __ldg(g + col0);
-    if (col0 + 1 < n) acc += s.y * __ldg(g + col0 + 1);
     return acc;
 }
 
@@ -510,18 +542,26 @@ vecmat_t_kernel(const T* __restrict__ KT, const T* __restrict__ g,
          row < m; row += static_cast<long long>(gridDim.x) * T_WARPS) {
         const V* r = reinterpret_cast<const V*>(KT + row * ld);
         T acc = T(0);
+        V s[T_UNROLL];
+#pragma unroll
+        for (int u = 0; u < T_UNROLL; ++u) {
+            const int v = lane + 32 * u;
+            s[u] = v < nvec ? ld_stream(r + v) : zero_vec(T(0));
+        }
         for (int v0 = lane; v0 < nvec; v0 += 32 * T_UNROLL) {
-            V s[T_UNROLL];
+            V nx[T_UNROLL];                 // the next vectors, in flight
 #pragma unroll
             for (int u = 0; u < T_UNROLL; ++u) {
-                const int v = v0 + 32 * u;
-                s[u] = v < nvec ? ld_stream(r + v) : zero_vec(T(0));
+                const int v = v0 + 32 * (T_UNROLL + u);
+                nx[u] = v < nvec ? ld_stream(r + v) : zero_vec(T(0));
             }
 #pragma unroll
             for (int u = 0; u < T_UNROLL; ++u) {
                 const int v = v0 + 32 * u;
                 if (v < nvec) acc = dot_vec(acc, s[u], g, v * W, n);
             }
+#pragma unroll
+            for (int u = 0; u < T_UNROLL; ++u) s[u] = nx[u];
         }
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1)
@@ -530,15 +570,14 @@ vecmat_t_kernel(const T* __restrict__ KT, const T* __restrict__ g,
     }
 }
 
+// The grid of an (m, .) operand: `resident` blocks fit the card at once;
+// the launch takes `blocks` of them (see the design above).
 template <typename T>
-int vecmat_t(const void* g, const void* KT, void* y, int m, int n, int ld,
-             void* stream) {
-    if (m <= 0 || n <= 0 || ld < n)
-        return static_cast<int>(cudaErrorInvalidValue);
+cudaError_t vecmat_t_grid_of(int m, int& blocks, int& resident) {
     // per instantiation: the blocks resident at once (a host query costs
     // more than the launch)
-    static int resident = 0;
-    if (resident == 0) {
+    static int cached = 0;
+    if (cached == 0) {
         int dev = 0, sms = 0, occ = 0;
         cudaError_t err;
         if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
@@ -546,12 +585,27 @@ int vecmat_t(const void* g, const void* KT, void* y, int m, int n, int ld,
                  &sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
             (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
                  &occ, vecmat_t_kernel<T>, T_WARPS * 32, 0)) != cudaSuccess)
-            return static_cast<int>(err);
-        if (occ == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-        resident = occ * sms;
+            return err;
+        if (occ == 0) return cudaErrorInvalidConfiguration;
+        cached = occ * sms;
     }
-    long long blocks = (static_cast<long long>(m) + T_WARPS - 1) / T_WARPS;
-    if (blocks > resident) blocks = resident;
+    resident = cached;
+    const long long warps = static_cast<long long>(resident) * T_WARPS;
+    const long long k = (m + warps - 1) / warps;       // rows a warp
+    const long long need = (m + k - 1) / k;            // warps
+    blocks = static_cast<int>((need + T_WARPS - 1) / T_WARPS);
+    return cudaSuccess;
+}
+
+template <typename T>
+int vecmat_t(const void* g, const void* KT, void* y, int m, int n, int ld,
+             void* stream) {
+    if (m <= 0 || n <= 0 || ld < n ||
+        (reinterpret_cast<uintptr_t>(g) % 16) != 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    int blocks = 0, resident = 0;
+    const cudaError_t err = vecmat_t_grid_of<T>(m, blocks, resident);
+    if (err != cudaSuccess) return static_cast<int>(err);
     vecmat_t_kernel<T><<<static_cast<unsigned>(blocks), T_WARPS * 32, 0,
                          static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(KT), static_cast<const T*>(g),
@@ -588,8 +642,8 @@ int vecmat_f64(const void* x, const void* KT, void* y, void* part, void* bar,
 }
 
 // y = KT @ g (m) in f32: KT as for vecmat_f32 (rows ld apart, ld*4 a
-// multiple of 16, base 16-byte aligned), g (n).  No scratch.  Returns the
-// cudaError_t of the launch (0 = success).
+// multiple of 16, base 16-byte aligned), g (n, 16-byte aligned).  No
+// scratch.  Returns the cudaError_t of the launch (0 = success).
 int vecmat_t_f32(const void* g, const void* KT, void* y, int m, int n,
                  int ld, void* stream) {
     return vecmat_t<float>(g, KT, y, m, n, ld, stream);
@@ -599,6 +653,17 @@ int vecmat_t_f32(const void* g, const void* KT, void* y, int m, int n,
 int vecmat_t_f64(const void* g, const void* KT, void* y, int m, int n,
                  int ld, void* stream) {
     return vecmat_t<double>(g, KT, y, m, n, ld, stream);
+}
+
+// The grid vecmat_t_f32 (f64 = 0) or vecmat_t_f64 (1) launches for m rows:
+// *blocks of the *resident blocks that fit the card at once.  Returns a
+// cudaError_t (0 = success).
+int vecmat_t_grid(int m, int f64, int* blocks, int* resident) {
+    if (m <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(f64 ? vecmat_t_grid_of<double>(m, *blocks,
+                                                           *resident)
+                                : vecmat_t_grid_of<float>(m, *blocks,
+                                                          *resident));
 }
 
 const char* vecmat_error_string(int err) {

@@ -18,19 +18,21 @@ Elements are sorted by the mean RCM position of their INTERIOR dofs
 (bc-only elements last): the interior dofs of one element couple in F, so
 each element's columns fit one F bandwidth.
 
-On the card one :meth:`BandedConvTail.vector` is three launches: ``G``'s
-product (:func:`..ops.kernels.rect_mv` on int8 blocks, the f64 state read
-straight from the carry), the quadrature (:func:`..ops.kernels.conv_quad`,
-``csrc/convection.cu``) and ``S``'s product into the interior rows of a
-buffer whose bc rows are zero.  The tail trades the index pipeline's
-latency for bytes: :func:`build_banded_conv_tail` predicts the windows'
-bytes before it allocates and returns ``None`` (the caller keeps the
-index pipeline, :func:`..ops.kernels.conv_vector`) unless the banded
-stream is predicted to win.
+On the CPU the tail keeps the JAX package's form: S and G as f32
+static-window blocks (:func:`..ops.kernels.rect_mv`) around the quadrature
+(:func:`..ops.kernels.conv_quad_ref`).  On the card it is one launch of
+:func:`..ops.kernels.conv_tail` (``csrc/convection.cu``): G's product as
+an indexed load of the state (G has one 1 a kept row), the quadrature,
+and S's product as each interior row's slot sum in the order of the int8
+band product that ran before (:func:`..ops.kernels.tail_slot_table`, built
+from S's windows), so the vector keeps that product's bits; no band is
+built or uploaded.  :func:`build_banded_conv_tail` predicts the tail's
+cost and returns ``None`` (the caller keeps the index pipeline,
+:func:`..ops.kernels.conv_vector`) unless the tail is predicted to win.
 
 The JAX package's ``DNS_TPU_BANDED_CONV*`` environment variables are
-constants here: the store and the cost model follow the device
-(:data:`GATE`), ``force`` and ``max_gb`` are keywords of
+constants here: the cost model and the tail's form follow the device
+(:data:`GATE`); ``force`` and ``max_gb`` are keywords of
 :func:`build_banded_conv_tail`.
 """
 
@@ -38,33 +40,37 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .kernels import as_band_operand, conv_quad, rect_mv
+from .kernels import (as_band_operand, conv_quad_ref, conv_tail, rect_mv,
+                      tail_slot_table)
 
 _LANE = 128
 _BS = 256
 
-# The banded-vs-index cost model: the banded tail streams ``nbytes`` at
-# ``stream_floor_gbps``; the index pipeline costs ``index_us_per_1k_vals``
-# per 1000 element values (nvals = nc * nd); the banded form must win by
-# the margin.  The CPU constants are the JAX package's (set on a TPU v5e,
-# its ``banded_conv.py``), so both packages decide alike in the tests.
-# The card's were measured on an H100 80GB HBM3 at 700.00 W by
-# ``chip_smoke.py`` (phase ``banded_conv_path``, graph replay): the int8
-# ``rect_mv`` products of G and S streamed 24.2 MB in 26.8 us at wake level
-# 1 (0.90 TB/s) and 131.9 MB in 105.7 us at level 2 (1.25 TB/s, taken
-# here); B5's convection vector took 4.40 us for 22 104 element values at
-# level 1 (0.199 us per 1000, taken here) and 5.38 us for 80 136 at level
-# 2 (0.067).  Each choice is the one that favours the tail; it still loses
-# by 4x and more at both levels (``PERF.md``, section 6).
+# The tail-vs-index cost model: the tail costs ``tail_us_per_1k_vals`` per
+# 1000 element values (nvals = nc * nd) where that is given (the card's
+# one-launch slot form), else it streams ``nbytes`` at ``stream_floor_gbps``
+# (the CPU's f32 bands); the index pipeline costs ``index_us_per_1k_vals``;
+# the tail must win by the margin.  The CPU constants are the JAX package's
+# (set on a TPU v5e, its ``banded_conv.py``), so both packages decide alike
+# in the tests.  The card's are graph-replayed readings on an H100 80GB
+# HBM3 at 700.00 W (``tools_torch/tail_vecmat_t.py``) at wake level 2,
+# 80 136 element values, where a launch's fixed cost weighs least: the
+# tail's vector 6.618-6.652 us (level 1: 5.225-5.390 us for 22 104), B5's
+# 5.393-5.418 us (level 1: 4.319-4.441), each the reading that favours the
+# tail.  Both are one latency-bound launch, so the ratio, not the rate per
+# value, is what holds at other sizes: the tail loses by 1.2x at both
+# levels and the gate refuses it (``PERF.md``, section 6).
 VALS_PER_DOF_2D = 3.16
+TAIL_US_PER_1K_VALS = 6.618 / 80.136
+B5_US_PER_1K_VALS = 5.418 / 80.136
 GATE = {
     "cpu": dict(stream_floor_gbps=600.0,
                 index_us_per_1k_vals=46.0 / VALS_PER_DOF_2D,
-                win_margin=0.8, store="f32", max_gb=1.0),
-    "cuda": dict(stream_floor_gbps=1248.0, index_us_per_1k_vals=0.199,
-                 win_margin=0.8, store="int8", max_gb=1.0),
+                win_margin=0.8, max_gb=1.0),
+    "cuda": dict(tail_us_per_1k_vals=TAIL_US_PER_1K_VALS,
+                 index_us_per_1k_vals=B5_US_PER_1K_VALS,
+                 win_margin=0.8, max_gb=1.0),
 }
-_STORE = {"int8": torch.int8, "f32": torch.float32}
 
 
 def gate_constants(device=None):
@@ -86,12 +92,20 @@ def index_pipeline_us(index_us_per_1k_vals, nvals=None, ndofs=None):
     return index_us_per_1k_vals * nvals / 1000.0
 
 
+def tail_us(nbytes, consts, nvals=None, ndofs=None):
+    """Predicted cost of one tail vector under ``consts``: per element
+    value where they give a rate for it, else the stream of ``nbytes``."""
+    if "tail_us_per_1k_vals" in consts:
+        return index_pipeline_us(consts["tail_us_per_1k_vals"], nvals=nvals,
+                                 ndofs=ndofs)
+    return banded_stream_us(nbytes, consts["stream_floor_gbps"])
+
+
 def banded_wins(nbytes, nvals=None, ndofs=None, consts=None):
-    """True when the banded stream is predicted to beat the index pipeline
-    by the margin (``consts``: :func:`gate_constants`, the CPU's by
-    default)."""
+    """True when the tail is predicted to beat the index pipeline by the
+    margin (``consts``: :func:`gate_constants`, the CPU's by default)."""
     c = gate_constants("cpu") if consts is None else consts
-    return (banded_stream_us(nbytes, c["stream_floor_gbps"])
+    return (tail_us(nbytes, c, nvals=nvals, ndofs=ndofs)
             <= c["win_margin"] * index_pipeline_us(
                 c["index_us_per_1k_vals"], nvals=nvals, ndofs=ndofs))
 
@@ -137,18 +151,20 @@ class BandedConvTail:
     round-off), the bc rows are zero (no caller reads them).  Output in the
     kernel's type.
 
-    ``Sb``/``Gb``: the static-window blocks (:func:`..ops.kernels.rect_mv`
-    storage, 0/1 entries in ``store``), ``Sbases``/``Gbases`` their window
-    starts on the device; ``kern``: the element-sorted kernel (``eorder``
-    its order); ``ue_bc (nc, nd)``: the constant element field of the bc
-    tail; ``windows``: the JAX package's ``(Sbases, wS, Spad, Gbases, wG,
-    Gpad)``."""
+    Two forms: the CPU's, ``Sb``/``Gb`` the static-window blocks
+    (:func:`..ops.kernels.rect_mv` storage, 0/1 entries) and
+    ``Sbases``/``Gbases`` their window starts on the device; the card's,
+    ``slots`` the :func:`..ops.kernels.tail_slot_table` of S's windows on
+    the device and no blocks.  ``kern``: the element-sorted kernel
+    (``eorder`` its order); ``ue_bc (nc, nd)``: the constant element field
+    of the bc tail; ``windows``: the JAX package's ``(Sbases, wS, Spad,
+    Gbases, wG, Gpad)``."""
 
     def __init__(self, kern, Sb, Sbases, Gb, Gbases, ue_bc, nin, nvals,
-                 store, eorder=None, windows=None):
+                 eorder=None, windows=None, slots=None):
         self.kern, self.Sb, self.Gb, self.ue_bc = kern, Sb, Gb, ue_bc
-        self.Sbases, self.Gbases = Sbases, Gbases
-        self.nin, self.nvals, self.store = int(nin), int(nvals), store
+        self.Sbases, self.Gbases, self.slots = Sbases, Gbases, slots
+        self.nin, self.nvals = int(nin), int(nvals)
         self.eorder, self.windows = eorder, windows
         self.nv_full = kern.nv_full
         # the output: S writes the interior rows, the bc rows stay zero
@@ -157,22 +173,56 @@ class BandedConvTail:
 
     @property
     def nbytes(self):
-        """Bytes of the stored S and G blocks."""
+        """Bytes of the tables that stand for S and G: the stored blocks,
+        or the slot table and the sorted element ids."""
+        if self.slots is not None:
+            return 4 * (self.slots.numel() + self.nvals)
         return sum(b.numel() * b.element_size() for b in (self.Sb, self.Gb))
 
     def vector(self, v_w):
         """The convection vector of the w-space state ``v_w``: the tail's
         own buffer, overwritten by its next call."""
         t = self.kern.tables
-        x = v_w[: self.nin]
-        if self.Gb.dtype != torch.int8:
-            # int8 blocks take the f64 state (rounded to the tables' type
-            # as the element field is formed); the others the work type
-            x = x.to(t.dtype)
+        if self.slots is not None:
+            conv_tail(v_w, self.ue_bc, t, self.slots,
+                      out=self._y[: self.nin])
+            return self._y
+        x = v_w[: self.nin].to(t.dtype)
         ue = rect_mv(self.Gb, self.Gbases, x, self.nvals)
-        fe = conv_quad(ue, self.ue_bc, t)
+        fe = conv_quad_ref(ue, self.ue_bc, t)
         rect_mv(self.Sb, self.Sbases, fe, self.nin, out=self._y[: self.nin])
         return self._y
+
+
+def _sorted_kernel(kern, nin, bc_tail, vd, eorder):
+    """``(kern_s, ue_bc)``: the kernel in the element order ``eorder`` and
+    the constant element field of the frozen bc tail ``bc_tail``."""
+    nv_full, t = kern.nv_full, kern.tables
+    vpad = np.zeros(nv_full + 1)
+    vpad[nin:nv_full] = np.asarray(
+        bc_tail.cpu() if torch.is_tensor(bc_tail) else bc_tail,
+        dtype=np.float64).ravel()
+    ue_bc = torch.as_tensor(vpad[np.minimum(vd[eorder], nv_full)]).to(
+        device=kern.device, dtype=t.dtype).contiguous()
+    return kern.with_element_order(eorder), ue_bc
+
+
+def _slot_tail(kern, nin, bc_tail):
+    """The card's form of the tail (on the kernel's device, so the CPU
+    tests build it too): S's and G's windows, computed without a band, and
+    the slot table of S's."""
+    from ..solve.sadpnt import _rect_windows
+
+    vd = kern.tables.vd.cpu().numpy()
+    eorder, rows, cols, keep = tail_patterns(vd, nin)
+    nvals = rows.shape[0]
+    sw = _rect_windows(rows[keep], cols[keep], nin, nvals, _BS)
+    gw = _rect_windows(cols[keep], rows[keep], nvals, nin, _BS)
+    slots = tail_slot_table(rows, nin, sw[0], _BS)
+    kern_s, ue_bc = _sorted_kernel(kern, nin, bc_tail, vd, eorder)
+    return BandedConvTail(
+        kern_s, None, None, None, None, ue_bc, nin, nvals, eorder=eorder,
+        windows=(*sw, *gw), slots=torch.as_tensor(slots, device=kern.device))
 
 
 def build_banded_conv_tail(kern, nin, bc_tail, max_gb=None, force=False):
@@ -183,13 +233,13 @@ def build_banded_conv_tail(kern, nin, bc_tail, max_gb=None, force=False):
     nv_full)`` the bc tail); ``nin``: the interior rows; ``bc_tail
     (nv_full - nin,)``: the constant bc values of the w-space state.
 
-    The blocks are stored as :data:`GATE` says for the kernel's device
-    (int8 on the card, f32 on the CPU).  Returns ``None`` — the caller
+    The form follows the kernel's device: f32 blocks on the CPU, the slot
+    table on the card (:func:`_slot_tail`).  Returns ``None`` — the caller
     keeps the index pipeline — for f64 tables (the JAX package's gate
-    refuses its f64 kernels), or when the predicted bytes exceed
-    ``max_gb`` (default :data:`GATE`'s) or lose to the index pipeline
-    under :func:`gate_constants` of the kernel's device; ``force`` builds
-    it regardless.
+    refuses its f64 kernels), or when the tables' bytes exceed ``max_gb``
+    (default :data:`GATE`'s) or the tail loses to the index pipeline under
+    :func:`gate_constants` of the kernel's device; ``force`` builds it
+    regardless.
     """
     t = kern.tables
     if t.dtype == torch.float64 and not force:
@@ -197,49 +247,45 @@ def build_banded_conv_tail(kern, nin, bc_tail, max_gb=None, force=False):
     consts = gate_constants(kern.device)
     if max_gb is not None:
         consts["max_gb"] = max_gb
-    nv_full, (nc, nd) = kern.nv_full, tuple(t.vd.shape)
-    vd = t.vd.cpu().numpy()
-    eorder, rows, cols, keep = tail_patterns(vd, nin)
-    nvals = nc * nd
-    sdt = _STORE[consts["store"]]
-    bfac, bs = sdt.itemsize / 4.0, _BS
-    nblk_s = max(1, (nin + bs - 1) // bs)
-    nblk_g = max(1, (nvals + bs - 1) // bs)
-    by = bfac * (_window_bytes(rows[keep], cols[keep], nblk_s, bs)
-                 + _window_bytes(cols[keep], rows[keep], nblk_g, bs))
+    if kern.device.type == "cuda":
+        tail = _slot_tail(kern, nin, bc_tail)
+        by, nvals = tail.nbytes, tail.nvals
+    else:
+        vd = t.vd.cpu().numpy()
+        eorder, rows, cols, keep = tail_patterns(vd, nin)
+        nvals = rows.shape[0]
+        nblk_s = max(1, (nin + _BS - 1) // _BS)
+        nblk_g = max(1, (nvals + _BS - 1) // _BS)
+        by = (_window_bytes(rows[keep], cols[keep], nblk_s, _BS)
+              + _window_bytes(cols[keep], rows[keep], nblk_g, _BS))
     if not force and (by > consts["max_gb"] * 1e9
                       or not banded_wins(by, nvals=nvals, consts=consts)):
         return None
+    if kern.device.type == "cuda":
+        return tail
 
     import scipy.sparse as sps
 
     from ..solve.sadpnt import _build_banded_rect
 
     ones = np.ones(int(keep.sum()), np.float32)
-    dev = kern.device
     S = sps.coo_matrix((ones, (rows[keep], cols[keep])),
                        shape=(nin, nvals)).tocsr()
     Sb, Sbases, wS, Spad = _build_banded_rect(S, np.arange(nin),
-                                              np.arange(nvals), bs)
+                                              np.arange(nvals), _BS)
     G = sps.coo_matrix((ones, (cols[keep], rows[keep])),
                        shape=(nvals, nin)).tocsr()
     Gb, Gbases, wG, Gpad = _build_banded_rect(G, np.arange(nvals),
-                                              np.arange(nin), bs)
+                                              np.arange(nin), _BS)
+    kern_s, ue_bc = _sorted_kernel(kern, nin, bc_tail, vd, eorder)
+
+    def operand(b):
+        return as_band_operand(torch.from_numpy(b), device=kern.device)
 
     def bases(b):
-        return torch.as_tensor(np.asarray(b, np.int32), device=dev)
+        return torch.as_tensor(np.asarray(b, np.int32), device=kern.device)
 
-    # the constant element field of the frozen bc tail
-    vpad = np.zeros(nv_full + 1)
-    vpad[nin:nv_full] = np.asarray(
-        bc_tail.cpu() if torch.is_tensor(bc_tail) else bc_tail,
-        dtype=np.float64).ravel()
-    ue_bc = torch.as_tensor(vpad[np.minimum(vd[eorder], nv_full)]).to(
-        device=dev, dtype=t.dtype).contiguous()
     return BandedConvTail(
-        kern.with_element_order(eorder),
-        as_band_operand(torch.from_numpy(Sb), dtype=sdt, device=dev),
-        bases(Sbases),
-        as_band_operand(torch.from_numpy(Gb), dtype=sdt, device=dev),
-        bases(Gbases), ue_bc, nin, nvals, consts["store"], eorder=eorder,
+        kern_s, operand(Sb), bases(Sbases), operand(Gb), bases(Gbases),
+        ue_bc, nin, nvals, eorder=eorder,
         windows=(Sbases, int(wS), int(Spad), Gbases, int(wG), int(Gpad)))

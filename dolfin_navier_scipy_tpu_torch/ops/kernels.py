@@ -14,7 +14,9 @@ Six sources:
   :func:`conv_vector_amatvec`.  It is the kernel the JAX package probed
   for (``tools/probe_pallas_gather.py``: a gather inside a kernel body)
   and had to leave to XLA; and its VJP in the state, :func:`conv_vjp`, in
-  the same layout.  :class:`VecmatFn`, :class:`ConvAmatvecFn` and
+  the same layout; and the banded convection tail's vector in one launch
+  with B5's structure (:func:`conv_tail`, the JAX package's
+  ``BandedConvTail.vector``).  :class:`VecmatFn`, :class:`ConvAmatvecFn` and
   :class:`ConvVectorFn` make both differentiable (``torch.autograd``,
   forward mode too) for ``solve/adjoint.py``.
 * the banded and static-window block matvecs of the block-Schur solver
@@ -202,6 +204,8 @@ def _vecmat_lib():
         for fn in (lib.vecmat_t_f32, lib.vecmat_t_f64):
             fn.argtypes = [ptr] * 3 + [i] * 3 + [ptr]
             fn.restype = i
+        lib.vecmat_t_grid.argtypes = [i, i] + [ctypes.POINTER(i)] * 2
+        lib.vecmat_t_grid.restype = i
         lib.vecmat_error_string.argtypes = [i]
         lib.vecmat_error_string.restype = ctypes.c_char_p
         lib._dns_typed = True
@@ -422,11 +426,13 @@ def vecmat_t(g, KT):
     symmetric.
 
     On a CUDA tensor this launches ``vecmat_t_kernel`` of
-    ``csrc/vecmat.cu`` (row dot products, a warp a row; one device kernel,
-    no scratch) on the current stream and counts it in
+    ``csrc/vecmat.cu`` (row dot products, a warp a row, the same number of
+    rows in every warp of a resident grid: :func:`vecmat_t_grid`; one
+    device kernel, no scratch) on the current stream and counts it in
     ``vecmat_t.launches``; ``KT`` must be a :func:`vecmat_operand` (rows
-    16-byte aligned, unit column stride; anything else raises).  On a CPU
-    tensor it is :func:`vecmat_t_ref`.
+    16-byte aligned, unit column stride; anything else raises); ``g`` is
+    read as 16-byte vectors (copied first where it is not so aligned).  On
+    a CPU tensor it is :func:`vecmat_t_ref`.
     """
     if g.dim() != 1 or KT.dim() != 2 or KT.shape[1] != g.shape[0]:
         raise ValueError(f"vecmat_t: KT {tuple(KT.shape)} @ g "
@@ -438,6 +444,8 @@ def vecmat_t(g, KT):
         return vecmat_t_ref(g, KT)
     m, n, ld = _vecmat_operand_check("vecmat_t", KT)
     g = g.contiguous()
+    if g.data_ptr() % 16:
+        g = g.clone()
     lib = _vecmat_lib()
     fn = lib.vecmat_t_f32 if KT.dtype == torch.float32 else lib.vecmat_t_f64
     dev = KT.get_device()
@@ -454,6 +462,20 @@ def vecmat_t(g, KT):
 
 
 vecmat_t.launches = 0
+
+
+def vecmat_t_grid(m, dtype=torch.float32):
+    """``(blocks, resident)``: the grid :func:`vecmat_t` launches for an
+    operand of ``m`` rows of ``dtype`` on the current card, and the blocks
+    that fit the card at once (the kernel's occupancy x SMs)."""
+    lib = _vecmat_lib()
+    blocks, resident = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.vecmat_t_grid(int(m), int(dtype == torch.float64),
+                            ctypes.byref(blocks), ctypes.byref(resident))
+    if err != 0:
+        raise RuntimeError(f"vecmat_t_grid: "
+                           f"{lib.vecmat_error_string(err).decode()}")
+    return blocks.value, resident.value
 
 
 # ---------------------------------------------------------------------------
@@ -555,16 +577,13 @@ def _bandmv_lib():
         lib.bandmv_stack.argtypes = ([ptr, i, i, ll, ll, ll, ptr, ptr, ptr]
                                      + [i] * 4 + [ll] + [i] * 4 + [ll, ptr])
         lib.bandmv_stack.restype = i
-        lib.bandmv_i8.argtypes = ([ptr, ll, ll, ptr, ptr, i, ptr]
-                                  + [i] * 4 + [ll, ptr])
-        lib.bandmv_i8.restype = i
         lib.bandmv_error_string.argtypes = [i]
         lib.bandmv_error_string.restype = ctypes.c_char_p
         lib._dns_typed = True
     return lib
 
 
-_BAND_STORAGE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_BAND_STORAGE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 class BandmvPlan(collections.namedtuple(
@@ -638,9 +657,8 @@ def bandmv_plan(nblk, bs, w, ld, itemsize, sm_count):
     block can use.  The warp-per-row kernel also where the ring cannot
     hold one row beside its window in a block's 227 KB; ``ValueError``
     where neither kernel can place the rows.  Blocks of 1- or 2-byte
-    entries (the int8 0/1 blocks of the banded convection tail, bf16) take
-    the warp-per-row kernel whatever their shape: the ring's consumers
-    read f32 rows."""
+    entries (bf16) take the warp-per-row kernel whatever their shape: the
+    ring's consumers read f32 rows."""
     _check_plan_args(nblk, bs, w, ld, itemsize, sm_count)
     row_grid = nblk * -(-bs // _BANDMV_GEOMETRY["ROWS"])
     rows_plan = BandmvPlan("rows", row_grid, 0, 0, 0, 0)
@@ -747,19 +765,11 @@ def _bandmv_launch(name, stack, bases, x, nrows, out=None):
     restaging all of x; two blocks an SM stage it once each) and for W's
     three levels under a window of 16 KB or more; the ring for W's three
     levels where the warp-per-row grid runs a wave and a bit (level 1); the
-    warp-per-row kernel elsewhere.  int8 blocks (single-level
-    :func:`rect_mv`: the 0/1 gather and scatter of the banded convection
-    tail) run on the warp-per-row kernel under an f32 or an f64 ``x``
-    (the f64 state is rounded to f32 as the window is staged)."""
-    i8 = stack.dtype == torch.int8 and name == "rect_mv"
-    if (stack.dtype not in _BAND_STORAGE
-            or (stack.dtype == torch.int8 and not i8)
-            or x.dtype not in ((torch.float32, torch.float64) if i8
-                               else (torch.float32,))):
+    warp-per-row kernel elsewhere."""
+    if stack.dtype not in _BAND_STORAGE or x.dtype != torch.float32:
         raise TypeError(
-            f"{name} kernel takes f32 or bf16 blocks under an f32 vector "
-            f"(rect_mv also int8 blocks under an f32 or f64 vector), not "
-            f"{stack.dtype} blocks under {x.dtype}")
+            f"{name} kernel takes f32 or bf16 blocks under an f32 vector, "
+            f"not {stack.dtype} blocks under {x.dtype}")
     if x.device != stack.device:
         raise ValueError(f"{name}: x is on {x.device}, the blocks on "
                          f"{stack.device}")
@@ -803,12 +813,7 @@ def _bandmv_launch(name, stack, bases, x, nrows, out=None):
     bp = None if bases is None else bases.data_ptr()
     slev = slev if levels > 1 else 0
     with _on_device(dev):
-        if i8:
-            err = lib.bandmv_i8(
-                stack.data_ptr(), sblk, ld, bp, x.data_ptr(),
-                int(x.dtype == torch.float64), y.data_ptr(), nblk, bs, w,
-                x.shape[0], nrows, _raw_stream(dev))
-        elif name == "rect_mv_levels" and plan.kernel != "rows":
+        if name == "rect_mv_levels" and plan.kernel != "rows":
             err = lib.bandmv_stack(
                 stack.data_ptr(), _BAND_STORAGE[stack.dtype], levels, sblk,
                 slev, ld, bp, x.data_ptr(), y.data_ptr(), nblk, bs, w,
@@ -880,11 +885,9 @@ def rect_mv(blocks, bases, x, nrows, out=None):
     ``y`` goes (a fresh tensor by default).
 
     On a CUDA tensor this launches ``csrc/bandmv.cu`` (f32 blocks under an
-    f32 ``x``, or int8 blocks under an f32 or f64 ``x``; f32 ``y``;
-    :func:`band_operand` storage) and counts it in ``rect_mv.launches``
-    (and by kernel form in ``kernel_launches``, by the blocks' type in
-    ``storage_launches``); on a CPU tensor it is :func:`rect_mv_ref` (in
-    the promoted type: int8 0/1 blocks under an f64 ``x`` sum in f64)."""
+    f32 ``x``; f32 ``y``; :func:`band_operand` storage) and counts it in
+    ``rect_mv.launches`` (and by kernel form in ``kernel_launches``); on a
+    CPU tensor it is :func:`rect_mv_ref` (in the promoted type)."""
     if blocks.dim() != 3 or x.dim() != 1:
         raise ValueError(f"rect_mv: blocks {tuple(blocks.shape)} @ x "
                          f"{tuple(x.shape)}")
@@ -894,13 +897,11 @@ def rect_mv(blocks, bases, x, nrows, out=None):
     y, kernel = _bandmv_launch("rect_mv", blocks[:, None], bases, x, nrows,
                                out)
     _count(rect_mv, kernel)
-    rect_mv.storage_launches[str(blocks.dtype).split(".")[-1]] += 1
     return y
 
 
 rect_mv.launches = 0
 rect_mv.kernel_launches = dict(rows=0, ring=0)
-rect_mv.storage_launches = dict(float32=0, bfloat16=0, int8=0)
 
 
 def rect_mv_levels(stack, bases, x, nrows, hi_only=False):
@@ -1078,8 +1079,9 @@ class _ConvPlanC(ctypes.Structure):
             "fused")])
 
 
-# the form of a ConvPlan: conv_vector, conv_vector_amatvec, conv_vjp
-_CONV_FORMS = {"vector": 0, "fused": 1, "vjp": 2}
+# the form of a ConvPlan: conv_vector, conv_vector_amatvec, conv_vjp,
+# conv_tail
+_CONV_FORMS = {"vector": 0, "fused": 1, "vjp": 2, "tail": 3}
 # the (nvpc, Q, dim) instantiations csrc/convection.cu builds: 2D
 # Taylor-Hood (every form; conv_kernel, 8 lanes an element) and 3D
 # Taylor-Hood (the forward forms; conv_block_kernel, a block an element)
@@ -1089,8 +1091,9 @@ _CONV_BUILT = ((6, 7, 2), (10, 125, 3))
 class ConvPlan:
     """Launch plan of ``csrc/convection.cu`` for one table set, one form
     (``fused``: 0 the vector, 1 the fused vector and stiffness, 2 their
-    VJP, :data:`_CONV_FORMS`), one state type, one set of facet blocks and
-    one stream:
+    VJP, 3 the banded tail's vector over the slot table ``slots`` of
+    :func:`tail_slot_table`, :data:`_CONV_FORMS`), one state type, one set
+    of facet blocks and one stream:
     every constant pointer and size in one C structure (``c``), the tensors
     behind them, and the kernel's scratch and barrier counter.  The scratch
     belongs to the plan's stream; :meth:`ConvTables.kernel_plan` makes one
@@ -1098,10 +1101,18 @@ class ConvPlan:
     stream shares the scratch and the counter with eager calls there: it
     must not replay concurrently with them."""
 
-    def __init__(self, t, fused, udtype, fac_elem, fac_vdofs, stream):
+    def __init__(self, t, fused, udtype, fac_elem, fac_vdofs, stream,
+                 slots=None):
         dev = t.device
         nfac = 0 if fac_elem is None else int(fac_elem.shape[0])
-        vd32, ell = t.kernel_tables()
+        nrows = t.nv_full
+        if fused == _CONV_FORMS["tail"]:
+            # the tail's rows are the interior ones; ids at or past them
+            # read zero
+            vd32, ell, nrows = (t.vd.to(torch.int32).contiguous(), slots,
+                                int(slots.shape[1]))
+        else:
+            vd32, ell = t.kernel_tables()
         # what the pointers point into, and the objects the key names
         self.keep = [vd32, ell, fac_elem, fac_vdofs]
         fe = fv = fell = None
@@ -1125,15 +1136,16 @@ class ConvPlan:
         self.c = _ConvPlanC(
             ptr(vd32), ptr(t.JinvT), ptr(t.wdet), ptr(t.N2), ptr(t.dN2),
             ptr(fe), ptr(fv), ptr(ell), ptr(fell), ptr(self.scratch),
-            ptr(self.bar), None, t.nc, t.nv_full, nfac, ell.shape[0],
+            ptr(self.bar), None, t.nc, nrows, nfac, ell.shape[0],
             0 if fell is None else fell.shape[0],
             int(t.dtype == torch.float64), int(udtype == torch.float64),
             int(fused))
 
 
-def _plan_key(fused, udtype, stream, fac_elem, fac_vdofs):
-    # the plan keeps both objects, so their ids stay theirs
-    return (int(fused), udtype, stream, id(fac_elem), id(fac_vdofs))
+def _plan_key(fused, udtype, stream, fac_elem, fac_vdofs, slots=None):
+    # the plan keeps these objects, so their ids stay theirs
+    return (int(fused), udtype, stream, id(fac_elem), id(fac_vdofs),
+            id(slots))
 
 
 class ConvTables:
@@ -1193,11 +1205,11 @@ class ConvTables:
         return self.dofs.kernel_tables()
 
     def kernel_plan(self, fused, udtype, fac_elem=None, fac_vdofs=None,
-                    stream=0):
+                    stream=0, slots=None):
         """The :class:`ConvPlan` of this table set for one form (``fused``,
-        :data:`_CONV_FORMS`), state type, facet-block set and stream: made
-        at its first call, kept after."""
-        key = _plan_key(fused, udtype, stream, fac_elem, fac_vdofs)
+        :data:`_CONV_FORMS`), state type, facet-block set (or the tail's
+        slot table) and stream: made at its first call, kept after."""
+        key = _plan_key(fused, udtype, stream, fac_elem, fac_vdofs, slots)
         plan = self._plans.get(key)
         if plan is None:
             if (self.device_index >= 0
@@ -1209,8 +1221,8 @@ class ConvTables:
             nfac = 0 if fac_elem is None else int(fac_elem.shape[0])
             plan = self._plans[key] = ConvPlan(
                 self, fused, udtype, fac_elem if nfac else None,
-                fac_vdofs, stream)
-            plan.keep += [fac_elem]
+                fac_vdofs, stream, slots)
+            plan.keep += [fac_elem, slots]
         return plan
 
     def plain_weights(self):
@@ -1306,8 +1318,8 @@ def _conv_lib():
         lib.conv_vjp_th2d.restype = i
         lib.convection_th3d.argtypes = lib.convection_th2d.argtypes
         lib.convection_th3d.restype = i
-        lib.conv_quad_th2d.argtypes = [ptr] * 7 + [i, ptr]
-        lib.conv_quad_th2d.restype = i
+        lib.conv_tail_th2d.argtypes = [ctypes.POINTER(_ConvPlanC)] + [ptr] * 4
+        lib.conv_tail_th2d.restype = i
         lib.convection_error_string.argtypes = [i]
         lib.convection_error_string.restype = ctypes.c_char_p
         lib._dns_typed = True
@@ -1511,9 +1523,12 @@ conv_vjp.launches = 0
 
 
 def conv_quad_ref(ue, ue_bc, tables):
-    """Plain PyTorch version of :func:`conv_quad`: the JAX package's einsum
-    chain of ``BandedConvTail.vector`` (``ops/banded_conv.py``) between its
-    two banded products."""
+    """The quadrature of the banded convection tail, plainly: the JAX
+    package's einsum chain of ``BandedConvTail.vector``
+    (``ops/banded_conv.py``) between its two banded products, from the
+    gathered element field ``ue (nc*nd,)`` plus the constant bc field
+    ``ue_bc (nc, nd)`` to the element loads ``(nc*nd,)`` in the tables'
+    element order."""
     t = tables
     Q, dim = t.Q, t.dim
     W1, W2, _, W3 = t.plain_weights()
@@ -1526,55 +1541,182 @@ def conv_quad_ref(ue, ue_bc, tables):
     return (wconv @ W3).reshape(-1)
 
 
-def conv_quad(ue, ue_bc, tables):
-    """The quadrature of the banded convection tail: from the gathered
-    element field ``ue (nc*nd,)`` (G's banded product) plus the constant bc
-    field ``ue_bc (nc, nd)``, the element loads ``fe (nc*nd,)`` of ``int
-    ((u.grad)u).phi`` in the tables' element order (which S's banded
-    product sums).  Arithmetic in ``tables.dtype``.
+# the tail's slot codes: CONTINUE adds to the lane's chain, 0-4 start a new
+# lane (the highest bit in which its leaf position differs from the last)
+_TAIL_CONTINUE = 7
+_TAIL_LEVELS = 5
+# the highest set bit of 1..31
+_MSB5 = np.array([max(i.bit_length() - 1, 0) for i in range(32)])
 
-    On a CUDA tensor this launches ``quad_kernel`` of
-    ``csrc/convection.cu`` (2D Taylor-Hood, f32 tables and fields; one
-    device kernel, no gather, no scatter) on the current stream and counts
-    it in ``conv_quad.launches``; on a CPU tensor it is
-    :func:`conv_quad_ref`."""
+
+def _reverse5(x):
+    """The 5-bit reversal of lane ids: the leaf order of the xor butterfly
+    (16, 8, 4, 2, 1) read at lane 0."""
+    return (((x & 1) << 4) | ((x & 2) << 2) | (x & 4) | ((x & 8) >> 2)
+            | ((x & 16) >> 4))
+
+
+def tail_slot_table(rows, nin, bases, bs=256):
+    """The banded tail's slot table: the element-load positions ``p``
+    (``rows (nc*nd,)``: the w-space id at each, ids at or past ``nin``
+    dropped) of each interior row ``r``, in the order in which the int8
+    static-window product of S (row blocks of ``bs`` rows, window starts
+    ``bases``) summed them: ``p`` sat at column ``j = p - bases[r // bs]``,
+    read by lane ``(j // 16) % 32``; a lane added its entries in ascending
+    ``j``, and the xor butterfly joined the lanes.  A row lists its slots
+    by the lane's 5-bit reversal, then ``j``; each entry is ``(p << 3) |
+    code``, ``code`` 7 continuing the lane's chain and 0-4 starting a new
+    lane whose leaf position differs from the last one's first in that bit.
+    Returns the ELL table ``(width, nin)`` int32, -1 past a row's count
+    (:func:`ell_slot_table`)."""
+    rows = np.asarray(rows).ravel()
+    p = np.flatnonzero((rows >= 0) & (rows < nin))
+    r = rows[p]
+    j = p - np.asarray(bases, np.int64)[r // bs]
+    if (j < 0).any() or rows.size * 8 >= 2 ** 31:
+        raise ValueError("tail_slot_table: a slot outside its window, or "
+                         f"{rows.size} element values past the int32 codes")
+    leaf = _reverse5((j // 16) % 32)
+    order = np.lexsort((j, leaf, r))
+    p, r, leaf = p[order], r[order], leaf[order]
+    new_row = np.ones(len(r), bool)
+    new_row[1:] = r[1:] != r[:-1]
+    step = leaf ^ np.roll(leaf, 1)
+    code = np.where(new_row | (step == 0), _TAIL_CONTINUE, _MSB5[step])
+    rowptr = np.searchsorted(r, np.arange(nin + 1))
+    return ell_slot_table(rowptr, (p << 3) | code)
+
+
+def tail_sum_ref(fe, slots):
+    """Plain PyTorch version of the tail kernel's row sums: ``out[r]``
+    evaluates row ``r`` of :func:`tail_slot_table` in ``fe``'s type —
+    each lane's chain from 0, the lanes joined as the butterfly joins them
+    (an operator-precedence parse of the codes, pending left operands by
+    level, the tighter ones first)."""
+    slots = slots.long()
+    nrows = slots.shape[1]
+    cur = torch.zeros(nrows, dtype=fe.dtype, device=fe.device)
+    pend = torch.zeros((_TAIL_LEVELS, nrows), dtype=fe.dtype,
+                       device=fe.device)
+    has = torch.zeros((_TAIL_LEVELS, nrows), dtype=torch.bool,
+                      device=fe.device)
+    for k in range(slots.shape[0]):
+        s = slots[k]
+        ok = s >= 0
+        code = torch.where(ok, s & 7, torch.full_like(s, -1))
+        v = fe[torch.where(ok, s >> 3, torch.zeros_like(s))]
+        cur = torch.where(code == _TAIL_CONTINUE, cur + v, cur)
+        new = ok & (code != _TAIL_CONTINUE)
+        for lev in range(_TAIL_LEVELS):
+            m = new & (lev < code) & has[lev]
+            cur = torch.where(m, pend[lev] + cur, cur)
+            has[lev] &= ~m
+        for lev in range(_TAIL_LEVELS):
+            m = new & (code == lev)
+            pend[lev] = torch.where(m, cur, pend[lev])
+            has[lev] |= m
+        cur = torch.where(new, v + 0.0, cur)
+    for lev in range(_TAIL_LEVELS):
+        cur = torch.where(has[lev], pend[lev] + cur, cur)
+    return cur
+
+
+def _tail_gather(v, tables, nin):
+    """G's product: the state at each element value's interior id in the
+    tables' type, 0 at bc ids."""
+    vd = tables.vd.reshape(-1)
+    inner = vd < nin
+    return torch.where(inner, v[:nin].to(tables.dtype)[vd.clamp(max=nin - 1)],
+                       torch.zeros((), dtype=tables.dtype, device=vd.device))
+
+
+def conv_tail_ref(v, ue_bc, tables, slots):
+    """Plain PyTorch version of :func:`conv_tail`: the gather, the JAX
+    package's quadrature chain (:func:`conv_quad_ref`) and the ordered slot
+    sum (:func:`tail_sum_ref`)."""
+    nin = int(slots.shape[1])
+    fe = conv_quad_ref(_tail_gather(v, tables, nin), ue_bc, tables)
+    return tail_sum_ref(fe, slots)
+
+
+def _check_tail(v, ue_bc, t, slots, out):
+    nin = int(slots.shape[1]) if slots.dim() == 2 else -1
+    if (v.dim() != 1 or v.shape[0] < nin or nin <= 0
+            or tuple(ue_bc.shape) != (t.nc, t.nd)
+            or slots.dtype != torch.int32
+            or (out is not None and tuple(out.shape) != (nin,))):
+        raise ValueError(
+            f"conv_tail: state {tuple(v.shape)}, ue_bc "
+            f"{tuple(ue_bc.shape)}, slots {tuple(slots.shape)} "
+            f"{slots.dtype}, out {None if out is None else tuple(out.shape)}"
+            f" for {t.nc} elements of {t.nd} values")
+    on = {x.get_device() for x in (v, ue_bc, slots)
+          if x is not None} | {t.device_index}
+    if out is not None:
+        on.add(out.get_device())
+    if len(on) != 1:
+        raise ValueError(f"conv_tail: the state on {v.device}, ue_bc on "
+                         f"{ue_bc.device}, the slots on {slots.device}, the "
+                         f"tables on {t.device}")
+    return nin
+
+
+def conv_tail(v, ue_bc, tables, slots, out=None):
+    """The banded convection tail's vector ``S @ quad(G @ v[:nin] +
+    ue_bc)`` on its interior rows (the JAX package's
+    ``BandedConvTail.vector``): ``v`` the w-space state (at least ``nin``
+    values), ``ue_bc (nc, nd)`` the constant bc field, ``tables`` the
+    tail's element-sorted tables, ``slots`` the :func:`tail_slot_table` of
+    S's windows on the tables' device (``nin`` its columns).  Returns the
+    ``(nin,)`` loads in the tables' type, in ``out`` where that is given.
+
+    On a CUDA tensor this launches ``tail_kernel`` of
+    ``csrc/convection.cu`` (2D Taylor-Hood, f32 tables, an f32 or f64
+    state; one device kernel: B5's element phase with G's product as an
+    indexed load, a grid barrier, the rows summed in the order of the int8
+    S product the tail ran before) through the tables' :class:`ConvPlan`
+    for the current stream and counts it in ``conv_tail.launches``; on a
+    CPU tensor it is :func:`conv_tail_ref`."""
     t = tables
-    if ue.dim() != 1 or ue.shape[0] != t.nc * t.nd or tuple(
-            ue_bc.shape) != (t.nc, t.nd):
-        raise ValueError(f"conv_quad: ue {tuple(ue.shape)}, ue_bc "
-                         f"{tuple(ue_bc.shape)} for {t.nc} elements of "
-                         f"{t.nd} values")
-    if not ue.is_cuda:
-        return conv_quad_ref(ue, ue_bc, t)
-    if (ue.get_device() != t.device_index
-            or ue_bc.get_device() != t.device_index):
-        raise ValueError(f"conv_quad: ue on {ue.device}, ue_bc on "
-                         f"{ue_bc.device}, the tables on {t.device}")
-    if t.dtype != torch.float32 or ue.dtype != torch.float32 or \
-            ue_bc.dtype != torch.float32:
-        raise TypeError(f"conv_quad kernel takes f32 tables and fields, not "
-                        f"{t.dtype} / {ue.dtype} / {ue_bc.dtype}")
-    if (t.nvpc, t.Q, t.dim) != (6, 7, 2):
-        raise NotImplementedError(
-            f"conv_quad kernel: only the 2D Taylor-Hood instantiation (nvpc "
-            f"6, Q 7, dim 2) is built, not {(t.nvpc, t.Q, t.dim)}")
-    dev = ue.get_device()
-    ue, ue_bc = ue.contiguous(), ue_bc.contiguous()
-    tabs = [x.contiguous() for x in (t.JinvT, t.wdet, t.N2, t.dN2)]
-    fe = torch.empty_like(ue)
+    nin = _check_tail(v, ue_bc, t, slots, out)
+    if not v.is_cuda:
+        y = conv_tail_ref(v, ue_bc, t, slots)
+        return y if out is None else out.copy_(y)
+    dev = v.get_device()
+    stream = _raw_stream(dev)
+    form = _CONV_FORMS["tail"]
+    plan = t._plans.get(_plan_key(form, v.dtype, stream, None, None, slots))
+    if plan is None:
+        if (t.dtype != torch.float32 or ue_bc.dtype != torch.float32
+                or v.dtype not in (torch.float32, torch.float64)):
+            raise TypeError(f"conv_tail kernel takes f32 tables and ue_bc "
+                            f"and an f32 or f64 state, not {t.dtype} / "
+                            f"{ue_bc.dtype} / {v.dtype}")
+        if (t.nvpc, t.Q, t.dim) != (6, 7, 2):
+            raise NotImplementedError(
+                f"conv_tail kernel: only the 2D Taylor-Hood instantiation "
+                f"(nvpc 6, Q 7, dim 2) is built, not {(t.nvpc, t.Q, t.dim)}")
+        if not slots.is_contiguous():
+            raise ValueError("conv_tail: the slot table must be contiguous")
+        plan = t.kernel_plan(form, v.dtype, stream=stream, slots=slots)
+    if out is None:
+        out = torch.empty(nin, dtype=torch.float32, device=v.device)
+    elif out.dtype != torch.float32 or not out.is_contiguous():
+        raise ValueError(f"conv_tail: out must be contiguous f32, got "
+                         f"{out.dtype}")
+    v, ue_bc = v.contiguous(), ue_bc.contiguous()
     lib = _conv_lib()
     with _on_device(dev):
-        err = lib.conv_quad_th2d(ue.data_ptr(), ue_bc.data_ptr(),
-                                 *[x.data_ptr() for x in tabs],
-                                 fe.data_ptr(), t.nc, _raw_stream(dev))
+        err = lib.conv_tail_th2d(plan.c, v.data_ptr(), ue_bc.data_ptr(),
+                                 out.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"conv_quad kernel launch failed (nc {t.nc}): "
-                           f"{lib.convection_error_string(err).decode()}")
-    conv_quad.launches += 1
-    return fe
+        raise RuntimeError(f"conv_tail kernel launch failed (nc {t.nc}, nin "
+                           f"{nin}): {lib.convection_error_string(err).decode()}")
+    conv_tail.launches += 1
+    return out
 
 
-conv_quad.launches = 0
+conv_tail.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -260,35 +260,46 @@ def _fold_banded_blocks(Fp, n, bs, nblk):
     return blocks
 
 
+def _rect_windows(rows, cols, nr, ncl, bs_r, lane=128):
+    """The windows of the static-window blocks of an ``(nr, ncl)`` pattern
+    (entries ``rows`` x ``cols``) cut into row blocks of ``bs_r`` rows:
+    each block's column span, the widest rounded up to whole ``lane``s,
+    each start clipped to ``[0, ncl_pad - w]``.  Returns ``(bases (tuple of
+    int), w, ncl_pad)``."""
+    nblk = max(1, (nr + bs_r - 1) // bs_r)
+    lo = np.full(nblk, np.iinfo(np.int64).max)
+    hi = np.full(nblk, -1)
+    blk = np.asarray(rows) // bs_r
+    np.minimum.at(lo, blk, cols)
+    np.maximum.at(hi, blk, cols)
+    empty = hi < 0
+    lo[empty], hi[empty] = 0, 0
+    w = int((hi + 1 - lo).max())
+    w = max(lane, int(np.ceil(w / lane)) * lane)
+    ncl_pad = max(ncl, w)
+    bases = np.minimum(np.maximum(lo, 0), ncl_pad - w)
+    return tuple(int(b) for b in bases), w, ncl_pad
+
+
 def _build_banded_rect(A, row_order, col_order, bs_r, lane=128):
     """Static-window dense-block form of a RECTANGULAR sparse matrix.
 
     Under locality-consistent row/column orders, row block ``k`` of
     ``A[row_order][:, col_order]`` touches one contiguous column window:
     store ``blocks (nblk, bs_r, w)`` f32 and each block's window start
-    (:func:`..ops.kernels.rect_mv`).  Returns ``(blocks, bases (tuple of
-    int), w, ncols_pad)``."""
+    (:func:`..ops.kernels.rect_mv`, windows by :func:`_rect_windows`).
+    Returns ``(blocks, bases (tuple of int), w, ncols_pad)``."""
     Ap = sps.csr_matrix(sps.csr_matrix(A)[row_order][:, col_order])
     nr, ncl = Ap.shape
-    nblk = max(1, (nr + bs_r - 1) // bs_r)
-    spans = []
-    for k in range(nblk):
-        sub = Ap[k * bs_r: min((k + 1) * bs_r, nr)].tocoo()
-        spans.append((int(sub.col.min()), int(sub.col.max()) + 1)
-                     if sub.nnz else (0, 1))
-    w = max(hi - lo for lo, hi in spans)
-    w = max(lane, int(np.ceil(w / lane)) * lane)
-    ncl_pad = max(ncl, w)
-    bases = []
-    blocks = np.zeros((nblk, bs_r, w), np.float32)
-    for k, (lo, hi) in enumerate(spans):
-        b = min(max(lo, 0), ncl_pad - w)
-        bases.append(int(b))
+    coo = Ap.tocoo()
+    bases, w, ncl_pad = _rect_windows(coo.row, coo.col, nr, ncl, bs_r, lane)
+    blocks = np.zeros((len(bases), bs_r, w), np.float32)
+    for k, b in enumerate(bases):
         sub = np.asarray(
             Ap[k * bs_r: min((k + 1) * bs_r, nr),
                b: min(b + w, ncl)].todense(), np.float32)
         blocks[k, : sub.shape[0], : sub.shape[1]] = sub
-    return blocks, tuple(bases), w, ncl_pad
+    return blocks, bases, w, ncl_pad
 
 
 def _tridiag_bmm(blks, P):

@@ -1,7 +1,10 @@
 """The banded convection tail of the port (``ops/banded_conv.py``) vs the
 JAX package on the CPU: the element order, the windows and the 0/1
 patterns of S and G, the tail's vector in f32 and f64, the gate, the
-element-permuted kernel, and a w-space ``cnab`` that takes the tail."""
+element-permuted kernel, and a w-space ``cnab`` that takes the tail; the
+card's slot form (``_slot_tail``, built on the CPU): its slot table against S's band, its
+ordered sum against an emulation of the int8 band product it replaces
+(bit for bit), its vector against the JAX tail."""
 
 import numpy as np
 import pytest
@@ -18,7 +21,9 @@ from dolfin_navier_scipy_tpu.ops import banded_conv as jax_bc
 from dolfin_navier_scipy_tpu_torch.models import (
     cylinderwake_problem as torch_wake, drivencavity_problem as torch_cavity)
 from dolfin_navier_scipy_tpu_torch.ops import banded_conv as bc
-from dolfin_navier_scipy_tpu_torch.ops.kernels import rect_mv, rect_mv_ref
+from dolfin_navier_scipy_tpu_torch.ops import kernels
+from dolfin_navier_scipy_tpu_torch.ops.kernels import (
+    conv_tail, conv_tail_ref, rect_mv_ref, tail_sum_ref)
 from dolfin_navier_scipy_tpu_torch.solve import cnab
 
 from torch_parity import align_native
@@ -77,6 +82,45 @@ def _tails(name):
     return _CACHE[key]
 
 
+def _slot_tail(name):
+    """The card's form of the tail, built on the CPU."""
+    key = ("slots", name)
+    if key not in _CACHE:
+        w = _wspace(name)
+        _CACHE[key] = bc._slot_tail(w["t32"], w["nin"],
+                                    w["vbc"][w["nin"]:])
+    return _CACHE[key]
+
+
+def _band_rows(tt):
+    """S's f32 band as rows ``(nin, w)`` and each row's window start."""
+    nin, bs = tt.nin, tt.Sb.shape[1]
+    B = tt.Sb.numpy().reshape(-1, tt.Sb.shape[2])[:nin]
+    base = np.asarray(tt.windows[0])[np.arange(nin) // bs]
+    return B, base
+
+
+def _int8_product(B, base, fe):
+    """A numpy f32 emulation of the int8 S product the slot form replaced
+    (``csrc/bandmv.cu`` of commit 292ccd0, warp-per-row kernel): each row's
+    window column ``j`` goes to lane ``(j // 16) % 32``; each lane runs
+    ``fmaf(b, x, acc)`` from ``0.f`` over its columns in ascending ``j``
+    (``b`` 0 or 1: one rounding of ``acc + b x``); the xor butterfly (16,
+    8, 4, 2, 1) joins the lanes, read at lane 0."""
+    nrows, w = B.shape
+    cols = base[:, None] + np.arange(w)[None, :]
+    inside = (cols >= 0) & (cols < fe.shape[0])
+    X = np.where(inside, fe[np.clip(cols, 0, fe.shape[0] - 1)],
+                 np.float32(0))
+    acc = np.zeros((nrows, 32), np.float32)
+    for j in range(w):
+        lane = (j // 16) % 32
+        acc[:, lane] = acc[:, lane] + B[:, j] * X[:, j]
+    for off in (16, 8, 4, 2, 1):
+        acc = acc + acc[:, np.arange(32) ^ off]
+    return acc[:, 0]
+
+
 @pytest.mark.parametrize("name", ["cavity", "wake0"])
 def test_order_windows_and_patterns_equal_jax(name):
     jt, tt = _tails(name)
@@ -92,7 +136,7 @@ def test_order_windows_and_patterns_equal_jax(name):
                        torch.from_numpy(np.array(jt.Sb, np.float32)))
     assert torch.equal(tt.Gb.to(torch.float32),
                        torch.from_numpy(np.array(jt.Gb, np.float32)))
-    assert tt.nbytes == jt.nbytes and tt.store == "f32"
+    assert tt.nbytes == jt.nbytes and tt.slots is None
     assert np.array_equal(tt.ue_bc.numpy(), np.asarray(jt.ue_bc))
     # the predicted bytes are the stored ones
     _, rows, cols, keep = bc.tail_patterns(w["t32"].vd.numpy(), w["nin"])
@@ -112,12 +156,22 @@ def test_f32_vector_matches_jax(name):
     assert out.dtype == torch.float32
     assert np.abs(out.numpy() - ref).max() <= 1e-6 * np.abs(ref).max()
     assert not out[w["nin"]:].any()
-    # the card's storage: int8 blocks under the f64 state, the same sums
-    i8 = bc.BandedConvTail(tt.kern, tt.Sb.to(torch.int8), tt.Sbases,
-                           tt.Gb.to(torch.int8), tt.Gbases, tt.ue_bc,
-                           tt.nin, tt.nvals, "int8")
-    assert i8.Sb.dtype == torch.int8 and i8.nbytes * 4 == tt.nbytes
-    assert torch.equal(i8.vector(torch.from_numpy(v)), out)
+    # the card's form: the same windows, no blocks, the gather as an
+    # indexed load; its vector within the same bar of the JAX tail
+    ts = _slot_tail(name)
+    assert ts.slots is not None and ts.Sb is None and ts.Gb is None
+    assert ts.windows == tt.windows
+    assert ts.nbytes == 4 * (ts.slots.numel() + ts.nvals) < tt.nbytes
+    assert torch.equal(ts.kern.vd, tt.kern.vd)
+    assert torch.equal(ts.ue_bc, tt.ue_bc)
+    got = ts.vector(torch.from_numpy(v)).clone()
+    assert got.dtype == torch.float32 and not got[w["nin"]:].any()
+    assert np.abs(got.numpy() - ref).max() <= 1e-6 * np.abs(ref).max()
+    # G's band product is the indexed load, bit for bit
+    x = torch.from_numpy(v[:w["nin"]]).float()
+    assert torch.equal(kernels._tail_gather(torch.from_numpy(v),
+                                            ts.kern.tables, w["nin"]),
+                       rect_mv_ref(tt.Gb, tt.Gbases, x, tt.nvals))
 
 
 def test_f64_tail_matches_the_jax_index_pipeline():
@@ -158,19 +212,6 @@ def test_the_element_order_moves_tables_and_plans():
             <= 1e-12 * ref.abs().max())
 
 
-def test_int8_blocks_give_the_f32_product():
-    _, tt = _tails("cavity")
-    w = _wspace("cavity")
-    x = torch.from_numpy(_state(w)[:w["nin"]].astype(np.float32))
-    i8 = tt.Gb.to(torch.int8)
-    y = rect_mv(i8, tt.Gbases, x, tt.nvals)
-    assert y.dtype == torch.float32
-    assert torch.equal(y, rect_mv_ref(tt.Gb, tt.Gbases, x, tt.nvals))
-    out = torch.empty(tt.nvals, dtype=torch.float32)
-    assert rect_mv(i8, tt.Gbases, x, tt.nvals, out=out) is out
-    assert torch.equal(out, y)
-
-
 def test_the_gate():
     w = _wspace("cavity")
     nin, tail = w["nin"], w["vbc"][w["nin"]:]
@@ -180,7 +221,7 @@ def test_the_gate():
                                          max_gb=1e-9) is None
     # the CPU's constants are the JAX package's, and decide alike
     c = bc.gate_constants("cpu")
-    assert c["store"] == "f32" and c["max_gb"] == 1.0
+    assert c["max_gb"] == 1.0
     for by, nv in ((1e5, 22104), (5e6, 22104), (4e8, 80136)):
         assert bc.banded_stream_us(by, c["stream_floor_gbps"]) == \
             pytest.approx(jax_bc.banded_stream_us(by), rel=1e-15)
@@ -190,9 +231,108 @@ def test_the_gate():
                                                                    nvals=nv)
     assert (bc.build_banded_conv_tail(w["t32"], nin, tail) is None) == (
         jax_bc.build_banded_conv_tail(w["j32"], nin, tail) is None)
-    # the card's defaults: int8 blocks
-    assert bc.GATE["cuda"]["store"] == "int8"
-    assert bc.gate_constants("cuda")["store"] == "int8"
+    # the card's constants: the slot form rated per element value
+    c = bc.gate_constants("cuda")
+    assert c["win_margin"] == 0.8 and c["max_gb"] == 1.0
+    assert "stream_floor_gbps" not in c and c["tail_us_per_1k_vals"] > 0
+
+
+@pytest.mark.parametrize("nvals", [22104, 80136])
+def test_the_cards_gate(nvals):
+    """The card's gate (level-1 and level-2 element values): the tail's
+    measured rate per element value against B5's, under the margin; the
+    predicted bytes do not enter; the CPU's decision stays the JAX
+    package's."""
+    c = bc.gate_constants("cuda")
+    tail = bc.tail_us(1e12, c, nvals=nvals)
+    assert tail == pytest.approx(c["tail_us_per_1k_vals"] * nvals / 1e3)
+    assert bc.banded_wins(1e12, nvals=nvals, consts=c) == (
+        c["tail_us_per_1k_vals"] <= 0.8 * c["index_us_per_1k_vals"])
+    assert bc.banded_wins(1.0, nvals=nvals, consts=c) == \
+        bc.banded_wins(1e12, nvals=nvals, consts=c)
+    cpu = bc.gate_constants("cpu")
+    assert bc.tail_us(4e8, cpu, nvals=nvals) == \
+        bc.banded_stream_us(4e8, cpu["stream_floor_gbps"])
+    assert bc.banded_wins(4e8, nvals=nvals) == jax_bc.banded_wins(
+        4e8, nvals=nvals)
+
+
+@pytest.mark.parametrize("name", ["cavity", "wake0"])
+def test_slot_table_lists_S_columns_in_lane_order(name):
+    """Each interior row's slots are exactly S's nonzero columns (read from
+    the f32 band), ordered by the reversed lane of their window column,
+    then the column; the codes mark each new lane with the highest bit in
+    which its leaf position differs from the last; the window starts are
+    ``_build_banded_rect``'s."""
+    _, tt = _tails(name)
+    ts = _slot_tail(name)
+    B, base = _band_rows(tt)
+    r_band, j_band = np.nonzero(B)
+    slots = ts.slots.numpy()
+    k, r_tab = np.nonzero(slots >= 0)
+    ent = slots[k, r_tab]
+    p = ent >> 3
+    order = np.lexsort((p, r_tab))
+    assert np.array_equal(r_tab[order], r_band)
+    assert np.array_equal(p[order], base[r_band] + j_band)
+    # in each row: (reversed lane, column) ascending, codes as the tree
+    j = np.where(slots >= 0, (slots >> 3) - base[None, :], 0)
+    leaf = kernels._reverse5((j // 16) % 32)
+    key = leaf * (1 << 20) + j
+    both = (slots[1:] >= 0) & (slots[:-1] >= 0)
+    assert (key[1:][both] > key[:-1][both]).all()
+    code = slots & 7
+    assert (code[0] == 7).all()
+    step = (leaf[1:] ^ leaf[:-1])[both]
+    want = np.where(step == 0, 7, kernels._MSB5[step])
+    assert np.array_equal(code[1:][both], want)
+    # every row has a slot; padding only past a row's count
+    assert (slots[0] >= 0).all()
+    assert not ((slots[1:] >= 0) & (slots[:-1] < 0)).any()
+
+
+@pytest.mark.parametrize("name", ["cavity", "wake0"])
+def test_slot_sum_is_the_int8_product_bitwise(name):
+    """The slot form's plain ordered sum equals, bit for bit, a numpy f32
+    emulation of the int8 band product it replaces, on seeded f32 element
+    loads; the CPU wrapper takes the plain version and counts nothing."""
+    _, tt = _tails(name)
+    ts = _slot_tail(name)
+    B, base = _band_rows(tt)
+    fe = np.random.default_rng(17).standard_normal(tt.nvals).astype(
+        np.float32)
+    want = _int8_product(B, base, fe)
+    got = tail_sum_ref(torch.from_numpy(fe), ts.slots).numpy()
+    assert got.dtype == np.float32
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    # the vector through the wrapper on the CPU
+    w = _wspace(name)
+    v = torch.from_numpy(_state(w, seed=9))
+    before = kernels.conv_tail.launches
+    y = conv_tail(v, ts.ue_bc, ts.kern.tables, ts.slots)
+    assert kernels.conv_tail.launches == before
+    assert torch.equal(y, conv_tail_ref(v, ts.ue_bc, ts.kern.tables,
+                                        ts.slots))
+    out = torch.full((w["nin"],), float("nan"))
+    assert conv_tail(v, ts.ue_bc, ts.kern.tables, ts.slots, out=out) is out
+    assert torch.equal(out, y)
+
+
+def test_tail_plan_points_at_the_slot_table():
+    """The tail's form of the convection plan (made on the CPU here): the
+    sorted element ids, the slot table with the interior rows as its rows,
+    one load a slot of scratch, no facet blocks; one plan a slot table."""
+    ts = _slot_tail("wake0")
+    t = ts.kern.tables
+    form = kernels._CONV_FORMS["tail"]
+    plan = t.kernel_plan(form, torch.float64, slots=ts.slots)
+    assert t.kernel_plan(form, torch.float64, slots=ts.slots) is plan
+    c = plan.c
+    assert (c.fused, c.work_f64, c.u_f64, c.nfac) == (form, 0, 1, 0)
+    assert (c.nc, c.nv_full, c.width) == (t.nc, ts.nin, ts.slots.shape[0])
+    assert c.ell == ts.slots.data_ptr()
+    assert torch.equal(plan.keep[0], t.vd.to(torch.int32))
+    assert plan.scratch.numel() == t.nc * t.nd
 
 
 def test_wspace_cnab_takes_the_tail_and_keeps_the_trajectory():

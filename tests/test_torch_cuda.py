@@ -20,7 +20,8 @@ from dolfin_navier_scipy_tpu_torch.ops.kernels import (
     affine_mv, affine_mv_ref, affine_residual, affine_residual_ref,
     as_band_operand, as_vecmat_operand,
     band_operand, banded_mv, banded_mv_ref, conv_vector, conv_vector_amatvec,
-    conv_quad, conv_quad_ref, conv_vector_amatvec_ref, conv_vector_ref,
+    conv_quad_ref, conv_tail, conv_tail_ref, conv_vector_amatvec_ref,
+    conv_vector_ref,
     rect_mv, rect_mv_levels, rect_mv_levels_ref, rect_mv_ref, vecmat)
 from dolfin_navier_scipy_tpu_torch.solve import sbdf2, solve_nse
 
@@ -113,13 +114,15 @@ def _card_calls():
     ain = prob.affine_ops(torch.float32, device="cuda")
     xa = torch.from_numpy(rng.normal(size=ain.nin)).float().cuda()
     qa = torch.from_numpy(rng.normal(size=ain.npc)).float().cuda()
-    i8 = _int8_blocks(rng, 9, 256, 1021)
-    x64 = torch.from_numpy(rng.normal(size=2058)).cuda()
-    ue = torch.from_numpy(rng.normal(size=(t.nc * t.nd))).float().cuda()
     ue_bc = torch.from_numpy(rng.normal(size=(t.nc, t.nd))).float().cuda()
+    # a slot table over seeded windows of the element values (every row
+    # its slots, the kernel's arithmetic whatever the pattern)
+    nin = 2058
+    rows = rng.integers(0, nin + 300, size=t.nc * t.nd)
+    slots = torch.from_numpy(kernels.tail_slot_table(
+        rows, nin, np.zeros(-(-nin // 256), np.int64), 256)).cuda()
     return {
-        "rect_mv_int8": lambda: (rect_mv(i8, bases, x64, 2058),),
-        "conv_quad": lambda: (conv_quad(ue, ue_bc, t),),
+        "conv_tail": lambda: (conv_tail(u, ue_bc, t, slots),),
         "vecmat": lambda: (vecmat(x, KT),),
         "conv_vector": lambda: (conv_vector(u, None, t),),
         "conv_vector_amatvec": lambda: conv_vector_amatvec(
@@ -160,17 +163,7 @@ _BAND_CASES = {
 
 _WRAPPERS = ["vecmat", "conv_vector", "conv_vector_amatvec", "banded_mv",
              "rect_mv", "rect_mv_levels", "affine_mv", "affine_residual",
-             "rect_mv_int8", "conv_quad"]
-
-
-def _int8_blocks(rng, nblk, bs, w):
-    """Seeded 0/1 int8 ``(nblk, bs, w)`` blocks in band-operand storage on
-    the card, their padding columns filled with ones (never to be used)."""
-    B = band_operand((nblk, bs, w), torch.int8, "cuda")
-    B.copy_(torch.from_numpy(rng.integers(0, 2, size=(nblk, bs, w))))
-    full = B.as_strided((nblk, bs, B.stride(1)), B.stride())
-    full[..., w:] = 1
-    return B
+             "conv_tail"]
 
 
 @pytest.mark.cuda
@@ -889,70 +882,43 @@ def test_steady_routes_on_the_card_match_the_cpu():
 
 
 @pytest.mark.cuda
-def test_int8_rect_mv_on_the_card():
-    """The banded tail's 0/1 products: int8 blocks under an f32 or an f64
-    x against the plain version (exact products, f32 sums), at the tail's
-    shapes at wake level 0 and at ragged ones (w not a multiple of 16,
-    windows past x's end, a short last row block); the plan picks the
-    warp-per-row kernel for every int8 shape; ``out`` is written in place;
-    the same bits twice."""
-    if not torch.cuda.is_available():
-        pytest.skip(NEEDS_CARD)
-    rng = np.random.default_rng(21)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for nblk, bs, w, nrows, nx in [(9, 256, 384, 2058, 12072),
-                                   (48, 256, 256, 12072, 2058),
-                                   (5, 48, 77, 230, 150), (2, 256, 16, 300,
-                                                           40)]:
-        assert kernels.bandmv_plan(nblk, bs, w, kernels.vecmat_ld(w, 1), 1,
-                                   sms).kernel == "rows"
-        B = _int8_blocks(rng, nblk, bs, w)
-        bases = _windows_bases(nblk, w, nx, rng)
-        for xdt in (torch.float32, torch.float64):
-            x = torch.from_numpy(rng.normal(size=nx)).to(xdt).cuda()
-            before = rect_mv.launches, rect_mv.storage_launches["int8"]
-            got = rect_mv(B, bases, x, nrows)
-            torch.cuda.synchronize()
-            assert (rect_mv.launches, rect_mv.storage_launches["int8"]) == (
-                before[0] + 1, before[1] + 1)
-            ref = rect_mv_ref(B, bases, x.float(), nrows)
-            assert got.dtype == torch.float32 and got.shape == ref.shape
-            tol = 1e-6 * w ** 0.5 * float(ref.abs().max()) + 1e-6
-            assert float((got - ref).abs().max()) <= tol, (nblk, bs, w)
-            out = torch.full((nrows,), float("nan"), device="cuda")
-            assert rect_mv(B, bases, x, nrows, out=out) is out
-            assert torch.equal(out, got)
-    with pytest.raises(TypeError):
-        rect_mv(B, bases, x.half(), nrows)
-
-
-@pytest.mark.cuda
-def test_conv_quad_on_the_card():
-    """The tail's quadrature against its plain version (the JAX package's
-    einsum chain) within 1e-5 of each row's sum of absolute products."""
+def test_conv_tail_on_the_card():
+    """The one-launch tail on wake level-0 tables and a seeded slot table
+    (every window start 0): the vector against its plain version within
+    1e-5 of each row's sum of absolute products under an f64 and an f32
+    state, the same bits twice, ``out`` written in place; f64 tables
+    raise.  (``chip_smoke.py`` holds its bits to the int8 band product's,
+    ``TAIL_BITS``.)"""
     if not torch.cuda.is_available():
         pytest.skip(NEEDS_CARD)
     prob = cylinderwake_problem(level=0, Re=100)
     t = prob.conv_kernel_on(torch.float32).tables
     rng = np.random.default_rng(22)
-    ue = torch.from_numpy(rng.normal(size=t.nc * t.nd)).float().cuda()
+    nin = 1500
+    rows = rng.integers(0, nin + 200, size=t.nc * t.nd)
+    slots = torch.from_numpy(kernels.tail_slot_table(
+        rows, nin, np.zeros(-(-nin // 256), np.int64), 256)).cuda()
     ue_bc = torch.from_numpy(rng.normal(size=(t.nc, t.nd))).float().cuda()
-    before = conv_quad.launches
-    got = conv_quad(ue, ue_bc, t)
-    torch.cuda.synchronize()
-    assert conv_quad.launches == before + 1
-    ref = conv_quad_ref(ue.double(), ue_bc.double(),
-                        prob.conv_kernel_on(torch.float64).tables)
-    # the same chain with every factor made positive bounds each row's
-    # sum of absolute products
     t64 = prob.conv_kernel_on(torch.float64).tables
-    scale = _abs_chain(ue.double().abs(), ue_bc.double().abs(), t64)
-    assert float(((got.double() - ref).abs() / (scale + 1e-30)).max()) \
-        <= 1e-5
-    assert torch.equal(got, conv_quad(ue, ue_bc, t))
+    for sdt in (torch.float64, torch.float32):
+        v = torch.from_numpy(rng.normal(size=prob.nv_full)).to(sdt).cuda()
+        before = conv_tail.launches
+        got = conv_tail(v, ue_bc, t, slots)
+        torch.cuda.synchronize()
+        assert conv_tail.launches == before + 1
+        assert got.dtype == torch.float32 and got.shape == (nin,)
+        ref = conv_tail_ref(v.double(), ue_bc.double(), t64, slots)
+        scale = kernels.tail_sum_ref(
+            _abs_chain(kernels._tail_gather(v.double(), t64, nin).abs(),
+                       ue_bc.double().abs(), t64), slots)
+        assert float(((got.double() - ref).abs() / (scale + 1e-30)).max()) \
+            <= 1e-5
+        assert torch.equal(got, conv_tail(v, ue_bc, t, slots))
+        out = torch.full((nin,), float("nan"), device="cuda")
+        assert conv_tail(v, ue_bc, t, slots, out=out) is out
+        assert torch.equal(out, got)
     with pytest.raises(TypeError):
-        conv_quad(ue.double(), ue_bc.double(),
-                  prob.conv_kernel_on(torch.float64).tables)
+        conv_tail(v, ue_bc.double(), t64, slots)
 
 
 def _abs_chain(ue, ue_bc, t):
@@ -985,10 +951,10 @@ def _wspace_kernel(prob, dt=1e-3):
 
 @pytest.mark.cuda
 def test_banded_tail_on_the_card_matches_b5():
-    """Wake level 0: the forced tail (int8 blocks) against the element
+    """Wake level 0: the forced tail (the slot form) against the element
     kernel on the same w-space state within 1e-5 of max|B5|, zero bc rows;
-    three launches a vector (G, the quadrature, S), one kernel node each in
-    a captured graph, and a replay equal to the eager call."""
+    one launch a vector, one kernel node in a captured graph, and a replay
+    equal to the eager call."""
     if not torch.cuda.is_available():
         pytest.skip(NEEDS_CARD)
     from dolfin_navier_scipy_tpu_torch.ops.banded_conv import (
@@ -996,21 +962,21 @@ def test_banded_tail_on_the_card_matches_b5():
     prob = cylinderwake_problem(level=0, Re=100)
     kern, nin, vbc = _wspace_kernel(prob)
     bct = build_banded_conv_tail(kern, nin, vbc[nin:], force=True)
-    assert bct.store == "int8" and bct.Sb.dtype == torch.int8
+    assert bct.slots is not None and bct.Sb is None and bct.Gb is None
     v = vbc.copy()
     v[:nin] = np.random.default_rng(23).normal(size=nin)
     vt = torch.from_numpy(v).cuda()
     ref = kern.vector(vt)
-    before = rect_mv.launches, conv_quad.launches
+    before = rect_mv.launches, conv_tail.launches
     got = bct.vector(vt).clone()
     torch.cuda.synchronize()
-    assert (rect_mv.launches, conv_quad.launches) == (before[0] + 2,
+    assert (rect_mv.launches, conv_tail.launches) == (before[0],
                                                       before[1] + 1)
     assert float((got[:nin] - ref[:nin].float()).abs().max()) <= \
         1e-5 * float(ref.abs().max())
     assert not got[nin:].any()
     types, replayed = _captured(lambda: bct.vector(vt))
-    assert types.count(0) == 3, types
+    assert types.count(0) == 1, types
     assert torch.equal(replayed, got)
 
 
@@ -1076,6 +1042,11 @@ def test_vecmat_t_kernel_on_the_card(dtype):
         tol = 1e-3 if dtype == torch.float32 else 1e-10
         assert torch.allclose(y.double(), ref, atol=tol, rtol=1e-4), (m, n)
         assert torch.equal(y, kernels.vecmat_t(g, KT)), (m, n)
+        # g at an offset that is not 16-byte aligned: copied, same bits
+        g_off = torch.cat([g.new_zeros(1), g])[1:]
+        assert torch.equal(y, kernels.vecmat_t(g_off, KT)), (m, n)
+        blocks, resident = kernels.vecmat_t_grid(m, dtype)
+        assert 0 < blocks <= resident
     with pytest.raises(ValueError, match="vecmat_operand"):
         kernels.vecmat_t(g, KT.T.contiguous().T)
 

@@ -1,5 +1,6 @@
 """The port stands alone: it imports without jax and without the JAX
-package, and its entry points default to the CUDA card."""
+package (its tools and ``chip_smoke.py`` name neither), and its entry
+points default to the CUDA card."""
 
 import os
 import re
@@ -16,10 +17,13 @@ PORT = os.path.join(ROOT, "dolfin_navier_scipy_tpu_torch")
 
 
 def _port_sources():
+    """The package's sources, ``chip_smoke.py`` and the port's tools (the
+    smoke imports its seeded inputs from ``tools_torch``)."""
     files = [os.path.join(ROOT, "chip_smoke.py")]
-    for base, _, names in os.walk(PORT):
-        files += [os.path.join(base, n) for n in names
-                  if n.endswith((".py", ".cu", ".cuh"))]
+    for top in (PORT, os.path.join(ROOT, "tools_torch")):
+        for base, _, names in os.walk(top):
+            files += [os.path.join(base, n) for n in names
+                      if n.endswith((".py", ".cu", ".cuh"))]
     return sorted(files)
 
 
@@ -48,7 +52,7 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
             "from dolfin_navier_scipy_tpu_torch.solve import sbdf2, "
             "semi_implicit_euler; "
             "from dolfin_navier_scipy_tpu_torch.ops.kernels import "
-            "conv_vector, conv_vector_amatvec, elem_mv, conv_quad, "
+            "conv_vector, conv_vector_amatvec, elem_mv, conv_tail, "
             "vecmat_t, conv_vjp, VecmatFn, ConvAmatvecFn, ConvVectorFn, "
             "pcg_step, pcg_init, block_pcg_step, block_pcg_init; "
             "from dolfin_navier_scipy_tpu_torch.solve import "

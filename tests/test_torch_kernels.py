@@ -297,11 +297,11 @@ def test_bandmv_plan_refuses_rows_past_shared_memory():
 
 
 def test_bandmv_plan_takes_int8_blocks_on_the_row_kernel():
-    """The banded tail's int8 0/1 blocks (rows 16-byte padded) take the
+    """Blocks of 1-byte entries (rows 16-byte padded) take the
     warp-per-row kernel whatever the grid (the ring's consumers read f32
-    rows): G and S at wake levels 1-2, and a grid far below the SM count;
-    their window is staged in whole 16-entry vectors; a window past 227 KB
-    raises."""
+    rows): shapes of the banded tail's S and G at wake levels 1-2, and a
+    grid far below the SM count; their window is staged in whole 16-entry
+    vectors; a window past 227 KB raises."""
     for nblk, bs, w in [(87, 256, 512), (28, 256, 1792), (314, 256, 768),
                         (102, 256, 2688), (1, 8, 20000)]:
         plan = bandmv_plan(nblk, bs, w, -(-w // 16) * 16, 1, sm_count=132)
